@@ -1,0 +1,58 @@
+"""Params from the JAX package to the port, through numpy.
+
+The port keeps the JAX package's param layout: nested dicts with the
+same keys, dense kernels (in, out), and every `slot{i}` leaf stacked over
+the periods. So the conversion is leaf by leaf; what it adds is a check
+that the tree has exactly the shapes the port's `decoder_init` would
+build for `cfg`, so that both frameworks compute the same function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.decoder import decoder_init
+
+
+def _shapes(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_shapes(v, path))
+        else:
+            out[path] = tuple(v.shape)
+    return out
+
+
+def _convert(tree, device):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _convert(v, device)
+            continue
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":   # ml_dtypes: no torch.from_numpy
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        out[k] = t.to(device)
+    return out
+
+
+def params_from_jax(cfg, np_tree, device="cpu"):
+    """The JAX package's decoder params (nested dict of numpy arrays, or
+    of anything np.asarray takes) as the port's params for `cfg`, on
+    `device`, dtypes kept. Raises when keys or shapes differ from what
+    the port builds for `cfg`."""
+    with torch.device("meta"):
+        want = _shapes(decoder_init(None, cfg))
+    got = _shapes(np_tree)
+    if want != got:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        wrong = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        raise ValueError(f"param tree does not match {cfg.name}: missing "
+                         f"{missing}, unexpected {extra}, shape mismatch "
+                         f"{[(k, got[k], want[k]) for k in wrong]}")
+    return _convert(np_tree, device)

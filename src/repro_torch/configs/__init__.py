@@ -1,0 +1,41 @@
+"""Architecture registry of the port: the decoder archs ported so far.
+
+The JAX package's registry names more archs; asking for one that has not
+been ported yet raises and says so.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.configs.base import Arch, reduced_decoder
+
+_MODULES = {
+    "gemma2-2b": "gemma2_2b",
+}
+
+# archs of the JAX package that the port does not serve yet
+NOT_PORTED = ("grok-1-314b", "granite-moe-3b-a800m", "qwen2.5-14b",
+              "qwen2.5-32b", "chameleon-34b", "whisper-large-v3",
+              "mistral-nemo-12b", "jamba-1.5-large-398b", "mamba2-130m",
+              "bert-large")
+
+
+def get_arch(name: str) -> Arch:
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet; "
+                                  f"ported: {sorted(_MODULES)}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").ARCH
+
+
+def reduced_arch(name: str) -> Arch:
+    """Smoke-test variant: <= 2 periods, d_model 256, vocab 1k."""
+    arch = get_arch(name)
+    return dataclasses.replace(arch, cfg=reduced_decoder(arch.cfg))
+
+
+__all__ = ["Arch", "NOT_PORTED", "get_arch", "reduced_arch",
+           "reduced_decoder"]

@@ -1,0 +1,80 @@
+"""Arch: binds a model family to its config (port of repro/configs/base.py).
+
+Only the decoder family is ported so far: init, the paged serving cache,
+prefill into a pooled cache, and one decode step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models import decoder as dec_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    name: str
+    kind: str                      # "decoder" (the only family ported)
+    cfg: Any
+    source: str                    # citation for the config
+
+    def init(self, gen: torch.Generator):
+        """Random params drawn from `gen`, on `gen.device`."""
+        return dec_lib.decoder_init(gen, self.cfg)
+
+    def init_paged_cache(self, batch: int, max_len: int, *,
+                         block_size: int = 16, n_blocks=None, device="cpu"):
+        """Paged (block-arena) serving cache. n_blocks defaults to the
+        dense-equivalent budget: `batch` slots' worth of blocks per
+        attention slot-type."""
+        if n_blocks is None:
+            n_blocks = {si: batch * (ring // block_size) for si, ring
+                        in dec_lib.paged_layout(self.cfg, max_len,
+                                                block_size)}
+        return dec_lib.init_paged_decoder_cache(
+            self.cfg, batch, max_len, block_size=block_size,
+            n_blocks=n_blocks, device=device)
+
+    def prefill(self, params, batch, *, cache_len: Optional[int] = None,
+                positions=None):
+        """Full-sequence forward into a fresh pooled cache ->
+        (last-position logits (B, 1, V), cache). positions (B, S) gives
+        per-slot local timelines; left-pad rows carry positions < 0."""
+        toks = batch["tokens"]
+        cache = dec_lib.init_decoder_cache(
+            self.cfg, toks.shape[0], cache_len or toks.shape[1],
+            device=toks.device)
+        logits, cache = dec_lib.decoder_apply(params, self.cfg, toks,
+                                              caches=cache,
+                                              positions=positions)
+        return logits[:, -1:], cache
+
+    def decode_step(self, params, batch, cache):
+        """New tokens against the cache -> (logits, cache written in
+        place). batch may carry "positions" (B, S)."""
+        return dec_lib.decoder_apply(params, self.cfg, batch["tokens"],
+                                     caches=cache,
+                                     positions=batch.get("positions"))
+
+
+def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):
+    """Smoke-test variant: one superblock period x2, d_model 256, vocab
+    1k (the JAX package's reduced_decoder, decoder fields only)."""
+    n_slots = len(cfg.superblock)
+    small = dict(
+        n_layers=max(2, n_slots) if n_slots > 1 else 2,
+        d_model=256,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        head_dim=64,
+        d_ff=512,
+        vocab=1024,
+        sliding_window=16 if cfg.sliding_window else None,
+        param_dtype=torch.float32,
+    )
+    small.update(over)
+    if small["n_layers"] % n_slots != 0:
+        small["n_layers"] = n_slots * max(1, small["n_layers"] // n_slots)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,247 @@
+"""Grouped-query attention (port of repro/models/attention.py).
+
+Variants ported: causal GQA / MHA / MQA with RoPE, optional QKV bias,
+attention-logit soft-capping and sliding-window masking; the
+full-sequence path, the pooled per-slot cache (prefill into a dense
+cache, including the ring-tail write of sliding-window layers) and the
+paged serving branch with both decode implementations:
+
+  decode_kernel="paged"  the hand-written kernel
+                         (kernels/paged_attention.py) attends and writes
+                         the new K/V/pos rows in one call;
+  decode_kernel="xla"    plain-torch scatter then block-table gather —
+                         the name matches the JAX flag it mirrors.
+
+Caches are updated IN PLACE where the JAX code returned updated copies
+of donated buffers: the returned cache dict holds the same arena
+tensors, already written. Cross-attention, the read-only `kv_cache`
+form and QK-norm are not ported yet.
+
+Shapes: x (B, S, d_model); dense cache k/v (B, L, n_kv, head_dim);
+paged arenas (n_blocks, block_size, n_kv, head_dim).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import NEG_INF
+from repro_torch.models.common import (apply_rope, dense_apply, dense_init,
+                                       softcap)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None
+    logit_softcap: Optional[float] = None
+    # Paged decode implementation: "xla" scatters then gathers
+    # arena[table] into a dense (B, ring_len) copy; "paged" runs the
+    # fused kernel. Only the paged serving branch reads this.
+    decode_kernel: str = "xla"
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.float32,
+              lead: tuple = ()):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, lead=lead)
+    return {
+        "wq": dense_init(gen, d, h * hd, use_bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(gen, d, kv * hd, use_bias=cfg.qkv_bias, **kw),
+        "wv": dense_init(gen, d, kv * hd, use_bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(gen, h * hd, d, use_bias=False, **kw),
+    }
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _mask_logits(logits, q_pos, k_pos, *, window):
+    """Causal mask. logits (B, H, Sq, Sk); q_pos (Sq,) or (B, Sq), k_pos
+    (Sk,) or (B, Sk) absolute positions. Negative k_pos marks invalid
+    rows and is always masked."""
+    kp = k_pos[None, None, :] if k_pos.ndim == 1 else k_pos[:, None, :]
+    qp = q_pos[None, :, None] if q_pos.ndim == 1 else q_pos[:, :, None]
+    ok = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        ok = ok & ((qp - kp) < window)
+    ok = ok.expand((ok.shape[0],) + tuple(logits.shape[-2:]))
+    return torch.where(ok[:, None], logits, NEG_INF)
+
+
+def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, *, scale, decode,
+            compute_dtype):
+    """Masked softmax attention. Decode (a cached single-token step, or
+    any paged step) contracts in fp32 and keeps fp32 probabilities; the
+    output still rounds to compute_dtype, as in the JAX package."""
+    if decode:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    logits = softcap(logits, cfg.logit_softcap)
+    logits = _mask_logits(logits.float(), q_pos, k_pos,
+                          window=cfg.sliding_window)
+    probs = torch.softmax(logits, dim=-1)
+    if decode:
+        return torch.einsum("bhqk,bkhd->bqhd", probs,
+                            v.float()).to(compute_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
+
+
+def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
+               compute_dtype=torch.bfloat16):
+    """Returns (out, new_cache); new_cache is None unless cache is given.
+
+    cache forms: a pooled dense cache {"k", "v" (B, L, n_kv, hd), "pos"
+    (B, L), "index" (B,)}, or a paged one {"k", "v" (n_blocks, bs, n_kv,
+    hd), "pos" (n_blocks, bs), "index" (B,), "table" (B, max_blocks)}.
+    Both are written in place."""
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+
+    q = _split_heads(dense_apply(p["wq"], x, compute_dtype), h, hd)
+    k = _split_heads(dense_apply(p["wk"], x, compute_dtype), kv, hd)
+    v = _split_heads(dense_apply(p["wv"], x, compute_dtype), kv, hd)
+
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if positions.ndim <= 1:
+        positions = positions.expand(S)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    attend_cached = cache is not None
+    paged = cache is not None and "table" in cache
+    if cache is not None and cache["index"].ndim != 1:
+        raise NotImplementedError(
+            "only the pooled (per-slot) and paged caches are ported")
+    if paged:
+        # Paged decode: cache k/v/pos are block ARENAS; logical row r of
+        # slot b lives at arena[table[b, r // bs], r % bs] with r taken
+        # modulo the ring, which gives sliding-window layers their ring.
+        idx = cache["index"]
+        tbl = cache["table"]
+        bsz = cache["k"].shape[1]
+        ring_len = tbl.shape[1] * bsz
+        k_new = k.to(cache["k"].dtype).contiguous()
+        v_new = v.to(cache["v"].dtype).contiguous()
+        q_pos = (positions if positions.ndim == 2
+                 else positions.expand(B, S)).to(torch.int32).contiguous()
+        if cfg.decode_kernel == "paged":
+            from repro_torch.kernels.paged_attention import (
+                paged_attention_fused)
+            out = paged_attention_fused(
+                q.contiguous(), k_new, v_new, cache["k"], cache["v"],
+                cache["pos"], tbl, q_pos, idx, scale=scale,
+                window=cfg.sliding_window, softcap=cfg.logit_softcap)
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "pos": cache["pos"], "index": idx + S}
+            out = out.to(compute_dtype).reshape(B, S, h * hd)
+            return dense_apply(p["wo"], out, compute_dtype), new_cache
+        if cfg.decode_kernel != "xla":
+            raise ValueError(f"unknown decode_kernel {cfg.decode_kernel!r}")
+        r = (idx.long()[:, None]
+             + torch.arange(S, device=x.device)) % ring_len
+        blk = torch.gather(tbl.long(), 1, r // bsz)
+        off = r % bsz
+        # rows with a negative position go to the null block's row 0,
+        # which keeps position -1 (as the JAX XLA branch does)
+        live = q_pos >= 0
+        blk = torch.where(live, blk, 0)
+        off = torch.where(live, off, 0)
+        cache["k"][blk, off] = k_new
+        cache["v"][blk, off] = v_new
+        cache["pos"][blk, off] = q_pos
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+                     "index": idx + S}
+        tl = tbl.long()
+        k = cache["k"][tl].reshape(B, ring_len, kv, hd).to(compute_dtype)
+        v = cache["v"][tl].reshape(B, ring_len, kv, hd).to(compute_dtype)
+        k_pos = cache["pos"][tl].reshape(B, ring_len)
+    elif cache is not None and S > 1 and S >= cache["k"].shape[1]:
+        # Prefill longer than a ring cache (sliding-window layer): attend
+        # the in-flight k/v and write only the LAST cache_len rows, rolled
+        # so that row == write cursor % cache_len. Assumes a prefill from
+        # scratch (index 0), the only way the engine uses it.
+        attend_cached = False
+        W = cache["k"].shape[1]
+        shift = (S - W) % W
+        pos_src = (positions if positions.ndim == 2
+                   else positions.expand(B, S)).to(torch.int32)
+        cache["k"].copy_(torch.roll(k[:, S - W:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, S - W:], shift, dims=1))
+        cache["pos"].copy_(torch.roll(pos_src[:, S - W:], shift, dims=1))
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+                     "index": cache["index"] + S}
+        k_pos = positions
+        q_pos = positions
+    elif cache is not None:
+        # Prefill / decode into a pooled dense cache: slot b writes rows
+        # index[b] .. index[b]+S-1 (mod cache_len).
+        idx = cache["index"]
+        cache_len = cache["k"].shape[1]
+        rows = (idx.long()[:, None]
+                + torch.arange(S, device=x.device)) % cache_len
+        brow = torch.arange(B, device=x.device)[:, None]
+        q_pos = (positions if positions.ndim == 2
+                 else positions.expand(B, S)).to(torch.int32)
+        cache["k"][brow, rows] = k.to(cache["k"].dtype)
+        cache["v"][brow, rows] = v.to(cache["v"].dtype)
+        cache["pos"][brow, rows] = q_pos
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+                     "index": idx + S}
+        k = cache["k"].to(compute_dtype)
+        v = cache["v"].to(compute_dtype)
+        k_pos = cache["pos"]
+    else:
+        k_pos = positions
+        q_pos = positions
+
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    decode = attend_cached and (S == 1 or paged)
+    out = _attend(cfg, q, k, v, q_pos, k_pos, scale=scale, decode=decode,
+                  compute_dtype=compute_dtype)
+    out = out.reshape(B, S, h * hd)
+    return dense_apply(p["wo"], out, compute_dtype), new_cache
+
+
+def init_paged_kv_cache(n_blocks: int, block_size: int, n_kv: int,
+                        head_dim: int, dtype=torch.bfloat16, device="cpu",
+                        lead: tuple = ()):
+    """Block arena for one attention slot-type. Block 0 is the reserved
+    null block: its positions stay -1, so unbacked table entries read
+    rows that are always masked."""
+    shape = (*lead, n_blocks, block_size, n_kv, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((*lead, n_blocks, block_size), -1,
+                          dtype=torch.int32, device=device),
+    }
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device="cpu", lead: tuple = ()):
+    """Pooled (per-slot) cache: one position row per batch slot; pass
+    max_len = sliding_window for ring-buffer layers."""
+    return {
+        "k": torch.zeros((*lead, batch, max_len, n_kv, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((*lead, batch, max_len, n_kv, head_dim),
+                         dtype=dtype, device=device),
+        "pos": torch.full((*lead, batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }

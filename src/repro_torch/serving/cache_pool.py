@@ -1,0 +1,267 @@
+"""Paged KV cache pool for continuous batching (port of
+repro/serving/cache_pool.py: PagedCachePool and its helpers).
+
+Attention KV lives in block ARENAS of (n_periods, n_blocks, block_size,
+...) addressed through per-slot block TABLES of (max_batch, max_blocks)
+int32 arena indices, managed by the refcounted host-side allocator of
+serving/block_allocator.py. Identical prompt prefixes are
+content-addressed and stored once; eviction returns blocks to the free
+list (or parks registered prefix blocks on the retained LRU); lazy
+growth allocates decode blocks as each slot's cursor reaches them and
+copy-on-writes a shared block at a ring wrap.
+
+Where the JAX pool rebuilt donated arenas through jitted scatters, the
+port writes the arenas IN PLACE with indexed assignment; block 0 (the
+null block) is never written, so its positions stay -1. The dense
+`CachePool` and the encoder-decoder pool are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import decoder as dec_lib
+from repro_torch.serving.block_allocator import BlockTableMap, NoBlocksError
+
+PyTree = Any
+
+
+def _arena_insert(arena, req, src_rows, dst_blocks, row_valid):
+    """Write a prefilled request's cache rows into its fresh arena blocks.
+
+    arena: {"k","v","pos"} with leading (n_periods, n_blocks) dims.
+    req: the same slot-type of a batch-1 prefill cache, leading dims
+      (n_periods, 1, cache_len).
+    src_rows (ring_len,) np: request-cache row feeding each logical row.
+    dst_blocks (max_blocks,) np: arena block per chain position, 0 for
+      positions that must not be written (shared blocks, unused tail);
+      those are skipped, so the null block is never written.
+    row_valid (ring_len,) np bool: ring rows backed by a prompt row;
+      unbacked rows of written blocks get position -1."""
+    nbk = dst_blocks.shape[0]
+    bs = arena["k"].shape[2]
+    chain = np.nonzero(dst_blocks)[0]
+    if chain.size == 0:
+        return
+    dev = arena["k"].device
+    src = torch.as_tensor(src_rows, dtype=torch.long, device=dev)
+    sel = torch.as_tensor(chain, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst_blocks[chain], dtype=torch.long, device=dev)
+
+    def blocks_of(x):
+        g = x[:, 0][:, src]                       # (n_periods, ring, ...)
+        return g.reshape(g.shape[0], nbk, bs, *g.shape[2:])[:, sel]
+
+    ok = torch.as_tensor(row_valid.reshape(nbk, bs)[chain], device=dev)
+    pos = torch.where(ok[None], blocks_of(req["pos"]).to(torch.int32), -1)
+    arena["k"][:, dst] = blocks_of(req["k"]).to(arena["k"].dtype)
+    arena["v"][:, dst] = blocks_of(req["v"]).to(arena["v"].dtype)
+    arena["pos"][:, dst] = pos
+
+
+class PagedCachePool:
+    """Block-paged decode cache with refcounted shared prompt prefixes.
+
+    slots_budget sizes each attention arena in dense-slot equivalents:
+    `slots_budget * ring_len // block_size` data blocks (+1 null); the
+    default (== max_batch) matches a dense per-slot pool's memory.
+    """
+
+    def __init__(self, arch, max_batch: int, max_len: int, *,
+                 block_size: int = 16, slots_budget: Optional[int] = None,
+                 attn_kernel: Optional[str] = None, growth: str = "eager",
+                 retain_blocks: int = 0, watermark: int = 0, device="cpu"):
+        """Args as the JAX pool's, plus `device`, where
+        the arenas, tables and cursors live. attn_kernel="paged" checks
+        the layout against the kernel's limits here, at construction:
+        on CUDA a layout the kernel cannot take raises
+        (kernels/paged_attention.ensure_kernel_fit)."""
+        if arch.kind != "decoder":
+            raise NotImplementedError("paged serving is decoder-only")
+        if attn_kernel is None:
+            attn_kernel = getattr(arch.cfg, "attn_kernel", "xla")
+        if attn_kernel not in ("xla", "paged"):
+            raise ValueError(
+                f"attn_kernel must be 'xla' or 'paged', got {attn_kernel}")
+        if growth not in ("eager", "lazy"):
+            raise ValueError(
+                f"growth must be 'eager' or 'lazy', got {growth}")
+        self.attn_kernel = attn_kernel
+        self.arch = arch
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.block_size = block_size
+        self.growth = growth
+        self.device = torch.device(device)
+        budget = slots_budget if slots_budget is not None else max_batch
+        self.maps = {}
+        n_blocks = {}
+        for si, ring in dec_lib.paged_layout(arch.cfg, max_len, block_size):
+            n_blocks[si] = budget * (ring // block_size)
+            self.maps[si] = BlockTableMap(
+                max_batch, ring, block_size, n_blocks[si] + 1,
+                retain_limit=min(retain_blocks, max(n_blocks[si] - 1, 0)),
+                watermark=min(watermark, max(n_blocks[si] - 1, 0)))
+        full = arch.init_paged_cache(max_batch, max_len,
+                                     block_size=block_size,
+                                     n_blocks=n_blocks, device=device)
+        full.pop("tables")               # host-owned: see device_tables()
+        self.cache = full
+        if attn_kernel == "paged":
+            from repro_torch.kernels.paged_attention import ensure_kernel_fit
+            cfg = arch.cfg
+            ensure_kernel_fit(
+                block_size, cfg.resolved_head_dim, cfg.n_heads,
+                cfg.n_kv_heads, full["slots"][0]["k"].dtype,
+                device=self.device)
+        self._pending_grown = {si: [] for si in self.maps}
+        self.shared_hits = 0
+        self._dev_tables = None
+
+    # ---------------- layout helpers ----------------
+
+    def device_tables(self):
+        """Per-slot-type block tables on the pool's device, uploaded from
+        the host mirror only after a mutation changed them."""
+        if self._dev_tables is None:
+            self._dev_tables = tuple(
+                torch.as_tensor(self.maps[si].table, device=self.device)
+                for si in sorted(self.maps))
+        return self._dev_tables
+
+    def _src_rows(self, ring: int, cache_len: int, plen: int,
+                  padded_len: int):
+        """(request-cache row backing each logical ring row, backed-row
+        mask). `rolled` mirrors attention's prefill roll branch."""
+        pad = padded_len - plen
+        rolled = padded_len >= cache_len
+        filler = (pad - 1) % cache_len if rolled else cache_len - 1
+        src = np.full(ring, filler, np.int32)
+        backed = np.zeros(ring, bool)
+        ps = np.arange(max(0, plen - min(ring, cache_len)), plen)
+        rows = (pad + ps) % cache_len if rolled else pad + ps
+        src[ps % ring] = rows
+        backed[ps % ring] = True
+        return src, backed
+
+    # ---------------- admission ----------------
+
+    def admission_plan(self, prompt, plen: int, padded_len: int,
+                       budget: int) -> dict:
+        """{slot-type: fresh blocks + retained revivals} an insert would
+        consume; lazy growth counts prompt-backed positions only."""
+        return {si: sum(m.admission_plan(prompt, plen, padded_len, budget,
+                                         lazy=self.growth == "lazy"))
+                for si, m in self.maps.items()}
+
+    def admissible_blocks(self) -> dict:
+        """Blocks admission may plan against, per attention slot-type:
+        free + reclaimable retained, minus the growth watermark."""
+        return {si: m.admissible() for si, m in self.maps.items()}
+
+    def insert(self, request_cache: PyTree, slot: int, *, prompt,
+               plen: int, padded_len: int, budget: int):
+        """Admit a prefilled request: reserve its block chain, write the
+        fresh blocks, share/revive prefix blocks without copying, and set
+        the slot's cursor to plen. Atomic: on NoBlocksError nothing is
+        left allocated and the arenas are untouched."""
+        if not (0 <= slot < self.max_batch):
+            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+        placed = {}
+        try:
+            for si, m in self.maps.items():
+                placed[si] = m.insert(slot, prompt, plen, padded_len, budget,
+                                      lazy=self.growth == "lazy")
+        except NoBlocksError:
+            for si in placed:
+                self.maps[si].rollback_insert(slot, placed[si])
+            raise
+        self.shared_hits += sum(p.shared for ps in placed.values()
+                                for p in ps)
+        self._dev_tables = None
+        for si, m in self.maps.items():
+            cache_len = request_cache["slots"][si]["k"].shape[2]
+            src, backed = self._src_rows(m.ring_len, cache_len, plen,
+                                         padded_len)
+            dst = np.zeros(m.max_blocks, np.int32)
+            for p in placed[si]:
+                if not p.shared:
+                    dst[p.chain_pos] = p.block
+            _arena_insert(self.cache["slots"][si],
+                          request_cache["slots"][si], src, dst, backed)
+        self.cache["index"][slot] = plen
+
+    def evict(self, slot: int):
+        """Return the slot's blocks to the allocator and zero its cursor.
+        Freed blocks keep their bytes; nothing references them."""
+        if not (0 <= slot < self.max_batch):
+            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+        self._dev_tables = None
+        for m in self.maps.values():
+            m.evict(slot)
+        self.cache["index"][slot] = 0
+
+    # ---------------- lazy growth ----------------
+
+    def grow(self, slot: int, row: int) -> bool:
+        """Back logical `row` (the slot's next decode write) with a block
+        in every attention slot-type. Returns True when a table changed;
+        flush_growth() must run before the next decode step. Raises
+        NoBlocksError when an arena is exhausted (the engine preempts)."""
+        grew = False
+        for si, m in self.maps.items():
+            n_cow = len(m._pending_cow)
+            b = m.grow(slot, row)
+            if len(m._pending_cow) != n_cow:
+                grew = True       # COW: dst takes its pos from the copy
+            elif b is not None:
+                self._pending_grown[si].append(b)
+                grew = True
+        return grew
+
+    def flush_growth(self):
+        """Apply what grow() buffered: first the wrap-time copy-on-write
+        block copies (k, v and pos, src -> dst), then position -1 over
+        the plainly grown blocks (they hold a previous occupant's rows)."""
+        if not (any(m._pending_cow for m in self.maps.values())
+                or any(self._pending_grown.values())):
+            return
+        self._dev_tables = None
+        for si, m in self.maps.items():
+            arena = self.cache["slots"][si]
+            if m._pending_cow:
+                srcs, dsts = map(list, zip(*m._pending_cow))
+                m._pending_cow.clear()
+                s = torch.as_tensor(srcs, dtype=torch.long,
+                                    device=self.device)
+                d = torch.as_tensor(dsts, dtype=torch.long,
+                                    device=self.device)
+                for name in ("k", "v", "pos"):
+                    arena[name][:, d] = arena[name][:, s]
+            grown = self._pending_grown[si]
+            if grown:
+                arena["pos"][:, torch.as_tensor(
+                    grown, dtype=torch.long, device=self.device)] = -1
+                self._pending_grown[si] = []
+
+    # ---------------- telemetry ----------------
+
+    @property
+    def retained_hits(self) -> int:
+        return sum(m.retained_hits for m in self.maps.values())
+
+    @property
+    def prefix_misses(self) -> int:
+        return sum(m.prefix_misses for m in self.maps.values())
+
+    @property
+    def retained_hit_rate(self) -> float:
+        from repro_torch.serving.metrics import hit_rate
+        return hit_rate(self.retained_hits, self.prefix_misses)
+
+    def check_invariants(self):
+        """Assert every slot-type's allocator/table/registry invariants."""
+        for m in self.maps.values():
+            m.check_invariants()

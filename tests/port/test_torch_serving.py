@@ -1,0 +1,176 @@
+"""The port's serving slice against the JAX package: block allocator and
+pool invariants, precision casting, the whole engine (reduced gemma2-2b,
+fp32, the port's kernel path vs the JAX engine's XLA path: greedy tokens
+must be equal) and the port's CLI on the CPU."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving import ContinuousEngine as JaxEngine
+from repro.serving import synthetic_requests as jax_requests
+from repro.serving.block_allocator import BlockTableMap as JaxMap
+from repro_torch.launch import serve as tserve
+from repro_torch.serving import ContinuousEngine, synthetic_requests
+from repro_torch.serving.block_allocator import BlockTableMap
+
+
+def test_block_table_map_matches_jax_under_random_ops():
+    """Insert / grow / evict sequences leave identical tables and
+    counters in the port's map and the JAX package's, and keep the
+    refcount / registry / retained-LRU invariants."""
+    rng = np.random.default_rng(0)
+    kw = dict(retain_limit=3, watermark=1)
+    maps = [BlockTableMap(4, 32, 8, 14, **kw), JaxMap(4, 32, 8, 14, **kw)]
+    prefix = rng.integers(5, 100, size=16)
+    active = {}
+    for _ in range(200):
+        slot = int(rng.integers(4))
+        if slot in active and rng.random() < 0.3:
+            for m in maps:
+                m.evict(slot)
+            del active[slot]
+        elif slot in active:
+            row = active[slot] = active[slot] + 1
+            res = []
+            for m in maps:
+                try:
+                    res.append(m.grow(slot, row))
+                except RuntimeError:     # NoBlocksError, in either package
+                    res.append("full")
+            assert res[0] == res[1]
+            if res[0] == "full":
+                for m in maps:
+                    m.evict(slot)
+                del active[slot]
+        else:
+            plen = int(rng.integers(4, 24))
+            prompt = np.concatenate([prefix, rng.integers(5, 100, size=8)])
+            ok = []
+            for m in maps:
+                try:
+                    m.insert(slot, prompt, plen, -(-plen // 8) * 8, 6,
+                             lazy=True)
+                    ok.append(True)
+                except RuntimeError:     # NoBlocksError, in either package
+                    ok.append(False)
+            assert ok[0] == ok[1]
+            if ok[0]:
+                active[slot] = plen
+        np.testing.assert_array_equal(maps[0].table, maps[1].table)
+        maps[0].check_invariants()
+    assert maps[0].retained_hits == maps[1].retained_hits
+    assert maps[0].prefix_misses == maps[1].prefix_misses
+
+
+def test_bf16_policy_casts_like_jax(gemma_pair):
+    """Same leaf dtypes as the JAX policy: bf16 weights, fp32 norms."""
+    import jax
+    from repro.precision import get_policy as jax_policy
+    from repro_torch.precision import get_policy
+    _, jparams, _, tparams = gemma_pair
+    jcast = jax_policy("bf16").cast_params(jparams)
+    tcast = get_policy("bf16").cast_params(tparams)
+    jleaves = jax.tree_util.tree_leaves_with_path(jcast)
+    for path, leaf in jleaves:
+        node = tcast
+        for k in path:
+            node = node[k.key]
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(node.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+
+
+SERVE_CASES = {
+    "plain": dict(n=8, prompt_len=24, new_tokens=12, shared_prefix=0,
+                  slots_budget=None, block_size=16),
+    # arena of 2 dense slots under 4 slots, 8-row blocks: lazy admission
+    # lets prompts in and decode growth must preempt
+    "shared_prefix_preempt": dict(n=6, prompt_len=8, new_tokens=16,
+                                  shared_prefix=8, slots_budget=2,
+                                  block_size=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_engine_tokens_match_jax_engine(gemma_pair, case):
+    """The whole slice: the port's engine with the kernel path (its plain
+    version on the CPU) emits exactly the JAX engine's greedy tokens
+    (XLA gather path), fp32 policy on both sides, with prefix sharing,
+    lazy growth and preemption exercised in the second case."""
+    jarch, jparams, tarch, tparams = gemma_pair
+    c = SERVE_CASES[case]
+    max_len = c["prompt_len"] + c["new_tokens"] + c["shared_prefix"]
+    bs = c["block_size"]
+    max_len = -(-max_len // bs) * bs
+    kw = dict(max_batch=4, max_len=max_len, policy="fp32",
+              prefill_bucket=8, slots_budget=c["slots_budget"],
+              block_size=bs)
+    req_kw = dict(prompt_len=c["prompt_len"], new_tokens=c["new_tokens"],
+                  seed=0, shared_prefix=c["shared_prefix"])
+    jeng = JaxEngine(jarch, jparams, cache="paged", attn_kernel="xla", **kw)
+    jdone = jeng.run(jax_requests(c["n"], jarch.cfg.vocab, **req_kw))
+    teng = ContinuousEngine(tarch, tparams, attn_kernel="paged", **kw)
+    tdone = teng.run(synthetic_requests(c["n"], tarch.cfg.vocab, **req_kw))
+    want = {r.rid: r.generated.tolist() for r in jdone}
+    got = {r.rid: r.generated.tolist() for r in tdone}
+    assert got == want
+    jrep, trep = jeng.report(1.0), teng.report(1.0)
+    for key in ("decode_steps", "preemptions", "shared_block_hits",
+                "retained_block_hits", "prefix_misses"):
+        assert trep[key] == jrep[key], key
+    if case != "plain":
+        assert trep["preemptions"] > 0 and trep["shared_block_hits"] > 0
+    teng.pool.check_invariants()
+    teng.scheduler.check_invariants()
+    assert all(m.alloc.n_live == 0 for m in teng.pool.maps.values())
+
+
+def test_cli_serves_on_cpu(capsys):
+    stats, done = tserve.main([
+        "--device", "cpu", "--requests", "4", "--prompt-len", "16",
+        "--new-tokens", "6", "--attn-kernel", "paged",
+        "--shared-prefix", "16", "--precision", "bf16"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["requests"] == 4 == len(done)
+    assert report["tokens"] == sum(len(r.generated) for r in done) > 0
+    assert report["attn_kernel"] == "paged" and report["device"] == "cpu"
+    assert stats["shared_block_hits"] > 0
+
+
+def test_cli_defaults_to_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--requests", "1"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--engine", "static"], ["--cache", "dense"], ["--chunk-budget", "32"],
+    ["--spec-draft", "self"], ["--mesh", "2x1"], ["--replicas", "2"],
+    ["--arrival-rate", "5"], ["--task", "score"], ["--precision", "fp16"],
+    ["--sampler", "temperature=0.8"], ["--sched-policy", "prefix-affinity"],
+    ["--arch", "mamba2-130m"], ["--arch", "bert-large"]])
+def test_cli_unported_features_raise(argv):
+    with pytest.raises(SystemExit, match="not (yet )?ported"):
+        tserve.main(["--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("spec", ["greedy", "temperature=0",
+                                  "temperature=0,stable=1"])
+def test_sampler_greedy_picks_match_jax(spec):
+    """Greedy and the bf16 tie band pick the same tokens as the JAX
+    sampler, on logits with near-ties planted one bf16 ulp apart."""
+    import jax.numpy as jnp
+    from repro.serving.sampler import Sampler as JaxSampler
+    from repro_torch.serving import Sampler
+    logits = np.random.default_rng(0).normal(size=(6, 50)).astype(np.float32)
+    logits[:3, 7] = logits[:3].max(axis=1) + 2.0 ** -9
+    logits[:3, 3] = logits[:3, 7] - 2.0 ** -9
+    js, ts = JaxSampler.parse(spec), Sampler.parse(spec)
+    assert (ts.greedy, ts.stable_tiebreak) == (js.greedy, js.stable_tiebreak)
+    want = np.asarray(js.sample(jnp.asarray(logits), None))
+    got = ts.sample(torch.from_numpy(logits))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
