@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one GPU.
 
-  python3 chip_smoke.py                 # every phase; needs one CUDA card
-  python3 chip_smoke.py --kernels-only  # phases 1-2 only (no result line)
+  python3 chip_smoke.py      # needs one CUDA card
 
 Phases, each of which fails the run:
   1. build every kernel under src/repro_torch/kernels/csrc (one nvcc per
      source, all started together) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at
      gemma2-2b's attention shapes (fp32 and bf16 arenas, S = 1 and 4, a
-     dead slot, position -1 rows, window on and off, softcap on): outputs
+     dead slot, position -1 rows, window on and off, softcap on, with and
+     without a new row routed to a null table entry): outputs
      within 1e-5 (fp32 summation order), arenas torch.equal; then time
      kernel and plain version at the shapes the serving run gives it,
      with the L2 cache flushed before each launch, and compute the bound;
@@ -28,6 +28,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -105,18 +106,21 @@ def paged_bound(args, S):
 
 
 def phase_kernels(torch, pa):
-    """Phase 2: parity cases, then timing at the serving shapes."""
+    """Phase 2: parity cases, then timing at the serving shapes. The
+    kernel's entry lacks `launches` until the main path has run."""
     max_err = 0.0
     n_cases = 0
     for kv_dt, q_dt in ((torch.float32, torch.float32),
                         (torch.bfloat16, torch.float32),
                         (torch.bfloat16, torch.bfloat16)):
         for S in (1, 4):
-            for window in (None, 24):
+            for window, null_write in itertools.product((None, 24),
+                                                        (False, True)):
                 args = pa.decode_case(B=4, S=S, n_heads=8, n_kv=4,
                                       head_dim=256, block_size=16, nb=8,
                                       dtype=kv_dt, q_dtype=q_dt,
-                                      device="cuda", seed=n_cases)
+                                      device="cuda", seed=n_cases,
+                                      null_write=null_write)
                 plain = [a.clone() for a in args]
                 kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
                 out = pa.paged_attention_fused(*args, **kw)
@@ -129,7 +133,8 @@ def phase_kernels(torch, pa):
                                           plain[3:6]):
                     check(torch.equal(got, ref),
                           f"{name} arena differs from the plain version "
-                          f"({kv_dt}, S={S}, window={window})")
+                          f"({kv_dt}, S={S}, window={window}, "
+                          f"null_write={null_write})")
                 check(bool((out[-1] == 0).all()), "dead slot is not 0")
                 n_cases += 1
     print(f"kernel parity: paged_attention_fused, {n_cases} cases, "
@@ -156,7 +161,7 @@ def phase_kernels(torch, pa):
     return dict(name="paged_attention_fused", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention_kernel.py:527",
-                launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 arenas_equal=True)
 
@@ -180,7 +185,7 @@ def serve(serve_mod, argv, label):
     return stats, tokens
 
 
-def run(kernels_only: bool) -> int:
+def run() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -209,9 +214,6 @@ def run(kernels_only: bool) -> int:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     kernel = phase_kernels(torch, pa)
-    if kernels_only:
-        print(json.dumps({"kernels": [kernel]}))
-        return 0
 
     pa.paged_attention_fused.launches = 0
     paged, paged_tokens = serve(serve_mod, SERVE_ARGV, "fp32 paged")
@@ -243,9 +245,9 @@ def run(kernels_only: bool) -> int:
     return 0
 
 
-def main(argv) -> int:
+def main() -> int:
     try:
-        return run("--kernels-only" in argv)
+        return run()
     except Exception:              # report the failure, exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -253,4 +255,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

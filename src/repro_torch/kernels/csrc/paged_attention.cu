@@ -29,7 +29,14 @@
 //     memory in fp32 for the whole sweep;
 //   * the S new rows fold once as a virtual block before the first real
 //     block; the stale rows they will overwrite are masked while streaming,
-//     which is exactly what attending after the scatter would see.
+//     and a new row whose ring row lands on a null table entry (so it is
+//     never written) is masked in the virtual block, which is exactly what
+//     attending after the scatter would see.
+// It equals scatter-then-attend (the plain version) whenever block 0 holds
+// positions -1, a slot's table names each real block at most once, and no
+// block that one slot writes is named in another slot's table: the paged
+// pool's contract. Outside it (a real block named twice, a block written
+// by one slot and read by another in the same launch) the two may differ.
 // A race designed out: K/V of head g of a slot are read and written by CTA
 // (b, g) alone, after its own reads. The positions are shared by all heads
 // of a slot, so a CTA that wrote pos while a sibling head's CTA still
@@ -39,7 +46,8 @@
 //
 // Shape limits of this tiling (checked by the wrapper, ensure_kernel_fit):
 // h % n_kv == 0, S <= bs, and the shared-memory plan below must fit the
-// 227 KB a block may use.
+// 227 KB a block may use. The wrapper computes that plan's size
+// (paged_attention.py:smem_bytes) and passes it in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,7 +132,12 @@ paged_attention_fused_kernel(Params p) {
         sk[idx] = to_f32(static_cast<const TKV*>(p.k_new)[off]);
         sv[idx] = to_f32(static_cast<const TKV*>(p.v_new)[off]);
       }
-      for (int t = tid; t < rows; t += kThreads) skp[t] = qp[t];
+      // a new row routed to a null table entry is never written, so the
+      // scatter-then-attend version never sees it
+      for (int t = tid; t < rows; t += kThreads) {
+        const int rr = (cur + t) % ring;
+        skp[t] = p.tables[(size_t)b * p.nb + rr / bs] != 0 ? qp[t] : -1;
+      }
     } else {
       const int blk = p.tables[(size_t)b * p.nb + j];
       if (blk == 0) continue;       // null block: every position is -1
@@ -257,24 +270,17 @@ cudaError_t launch_fused(const Params& p, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" size_t paged_attention_fused_smem_bytes(int S, int h, int n_kv,
-                                                   int hd, int bs) {
-  const size_t R = (size_t)S * (h / n_kv);
-  return (2 * R * hd + 2 * (size_t)bs * hd + R * bs + 3 * R) * sizeof(float) +
-         (size_t)bs * sizeof(int);
-}
-
-// Returns a cudaError_t; 0 when both launches were accepted.
+// smem is the dynamic shared memory of one CTA, in bytes. Returns a
+// cudaError_t; 0 when both launches were accepted.
 extern "C" int paged_attention_fused_launch(
     const void* q, int q_bf16, const void* k_new, const void* v_new,
     void* k_arena, void* v_arena, int kv_bf16, int* pos_arena,
     const int* tables, const int* q_pos, const int* cursor, float* out,
     int B, int S, int h, int n_kv, int hd, int bs, int nb, float scale,
-    int causal, int window, float softcap, void* stream) {
+    int causal, int window, float softcap, size_t smem, void* stream) {
   Params p{q, k_new, v_new, k_arena, v_arena, pos_arena, tables, q_pos,
            cursor, out, B, S, h, n_kv, hd, bs, nb, scale, causal, window,
            softcap};
-  const size_t smem = paged_attention_fused_smem_bytes(S, h, n_kv, hd, bs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_bf16) {

@@ -38,8 +38,12 @@ _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 def smem_bytes(S: int, n_heads: int, n_kv: int, head_dim: int,
                block_size: int) -> int:
-    """Shared memory one CTA of the kernel takes (mirrors
-    paged_attention_fused_smem_bytes in the CUDA source)."""
+    """Dynamic shared memory, in bytes, of one CTA of the kernel: the
+    layout carved at the top of csrc/paged_attention.cu (queries and
+    accumulators of the R = S * n_heads / n_kv rows, one K and one V
+    block, R x block_size probabilities, three R-vectors of softmax
+    state, the block's key positions). The wrapper passes it to the
+    launch."""
     R = S * (n_heads // n_kv)
     return (2 * R * head_dim + 2 * block_size * head_dim + R * block_size
             + 3 * R) * 4 + block_size * 4
@@ -150,7 +154,8 @@ def paged_attention_fused_plain(q, k_new, v_new, k_arena, v_arena,
 
 def decode_case(*, B: int, S: int, n_heads: int, n_kv: int, head_dim: int,
                 block_size: int, nb: int, dtype=torch.bfloat16,
-                q_dtype=torch.float32, device="cpu", seed: int = 0):
+                q_dtype=torch.float32, device="cpu", seed: int = 0,
+                null_write: bool = False):
     """Pool-shaped inputs for checking the kernel against its plain
     version, in the argument order of paged_attention_fused (q (B, S, h,
     hd), ...). Slot b owns blocks 1 + b*nb .. (b+1)*nb as the allocator
@@ -158,7 +163,11 @@ def decode_case(*, B: int, S: int, n_heads: int, n_kv: int, head_dim: int,
     only half its table (the rest is the null block), the last slot is
     dead (all-null table, q_pos -1), and ~10% of history rows carry
     position -1. For S > 1 the last query row of slot 1 is padding
-    (q_pos -1). Query positions equal the cursors, as in the engine."""
+    (q_pos -1). Query positions equal the cursors, as in the engine.
+    With null_write, slot 1's cursor sits at the end of its backed half
+    so that one of its valid new rows lands on a null table entry: a
+    state the engine never makes (it backs a row before writing it), in
+    which the row is neither written nor attended to."""
     rng = np.random.default_rng(seed)
     ring = nb * block_size
     n_blocks = 1 + B * nb
@@ -170,7 +179,8 @@ def decode_case(*, B: int, S: int, n_heads: int, n_kv: int, head_dim: int,
     cursor = np.array([2 * ring - 2] + [ring // 3 + 5 * b
                                         for b in range(1, B)], np.int32)
     if B > 2:   # slot 1 writes at the end of its backed half
-        cursor[1] = max(0, (nb // 2) * block_size - S)
+        cursor[1] = max(0, (nb // 2) * block_size
+                        - (S // 2 if null_write else S))
     pos = np.full((n_blocks, block_size), -1, np.int32)
     for b in range(B - 1):
         for p in range(max(0, cursor[b] - ring), cursor[b]):
@@ -207,7 +217,7 @@ def _library():
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, I, P, P, P, P, I, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, I, I, F, P]
+                       I, I, I, I, I, I, I, F, I, I, F, ctypes.c_size_t, P]
         fn.restype = I
     return fn
 
@@ -276,7 +286,8 @@ def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
         _ptr(k_arena), _ptr(v_arena), int(kv_dt == torch.bfloat16),
         _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(cursor), _ptr(out),
         B, S, h, n_kv, hd, bs, nb, float(scale), int(bool(causal)),
-        int(window or 0), float(softcap or 0.0), ctypes.c_void_p(stream))
+        int(window or 0), float(softcap or 0.0),
+        smem_bytes(S, h, n_kv, hd, bs), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"paged_attention_fused launch failed: "
                            f"cudaError_t {err}")

@@ -26,15 +26,17 @@ import torch
 from repro_torch import select_device
 from repro_torch.configs import get_arch, reduced_arch
 from repro_torch.metrics import MetricsLogger
-from repro_torch.serving import ContinuousEngine, Sampler, synthetic_requests
+from repro_torch.serving import ContinuousEngine, synthetic_requests
 
 # (flag, requested?) for features of repro.launch.serve the port does not
-# have yet: each raises "not yet ported" instead of running something else
+# have yet and that no layer below the CLI sees: each raises "not yet
+# ported" instead of running something else. An unported arch, precision
+# policy, scheduling policy or sampler is rejected by the registry, policy,
+# scheduler or serve step it reaches.
 NOT_PORTED_FLAGS = (
     ("--engine static", lambda a: a.engine != "continuous"),
     ("--task", lambda a: a.task != "generate"),
     ("--shared-inputs", lambda a: a.shared_inputs != 0),
-    ("--precision fp16", lambda a: a.precision == "fp16"),
     ("--cache dense", lambda a: a.cache != "paged"),
     ("--chunk-budget", lambda a: a.chunk_budget is not None),
     ("--spec-draft", lambda a: a.spec_draft != "none"),
@@ -43,10 +45,7 @@ NOT_PORTED_FLAGS = (
     ("--replicas", lambda a: a.replicas != 1),
     ("--route-policy", lambda a: a.route_policy is not None),
     ("--arrival-rate", lambda a: a.arrival_rate is not None),
-    ("--sched-policy", lambda a: a.sched_policy != "fifo"),
     ("--interpret", lambda a: a.interpret),
-    ("--sampler (non-greedy)",
-     lambda a: not Sampler.parse(a.sampler).greedy),
 )
 
 
@@ -133,9 +132,26 @@ def main(argv=None):
         raise SystemExit(f"{', '.join(bad)}: not yet ported to "
                          f"repro_torch (use repro.launch.serve)")
     try:
-        arch = reduced_arch(args.arch) if args.reduced else get_arch(args.arch)
-    except NotImplementedError as e:
+        engine, reqs, log, device = _build(args)
+    except NotImplementedError as e:     # a feature not ported yet
         raise SystemExit(str(e)) from None
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    stats = engine.report(time.perf_counter() - t0)
+    stats.update(engine="continuous", precision=args.precision,
+                 cache="paged", attn_kernel=engine.pool.attn_kernel,
+                 sampler=args.sampler, device=str(device))
+    log.log(-1, **{k: v for k, v in stats.items()
+                   if isinstance(v, (int, float))})
+    log.close()
+    print(json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                      for k, v in stats.items()}))
+    return stats, done
+
+
+def _build(args):
+    """(engine, requests, metrics logger, device) for the parsed flags."""
+    arch = reduced_arch(args.arch) if args.reduced else get_arch(args.arch)
     device = select_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = arch.init(gen)
@@ -162,20 +178,10 @@ def main(argv=None):
         on_step=on_step, block_size=args.block_size,
         slots_budget=args.slots_budget or None, sampler=args.sampler,
         attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
-        slo_ms=args.slo_ms, preempt=args.preempt,
-        retain_blocks=args.retain_blocks, watermark=args.watermark)
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    stats = engine.report(time.perf_counter() - t0)
-    stats.update(engine="continuous", precision=args.precision,
-                 cache="paged", attn_kernel=engine.pool.attn_kernel,
-                 sampler=args.sampler, device=str(device))
-    log.log(-1, **{k: v for k, v in stats.items()
-                   if isinstance(v, (int, float))})
-    log.close()
-    print(json.dumps({k: round(v, 3) if isinstance(v, float) else v
-                      for k, v in stats.items()}))
-    return stats, done
+        sched_policy=args.sched_policy, slo_ms=args.slo_ms,
+        preempt=args.preempt, retain_blocks=args.retain_blocks,
+        watermark=args.watermark)
+    return engine, reqs, log, device
 
 
 if __name__ == "__main__":

@@ -50,17 +50,33 @@ def test_decode_case_plain_semantics():
     assert written == int((args[7] >= 0).sum())
 
 
+@pytest.mark.parametrize("S", [1, 4])
+def test_decode_case_null_write_row_is_dropped(S):
+    """With null_write a valid new row of slot 1 lands on a null table
+    entry: the plain version writes every valid row but that one, and
+    the null block stays -1."""
+    args = pa.decode_case(B=4, S=S, n_heads=4, n_kv=2, head_dim=16,
+                          block_size=8, nb=4, device="cpu", null_write=True)
+    pos_before = args[5].clone()
+    out = pa.paged_attention_fused(*args, scale=0.25)
+    assert torch.isfinite(out).all() and (out[-1] == 0).all()
+    assert (args[5][0] == -1).all()
+    written = (args[5] != pos_before).sum().item()
+    assert written == int((args[7] >= 0).sum()) - 1
+
+
+@pytest.mark.parametrize("null_write", [False, True])
 @pytest.mark.parametrize("window,softcap", [(None, None), (24, 50.0)])
 @pytest.mark.parametrize("S", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(S, dtype, window, softcap):
+def test_cuda_kernel_matches_plain(S, dtype, window, softcap, null_write):
     """Needs the card: the kernel against its plain version at gemma2-2b's
     head shapes (h=8, n_kv=4, hd=256, block 16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = pa.decode_case(B=4, S=S, n_heads=8, n_kv=4, head_dim=256,
                           block_size=16, nb=6, dtype=dtype, q_dtype=dtype,
-                          device="cuda", seed=S)
+                          device="cuda", seed=S, null_write=null_write)
     plain = [a.clone() for a in args]
     before = pa.paged_attention_fused.launches
     out = pa.paged_attention_fused(*args, scale=0.0625, window=window,

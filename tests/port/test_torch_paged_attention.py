@@ -18,13 +18,15 @@ DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _case(seed, *, S, wrap=False, B=3, h=4, n_kv=2, hd=16, bs=8, nb=4,
-          n_blocks=14):
+def _case(seed, *, S, wrap=False, null_write=False, B=3, h=4, n_kv=2,
+          hd=16, bs=8, nb=4, n_blocks=14):
     """Pool-shaped inputs: slots own exclusive blocks, slot 1 has a short
     chain (the rest of its table is the null block), slot 2 is dead
     (all-null table, q_pos -1); positions are random with -1 rows, and
     the null block stays -1. Every valid row's destination is a real
-    block, as the allocator guarantees."""
+    block, as the allocator guarantees — unless null_write, which puts
+    slot 1's cursor at the end of its chain so that a valid row lands on
+    a null table entry (neither written nor attended to)."""
     rng = np.random.default_rng(seed)
     ring = nb * bs
     pos = rng.integers(-1, 40, size=(n_blocks, bs)).astype(np.int32)
@@ -33,7 +35,8 @@ def _case(seed, *, S, wrap=False, B=3, h=4, n_kv=2, hd=16, bs=8, nb=4,
     tbl[0] = np.arange(1, 1 + nb)
     tbl[1, :2] = [5, 6]
     cur0 = ring - 2 if wrap else 17
-    cursor = np.array([cur0, 9, 0], np.int32)[:B]
+    cur1 = 2 * bs - S // 2 if null_write else 9
+    cursor = np.array([cur0, cur1, 0], np.int32)[:B]
     qpos = np.stack([40 + np.arange(S), 30 + np.arange(S),
                      np.full(S, -1)]).astype(np.int32)[:B]
     if S > 1:
@@ -73,7 +76,8 @@ def _torch_args(jax_args, device="cpu"):
 
 
 VARIANTS = [dict(), dict(window=8), dict(softcap=5.0),
-            dict(window=8, softcap=5.0), dict(wrap=True, window=12)]
+            dict(window=8, softcap=5.0), dict(wrap=True, window=12),
+            dict(null_write=True, window=8)]
 
 
 @pytest.mark.parametrize("kw", VARIANTS, ids=lambda k: str(k) or "plain")
@@ -81,7 +85,8 @@ VARIANTS = [dict(), dict(window=8), dict(softcap=5.0),
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_plain_matches_jax_oracle(kw, S, dt):
     kw = dict(kw)
-    case = _case(S * 10 + len(kw), S=S, wrap=kw.pop("wrap", False))
+    case = _case(S * 10 + len(kw), S=S, wrap=kw.pop("wrap", False),
+                 null_write=kw.pop("null_write", False))
     jargs = _jax_args(case, DTYPES[dt][0], squeeze=S == 1)
     want = ref.paged_attention_fused_ref(*jargs, scale=0.25, **kw)
     targs = _torch_args(jargs)
