@@ -14,11 +14,36 @@ Phases, each of which fails the run:
      kernel and plain version at the shapes the serving run gives it,
      with the L2 cache flushed before each launch, and compute the bound;
   3. serve gemma2-2b at full width and depth through the port's CLI
-     (`repro_torch.launch.serve.main`), fp32, with the kernel, then the
-     same stream with the plain-torch gather: greedy tokens must be
-     equal and the kernel must have launched decode steps x 26 times;
+     (`repro_torch.launch.serve.main`): first a short warm-up stream (2
+     requests, 4 new tokens) so that first-use costs land on neither
+     timed run, then fp32 with the kernel, then the same stream with the
+     plain-torch gather: greedy tokens must be equal and the kernel must
+     have launched decode steps x 26 times;
   4. serve once in bf16 with the kernel: it must finish with finite
-     logits.
+     logits;
+  5. hold the fused LANS kernels K1-K4 against their plain versions
+     (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
+     and 4; lam 0 with trust off, a zero-gradient leaf, a NaN in g; K4
+     with bf16 and fp16 copies): fp32 outputs within 2e-5, K3's bf16 x
+     within 2e-2 (tests/test_kernels.py's tolerances), K4's master
+     torch.equal to K3's output and its copy to the cast, K1 bitwise
+     repeatable; then, at BERT-large's largest leaf (100,663,296 fp32
+     elements, where the sums run with their cap of per-CTA partials),
+     the same checks, and each kernel timed beside its plain version,
+     its byte bound and a library call; and one whole fused LANS update
+     over BERT-large's 29 leaves against its byte bound;
+  6. train BERT-large at full width and depth (seq 128, batch 16, seed
+     0, 4 steps, warmup-hold-decay): the port's CLI (unfused lans, fp32
+     policy) and build_train_step + fused_lans from the same seed and
+     batches. Losses finite; one shared set of step-1 gradients applied
+     by lans and by fused_lans agrees leaf by leaf within 2e-5, and
+     one shared set of bf16-policy gradients applied by fused_mixed_lans
+     and by mixed_precision(lans) gives masters and moments within 2e-5
+     and bf16 params within 2e-2; the 4-step loss trajectories agree
+     within 1e-2 relative; K1-K3 each launched 4 x 29 times. Then bf16
+     steps through fused_mixed_lans (K4 launched applied steps x 29
+     times, K3 not at all) and the CLI with --precision fp16 (finite
+     loss, loss_scale and overflow_count printed).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -30,6 +55,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,6 +66,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
+LANS_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5),
+            "bf16": dict(rtol=2e-2, atol=2e-2)}
+LARGEST_LEAF = 24 * 1024 * 4096      # BERT-large layers/mlp/up/kernel
+BERT_LEAVES = 29
+TRAIN_ARGV = ["--arch", "bert-large", "--full", "--optimizer", "lans",
+              "--precision", "fp32", "--steps", "4", "--batch", "16",
+              "--seq", "128", "--seed", "0", "--schedule", "hold",
+              "--device", "cuda", "--log-every", "1"]
 SERVE_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
               "--attn-kernel", "paged", "--requests", "8", "--max-batch",
               "4", "--prompt-len", "64", "--new-tokens", "32", "--seed", "0"]
@@ -185,6 +219,443 @@ def serve(serve_mod, argv, label):
     return stats, tokens
 
 
+def close(torch, err, name, got, want, tol, where=""):
+    """assert_close(got, want) and keep the largest finite |got - want|
+    in err[name]."""
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               equal_nan=True,
+                               msg=lambda m: f"{name} {where}: {m}")
+    d = (got.float() - want.float()).abs()
+    d = d[torch.isfinite(d)]
+    if d.numel():
+        err[name] = max(err[name], d.max().item())
+
+
+def lans_parity(torch, kl, kops):
+    """Phase 5a: K1-K4 against their plain versions, phase by phase, on
+    the same inputs. K1 and K2 write fp32 whatever g and x are (and
+    compute in fp32 on inputs that convert to fp32 exactly), so they are
+    held to the fp32 tolerance in every case; the bf16 one is for K3's
+    bf16 x. Returns {kernel name: max |kernel - plain|}."""
+    err = {k.__name__: 0.0 for k in kl.KERNELS}
+    n_cases = 0
+    f32 = LANS_TOL["fp32"]
+
+    def near(name, got, want, tol):
+        close(torch, err, name, got, want, tol)
+
+    kinds = (("normal", 0.01, True), ("normal", 0.0, False),
+             ("zero_grad", 0.01, True), ("nan_grad", 0.01, True))
+    kw = dict(beta1=0.9, eps=1e-6)
+    for n, (dname, dtype), step, (kind, lam, trust) in itertools.product(
+            (1, 127, 32773, 1048579),
+            (("fp32", torch.float32), ("bf16", torch.bfloat16)), (1, 4),
+            kinds):
+        tol = LANS_TOL[dname]
+        g, m, v, x = kl.lans_case(n, dtype, kind=kind, seed=n_cases,
+                                  device="cuda")
+        g_sq = kl.sq_norm(g).clone()
+        near("sq_norm", g_sq, kl.sq_norm_plain(g), f32)
+        check(torch.equal(kl.sq_norm(g), g_sq) or kind == "nan_grad",
+              f"sq_norm is not bitwise repeatable (n={n}, {dname})")
+        scal = kops.lans_scalars(0.02, step, beta1=0.9, beta2=0.999,
+                                 lam=lam, apply_trust=trust, device="cuda")
+        scal[5] = kl.sq_norm_plain(g)
+        got = kl.lans_phase1(scal, g, m, v, x, beta2=0.999, **kw)
+        want = kl.lans_phase1_plain(scal, g, m, v, x, beta2=0.999, **kw)
+        for a, b in zip(got, want):
+            near("lans_phase1", a, b, f32)
+        m1, v1, norms = want
+        x3 = kl.lans_phase2(scal, norms, g, m1, v1, x, **kw)
+        near("lans_phase2", x3,
+              kl.lans_phase2_plain(scal, norms, g, m1, v1, x, **kw), tol)
+        if dtype == torch.float32:
+            for lp in (torch.bfloat16, torch.float16):
+                xm, xlp = kl.lans_phase2_cast(scal, norms, g, m1, v1, x,
+                                              lp_dtype=lp, **kw)
+                wm, _ = kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x,
+                                                  lp_dtype=lp, **kw)
+                near("lans_phase2_cast", xm, wm, f32)
+                check(torch.equal(xm, x3), "K4 master differs from K3")
+                check(torch.equal(xlp, xm.to(lp)),
+                      f"K4 copy is not the {lp} cast of its master")
+        torch.cuda.synchronize()
+        n_cases += 1
+    print(f"kernel parity: K1-K4, {n_cases} cases, max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tolerance 2e-5 relative and absolute; 2e-2 for K3 on bf16 "
+          "x); K4 master == K3, copy == cast; K1 bitwise repeatable")
+    return err
+
+
+def lans_timing(torch, kl, kops, err):
+    """Phase 5b: at the largest leaf (fp32), the main path's size, where
+    the reductions run with their cap of per-CTA partials, each kernel
+    first against its plain version (updating `err`), then timed beside
+    its plain version, its byte bound and, for K1, a library call."""
+    n = LARGEST_LEAF
+    f32 = LANS_TOL["fp32"]
+    g, m, v, x = kl.lans_case(n, torch.float32, seed=3, device="cuda")
+    kw = dict(beta1=0.9, eps=1e-6)
+    scal = kops.lans_scalars(0.02, 4, beta1=0.9, beta2=0.999, lam=0.01,
+                             apply_trust=True, device="cuda")
+    big = {name: 0.0 for name in err}
+    g_sq = kl.sq_norm(g, out=scal[5:6]).clone()
+    close(torch, big, "sq_norm", g_sq, kl.sq_norm_plain(g), f32)
+    check(torch.equal(kl.sq_norm(g), g_sq),
+          f"sq_norm is not bitwise repeatable at {n} elements")
+    m1, v1, norms = kl.lans_phase1(scal, g, m, v, x, beta2=0.999, **kw)
+    for got, want in zip((m1, v1, norms), kl.lans_phase1_plain(
+            scal, g, m, v, x, beta2=0.999, **kw)):
+        close(torch, big, "lans_phase1", got, want, f32)
+    x3 = kl.lans_phase2(scal, norms, g, m1, v1, x, **kw)
+    close(torch, big, "lans_phase2", x3,
+          kl.lans_phase2_plain(scal, norms, g, m1, v1, x, **kw), f32)
+    cast = dict(lp_dtype=torch.bfloat16, **kw)
+    xm, xlp = kl.lans_phase2_cast(scal, norms, g, m1, v1, x, **cast)
+    wm, wlp = kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x, **cast)
+    close(torch, big, "lans_phase2_cast", xm, wm, f32)
+    # the copies are bf16: equal to the cast of their masters, and to
+    # each other within a bf16 ulp where the masters straddle a rounding
+    # edge
+    close(torch, big, "lans_phase2_cast", xlp, wlp, LANS_TOL["bf16"])
+    check(torch.equal(xm, x3), f"K4 master differs from K3 at {n}")
+    check(torch.equal(xlp, xm.to(torch.bfloat16)),
+          f"K4 copy is not the cast of its master at {n}")
+    del x3, xm, xlp, wm, wlp
+    torch.cuda.synchronize()
+    print(f"kernel parity at the largest leaf ({n} fp32 elements): max "
+          f"|kernel - plain| " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in big.items())
+          + f" (tolerance 2e-5; K4's bf16 copy 2e-2; g_sq {g_sq.item():.6e}"
+          f", K2's norms {[f'{v:.6e}' for v in norms[:3].tolist()]}), K4 "
+          f"master == K3, copy == cast, K1 bitwise repeatable")
+    for name, e in big.items():
+        err[name] = max(err[name], e)
+    # name: (kernel, plain, library call, bytes moved, flops)
+    calls = {
+        "sq_norm": (lambda: kl.sq_norm(g), lambda: kl.sq_norm_plain(g),
+                    lambda: torch.linalg.vector_norm(g, dtype=torch.float32),
+                    4 * n, 2 * n),
+        "lans_phase1": (
+            lambda: kl.lans_phase1(scal, g, m, v, x, beta2=0.999, **kw),
+            lambda: kl.lans_phase1_plain(scal, g, m, v, x, beta2=0.999,
+                                         **kw), None, 24 * n, 24 * n),
+        "lans_phase2": (
+            lambda: kl.lans_phase2(scal, norms, g, m1, v1, x, **kw),
+            lambda: kl.lans_phase2_plain(scal, norms, g, m1, v1, x, **kw),
+            None, 20 * n, 16 * n),
+        "lans_phase2_cast": (
+            lambda: kl.lans_phase2_cast(scal, norms, g, m1, v1, x, **cast),
+            lambda: kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x,
+                                              **cast), None, 22 * n, 16 * n),
+    }
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops) in calls.items():
+        ms = time_ms(kern, flush, n=10)
+        plain_ms = time_ms(plain, flush, n=5, warmup=1)
+        lib_ms = None if lib is None else time_ms(lib, flush, n=10)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations")
+        print(f"kernel timing {name} (n={n} fp32, L2 flushed): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+              f"({nbytes} bytes at 3.35 TB/s, {flops} flops at 67 TFLOP/s)")
+    return out
+
+
+def fused_step_timing(torch, arch, kops):
+    """Phase 5c: one fused LANS update (K1, K2, K3 per leaf) over
+    BERT-large's 29 fp32 leaves against 48 bytes per parameter at
+    3.35 TB/s: fused_lans's update, which builds the kernels' scalars
+    once per step, and the same kernels driven leaf by leaf through
+    ops.fused_lans_step, which builds them once per leaf; and the unfused
+    lans update on the same tensors."""
+    from repro_torch.core.optim import fused_lans, lans
+    from repro_torch.core.optim.base import (WeightDecayMask, tree_items,
+                                             tree_map)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = arch.init(gen)
+    g = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                       device="cuda"), x)
+    zeros = tree_map(torch.zeros_like, x)
+    leaves = list(zip(tree_items(x), tree_items(g), tree_items(zeros)))
+    mask = WeightDecayMask()
+    n_params = sum(t.numel() for (_, t), _, _ in leaves)
+    eta = torch.full((), 1e-3, device="cuda")
+    step = torch.ones((), dtype=torch.int32, device="cuda")
+
+    def fused():    # as fused_lans's update, with scalars per leaf
+        for (path, xt), (_, gt), (_, z) in leaves:
+            dm = mask(path)
+            o = kops.fused_lans_step(gt, z, z, xt, eta=eta, step=step,
+                                     lam=0.01 if dm else 0.0,
+                                     apply_trust=dm)
+            o.x.sub(xt)     # the additive update fused_lans returns
+
+    tx, ftx = lans(1e-3), fused_lans(1e-3)
+    state, fstate = tx.init(x), ftx.init(x)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # per leaf, per step, per step, per leaf: neither goes first only
+    update = lambda: ftx.update(g, fstate, x)
+    per_leaf_ms, fused_ms = timed(fused, 5), timed(update, 5)
+    fused_ms = (fused_ms + timed(update, 5)) / 2
+    per_leaf_ms = (per_leaf_ms + timed(fused, 5)) / 2
+    unfused_ms = timed(lambda: tx.update(g, state, x), 3)
+    bound_ms = 48 * n_params / H100_BYTES_PER_S * 1e3
+    print(f"fused LANS step, bert-large fp32 ({len(leaves)} leaves, "
+          f"{n_params} params): fused_lans update {fused_ms:.3f} ms "
+          f"(K1+K2+K3 per leaf, scalars once per step), the kernels leaf "
+          f"by leaf with scalars per leaf {per_leaf_ms:.3f} ms, unfused "
+          f"lans update {unfused_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"(48 B/param at 3.35 TB/s)")
+    check(len(leaves) == BERT_LEAVES, f"bert-large has {len(leaves)} leaves")
+    return dict(fused_step_ms=fused_ms, per_leaf_ms=per_leaf_ms,
+                unfused_step_ms=unfused_ms, bound_ms=bound_ms)
+
+
+def profile_step(torch, step_fn, params, state, batch):
+    """One training step under torch.profiler: wall time, device busy
+    time (the sum of the kernels' own device times), the idle share and
+    the device time by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step_fn(params, state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}     # device-side events only (CPU ops carry device time
+    for e in prof.key_averages():     # of their kernels too)
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    families = {"lans K1-K4": ("sq_norm_kernel", "lans_phase",
+                               "finish_sums_kernel"),
+                "matmul": ("gemm", "gemv", "cutlass", "sm90_", "nvjet"),
+                "copy/cast": ("copy", "Memcpy", "Memset"),
+                "fill": ("FillFunctor",), "add": ("CUDAFunctor_add",)}
+    by_family = {f: sum(ms for k, ms in kernels.items()
+                        if any(w in k for w in words))
+                 for f, words in families.items()}
+    by_family["other"] = busy - sum(by_family.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    if busy == 0:
+        print(f"profile[fused route step]: wall {wall_ms:.2f} ms; device "
+              f"time not measured (the profiler saw no device activity)")
+        return
+    print(f"profile[fused route step]: wall {wall_ms:.2f} ms (under the "
+          f"profiler), device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; by family "
+          + ", ".join(f"{f} {ms:.2f} ms" for f, ms in by_family.items()))
+    for name, ms in top:
+        print(f"  {ms:8.3f} ms  {name[:110]}")
+
+
+def mixed_step1(torch, arch, sched, batches):
+    """One shared set of bf16-policy step-1 gradients applied by
+    fused_mixed_lans (K1, K2, K4) and by mixed_precision(lans) (fp32
+    moments, as the kernels keep) to copies of the same state: the fp32
+    masters and moments agree leaf by leaf within 2e-5, the bf16 params
+    within a bf16 ulp (2e-2)."""
+    import dataclasses
+    from repro_torch.core.optim import lans
+    from repro_torch.core.optim.base import apply_updates, tree_items
+    from repro_torch.core.optim.lans import LansState
+    from repro_torch.distributed.steps import loss_and_grads
+    from repro_torch.precision import (fused_mixed_lans, get_policy,
+                                       loss_scale_value, mixed_precision)
+    policy = get_policy("bf16")
+    arch16 = dataclasses.replace(arch, cfg=policy.apply_to_cfg(arch.cfg))
+    params = policy.cast_params(
+        arch16.init(torch.Generator(device="cuda").manual_seed(1)))
+    fused_tx = fused_mixed_lans(sched, policy)
+    plain_tx = mixed_precision(lans(sched), policy)
+    fused_st, plain_st = fused_tx.init(params), plain_tx.init(params)
+    _, _, grads = loss_and_grads(arch16.loss_fn, params, next(batches()),
+                                 loss_scale_value(fused_st))
+    with torch.no_grad():
+        fu, fused_st = fused_tx.update(grads, fused_st, params)
+        pu, plain_st = plain_tx.update(grads, plain_st, params)
+        fused_p, plain_p = (apply_updates(params, fu),
+                            apply_updates(params, pu))
+    inner = next(s for s in plain_st.inner if isinstance(s, LansState))
+    trees = {"master": (fused_st.master, plain_st.master),
+             "mu": (fused_st.mu, inner.mu), "nu": (fused_st.nu, inner.nu),
+             "params": (fused_p, plain_p)}
+    err = {name: 0.0 for name in trees}
+    n_leaves = len(tree_items(params))
+    for name, (a, b) in trees.items():
+        for (path, got), (_, want) in zip(tree_items(a), tree_items(b)):
+            tol = LANS_TOL["bf16" if got.dtype == torch.bfloat16
+                           else "fp32"]
+            close(torch, err, name, got, want, tol, path)
+    print(f"train: step-1 update, bf16 policy, fused_mixed_lans vs "
+          f"mixed_precision(lans) on shared gradients, {n_leaves} leaves, "
+          f"max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tolerance 2e-5; bf16 params 2e-2)")
+    check(n_leaves == BERT_LEAVES, f"bert-large has {n_leaves} leaves")
+    del params, grads, fused_st, plain_st, fused_p, plain_p, trees, inner
+    torch.cuda.empty_cache()
+
+
+def train_routes(torch, kl):
+    """Phase 6: full-width BERT-large training through the CLI (unfused
+    lans) and through build_train_step + fused_lans (K1-K3), then bf16
+    through fused_mixed_lans (K1, K2, K4) and the CLI in fp16. Returns
+    the launch counts of each kernel's main-path run and the step
+    times."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lans, lans
+    from repro_torch.core.optim.base import apply_updates, tree_items
+    from repro_torch.core.optim.lans import LansState
+    from repro_torch.distributed.steps import (build_train_step,
+                                               loss_and_grads)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.precision import fused_mixed_lans, get_policy
+
+    arch = get_arch("bert-large")
+    steps, batch_size, seq, seed = 4, 16, 128, 0
+    sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
+
+    def batches():
+        data = train_mod.make_data(arch, batch=batch_size, seq=seq,
+                                   seed=seed)
+        for b in data:
+            yield {k: torch.from_numpy(a).to("cuda") for k, a in b.items()}
+
+    # one shared set of step-1 gradients, applied by lans and fused_lans
+    params = arch.init(torch.Generator(device="cuda").manual_seed(seed))
+    _, _, grads = loss_and_grads(arch.loss_fn, params, next(batches()),
+                                 None)
+    outs = []
+    for tx in (lans(sched), fused_lans(sched)):
+        with torch.no_grad():
+            upd, st = tx.update(grads, tx.init(params), params)
+        if isinstance(st, tuple) and not hasattr(st, "mu"):   # chain
+            st = next(s for s in st if isinstance(s, LansState))
+        outs.append({"params": apply_updates(params, upd), "mu": st.mu,
+                     "nu": st.nu})
+    err = {name: 0.0 for name in outs[0]}
+    for name in err:
+        for (path, a), (_, b) in zip(tree_items(outs[0][name]),
+                                     tree_items(outs[1][name])):
+            close(torch, err, name, b, a, LANS_TOL["fp32"], path)
+    n_leaves = len(tree_items(params))
+    print(f"train: step-1 update, lans vs fused_lans on shared gradients, "
+          f"{n_leaves} leaves, max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tolerance 2e-5)")
+    del params, grads, outs, upd, st
+    torch.cuda.empty_cache()
+    mixed_step1(torch, arch, sched, batches)
+
+    # the plain route: the port's CLI
+    cli = train_mod.main(TRAIN_ARGV)
+    print(f"train[cli, unfused lans, fp32 policy]: losses "
+          f"{[round(v, 6) for v in cli['losses']]} step_ms "
+          f"{[round(t * 1e3, 2) for t in cli['step_s']]}")
+    torch.cuda.empty_cache()
+
+    # the kernel route: build_train_step + fused_lans, same seed, batches
+    step_fn, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
+                                        param_init_fn=arch.init,
+                                        policy="fp32")
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    for k in kl.KERNELS:
+        k.launches = 0
+    losses, step_ms = [], []
+    for _, b in zip(range(steps), batches()):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in kl.KERNELS}
+    print(f"train[build_train_step + fused_lans, fp32 policy]: losses "
+          f"{[round(v, 6) for v in losses]} step_ms "
+          f"{[round(t, 2) for t in step_ms]}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses + cli["losses"]),
+          "a training loss is not finite")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cli["losses"]))
+    check(rel <= 1e-2, f"fused and CLI loss trajectories differ by {rel:.3e} "
+          f"relative (> 1e-2)")
+    print(f"train: fused vs CLI loss trajectory, max relative diff "
+          f"{rel:.3e} (tolerance 1e-2)")
+    for name in ("sq_norm", "lans_phase1", "lans_phase2"):
+        check(launches[name] == steps * BERT_LEAVES,
+              f"{name} launched {launches[name]} times, expected "
+              f"{steps} x {BERT_LEAVES}")
+    check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
+    profile_step(torch, step_fn, params, state, next(batches()))
+    del params, state
+    torch.cuda.empty_cache()
+
+    # bf16 through fused_mixed_lans: K1, K2 and K4
+    policy = get_policy("bf16")
+    arch16 = dataclasses.replace(arch, cfg=policy.apply_to_cfg(arch.cfg))
+    step_fn, init_fn = build_train_step(
+        arch16.loss_fn, fused_mixed_lans(sched, policy),
+        param_init_fn=arch16.init, policy=policy)
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    for k in kl.KERNELS:
+        k.launches = 0
+    bf16_losses, bf16_ms, bf16_steps = [], [], 2
+    for _, b in zip(range(bf16_steps), batches()):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        bf16_losses.append(float(metrics["loss"]))
+        bf16_ms.append((time.perf_counter() - t0) * 1e3)
+    applied = bf16_steps - int(metrics["overflow_count"])
+    bf16_launches = {k.__name__: k.launches for k in kl.KERNELS}
+    print(f"train[build_train_step + fused_mixed_lans, bf16 policy]: losses "
+          f"{[round(v, 6) for v in bf16_losses]} step_ms "
+          f"{[round(t, 2) for t in bf16_ms]}; applied steps {applied}; "
+          f"launches {bf16_launches}")
+    check(all(math.isfinite(v) for v in bf16_losses),
+          "a bf16 training loss is not finite")
+    check(bf16_launches["lans_phase2_cast"] == applied * BERT_LEAVES,
+          f"K4 launched {bf16_launches['lans_phase2_cast']} times for "
+          f"{applied} applied steps")
+    check(bf16_launches["lans_phase2"] == 0, "the mixed route launched K3")
+    del params, state
+    torch.cuda.empty_cache()
+
+    # the CLI in fp16: dynamic loss scaling
+    fp16_argv = list(TRAIN_ARGV)
+    fp16_argv[fp16_argv.index("fp32")] = "fp16"
+    fp16 = train_mod.main(fp16_argv)
+    check(math.isfinite(fp16["final_loss"]), "fp16 final loss not finite")
+    print(f"train[cli, fp16]: losses {[round(v, 6) for v in fp16['losses']]}"
+          f" loss_scale {fp16['loss_scale']} overflow_count "
+          f"{fp16['overflow_count']} step_ms "
+          f"{[round(t * 1e3, 2) for t in fp16['step_s']]}")
+    torch.cuda.empty_cache()
+    return launches, bf16_launches
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -197,7 +668,10 @@ def run() -> int:
         return 3
     sys.path.insert(0, src)
     from repro_torch import select_device
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build
+    from repro_torch.kernels import lans as kl
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve as serve_mod
 
@@ -215,6 +689,11 @@ def run() -> int:
 
     kernel = phase_kernels(torch, pa)
 
+    warm_argv = list(SERVE_ARGV)
+    warm_argv[warm_argv.index("--requests") + 1] = "2"
+    warm_argv[warm_argv.index("--new-tokens") + 1] = "4"
+    serve_mod.main(warm_argv)
+    print("serve: warm-up stream done (2 requests, 4 new tokens)")
     pa.paged_attention_fused.launches = 0
     paged, paged_tokens = serve(serve_mod, SERVE_ARGV, "fp32 paged")
     kernel["launches"] = pa.paged_attention_fused.launches
@@ -236,9 +715,27 @@ def run() -> int:
     bf16_argv = list(SERVE_ARGV)
     bf16_argv[bf16_argv.index("fp32")] = "bf16"
     serve(serve_mod, bf16_argv, "bf16 paged")
+    torch.cuda.empty_cache()
+
+    errs = lans_parity(torch, kl, kops)
+    times = lans_timing(torch, kl, kops, errs)
+    fused_step_timing(torch, get_arch("bert-large"), kops)
+    torch.cuda.empty_cache()
+    fp32_launches, bf16_launches = train_routes(torch, kl)
+    replaces = {"sq_norm": 68, "lans_phase1": 122, "lans_phase2": 207,
+                "lans_phase2_cast": 228}
+    entries = [kernel]
+    for name, line in replaces.items():
+        launches = (bf16_launches if name == "lans_phase2_cast"
+                    else fp32_launches)[name]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/lans.cu",
+            replaces=f"src/repro/kernels/lans_kernel.py:{line}",
+            launches=launches, max_abs_err=errs[name], **times[name]))
 
     print(card_line())
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,18 @@
 """Params from the JAX package to the port, through numpy.
 
 The port keeps the JAX package's param layout: nested dicts with the
-same keys, dense kernels (in, out), and every `slot{i}` leaf stacked over
-the periods. So the conversion is leaf by leaf; what it adds is a check
-that the tree has exactly the shapes the port's `decoder_init` would
-build for `cfg`, so that both frameworks compute the same function.
+same keys, dense kernels (in, out), and every `slot{i}` leaf (decoder)
+or `layers` leaf (BERT) stacked over the periods or layers. So the
+conversion is leaf by leaf; what it adds is a check that the tree has
+exactly the shapes the port's `decoder_init` / `bert_init` would build
+for `cfg`, so that both frameworks compute the same function.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.bert import BertConfig, bert_init
 from repro_torch.models.decoder import decoder_init
 
 
@@ -41,12 +43,14 @@ def _convert(tree, device):
 
 
 def params_from_jax(cfg, np_tree, device="cpu"):
-    """The JAX package's decoder params (nested dict of numpy arrays, or
-    of anything np.asarray takes) as the port's params for `cfg`, on
-    `device`, dtypes kept. Raises when keys or shapes differ from what
-    the port builds for `cfg`."""
+    """The JAX package's decoder or BERT params (nested dict of numpy
+    arrays, or of anything np.asarray takes) as the port's params for
+    `cfg` (a DecoderConfig or BertConfig), on `device`, dtypes kept.
+    Raises when keys or shapes differ from what the port builds for
+    `cfg`."""
+    init = bert_init if isinstance(cfg, BertConfig) else decoder_init
     with torch.device("meta"):
-        want = _shapes(decoder_init(None, cfg))
+        want = _shapes(init(None, cfg))
     got = _shapes(np_tree)
     if want != got:
         missing = sorted(set(want) - set(got))

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the decoder archs ported so far.
+"""Architecture registry of the port: the archs ported so far.
 
 The JAX package's registry names more archs; asking for one that has not
 been ported yet raises and says so.
@@ -12,13 +12,13 @@ from repro_torch.configs.base import Arch, reduced_decoder
 
 _MODULES = {
     "gemma2-2b": "gemma2_2b",
+    "bert-large": "bert_large",
 }
 
 # archs of the JAX package that the port does not serve yet
 NOT_PORTED = ("grok-1-314b", "granite-moe-3b-a800m", "qwen2.5-14b",
               "qwen2.5-32b", "chameleon-34b", "whisper-large-v3",
-              "mistral-nemo-12b", "jamba-1.5-large-398b", "mamba2-130m",
-              "bert-large")
+              "mistral-nemo-12b", "jamba-1.5-large-398b", "mamba2-130m")
 
 
 def get_arch(name: str) -> Arch:
@@ -32,8 +32,13 @@ def get_arch(name: str) -> Arch:
 
 
 def reduced_arch(name: str) -> Arch:
-    """Smoke-test variant: <= 2 periods, d_model 256, vocab 1k."""
+    """Smoke-test variant: decoders <= 2 periods, d_model 256, vocab 1k;
+    bert 2L / 128d / 4H / ff 256 / vocab 512 / max_pos 128."""
     arch = get_arch(name)
+    if arch.kind == "bert":
+        return dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, n_layers=2, d_model=128, n_heads=4, d_ff=256,
+            vocab=512, max_pos=128))
     return dataclasses.replace(arch, cfg=reduced_decoder(arch.cfg))
 
 

@@ -1,7 +1,9 @@
 """Arch: binds a model family to its config (port of repro/configs/base.py).
 
-Only the decoder family is ported so far: init, the paged serving cache,
-prefill into a pooled cache, and one decode step.
+Ported: the decoder family's serving side (init, the paged serving
+cache, prefill into a pooled cache, one decode step) and the bert
+family's pretraining side (init, loss). The decoder losses and BERT
+serving are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -10,25 +12,42 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.models import bert as bert_lib
 from repro_torch.models import decoder as dec_lib
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    kind: str                      # "decoder" (the only family ported)
+    kind: str                      # "decoder" | "bert"
     cfg: Any
     source: str                    # citation for the config
 
     def init(self, gen: torch.Generator):
         """Random params drawn from `gen`, on `gen.device`."""
+        if self.kind == "bert":
+            return bert_lib.bert_init(gen, self.cfg)
         return dec_lib.decoder_init(gen, self.cfg)
+
+    def loss_fn(self, params, batch):
+        """(loss, aux) for one batch — what the train step
+        differentiates."""
+        if self.kind != "bert":
+            raise NotImplementedError(f"training the {self.kind} family is "
+                                      f"not ported yet")
+        return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
+
+    def _serving(self):
+        if self.kind != "decoder":
+            raise NotImplementedError(f"serving the {self.kind} family is "
+                                      f"not ported yet")
 
     def init_paged_cache(self, batch: int, max_len: int, *,
                          block_size: int = 16, n_blocks=None, device="cpu"):
         """Paged (block-arena) serving cache. n_blocks defaults to the
         dense-equivalent budget: `batch` slots' worth of blocks per
         attention slot-type."""
+        self._serving()
         if n_blocks is None:
             n_blocks = {si: batch * (ring // block_size) for si, ring
                         in dec_lib.paged_layout(self.cfg, max_len,
@@ -42,6 +61,7 @@ class Arch:
         """Full-sequence forward into a fresh pooled cache ->
         (last-position logits (B, 1, V), cache). positions (B, S) gives
         per-slot local timelines; left-pad rows carry positions < 0."""
+        self._serving()
         toks = batch["tokens"]
         cache = dec_lib.init_decoder_cache(
             self.cfg, toks.shape[0], cache_len or toks.shape[1],
@@ -54,6 +74,7 @@ class Arch:
     def decode_step(self, params, batch, cache):
         """New tokens against the cache -> (logits, cache written in
         place). batch may carry "positions" (B, S)."""
+        self._serving()
         return dec_lib.decoder_apply(params, self.cfg, batch["tokens"],
                                      caches=cache,
                                      positions=batch.get("positions"))

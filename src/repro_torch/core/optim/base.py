@@ -1,0 +1,165 @@
+"""Gradient-transformation API over nested dicts of tensors (port of
+repro/core/optim/base.py).
+
+    tx = chain(scale_by_lans(...), scale_by_schedule(sched))
+    state = tx.init(params)
+    updates, state = tx.update(grads, state, params)
+    params = apply_updates(params, updates)
+
+A tree is a nested dict whose leaves are tensors (or None). Transforms
+are plain functions that return new trees and leave their inputs as they
+were, as the JAX package's pure transforms do. Scalars that change from
+step to step (counts, learning rates, bias corrections) are 0-d tensors
+on the parameters' device, so a step never reads them back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+Tree = Any
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# trees: nested dicts, leaves in the JAX package's order (sorted keys)
+# --------------------------------------------------------------------------
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` and the matching leaves of `rest`."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_items(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs, paths '/'-joined and in sorted-key order, the
+    order in which the JAX package flattens a dict."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else str(k)
+        v = tree[k]
+        out.extend(tree_items(v, path) if isinstance(v, dict)
+                   else [(path, v)])
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_paths(tree):
+    """Tree of '/'-joined key paths, same structure as `tree`."""
+    def walk(t, prefix):
+        return {k: walk(v, f"{prefix}/{k}" if prefix else str(k))
+                if isinstance(v, dict) else (f"{prefix}/{k}" if prefix
+                                             else str(k))
+                for k, v in t.items()}
+    return walk(tree, "")
+
+
+# --------------------------------------------------------------------------
+# transforms
+# --------------------------------------------------------------------------
+
+class GradientTransformation(NamedTuple):
+    """A pair of functions (init, update)."""
+
+    init: Callable[[Tree], Any]
+    # update(grads, state, params) -> (updates, new_state)
+    update: Callable[[Tree, Any, Optional[Tree]], tuple]
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor  # int32 0-d
+
+
+def tree_device(tree) -> torch.device:
+    leaves = tree_leaves(tree)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def scale_by_schedule(schedule: Schedule) -> GradientTransformation:
+    """Multiply updates by -schedule(count); increments count each step."""
+
+    def init_fn(params):
+        return ScaleByScheduleState(count=torch.zeros(
+            (), dtype=torch.int32, device=tree_device(params)))
+
+    def update_fn(updates, state, params=None):
+        lr = schedule(state.count)
+        # -lr * u in the promoted type, as JAX promotes bf16 x f32 to f32
+        updates = tree_map(
+            lambda u: -lr * u.to(torch.promote_types(u.dtype, lr.dtype)),
+            updates)
+        return updates, ScaleByScheduleState(count=state.count + 1)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    def init_fn(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update_fn(updates, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def apply_updates(params, updates):
+    """params + updates, in each param's dtype (master-weight safe)."""
+    return tree_map(lambda p, u: p if u is None else p + u.to(p.dtype),
+                    params, updates)
+
+
+# --------------------------------------------------------------------------
+# numeric helpers of the optimizers
+# --------------------------------------------------------------------------
+
+def safe_norm(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """l2 norm in fp32; returns max(norm, eps)."""
+    x = x.float()
+    return torch.clamp(torch.sqrt(torch.sum(x * x)), min=eps)
+
+
+def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num/den with den == 0 (or NaN) -> 0: a zero block normalizes to 0."""
+    return torch.where(den > 0.0, num / torch.clamp(den, min=1e-38),
+                       torch.zeros_like(num))
+
+
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay**t in fp32 for a (1-indexed) step count (a 0-d tensor).
+    fp32 on purpose: 1 - decay**t in fp64 on the host differs at 1e-7
+    relative."""
+    count = torch.as_tensor(count)
+    base = torch.full((), decay, dtype=torch.float32, device=count.device)
+    return 1.0 - torch.pow(base, count.to(torch.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightDecayMask:
+    """Predicate over tree paths selecting params that receive weight decay.
+
+    The paper (following BERT/LAMB practice) excludes LayerNorm scales and
+    biases from decay and from the trust-ratio rescaling (phi == 1 for them).
+    Copied verbatim from the JAX package, faults included: BERT's
+    LayerNorm scales sit at paths like "layers/attn_ln/scale", which match
+    none of these substrings, so they DO get decay and trust scaling
+    there (ROADMAP Queue 3).
+    """
+
+    exclude_substrings: Sequence[str] = ("bias", "layernorm", "ln_", "norm",
+                                         "scale_param")
+
+    def __call__(self, path: str) -> bool:
+        lowered = path.lower()
+        return not any(s in lowered for s in self.exclude_substrings)

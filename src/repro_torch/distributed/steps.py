@@ -1,15 +1,32 @@
-"""The serving decode step (port of repro/distributed/steps.py,
-build_serve_step and greedy_next, single device).
+"""Train and serve step builders (port of repro/distributed/steps.py,
+build_train_step, build_serve_step and greedy_next, on one device).
 
-PyTorch runs eagerly, so where the JAX package jitted the step once per
-cache shape the port returns a plain function. The cache (arenas,
-tables, cursors) is written in place by the step.
+PyTorch runs eagerly, so where the JAX package jitted a step the port
+returns a plain function. The serving cache (arenas, tables, cursors) is
+written in place by the serve step; the train step returns new params
+and optimizer state and leaves its inputs as they were.
+
+Gradient accumulation: `microbatches > 1` splits the batch on its
+leading dim and averages the gradients in fp32 (the JAX package's
+lax.scan over microbatch slices).
+
+Mixed precision: pass `policy` ("bf16", "fp16_mixed", ...) and the raw
+optimizer; the builder wraps it with `mixed_precision` (fp32 master
+weights), scales the loss by the loss scale carried in the optimizer
+state before the backward pass, and the metrics gain `loss_scale`,
+`overflow_count` and `grads_finite`. An optimizer that already carries
+a loss scale (precision.fused_mixed_lans) is used as it is: the JAX
+builder wraps it again, and that outer wrapper then adds
+`cast(new master) - master` to its own master, which leaves the master
+rounded to the low-precision copy on every step (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+from repro_torch.core.optim.base import apply_updates, tree_leaves, tree_map
 
 
 def greedy_next(logits):
@@ -40,3 +57,95 @@ def build_serve_step(decode_fn: Callable, *, sampler=None):
         return greedy_next(logits), new_cache
 
     return step
+
+
+def loss_and_grads(loss_fn, params, batch, scale):
+    """(loss, aux, fp32 grads) of one (micro)batch; the loss is multiplied
+    by `scale` (after its fp32 reduction) before the backward pass."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        loss, aux = loss_fn(live, batch)
+        objective = loss if scale is None else loss * scale.to(loss.dtype)
+        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
+    by_leaf = {id(t): (torch.zeros(t.shape, dtype=torch.float32,
+                                   device=t.device) if g is None
+                       else g.float())
+               for t, g in zip(leaves, grads)}
+    aux = {k: v.detach() if torch.is_tensor(v) else v
+           for k, v in aux.items()}
+    return loss.detach(), aux, tree_map(lambda t: by_leaf[id(t)], live)
+
+
+def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
+                     param_init_fn: Optional[Callable] = None, policy=None,
+                     loss_scale=None):
+    """Returns (step_fn, init_fn) on one device.
+
+    step_fn: (params, opt_state, batch) -> (params, opt_state, metrics)
+    init_fn: torch.Generator -> (params, opt_state)
+
+    loss_fn(params, batch) -> (loss, aux dict); batch is a dict of
+    tensors whose leading dim is the batch. With a policy that needs
+    master weights or loss scaling, `tx` is wrapped in mixed_precision
+    unless it is a mixed-precision transform already
+    (precision.fused_mixed_lans).
+    """
+    from repro_torch import precision
+    if policy is not None:
+        policy = precision.get_policy(policy)
+    mixed = policy is not None and policy.wants_wrapper
+    if mixed and not isinstance(tx, precision.MixedTransformation):
+        tx = precision.mixed_precision(tx, policy, loss_scale)
+
+    def step_fn(params, opt_state, batch):
+        scale = precision.loss_scale_value(opt_state) if mixed else None
+        if microbatches == 1:
+            loss, aux, grads = loss_and_grads(loss_fn, params, batch, scale)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % microbatches:
+                raise ValueError(f"batch {n} does not split into "
+                                 f"{microbatches} microbatches")
+            size = n // microbatches
+            grads, losses, auxs = None, [], []
+            for i in range(microbatches):
+                mb = {k: v[i * size:(i + 1) * size] if v.ndim >= 1 else v
+                      for k, v in batch.items()}
+                loss_i, aux_i, g_i = loss_and_grads(loss_fn, params, mb,
+                                                    scale)
+                grads = g_i if grads is None else tree_map(torch.add,
+                                                           grads, g_i)
+                losses.append(loss_i)
+                auxs.append(aux_i)
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = torch.stack(losses).sum() / microbatches
+            # float aux averaged over the whole batch, other aux from the
+            # last microbatch (as the JAX package does)
+            aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
+                   if torch.is_tensor(v) and v.is_floating_point()
+                   else v for k, v in auxs[-1].items()}
+
+        with torch.no_grad():
+            updates, new_opt = tx.update(grads, opt_state, params)
+            new_params = apply_updates(params, updates)
+            gnorm = torch.sqrt(sum(torch.sum(g * g)
+                                   for g in tree_leaves(grads)))
+            metrics = {"loss": loss, "grad_norm": gnorm, **aux}
+            if mixed:
+                metrics["grad_norm"] = gnorm / scale   # report unscaled
+                metrics["grads_finite"] = precision.all_finite(grads)
+                metrics["loss_scale"] = precision.loss_scale_value(new_opt)
+                metrics["overflow_count"] = precision.overflow_count(new_opt)
+        return new_params, new_opt, metrics
+
+    def init_fn(gen: torch.Generator):
+        if param_init_fn is None:
+            raise ValueError("build_train_step needs param_init_fn for "
+                             "init_fn")
+        params = param_init_fn(gen)
+        if policy is not None:
+            params = policy.cast_params(params)
+        return params, tx.init(params)
+
+    return step_fn, init_fn

@@ -1,0 +1,138 @@
+"""Per-tensor entry points of the fused optimizer kernels (port of
+repro/kernels/ops.py).
+
+Each parameter tensor is viewed flat and handed to the kernels of
+kernels/lans.py as it is: the CUDA kernels take any length and mask
+their tail, so nothing is padded (the JAX wrappers pad to (256, 128)
+tiles only because the TPU tiles that way; zero padding was exact, so
+the results agree). CUDA tensors go through the kernels, CPU tensors
+through their plain versions.
+
+Step scalars are built on the operands' device from `eta` and `step`
+(Python numbers or 0-d tensors), so a training step passes its device
+count and schedule value through without a host round trip. The
+optimizer transforms build a whole step's scalars at once
+(lans_scalar_rows) and hand each tensor its row.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import lans as K
+
+
+class StepOut(NamedTuple):
+    x: torch.Tensor   # new params, in x's dtype
+    m: torch.Tensor   # new first moment, fp32
+    v: torch.Tensor   # new second moment, fp32
+
+
+class MixedStepOut(NamedTuple):
+    """fused_lans_mixed_step result: fp32 master + low-precision copy."""
+
+    x: torch.Tensor     # new master weights, fp32
+    m: torch.Tensor
+    v: torch.Tensor
+    x_lp: torch.Tensor  # new model copy, lp_dtype (cast fused into K4)
+
+
+def _flat(t):
+    return t.reshape(-1).contiguous()
+
+
+def lans_scalars(eta, step, *, beta1: float, beta2: float, lam: float,
+                 apply_trust: bool, device) -> torch.Tensor:
+    """The kernels' scalars [bc1, bc2, eta, lam, trust, g_sq=0, 0, 0] as
+    an (8,) fp32 tensor on `device`. The bias corrections are
+    1 - float32(beta) ** t in fp32, with t = `step` (1-indexed)."""
+    s = torch.zeros(8, dtype=torch.float32, device=device)
+    t = (step.to(device=device, dtype=torch.float32)
+         if torch.is_tensor(step) else s.new_full((), float(step)))
+    betas = s.new_empty(2)
+    betas[0] = beta1
+    betas[1] = beta2
+    s[0:2] = 1.0 - torch.pow(betas, t)
+    if torch.is_tensor(eta):
+        s[2] = eta.to(device=device, dtype=torch.float32)
+    else:
+        s[2] = float(eta)
+    s[3] = lam
+    s[4] = 1.0 if apply_trust else 0.0
+    return s
+
+
+def lans_scalar_rows(eta, step, decay, *, beta1: float, beta2: float,
+                     lam: float, device) -> torch.Tensor:
+    """The scalars of a whole step, one (8,) row per parameter tensor:
+    lam and trust on where `decay[i]`, lam 0 and trust off elsewhere.
+    bc1, bc2 and eta are the same in every row, so they are built once
+    per step, not once per tensor; each row is contiguous and takes its
+    tensor's g_sq from K1."""
+    on = lans_scalars(eta, step, beta1=beta1, beta2=beta2, lam=lam,
+                      apply_trust=True, device=device)
+    off = on.clone()
+    off[3:5] = 0.0
+    return torch.stack([on if d else off for d in decay])
+
+
+def _scalars(scalars, eta, step, beta1, beta2, lam, apply_trust, device):
+    if scalars is not None:
+        return scalars
+    if eta is None or step is None:
+        raise TypeError("give eta and step, or scalars")
+    return lans_scalars(eta, step, beta1=beta1, beta2=beta2, lam=lam,
+                        apply_trust=apply_trust, device=device)
+
+
+def fused_lans_step(g, m, v, x, *, eta=None, step=None, beta1: float = 0.9,
+                    beta2: float = 0.999, eps: float = 1e-6,
+                    lam: float = 0.01, apply_trust: bool = True,
+                    scalars: Optional[torch.Tensor] = None) -> StepOut:
+    """One fused LANS update for a single parameter tensor (any shape):
+    K1, K2, K3. Returns new tensors, x_new in x's dtype, moments fp32.
+    `scalars` (a row of lans_scalar_rows, which K1 completes) stands in
+    for eta, step, lam and apply_trust when given."""
+    gf, mf, vf, xf = map(_flat, (g, m, v, x))
+    scal = _scalars(scalars, eta, step, beta1, beta2, lam, apply_trust,
+                    g.device)
+    K.sq_norm(gf, out=scal[5:6])
+    m_new, v_new, norms = K.lans_phase1(scal, gf, mf, vf, xf, beta1=beta1,
+                                        beta2=beta2, eps=eps)
+    x_new = K.lans_phase2(scal, norms, gf, m_new, v_new, xf, beta1=beta1,
+                          eps=eps)
+    return StepOut(x_new.view(x.shape), m_new.view(x.shape),
+                   v_new.view(x.shape))
+
+
+def fused_lans_mixed_step(g, m, v, x, *, eta=None, step=None, lp_dtype,
+                          beta1: float = 0.9, beta2: float = 0.999,
+                          eps: float = 1e-6, lam: float = 0.01,
+                          apply_trust: bool = True,
+                          scalars: Optional[torch.Tensor] = None
+                          ) -> MixedStepOut:
+    """Fused LANS step on the fp32 master `x` that also emits the lp_dtype
+    model copy from the same pass: K1, K2, K4. `scalars` as in
+    fused_lans_step."""
+    gf, mf, vf, xf = map(_flat, (g, m, v, x))
+    scal = _scalars(scalars, eta, step, beta1, beta2, lam, apply_trust,
+                    g.device)
+    K.sq_norm(gf, out=scal[5:6])
+    m_new, v_new, norms = K.lans_phase1(scal, gf, mf, vf, xf, beta1=beta1,
+                                        beta2=beta2, eps=eps)
+    x_new, x_lp = K.lans_phase2_cast(scal, norms, gf, m_new, v_new, xf,
+                                     lp_dtype=lp_dtype, beta1=beta1,
+                                     eps=eps)
+    return MixedStepOut(x_new.view(x.shape), m_new.view(x.shape),
+                        v_new.view(x.shape), x_lp.view(x.shape))
+
+
+def fused_lamb_step(*args, **kwargs):
+    raise NotImplementedError("fused_lamb_step is not ported yet: the LAMB "
+                              "kernels K5-K6 come with the next slice")
+
+
+def block_sq_norm(x) -> torch.Tensor:
+    """Kernel-backed sum of squares (K1) of a tensor of any shape."""
+    return K.sq_norm(_flat(x))

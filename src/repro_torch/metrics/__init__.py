@@ -1,3 +1,3 @@
-from repro_torch.metrics.logger import MetricsLogger
+from repro_torch.metrics.logger import MetricsLogger, read_metrics
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "read_metrics"]

@@ -1,10 +1,14 @@
 """Grouped-query attention (port of repro/models/attention.py).
 
-Variants ported: causal GQA / MHA / MQA with RoPE, optional QKV bias,
-attention-logit soft-capping and sliding-window masking; the
-full-sequence path, the pooled per-slot cache (prefill into a dense
-cache, including the ring-tail write of sliding-window layers) and the
-paged serving branch with both decode implementations:
+Variants ported: GQA / MHA / MQA, causal with RoPE (the decoders) or
+bidirectional without a positional op (BERT), optional QKV bias and
+query scale, attention-logit soft-capping and sliding-window masking;
+the full-sequence path (cache-free; sequences of `q_chunk_threshold` or
+more that divide into `q_block`s would take the JAX package's
+remat-chunked branch, which is not ported and raises), the pooled
+per-slot cache (prefill into a dense cache, including the ring-tail
+write of sliding-window layers) and the paged serving branch with both
+decode implementations:
 
   decode_kernel="paged"  the hand-written kernel
                          (kernels/paged_attention.py) attends and writes
@@ -40,9 +44,16 @@ class AttnConfig:
     n_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
+    rope: bool = True
     rope_theta: float = 10000.0
+    causal: bool = True
     sliding_window: Optional[int] = None
     logit_softcap: Optional[float] = None
+    query_scale: Optional[float] = None  # default 1/sqrt(head_dim)
+    # Sequences >= q_chunk_threshold (and divisible by q_block) take the
+    # JAX package's remat-chunked attention, which is not ported.
+    q_chunk_threshold: int = 4096
+    q_block: int = 1024
     # Paged decode implementation: "xla" scatters then gathers
     # arena[table] into a dense (B, ring_len) copy; "paged" runs the
     # fused kernel. Only the paged serving branch reads this.
@@ -65,13 +76,15 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _mask_logits(logits, q_pos, k_pos, *, window):
-    """Causal mask. logits (B, H, Sq, Sk); q_pos (Sq,) or (B, Sq), k_pos
-    (Sk,) or (B, Sk) absolute positions. Negative k_pos marks invalid
-    rows and is always masked."""
+def _mask_logits(logits, q_pos, k_pos, *, causal, window):
+    """logits (B, H, Sq, Sk); q_pos (Sq,) or (B, Sq), k_pos (Sk,) or
+    (B, Sk) absolute positions. Negative k_pos marks invalid rows and is
+    always masked."""
     kp = k_pos[None, None, :] if k_pos.ndim == 1 else k_pos[:, None, :]
     qp = q_pos[None, :, None] if q_pos.ndim == 1 else q_pos[:, :, None]
-    ok = (kp >= 0) & (kp <= qp)
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
     if window is not None:
         ok = ok & ((qp - kp) < window)
     ok = ok.expand((ok.shape[0],) + tuple(logits.shape[-2:]))
@@ -88,7 +101,7 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, *, scale, decode,
     else:
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     logits = softcap(logits, cfg.logit_softcap)
-    logits = _mask_logits(logits.float(), q_pos, k_pos,
+    logits = _mask_logits(logits.float(), q_pos, k_pos, causal=cfg.causal,
                           window=cfg.sliding_window)
     probs = torch.softmax(logits, dim=-1)
     if decode:
@@ -107,7 +120,8 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
     Both are written in place."""
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    scale = 1.0 / math.sqrt(hd)
+    scale = (cfg.query_scale if cfg.query_scale is not None
+             else 1.0 / math.sqrt(hd))
 
     q = _split_heads(dense_apply(p["wq"], x, compute_dtype), h, hd)
     k = _split_heads(dense_apply(p["wk"], x, compute_dtype), kv, hd)
@@ -117,8 +131,9 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         positions = torch.arange(S, device=x.device)
     if positions.ndim <= 1:
         positions = positions.expand(S)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     attend_cached = cache is not None
@@ -205,6 +220,11 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         v = cache["v"].to(compute_dtype)
         k_pos = cache["pos"]
     else:
+        if S >= cfg.q_chunk_threshold and S % cfg.q_block == 0:
+            raise NotImplementedError(
+                f"attention over {S} positions takes the remat-chunked "
+                f"branch (q_chunk_threshold {cfg.q_chunk_threshold}), "
+                f"which is not ported yet")
         k_pos = positions
         q_pos = positions
 

@@ -1,0 +1,160 @@
+"""BERT, the paper's own pretraining workload (port of
+repro/models/bert.py).
+
+Post-LN encoder, learned positional + token-type embeddings, GELU MLP with
+biases, MLM head (transform -> tied decoder + fp32 output bias) and NSP
+head over the [CLS] pooler. The pretraining loss is MLM cross-entropy +
+NSP cross-entropy, what LANS optimizes.
+
+As in the JAX package, the layer params are stacked on a leading
+n_layers axis (one LANS block spans all layers) and each layer is
+rematerialized in the backward pass (torch.utils.checkpoint, where JAX
+remats its scanned layer). `compute_dtype` defaults to
+bf16 (`bert.py:41`), so an fp32-policy run still does its matmuls in bf16
+(ROADMAP Queue 3); parity tests set it to fp32.
+
+bert_large: 24L / 1024d / 16H / ff 4096 / vocab 30522 / max_pos 512.
+Serving outputs (bert_serve_outputs) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
+from repro_torch.models.common import (_randn, dense_apply, dense_init,
+                                       embed_apply, embed_init, gelu,
+                                       layernorm_apply, layernorm_init,
+                                       mlp_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    name: str = "bert_large"
+    n_layers: int = 24
+    d_model: int = 1024
+    n_heads: int = 16
+    d_ff: int = 4096
+    vocab: int = 30522
+    max_pos: int = 512
+    type_vocab: int = 2
+    compute_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_heads, head_dim=self.head_dim,
+            qkv_bias=True, rope=False, causal=False)
+
+
+def bert_init(gen: Optional[torch.Generator], cfg: BertConfig):
+    """Random params drawn from `gen` on its device (gen=None: the ambient
+    device, e.g. `torch.device("meta")` for shapes only)."""
+    dt, L = cfg.param_dtype, (cfg.n_layers,)
+    dev = None if gen is None else gen.device
+    ln = lambda lead=(): layernorm_init(cfg.d_model, dt, dev, lead)
+    return {
+        "tok_embed": embed_init(gen, cfg.vocab, cfg.d_model, dt),
+        "pos_embed": (_randn(gen, (cfg.max_pos, cfg.d_model)) * 0.02).to(dt),
+        "type_embed": (_randn(gen, (cfg.type_vocab, cfg.d_model))
+                       * 0.02).to(dt),
+        "embed_ln": ln(),
+        "layers": {
+            "attn": attn_init(gen, cfg.attn_cfg(), dtype=dt, lead=L),
+            "attn_ln": ln(L),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=False,
+                            use_bias=True, dtype=dt, lead=L),
+            "mlp_ln": ln(L),
+        },
+        "mlm_transform": dense_init(gen, cfg.d_model, cfg.d_model,
+                                    use_bias=True, dtype=dt),
+        "mlm_ln": ln(),
+        "mlm_bias": torch.zeros((cfg.vocab,), dtype=dt, device=dev),
+        "pooler": dense_init(gen, cfg.d_model, cfg.d_model, use_bias=True,
+                             dtype=dt),
+        "nsp_head": dense_init(gen, cfg.d_model, 2, use_bias=True, dtype=dt),
+    }
+
+
+def _layer(cfg: BertConfig, x, lp):
+    cd = cfg.compute_dtype
+    h, _ = attn_apply(lp["attn"], cfg.attn_cfg(), x, compute_dtype=cd)
+    x = layernorm_apply(lp["attn_ln"], x + h)
+    up = dense_apply(lp["mlp"]["up"], x, cd)
+    h = dense_apply(lp["mlp"]["down"], gelu(up), cd)
+    return layernorm_apply(lp["mlp_ln"], x + h)
+
+
+def _unbind(tree):
+    """Per-layer views of the stacked layer params: for each leaf, the
+    tuple of its n_layers slices. One unbind per leaf, so the backward
+    pass stacks the layers' gradients once (indexing layer by layer
+    would build and add a full-size gradient per layer instead)."""
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
+def _layer_params(tree, i):
+    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def bert_encode(params, cfg: BertConfig, tokens, token_types=None):
+    """tokens (B, S) -> hidden states (B, S, d) in compute_dtype. Post-LN
+    residual stack over positions 0..S-1; every layer is recomputed in
+    the backward pass instead of keeping its activations."""
+    cd = cfg.compute_dtype
+    S = tokens.shape[1]
+    x = embed_apply(params["tok_embed"], tokens, cd)
+    x = x + params["pos_embed"].to(cd)[None, :S]
+    if token_types is None:
+        token_types = torch.zeros_like(tokens)
+    x = x + params["type_embed"].to(cd)[token_types.long()]
+    x = layernorm_apply(params["embed_ln"], x)
+    layers = _unbind(params["layers"])
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+        if torch.is_grad_enabled():
+            x = checkpoint(_layer, cfg, x, lp, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, lp)
+    return x
+
+
+def bert_pretrain_logits(params, cfg: BertConfig, tokens, token_types=None):
+    """Returns (mlm_logits (B, S, V) fp32, nsp_logits (B, 2) fp32)."""
+    cd = cfg.compute_dtype
+    h = bert_encode(params, cfg, tokens, token_types)
+    t = dense_apply(params["mlm_transform"], h, cd)
+    t = layernorm_apply(params["mlm_ln"], gelu(t))
+    mlm = torch.matmul(t.to(cd), params["tok_embed"]["embedding"].to(cd).t())
+    mlm = mlm.float() + params["mlm_bias"].float()
+    cls = torch.tanh(dense_apply(params["pooler"], h[:, 0], cd))
+    nsp = dense_apply(params["nsp_head"], cls, cd).float()
+    return mlm, nsp
+
+
+def bert_pretrain_loss(params, cfg: BertConfig, batch):
+    """batch: tokens, token_types, mlm_labels (-100 = unmasked),
+    nsp_labels. Returns (loss, {"mlm_loss", "nsp_loss"})."""
+    mlm_logits, nsp_logits = bert_pretrain_logits(
+        params, cfg, batch["tokens"], batch.get("token_types"))
+    labels = batch["mlm_labels"].long()
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = F.log_softmax(mlm_logits, dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    mlm_loss = -torch.sum(ll * valid) / torch.clamp(valid.sum(), min=1)
+    nsp_logp = F.log_softmax(nsp_logits, dim=-1)
+    nsp_loss = -torch.mean(torch.gather(
+        nsp_logp, -1, batch["nsp_labels"].long()[:, None]))
+    return mlm_loss + nsp_loss, {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss}

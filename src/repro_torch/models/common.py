@@ -3,7 +3,8 @@ repro/models/common.py).
 
 Params are nested dicts of tensors with the JAX package's keys and
 layouts: dense kernels are stored (in, out), embeddings (vocab, dim),
-RMSNorm scales in the gemma (1 + scale) form. Models keep params in
+RMSNorm scales in the gemma (1 + scale) form, LayerNorm as scale and
+bias. Models keep params in
 `param_dtype` and cast to `compute_dtype` at use.
 """
 from __future__ import annotations
@@ -70,6 +71,22 @@ def rmsnorm_apply(p, x, eps: float = 1e-6):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device=None,
+                   lead: tuple = ()):
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps: float = 1e-6):
+    """LayerNorm with fp32 statistics, returned in x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def softcap(x, cap: Optional[float]):

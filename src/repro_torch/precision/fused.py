@@ -1,0 +1,100 @@
+"""fused_mixed_lans: the cast-and-apply path as a transform (port of
+repro/precision/fused.py).
+
+`mixed_precision(fused_lans(...), policy)` works, but it re-casts the
+whole master tree to low precision outside the kernels, an extra full
+read and write of the parameters per step. This transform routes every
+block through `ops.fused_lans_mixed_step` instead, whose K4 writes the
+fp32 master update AND its low-precision cast in one pass: K1, K2 and K4
+once per parameter tensor per step.
+
+State layout matches mixed_precision's sparse-master convention; moments
+are fp32 because the kernels accumulate into them directly.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.optim.base import (WeightDecayMask, tree_device,
+                                         tree_map, tree_paths)
+from repro_torch.core.optim.fused import step_scalars
+from repro_torch.kernels import ops
+from repro_torch.precision.loss_scale import LossScaleState, all_finite
+from repro_torch.precision.mixed import (MixedTransformation,
+                                         _merge_master, _stash_master,
+                                         _to_master)
+from repro_torch.precision.policy import Policy, _is_float
+
+
+class FusedMixedState(NamedTuple):
+    loss_scale: LossScaleState
+    count: torch.Tensor  # int32 0-d, applied steps
+    master: Any          # sparse fp32 masters (placeholder where params fp32)
+    mu: Any              # fp32 (kernel contract)
+    nu: Any              # fp32
+
+
+def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
+                     beta1: float = 0.9, beta2: float = 0.999,
+                     eps: float = 1e-6, weight_decay: float = 0.01,
+                     decay_mask: Optional[Callable[[str], bool]] = None
+                     ) -> MixedTransformation:
+    """Kernel-fused LANS + master weights + loss scaling in one
+    transform."""
+    ls = loss_scale if loss_scale is not None else policy.make_loss_scale()
+    mask_fn = decay_mask or WeightDecayMask()
+    sched = learning_rate if callable(learning_rate) else (
+        lambda count: torch.full((), learning_rate, dtype=torch.float32,
+                                 device=count.device))
+
+    def init_fn(params):
+        dev = tree_device(params)
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        return FusedMixedState(
+            loss_scale=ls.init(dev),
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            master=_stash_master(_to_master(params), params),
+            mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+    def update_fn(updates, state, params):
+        if params is None:
+            raise ValueError("fused_mixed_lans requires params.")
+        master = _merge_master(state.master, params)
+        grads32 = ls.unscale(updates, state.loss_scale)
+        finite = all_finite(grads32)
+
+        def one(g, m, v, x, p, pth):
+            if not _is_float(x):   # non-float leaves pass through
+                return ops.MixedStepOut(x, m, v, p)
+            return ops.fused_lans_mixed_step(
+                g, m, v, x, lp_dtype=policy.leaf_dtype(pth), beta1=beta1,
+                beta2=beta2, eps=eps, scalars=rows[pth])
+
+        # One host read of the finite flag per step, in place of the JAX
+        # package's lax.cond: an overflow step launches nothing.
+        if bool(finite):
+            rows = step_scalars(sched(state.count), state.count + 1, params,
+                                mask_fn, beta1=beta1, beta2=beta2,
+                                lam=weight_decay)
+            outs = tree_map(one, grads32, state.mu, state.nu, master, params,
+                            tree_paths(params))
+            pick = lambda f: tree_map(lambda o: getattr(o, f), outs)
+            new_master, new_mu, new_nu, new_lp = (pick("x"), pick("m"),
+                                                  pick("v"), pick("x_lp"))
+        else:
+            # lp params already equal cast(master): re-emit them unchanged
+            new_master, new_mu, new_nu, new_lp = (master, state.mu, state.nu,
+                                                  params)
+        updates_out = tree_map(lambda n, p: n - p, new_lp, params)
+        return updates_out, FusedMixedState(
+            loss_scale=ls.adjust(state.loss_scale, finite),
+            # count advances on applied steps only, as in the generic
+            # wrapper: bias correction tracks the number of moment
+            # updates, and a skipped step takes no schedule tick
+            count=state.count + finite.to(torch.int32),
+            master=_stash_master(new_master, params), mu=new_mu, nu=new_nu)
+
+    return MixedTransformation(init_fn, update_fn)

@@ -89,3 +89,107 @@ def test_cuda_kernel_matches_plain(S, dtype, window, softcap, null_write):
     for got, w in zip(args[3:6], plain[3:6]):
         assert torch.equal(got, w)
     assert (out[-1] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# K1-K4, the fused LANS step (kernels/lans.py, csrc/lans.cu)
+#
+# Tolerance: 2e-5 (rtol and atol) for every fp32 output (K1's sum, K2's
+# m, v and norms, the masters), whatever g and x are, since bf16 inputs
+# convert to fp32 exactly: fp32 arithmetic on both sides, sums in another
+# order, and rsqrt / FMA rounding that differ by an ulp. 2e-2 for K3's x
+# when x is bf16, as the JAX kernel sweep (tests/test_kernels.py) holds
+# the TPU kernels to their oracle. Exact where the kernel copies
+# or casts: K4's master equals K3's output and its lp copy equals the
+# cast of that master (torch.equal), and K1 repeats bit for bit.
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import lans as kl  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+
+
+def _lans_tol(dtype):
+    t = 2e-5 if dtype == torch.float32 else 2e-2
+    return dict(rtol=t, atol=t)
+
+
+def test_lans_wrappers_reject_unsupported_dtypes_on_cuda_only():
+    """On the CPU a wrapper runs its plain version for any float dtype;
+    on CUDA it checks dtypes (fp16 g is not a kernel operand)."""
+    g, m, v, x = kl.lans_case(5, torch.float32)
+    assert torch.isfinite(kl.sq_norm(g.half())).all()
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with pytest.raises(TypeError):
+        kl.sq_norm(g.half().cuda())
+    with pytest.raises(TypeError):
+        scal = kops.lans_scalars(0.01, 1, beta1=0.9, beta2=0.999, lam=0.0,
+                                 apply_trust=True, device="cuda")
+        norms = torch.zeros(8, device="cuda")
+        kl.lans_phase2_cast(scal, norms, *(t.cuda() for t in (g, m, v)),
+                            x.bfloat16().cuda(), lp_dtype=torch.bfloat16,
+                            beta1=0.9, eps=1e-6)
+
+
+@pytest.mark.parametrize("kind,lam,trust", [("normal", 0.01, True),
+                                            ("normal", 0.0, False),
+                                            ("zero_grad", 0.01, True),
+                                            ("nan_grad", 0.01, True)])
+@pytest.mark.parametrize("step", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 127, 32773, 1048579])
+def test_cuda_lans_kernels_match_plain(n, dtype, step, kind, lam, trust):
+    """Needs the card: K1-K4 each against its plain version on the same
+    inputs, phase by phase, and the composed step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol, f32 = _lans_tol(dtype), _lans_tol(torch.float32)
+    kw = dict(beta1=0.9, eps=1e-6)
+    g, m, v, x = kl.lans_case(n, dtype, kind=kind, seed=n + step,
+                              device="cuda")
+    before = [k.launches for k in kl.KERNELS]
+    g_sq = kl.sq_norm(g)
+    torch.testing.assert_close(g_sq, kl.sq_norm_plain(g), **f32,
+                               equal_nan=True)
+    assert torch.equal(kl.sq_norm(g), g_sq) or kind == "nan_grad"
+    scal = kops.lans_scalars(0.02, step, beta1=0.9, beta2=0.999, lam=lam,
+                             apply_trust=trust, device="cuda")
+    scal[5] = kl.sq_norm_plain(g)
+    got1 = kl.lans_phase1(scal, g, m, v, x, beta2=0.999, **kw)
+    want1 = kl.lans_phase1_plain(scal, g, m, v, x, beta2=0.999, **kw)
+    for a, b in zip(got1, want1):   # fp32 outputs whatever g and x are
+        torch.testing.assert_close(a, b, **f32)
+    m1, v1, norms = want1
+    x3 = kl.lans_phase2(scal, norms, g, m1, v1, x, **kw)
+    torch.testing.assert_close(
+        x3.float(), kl.lans_phase2_plain(scal, norms, g, m1, v1, x,
+                                         **kw).float(), **tol)
+    if dtype == torch.float32:
+        for lp in (torch.bfloat16, torch.float16, torch.float32):
+            xm, xlp = kl.lans_phase2_cast(scal, norms, g, m1, v1, x,
+                                          lp_dtype=lp, **kw)
+            wm, _ = kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x,
+                                              lp_dtype=lp, **kw)
+            torch.testing.assert_close(xm, wm, **f32)
+            assert torch.equal(xm, x3)
+            assert torch.equal(xlp, xm.to(lp))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kl.KERNELS, before)]
+    assert launched == [2, 1, 1, 3 if dtype == torch.float32 else 0]
+    step_out = kops.fused_lans_step(g, m, v, x, eta=0.02, step=step,
+                                    lam=lam, apply_trust=trust)
+    cpu = [t.cpu() for t in (g, m, v, x)]
+    want = kops.fused_lans_step(*cpu, eta=0.02, step=step, lam=lam,
+                                apply_trust=trust)
+    for a, b, t in zip(step_out, want, (tol, f32, f32)):   # x, m, v
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu().float(), b.float(), **t)
+
+
+def test_cuda_sq_norm_is_bitwise_repeatable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, _, _, _ = kl.lans_case(100_663_296 // 8, torch.float32, seed=1,
+                              device="cuda")
+    a, b = kl.sq_norm(g).clone(), kl.sq_norm(g).clone()
+    assert torch.equal(a, b)
