@@ -3,16 +3,21 @@
 
   python3 chip_smoke.py      # needs one CUDA card
 
-Phases, each of which fails the run:
+Phases, in the order they run, each of which fails the run:
   1. build every kernel under src/repro_torch/kernels/csrc (one nvcc per
      source, all started together) and print the build time;
-  2. hold each kernel against its plain PyTorch version on the card at
-     gemma2-2b's attention shapes (fp32 and bf16 arenas, S = 1 and 4, a
-     dead slot, position -1 rows, window on and off, softcap on, with and
-     without a new row routed to a null table entry): outputs
-     within 1e-5 (fp32 summation order), arenas torch.equal; then time
-     kernel and plain version at the shapes the serving run gives it,
-     with the L2 cache flushed before each launch, and compute the bound;
+  2. hold the paged-attention kernels against their plain PyTorch
+     versions on the card at gemma2-2b's attention shapes (fp32 and bf16
+     arenas, S = 1 and 4, a dead slot, position -1 rows, window on and
+     off, softcap on, with and without a new row routed to a null table
+     entry): K8 (paged_attention_fused) and K7 (paged_attention, on the
+     arenas before the write) within 1e-5 (fp32 summation order), arenas
+     torch.equal, dead slots exactly 0; K7 on the arenas K8 has just
+     written, with the same q, equal to K8's output within 1e-5; then
+     time both at the shapes the serving run gives K8, with the L2 cache
+     flushed before each launch, beside their bounds; and drive K7's
+     path, its library entry as a read of one decode step (26 layers),
+     which must launch it 26 times;
   3. serve gemma2-2b at full width and depth through the port's CLI
      (`repro_torch.launch.serve.main`): first a short warm-up stream (2
      requests, 4 new tokens) so that first-use costs land on neither
@@ -32,7 +37,14 @@ Phases, each of which fails the run:
      the same checks, and each kernel timed beside its plain version,
      its byte bound and a library call; and one whole fused LANS update
      over BERT-large's 29 leaves against its byte bound;
-  6. train BERT-large at full width and depth (seq 128, batch 16, seed
+  6. the same for the fused LAMB kernels K5-K6 over phase 5's grid with
+     clip 1 and 0.3 (128 cases): fp32 outputs within 2e-5, K6's bf16 x
+     within 2e-2, NaN where the plain version has NaN, K5's norms
+     repeating bit for bit; then at the largest leaf, each timed beside
+     its plain version and byte bound; and one whole fused_lamb update
+     over the 29 leaves against its byte bound (40 B/param, 44 with the
+     clip's norm pass) beside the unfused lamb update;
+  7. train BERT-large at full width and depth (seq 128, batch 16, seed
      0, 4 steps, warmup-hold-decay): the port's CLI (unfused lans, fp32
      policy) and build_train_step + fused_lans from the same seed and
      batches. Losses finite; one shared set of step-1 gradients applied
@@ -43,7 +55,15 @@ Phases, each of which fails the run:
      within 1e-2 relative; K1-K3 each launched 4 x 29 times. Then bf16
      steps through fused_mixed_lans (K4 launched applied steps x 29
      times, K3 not at all) and the CLI with --precision fp16 (finite
-     loss, loss_scale and overflow_count printed).
+     loss, loss_scale and overflow_count printed);
+  8. train it as in phase 7 with LAMB: shared step-1 gradients applied
+     by lamb and by fused_lamb (params and moments within 2e-5), the CLI
+     with --optimizer lamb and build_train_step + fused_lamb over the
+     same 4 batches (losses within 1e-2 relative; K5, K6 and K1, the
+     last for the global clip's sums of squares, each launched 4 x 29
+     times, K2-K4 not at all); then 2 steps each of the CLI with
+     --optimizer adamw and with --optimizer lamb --precision bf16, with
+     finite losses.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -116,22 +136,46 @@ def time_ms(fn, flush, n=30, warmup=3):
     return total / n
 
 
+def time_reps(torch, fn, reps):
+    """Mean device time of fn() over reps back-to-back calls after one
+    warm-up call (a whole optimizer update: caches stay warm, as in a
+    training loop)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def paged_bound(args, S):
-    """(bound ms, bound_by, bytes, flops) of one paged_attention_fused
-    call on these inputs: each referenced non-null block's K, V and
-    positions read once, q / new rows / tables / cursors read once, the
-    output and the written rows stored once; 4 flops per (query row,
-    key, head dim) for QK^T and PV."""
-    q, k_new, v_new, k_arena, v_arena, pos, tables, q_pos, cursor = args
+    """(bound ms, bound_by, bytes, flops) of one paged-attention call on
+    these inputs (K8's nine operands, or K7's six): each referenced
+    non-null block's K, V and positions read once, q / new rows / tables
+    / cursors read once, the output and the written rows stored once; 4
+    flops per (query row, key, head dim) for QK^T and PV (K8 also
+    attends to its S new rows)."""
+    if len(args) == 9:
+        q, k_new, v_new, k_arena, v_arena, pos, tables, q_pos, cursor = args
+    else:
+        q, k_arena, v_arena, pos, tables, q_pos = args
+        k_new = cursor = None
     _, bs, n_kv, hd = k_arena.shape
     esz = k_arena.element_size()
     blocks = tables[tables != 0].unique().numel()
-    n_new = int((q_pos >= 0).sum())
     nbytes = (blocks * (2 * bs * n_kv * hd * esz + bs * 4)
-              + q.numel() * q.element_size() + 2 * k_new.numel() * esz
-              + 4 * (tables.numel() + q_pos.numel() + cursor.numel())
-              + q.numel() * 4 + n_new * (2 * n_kv * hd * esz + 4))
-    keys = int((tables != 0).sum(dim=1).sum()) * bs + S * tables.shape[0]
+              + q.numel() * q.element_size()
+              + 4 * (tables.numel() + q_pos.numel()) + q.numel() * 4)
+    keys = int((tables != 0).sum(dim=1).sum()) * bs
+    if k_new is not None:
+        n_new = int((q_pos >= 0).sum())
+        nbytes += (2 * k_new.numel() * esz + 4 * cursor.numel()
+                   + n_new * (2 * n_kv * hd * esz + 4))
+        keys += S * tables.shape[0]
     flops = 4 * q.shape[2] * hd * S * keys
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FP32_FLOPS * 1e3
@@ -139,10 +183,18 @@ def paged_bound(args, S):
                                  else "operations"), nbytes, flops
 
 
+def read_args(args):
+    """K7's operands (q, arenas, positions, tables, q_pos) of a K8 case."""
+    q, _, _, k_arena, v_arena, pos, tables, q_pos, _ = args
+    return q, k_arena, v_arena, pos, tables, q_pos
+
+
 def phase_kernels(torch, pa):
-    """Phase 2: parity cases, then timing at the serving shapes. The
-    kernel's entry lacks `launches` until the main path has run."""
-    max_err = 0.0
+    """Phase 2: K8 and K7 parity cases, K7 on K8's post-write arenas,
+    then timing at the serving shapes, and K7's path. Returns the two
+    kernels' entries; K8's lacks `launches` until the serving run."""
+    max_err = {"paged_attention_fused": 0.0, "paged_attention": 0.0}
+    k7_vs_k8 = 0.0
     n_cases = 0
     for kv_dt, q_dt in ((torch.float32, torch.float32),
                         (torch.bfloat16, torch.float32),
@@ -155,25 +207,44 @@ def phase_kernels(torch, pa):
                                       dtype=kv_dt, q_dtype=q_dt,
                                       device="cuda", seed=n_cases,
                                       null_write=null_write)
-                plain = [a.clone() for a in args]
+                where = (f"({kv_dt}, S={S}, window={window}, "
+                         f"null_write={null_write})")
                 kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
+                # K7 on the arenas before the write: no new rows
+                read = read_args(args)
+                out7 = pa.paged_attention(*read, **kw)
+                want7 = pa.paged_attention_plain(*read, **kw)
+                plain = [a.clone() for a in args]
                 out = pa.paged_attention_fused(*args, **kw)
                 want = pa.paged_attention_fused_plain(*plain, **kw)
+                # K7 on the arenas K8 has just written, with the same q
+                after7 = pa.paged_attention(*read_args(args), **kw)
                 torch.cuda.synchronize()
-                err = (out - want).abs().max().item()
-                max_err = max(max_err, err)
-                torch.testing.assert_close(out, want, **TOL)
+                for name, got, ref in (("paged_attention", out7, want7),
+                                       ("paged_attention_fused", out,
+                                        want)):
+                    torch.testing.assert_close(
+                        got, ref, **TOL, msg=lambda m: f"{name} {where}: {m}")
+                    max_err[name] = max(max_err[name],
+                                        (got - ref).abs().max().item())
+                    check(bool((got[-1] == 0).all()),
+                          f"{name}: dead slot is not 0 {where}")
+                torch.testing.assert_close(
+                    after7, out, **TOL,
+                    msg=lambda m: f"K7 on K8's arenas {where}: {m}")
+                k7_vs_k8 = max(k7_vs_k8, (after7 - out).abs().max().item())
                 for name, got, ref in zip(("k", "v", "pos"), args[3:6],
                                           plain[3:6]):
                     check(torch.equal(got, ref),
                           f"{name} arena differs from the plain version "
-                          f"({kv_dt}, S={S}, window={window}, "
-                          f"null_write={null_write})")
-                check(bool((out[-1] == 0).all()), "dead slot is not 0")
+                          f"{where}")
                 n_cases += 1
-    print(f"kernel parity: paged_attention_fused, {n_cases} cases, "
-          f"max |out - plain| = {max_err:.3e} (tolerance 1e-5), arenas "
-          f"torch.equal")
+    print(f"kernel parity: paged_attention_fused (K8) and paged_attention "
+          f"(K7), {n_cases} cases each, max |out - plain| K8 "
+          f"{max_err['paged_attention_fused']:.3e}, K7 "
+          f"{max_err['paged_attention']:.3e}, K7 on K8's post-write arenas "
+          f"vs K8 {k7_vs_k8:.3e} (tolerance 1e-5); arenas torch.equal; "
+          f"dead slots exactly 0")
 
     # the serving run's shapes: 4 slots, S=1, ring 96 rows = 6 blocks of
     # 16, bf16 arenas (the pool's storage dtype), fp32 queries (fp32
@@ -181,23 +252,51 @@ def phase_kernels(torch, pa):
     args = pa.decode_case(B=4, S=1, n_heads=8, n_kv=4, head_dim=256,
                           block_size=16, nb=6, dtype=torch.bfloat16,
                           q_dtype=torch.float32, device="cuda", seed=99)
+    read = read_args(args)
     plain = [a.clone() for a in args]
     kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
-    plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
-                       flush)
-    bound_ms, bound_by, nbytes, flops = paged_bound(args, 1)
-    print(f"kernel timing (B=4 S=1 h=8 n_kv=4 hd=256 bs=16 nb=6, bf16 "
-          f"arenas, L2 flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at "
-          f"3.35 TB/s, {flops} flops at 67 TFLOP/s fp32)")
-    return dict(name="paged_attention_fused", route="cuda",
-                source="src/repro_torch/kernels/csrc/paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention_kernel.py:527",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                arenas_equal=True)
+    entries = {}
+    for name, kern, plain_fn, operands in (
+            ("paged_attention_fused",
+             lambda: pa.paged_attention_fused(*args, **kw),
+             lambda: pa.paged_attention_fused_plain(*plain, **kw), args),
+            ("paged_attention", lambda: pa.paged_attention(*read, **kw),
+             lambda: pa.paged_attention_plain(*read, **kw), read)):
+        ms = time_ms(kern, flush)
+        plain_ms = time_ms(plain_fn, flush)
+        bound_ms, bound_by, nbytes, flops = paged_bound(operands, 1)
+        print(f"kernel timing {name} (B=4 S=1 h=8 n_kv=4 hd=256 bs=16 "
+              f"nb=6, bf16 arenas, L2 flushed): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+              f"({nbytes} bytes at 3.35 TB/s, {flops} flops at 67 TFLOP/s "
+              f"fp32)")
+        line = 527 if name == "paged_attention_fused" else 342
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces=f"src/repro/kernels/paged_attention_kernel.py:{line}",
+            max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    # K7's path: its library entry, as a read of one decode step of
+    # gemma2-2b at the serving shapes (26 layers, local ones windowed)
+    n_layers = 26
+    pa.paged_attention.launches = 0
+    for layer in range(n_layers):
+        out = pa.paged_attention(*read, scale=256 ** -0.5, softcap=50.0,
+                                 window=4096 if layer % 2 == 0 else None)
+    torch.cuda.synchronize()
+    entries["paged_attention"]["launches"] = pa.paged_attention.launches
+    check(pa.paged_attention.launches == n_layers,
+          f"K7 launched {pa.paged_attention.launches} times for "
+          f"{n_layers} layers")
+    check(bool(torch.isfinite(out).all()), "K7's path gave non-finite "
+          "output")
+    print(f"K7 path: paged_attention over {n_layers} layers of one decode "
+          f"step at the serving shapes, {pa.paged_attention.launches} "
+          f"launches")
+    return entries
 
 
 def serve(serve_mod, argv, label):
@@ -288,6 +387,31 @@ def lans_parity(torch, kl, kops):
     return err
 
 
+def time_calls(torch, n, calls):
+    """Time each {name: (kernel, plain, library call or None, bytes moved,
+    flops)} at n fp32 elements, L2 flushed, beside its bound (the larger
+    of bytes at 3.35 TB/s and flops at 67 TFLOP/s). Returns {name:
+    timing entry}."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops) in calls.items():
+        ms = time_ms(kern, flush, n=10)
+        plain_ms = time_ms(plain, flush, n=5, warmup=1)
+        lib_ms = None if lib is None else time_ms(lib, flush, n=10)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations")
+        print(f"kernel timing {name} (n={n} fp32, L2 flushed): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+              f"({nbytes} bytes at 3.35 TB/s, {flops} flops at 67 TFLOP/s)")
+    return out
+
+
 def lans_timing(torch, kl, kops, err):
     """Phase 5b: at the largest leaf (fp32), the main path's size, where
     the reductions run with their cap of per-CTA partials, each kernel
@@ -350,24 +474,7 @@ def lans_timing(torch, kl, kops, err):
             lambda: kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x,
                                               **cast), None, 22 * n, 16 * n),
     }
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    out = {}
-    for name, (kern, plain, lib, nbytes, flops) in calls.items():
-        ms = time_ms(kern, flush, n=10)
-        plain_ms = time_ms(plain, flush, n=5, warmup=1)
-        lib_ms = None if lib is None else time_ms(lib, flush, n=10)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_FP32_FLOPS * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations")
-        print(f"kernel timing {name} (n={n} fp32, L2 flushed): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-              f"({nbytes} bytes at 3.35 TB/s, {flops} flops at 67 TFLOP/s)")
-    return out
+    return time_calls(torch, n, calls)
 
 
 def fused_step_timing(torch, arch, kops):
@@ -402,24 +509,13 @@ def fused_step_timing(torch, arch, kops):
     tx, ftx = lans(1e-3), fused_lans(1e-3)
     state, fstate = tx.init(x), ftx.init(x)
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     # per leaf, per step, per step, per leaf: neither goes first only
     update = lambda: ftx.update(g, fstate, x)
-    per_leaf_ms, fused_ms = timed(fused, 5), timed(update, 5)
-    fused_ms = (fused_ms + timed(update, 5)) / 2
-    per_leaf_ms = (per_leaf_ms + timed(fused, 5)) / 2
-    unfused_ms = timed(lambda: tx.update(g, state, x), 3)
+    per_leaf_ms = time_reps(torch, fused, 5)
+    fused_ms = time_reps(torch, update, 5)
+    fused_ms = (fused_ms + time_reps(torch, update, 5)) / 2
+    per_leaf_ms = (per_leaf_ms + time_reps(torch, fused, 5)) / 2
+    unfused_ms = time_reps(torch, lambda: tx.update(g, state, x), 3)
     bound_ms = 48 * n_params / H100_BYTES_PER_S * 1e3
     print(f"fused LANS step, bert-large fp32 ({len(leaves)} leaves, "
           f"{n_params} params): fused_lans update {fused_ms:.3f} ms "
@@ -430,6 +526,126 @@ def fused_step_timing(torch, arch, kops):
     check(len(leaves) == BERT_LEAVES, f"bert-large has {len(leaves)} leaves")
     return dict(fused_step_ms=fused_ms, per_leaf_ms=per_leaf_ms,
                 unfused_step_ms=unfused_ms, bound_ms=bound_ms)
+
+
+def lamb_check(torch, kb, kops, err, g, m, v, x, *, step, lam, trust, clip,
+               x_tol, where):
+    """K5 and K6 against their plain versions on one case: K5's m, v and
+    norms within 2e-5 (fp32 outputs), its norms bitwise repeatable
+    (compared as bits, so that a NaN repeats too), K6's x within x_tol.
+    Returns K5's (m, v, norms) and the scalars."""
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
+    scal = kops.lamb_scalars(0.02, step, clip, beta1=0.9, beta2=0.999,
+                             lam=lam, apply_trust=trust, device="cuda")
+    got = kb.lamb_phase1(scal, g, m, v, x, **kw)
+    again = kb.lamb_phase1(scal, g, m, v, x, **kw)[2]
+    check(torch.equal(got[2].view(torch.int32), again.view(torch.int32)),
+          f"K5's norms do not repeat bit for bit {where}")
+    want = kb.lamb_phase1_plain(scal, g, m, v, x, **kw)
+    for a, b in zip(got, want):
+        close(torch, err, "lamb_phase1", a, b, LANS_TOL["fp32"], where)
+    m1, v1, norms = want
+    close(torch, err, "lamb_phase2",
+          kb.lamb_phase2(scal, norms, m1, v1, x, eps=1e-6),
+          kb.lamb_phase2_plain(scal, norms, m1, v1, x, eps=1e-6), x_tol,
+          where)
+    return got, scal
+
+
+def lamb_parity(torch, kl, kb, kops):
+    """Phase 6a: K5-K6 against their plain versions over phase 5's grid
+    and clip 1 and 0.3. Returns {kernel name: max |kernel - plain|}."""
+    err = {k.__name__: 0.0 for k in kb.KERNELS}
+    kinds = (("normal", 0.01, True), ("normal", 0.0, False),
+             ("zero_grad", 0.01, True), ("nan_grad", 0.01, True))
+    n_cases = 0
+    for n, (dname, dtype), step, (kind, lam, trust), clip in \
+            itertools.product((1, 127, 32773, 1048579),
+                              (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)), (1, 4), kinds,
+                              (1.0, 0.3)):
+        g, m, v, x = kl.lans_case(n, dtype, kind=kind, seed=n_cases,
+                                  device="cuda")
+        lamb_check(torch, kb, kops, err, g, m, v, x, step=step, lam=lam,
+                   trust=trust, clip=clip, x_tol=LANS_TOL[dname],
+                   where=f"(n={n}, {dname}, step {step}, {kind}, lam {lam},"
+                         f" clip {clip})")
+        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"kernel parity: K5-K6, {n_cases} cases, max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tolerance 2e-5 relative and absolute; 2e-2 for K6 on bf16 "
+          "x; NaN where the plain version has NaN); K5's norms bitwise "
+          "repeatable")
+    return err
+
+
+def lamb_timing(torch, kl, kb, kops, err):
+    """Phase 6b: at the largest leaf (fp32, step 4, clip 0.3), K5 and K6
+    against their plain versions (updating `err`), then timed beside
+    their plain versions and byte bounds. Neither has a library call."""
+    n = LARGEST_LEAF
+    g, m, v, x = kl.lans_case(n, torch.float32, seed=5, device="cuda")
+    big = {k.__name__: 0.0 for k in kb.KERNELS}
+    (m1, v1, norms), scal = lamb_check(
+        torch, kb, kops, big, g, m, v, x, step=4, lam=0.01, trust=True,
+        clip=0.3, x_tol=LANS_TOL["fp32"], where=f"at {n} elements")
+    torch.cuda.synchronize()
+    print(f"kernel parity at the largest leaf ({n} fp32 elements): max "
+          f"|kernel - plain| " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in big.items())
+          + f" (tolerance 2e-5; K5's norms "
+          f"{[f'{v:.6e}' for v in norms[:2].tolist()]}), K5's norms "
+          f"bitwise repeatable")
+    for name, e in big.items():
+        err[name] = max(err[name], e)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
+    # name: (kernel, plain, library call, bytes moved, flops)
+    calls = {
+        "lamb_phase1": (
+            lambda: kb.lamb_phase1(scal, g, m, v, x, **kw),
+            lambda: kb.lamb_phase1_plain(scal, g, m, v, x, **kw), None,
+            24 * n, 20 * n),
+        "lamb_phase2": (
+            lambda: kb.lamb_phase2(scal, norms, m1, v1, x, eps=1e-6),
+            lambda: kb.lamb_phase2_plain(scal, norms, m1, v1, x, eps=1e-6),
+            None, 16 * n, 10 * n),
+    }
+    return time_calls(torch, n, calls)
+
+
+def fused_lamb_timing(torch, arch):
+    """Phase 6c: one fused LAMB update (K1 on every gradient for the
+    global clip, then K5 and K6 per leaf) over BERT-large's 29 fp32
+    leaves, against 40 bytes per parameter at 3.35 TB/s (44 with the
+    clip's norm pass), and the unfused lamb update on the same tensors,
+    in the order fused, unfused, fused."""
+    from repro_torch.core.optim import fused_lamb, lamb
+    from repro_torch.core.optim.base import tree_leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = arch.init(gen)
+    g = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                       device="cuda"), x)
+    n_params = sum(t.numel() for t in tree_leaves(x))
+    tx, ftx = lamb(1e-3), fused_lamb(1e-3)
+    state, fstate = tx.init(x), ftx.init(x)
+
+    update = lambda: ftx.update(g, fstate, x)
+    first = time_reps(torch, update, 5)
+    unfused_ms = time_reps(torch, lambda: tx.update(g, state, x), 3)
+    fused_ms = (first + time_reps(torch, update, 5)) / 2
+    bound_ms = 40 * n_params / H100_BYTES_PER_S * 1e3
+    clip_bound_ms = 44 * n_params / H100_BYTES_PER_S * 1e3
+    print(f"fused LAMB step, bert-large fp32 ({len(tree_leaves(x))} leaves,"
+          f" {n_params} params): fused_lamb update {fused_ms:.3f} ms (K1 "
+          f"per leaf for the clip, then K5+K6 per leaf), unfused lamb "
+          f"update {unfused_ms:.3f} ms, bound {bound_ms:.3f} ms (40 B/param"
+          f" at 3.35 TB/s; {clip_bound_ms:.3f} ms with the clip's 4 B/param"
+          f" norm pass)")
+    del x, g, state, fstate
+    torch.cuda.empty_cache()
+    return dict(fused_step_ms=fused_ms, unfused_step_ms=unfused_ms,
+                bound_ms=bound_ms, clip_bound_ms=clip_bound_ms)
 
 
 def profile_step(torch, step_fn, params, state, batch):
@@ -521,8 +737,52 @@ def mixed_step1(torch, arch, sched, batches):
     torch.cuda.empty_cache()
 
 
+def bert_batches(torch, train_mod, arch, batch_size, seq, seed):
+    """A function that starts the CLI's data stream anew (the same
+    batches each time), as CUDA tensors."""
+    def batches():
+        data = train_mod.make_data(arch, batch=batch_size, seq=seq,
+                                   seed=seed)
+        for b in data:
+            yield {k: torch.from_numpy(a).to("cuda") for k, a in b.items()}
+    return batches
+
+
+def shared_step1(torch, arch, batches, unfused, fused, label):
+    """One shared set of step-1 gradients (seed 0, the first batch)
+    applied by an unfused transform and its fused counterpart to the same
+    params: params and moments agree leaf by leaf within 2e-5."""
+    from repro_torch.core.optim.base import apply_updates, tree_items
+    from repro_torch.distributed.steps import loss_and_grads
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    _, _, grads = loss_and_grads(arch.loss_fn, params, next(batches()),
+                                 None)
+    outs = []
+    for tx in (unfused, fused):
+        with torch.no_grad():
+            upd, st = tx.update(grads, tx.init(params), params)
+        if not hasattr(st, "mu"):          # chain: the optimizer's state
+            st = next(s for s in st if hasattr(s, "mu"))
+        outs.append({"params": apply_updates(params, upd), "mu": st.mu,
+                     "nu": st.nu})
+        del upd, st
+    err = {name: 0.0 for name in outs[0]}
+    for name in err:
+        for (path, a), (_, b) in zip(tree_items(outs[0][name]),
+                                     tree_items(outs[1][name])):
+            close(torch, err, name, b, a, LANS_TOL["fp32"], path)
+    n_leaves = len(tree_items(params))
+    print(f"train: step-1 update, {label} on shared gradients, "
+          f"{n_leaves} leaves, max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + " (tolerance 2e-5)")
+    check(n_leaves == BERT_LEAVES, f"bert-large has {n_leaves} leaves")
+    del params, grads, outs
+    torch.cuda.empty_cache()
+
+
 def train_routes(torch, kl):
-    """Phase 6: full-width BERT-large training through the CLI (unfused
+    """Phase 7: full-width BERT-large training through the CLI (unfused
     lans) and through build_train_step + fused_lans (K1-K3), then bf16
     through fused_mixed_lans (K1, K2, K4) and the CLI in fp16. Returns
     the launch counts of each kernel's main-path run and the step
@@ -530,10 +790,7 @@ def train_routes(torch, kl):
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.core.optim import fused_lans, lans
-    from repro_torch.core.optim.base import apply_updates, tree_items
-    from repro_torch.core.optim.lans import LansState
-    from repro_torch.distributed.steps import (build_train_step,
-                                               loss_and_grads)
+    from repro_torch.distributed.steps import build_train_step
     from repro_torch.launch import train as train_mod
     from repro_torch.precision import fused_mixed_lans, get_policy
 
@@ -541,36 +798,10 @@ def train_routes(torch, kl):
     steps, batch_size, seq, seed = 4, 16, 128, 0
     sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
 
-    def batches():
-        data = train_mod.make_data(arch, batch=batch_size, seq=seq,
-                                   seed=seed)
-        for b in data:
-            yield {k: torch.from_numpy(a).to("cuda") for k, a in b.items()}
+    batches = bert_batches(torch, train_mod, arch, batch_size, seq, seed)
 
-    # one shared set of step-1 gradients, applied by lans and fused_lans
-    params = arch.init(torch.Generator(device="cuda").manual_seed(seed))
-    _, _, grads = loss_and_grads(arch.loss_fn, params, next(batches()),
-                                 None)
-    outs = []
-    for tx in (lans(sched), fused_lans(sched)):
-        with torch.no_grad():
-            upd, st = tx.update(grads, tx.init(params), params)
-        if isinstance(st, tuple) and not hasattr(st, "mu"):   # chain
-            st = next(s for s in st if isinstance(s, LansState))
-        outs.append({"params": apply_updates(params, upd), "mu": st.mu,
-                     "nu": st.nu})
-    err = {name: 0.0 for name in outs[0]}
-    for name in err:
-        for (path, a), (_, b) in zip(tree_items(outs[0][name]),
-                                     tree_items(outs[1][name])):
-            close(torch, err, name, b, a, LANS_TOL["fp32"], path)
-    n_leaves = len(tree_items(params))
-    print(f"train: step-1 update, lans vs fused_lans on shared gradients, "
-          f"{n_leaves} leaves, max |diff| "
-          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
-          + " (tolerance 2e-5)")
-    del params, grads, outs, upd, st
-    torch.cuda.empty_cache()
+    shared_step1(torch, arch, batches, lans(sched), fused_lans(sched),
+                 "lans vs fused_lans")
     mixed_step1(torch, arch, sched, batches)
 
     # the plain route: the port's CLI
@@ -644,9 +875,7 @@ def train_routes(torch, kl):
     torch.cuda.empty_cache()
 
     # the CLI in fp16: dynamic loss scaling
-    fp16_argv = list(TRAIN_ARGV)
-    fp16_argv[fp16_argv.index("fp32")] = "fp16"
-    fp16 = train_mod.main(fp16_argv)
+    fp16 = train_mod.main(train_argv("lans", "fp16", steps))
     check(math.isfinite(fp16["final_loss"]), "fp16 final loss not finite")
     print(f"train[cli, fp16]: losses {[round(v, 6) for v in fp16['losses']]}"
           f" loss_scale {fp16['loss_scale']} overflow_count "
@@ -654,6 +883,87 @@ def train_routes(torch, kl):
           f"{[round(t * 1e3, 2) for t in fp16['step_s']]}")
     torch.cuda.empty_cache()
     return launches, bf16_launches
+
+
+def train_argv(optimizer, precision, steps):
+    """The CLI's arguments of phase 7 with another optimizer, precision
+    or step count."""
+    argv = list(TRAIN_ARGV)
+    for flag, value in (("--optimizer", optimizer),
+                        ("--precision", precision), ("--steps", steps)):
+        argv[argv.index(flag) + 1] = str(value)
+    return argv
+
+
+def lamb_routes(torch, kl, kb):
+    """Phase 8: full-width BERT-large training with LAMB, as phase 7 with
+    LANS: one shared set of step-1 gradients applied by lamb and by
+    fused_lamb; the CLI with --optimizer lamb (unfused) and
+    build_train_step + fused_lamb (K1 for the clip, K5, K6) from the
+    same seed and batches; then 2 steps each of the CLI with --optimizer
+    adamw and with --optimizer lamb --precision bf16. Returns the launch
+    counts of the fused route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lamb, lamb
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.launch import train as train_mod
+
+    arch = get_arch("bert-large")
+    steps, batch_size, seq, seed = 4, 16, 128, 0
+    sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
+    batches = bert_batches(torch, train_mod, arch, batch_size, seq, seed)
+    shared_step1(torch, arch, batches, lamb(sched), fused_lamb(sched),
+                 "lamb vs fused_lamb")
+
+    cli = train_mod.main(train_argv("lamb", "fp32", steps))
+    print(f"train[cli, unfused lamb, fp32 policy]: losses "
+          f"{[round(v, 6) for v in cli['losses']]} step_ms "
+          f"{[round(t * 1e3, 2) for t in cli['step_s']]}")
+    torch.cuda.empty_cache()
+
+    step_fn, init_fn = build_train_step(arch.loss_fn, fused_lamb(sched),
+                                        param_init_fn=arch.init,
+                                        policy="fp32")
+    params, state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    kernels = kl.KERNELS + kb.KERNELS
+    for k in kernels:
+        k.launches = 0
+    losses, step_ms = [], []
+    for _, b in zip(range(steps), batches()):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"train[build_train_step + fused_lamb, fp32 policy]: losses "
+          f"{[round(v, 6) for v in losses]} step_ms "
+          f"{[round(t, 2) for t in step_ms]}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses + cli["losses"]),
+          "a LAMB training loss is not finite")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cli["losses"]))
+    check(rel <= 1e-2, f"fused_lamb and CLI loss trajectories differ by "
+          f"{rel:.3e} relative (> 1e-2)")
+    print(f"train: fused_lamb vs CLI lamb loss trajectory, max relative "
+          f"diff {rel:.3e} (tolerance 1e-2)")
+    # K1 once per leaf per step for the clip's sums of squares
+    for name in ("sq_norm", "lamb_phase1", "lamb_phase2"):
+        check(launches[name] == steps * BERT_LEAVES,
+              f"{name} launched {launches[name]} times, expected "
+              f"{steps} x {BERT_LEAVES}")
+    check(not any(launches[k.__name__] for k in kl.KERNELS[1:]),
+          "the LAMB route launched a LANS kernel")
+    del params, state
+    torch.cuda.empty_cache()
+
+    for optimizer, precision in (("adamw", "fp32"), ("lamb", "bf16")):
+        out = train_mod.main(train_argv(optimizer, precision, 2))
+        check(all(math.isfinite(v) for v in out["losses"]),
+              f"{optimizer} {precision} loss not finite")
+        print(f"train[cli, {optimizer}, {precision}]: losses "
+              f"{[round(v, 6) for v in out['losses']]} step_ms "
+              f"{[round(t * 1e3, 2) for t in out['step_s']]}")
+        torch.cuda.empty_cache()
+    return launches
 
 
 def run() -> int:
@@ -670,6 +980,7 @@ def run() -> int:
     from repro_torch import select_device
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
+    from repro_torch.kernels import lamb as kb
     from repro_torch.kernels import lans as kl
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_attention as pa
@@ -687,7 +998,8 @@ def run() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
-    kernel = phase_kernels(torch, pa)
+    paged_entries = phase_kernels(torch, pa)
+    kernel = paged_entries["paged_attention_fused"]
 
     warm_argv = list(SERVE_ARGV)
     warm_argv[warm_argv.index("--requests") + 1] = "2"
@@ -721,18 +1033,30 @@ def run() -> int:
     times = lans_timing(torch, kl, kops, errs)
     fused_step_timing(torch, get_arch("bert-large"), kops)
     torch.cuda.empty_cache()
+    errs.update(lamb_parity(torch, kl, kb, kops))
+    times.update(lamb_timing(torch, kl, kb, kops, errs))
+    fused_lamb_timing(torch, get_arch("bert-large"))
+    torch.cuda.empty_cache()
     fp32_launches, bf16_launches = train_routes(torch, kl)
-    replaces = {"sq_norm": 68, "lans_phase1": 122, "lans_phase2": 207,
-                "lans_phase2_cast": 228}
-    entries = [kernel]
-    for name, line in replaces.items():
-        launches = (bf16_launches if name == "lans_phase2_cast"
-                    else fp32_launches)[name]
+    lamb_launches = lamb_routes(torch, kl, kb)
+    # name: (TPU source, launches of its main path)
+    optim = {
+        "sq_norm": ("lans_kernel.py:68", fp32_launches),
+        "lans_phase1": ("lans_kernel.py:122", fp32_launches),
+        "lans_phase2": ("lans_kernel.py:207", fp32_launches),
+        "lans_phase2_cast": ("lans_kernel.py:228", bf16_launches),
+        "lamb_phase1": ("lamb_kernel.py:54", lamb_launches),
+        "lamb_phase2": ("lamb_kernel.py:101", lamb_launches),
+    }
+    entries = [kernel, paged_entries["paged_attention"]]
+    for name, (line, launches) in optim.items():
+        cu = "lamb.cu" if name.startswith("lamb") else "lans.cu"
         entries.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/lans.cu",
-            replaces=f"src/repro/kernels/lans_kernel.py:{line}",
-            launches=launches, max_abs_err=errs[name], **times[name]))
+            source=f"src/repro_torch/kernels/csrc/{cu}",
+            replaces=f"src/repro/kernels/{line}",
+            launches=launches[name], max_abs_err=errs[name],
+            **times[name]))
 
     print(card_line())
     print(json.dumps({"kernels": entries}))

@@ -73,6 +73,14 @@ class GradientTransformation(NamedTuple):
     update: Callable[[Tree, Any, Optional[Tree]], tuple]
 
 
+class EmptyState(NamedTuple):
+    pass
+
+
+class ScaleState(NamedTuple):
+    pass
+
+
 class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor  # int32 0-d
 
@@ -80,6 +88,31 @@ class ScaleByScheduleState(NamedTuple):
 def tree_device(tree) -> torch.device:
     leaves = tree_leaves(tree)
     return leaves[0].device if leaves else torch.device("cpu")
+
+
+def identity() -> GradientTransformation:
+    """Pass the updates through unchanged."""
+    return GradientTransformation(lambda params: EmptyState(),
+                                  lambda updates, state, params=None:
+                                  (updates, state))
+
+
+def scale(step_size: float) -> GradientTransformation:
+    """Multiply the updates by a constant."""
+
+    def update_fn(updates, state, params=None):
+        return tree_map(lambda u: step_size * u, updates), state
+
+    return GradientTransformation(lambda params: ScaleState(), update_fn)
+
+
+def as_schedule(learning_rate) -> Schedule:
+    """A schedule as it is, or a constant learning rate as one (a 0-d fp32
+    tensor on the count's device)."""
+    if callable(learning_rate):
+        return learning_rate
+    return lambda count: torch.full((), learning_rate, dtype=torch.float32,
+                                    device=count.device)
 
 
 def scale_by_schedule(schedule: Schedule) -> GradientTransformation:
@@ -123,6 +156,12 @@ def apply_updates(params, updates):
 # --------------------------------------------------------------------------
 # numeric helpers of the optimizers
 # --------------------------------------------------------------------------
+
+def tree_zeros_like(params, dtype=None):
+    """Zeros shaped like each leaf, in `dtype` or the leaf's own."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=dtype or p.dtype),
+                    params)
+
 
 def safe_norm(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """l2 norm in fp32; returns max(norm, eps)."""

@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.core.optim.base import (
     GradientTransformation,
-    Schedule,
     WeightDecayMask,
+    as_schedule,
     bias_correction,
     chain,
     safe_div,
@@ -147,11 +147,8 @@ def lans(learning_rate, beta1: float = 0.9, beta2: float = 0.999,
          normalize_grads: bool = True,
          nesterov: bool = True) -> GradientTransformation:
     """Full LANS optimizer: direction transform x (-eta_t)."""
-    sched: Schedule = learning_rate if callable(learning_rate) else (
-        lambda count: torch.full((), learning_rate, dtype=torch.float32,
-                                 device=count.device))
     return chain(
         scale_by_lans(beta1, beta2, eps, weight_decay, decay_mask, phi_clip,
                       mu_dtype, normalize_grads, nesterov),
-        scale_by_schedule(sched),
+        scale_by_schedule(as_schedule(learning_rate)),
     )

@@ -3,9 +3,10 @@
 Every `csrc/*.cu` file is one shared library with a plain C interface,
 compiled by `nvcc` for Hopper (`sm_90a`) at first use into `_build/`
 beside this file (listed in `.gitignore`). The library name carries a
-digest of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. `build_all()` starts one `nvcc` per source, all
-at once, and waits for them together.
+digest of its source, of the local headers it includes (`#include
+"x.cuh"`, followed recursively) and of the flags, so an edited source or
+header rebuilds and an unchanged one is reused. `build_all()` starts
+one `nvcc` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and there is no `nvcc` there.
@@ -17,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, Optional
@@ -44,10 +46,31 @@ def sources() -> Dict[str, pathlib.Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
-def _library_path(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes())
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def digest(src: pathlib.Path) -> str:
+    """Digest of `src`, of every local header it includes (recursively,
+    resolved beside the including file) and of the nvcc flags."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def feed(path: pathlib.Path):
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for name in _LOCAL_INCLUDE.findall(text):
+            feed((path.parent / name.decode()).resolve())
+
+    feed(src.resolve())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _library_path(src: pathlib.Path) -> pathlib.Path:
+    return BUILD_DIR / f"{src.stem}-{digest(src)}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, pathlib.Path]:

@@ -27,7 +27,8 @@
 //     order (registers, then warp shuffles, then one warp over the warps'
 //     sums) into a per-CTA partial, and a second one-CTA launch adds the
 //     partials in a fixed order. No float atomics, so two runs on the same
-//     inputs are bitwise equal. The number of CTAs depends on n only;
+//     inputs are bitwise equal. The number of CTAs depends on n only. That
+//     machinery, shared with lamb.cu, is in optim_common.cuh;
 //   * the per-step scalars ride in an 8-float device array, as the TPU
 //     kernels' (1, 8) operand: [bc1, bc2, eta, lam, trust, g_sq, 0, 0]. K1
 //     writes g_sq into it; K2's second launch writes the three norms into
@@ -41,58 +42,9 @@
 // beta1, 1 - beta1, beta2, 1 - beta2 and eps come in as fp32 values rounded
 // on the host from the double-precision constants, as the TPU kernels' Python
 // float constants are.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "optim_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;      // threads per CTA, all kernels
-constexpr int kMaxCtas = 1024;     // reduction CTAs (partials per sum)
-constexpr int kMaxEwCtas = 132 * 16;  // elementwise CTAs: 16 per SM
-
-__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void st(__half* p, int64_t i, float v) {
-  p[i] = __float2half_rn(v);
-}
-
-// Sum over the CTA in a fixed order; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* smem) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // smem may still be read from an earlier call
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  v = 0.0f;
-  if (warp == 0) {
-    if (lane < kThreads / 32) v = smem[lane];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-int reduce_ctas(int64_t n) {
-  int64_t c = (n + kThreads * 8 - 1) / (kThreads * 8);
-  if (c < 1) c = 1;
-  return static_cast<int>(c < kMaxCtas ? c : kMaxCtas);
-}
-
-int elementwise_ctas(int64_t n) {
-  int64_t c = (n + kThreads - 1) / kThreads;
-  if (c < 1) c = 1;
-  return static_cast<int>(c < kMaxEwCtas ? c : kMaxEwCtas);
-}
 
 // ---------------------------------------------------------------------------
 // K1: sum of squares -> per-CTA partials
@@ -112,29 +64,9 @@ sq_norm_kernel(const T* __restrict__ x, int64_t n, float* __restrict__ parts) {
   if (threadIdx.x == 0) parts[blockIdx.x] = acc;
 }
 
-// Second pass, one CTA: out[k] = sum of parts[k * n_parts .. + n_parts) for
-// k < n_sums, then zeros up to n_out.
-__global__ void __launch_bounds__(kThreads)
-finish_sums_kernel(const float* __restrict__ parts, int n_parts, int n_sums,
-                   float* __restrict__ out, int n_out) {
-  __shared__ float smem[kThreads / 32];
-  for (int k = 0; k < n_sums; ++k) {
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n_parts; i += kThreads)
-      acc += parts[k * n_parts + i];
-    acc = block_sum(acc, smem);
-    if (threadIdx.x == 0) out[k] = acc;
-  }
-  if (threadIdx.x >= n_sums && threadIdx.x < n_out) out[threadIdx.x] = 0.0f;
-}
-
 // ---------------------------------------------------------------------------
 // K2: moments and partial norms
 // ---------------------------------------------------------------------------
-struct Consts {
-  float beta1, one_minus_beta1, beta2, one_minus_beta2, eps;
-};
-
 // g~ = g / ||g||, selecting 0 where ||g||^2 is 0 or NaN
 __device__ __forceinline__ float g_tilde(float g, float g_sq, float inv) {
   return g_sq > 0.0f ? g * inv : 0.0f;
@@ -180,13 +112,6 @@ lans_phase1_kernel(const float* __restrict__ scal, const TG* __restrict__ g,
 // ---------------------------------------------------------------------------
 // K3 / K4: apply the update (K4 also writes the low-precision copy)
 // ---------------------------------------------------------------------------
-// trust ratio ||x|| / ||u||, selecting 1 where ||u||^2 is 0 or trust is off
-__device__ __forceinline__ float trust_ratio(float x_norm, float u_sq,
-                                             float trust) {
-  const float s = u_sq > 0.0f ? x_norm * rsqrtf(fmaxf(u_sq, 1e-38f)) : 1.0f;
-  return trust > 0.0f ? s : 1.0f;
-}
-
 template <typename TG, typename TX, typename TLP, bool kCast>
 __global__ void __launch_bounds__(kThreads)
 lans_phase2_kernel(const float* __restrict__ scal,

@@ -1,9 +1,20 @@
-// Paged decode attention with the K/V/pos write fused in, for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a): K8 with the K/V/pos write
+// fused in, and K7, its read side alone.
 //
-// Replaces the TPU kernel src/repro/kernels/paged_attention_kernel.py:
-// paged_attention_fused (K8; its fold _online_fold and _finish_out).
-// The plain PyTorch version it is held to is
-// repro_torch/kernels/paged_attention.py:paged_attention_fused_plain.
+// Replaces the TPU kernels of src/repro/kernels/paged_attention_kernel.py:
+//   K8 paged_attention_fused (its fold _online_fold and _finish_out), entry
+//      paged_attention_fused_launch, held to
+//      repro_torch/kernels/paged_attention.py:paged_attention_fused_plain;
+//   K7 paged_attention (_paged_attn_kernel), entry paged_attention_launch,
+//      held to paged_attention.py:paged_attention_plain. It is the same
+//      kernel template with kNew = false: the virtual block of new rows
+//      (j = -1), the stale-row masking and both writes are compiled out,
+//      and the sweep attends to exactly the blocks the table names (the
+//      null block, whose positions are -1 by the pool's contract, is
+//      skipped as in K8). S is then not bound by bs, since no new rows
+//      share the block buffer.
+//
+// The rest of this note describes K8; K7 is its first half.
 //
 // What it computes, per slot b: the S query rows attend, through the slot's
 // block table, to every key of the arena blocks it names plus the S new rows,
@@ -82,7 +93,9 @@ struct Params {
   float softcap;       // <= 0: no cap
 };
 
-template <typename TQ, typename TKV>
+// kNew: fold the S new rows as a virtual block and write them (K8); without
+// it the kernel reads the arenas only (K7).
+template <typename TQ, typename TKV, bool kNew>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_fused_kernel(Params p) {
   const int b = blockIdx.x;
@@ -95,7 +108,7 @@ paged_attention_fused_kernel(Params p) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cur = p.cursor[b];
+  const int cur = kNew ? p.cursor[b] : 0;
   const int* qp = p.q_pos + (size_t)b * p.S;
 
   extern __shared__ float smem[];
@@ -122,9 +135,9 @@ paged_attention_fused_kernel(Params p) {
   }
 
   // j == -1 is the virtual block of the S new rows; j >= 0 the table.
-  for (int j = -1; j < p.nb; ++j) {
+  for (int j = kNew ? -1 : 0; j < p.nb; ++j) {
     int rows;
-    if (j < 0) {
+    if (kNew && j < 0) {
       rows = p.S;
       for (int idx = tid; idx < rows * hd; idx += kThreads) {
         const int t = idx / hd, d = idx - (idx / hd) * hd;
@@ -153,8 +166,9 @@ paged_attention_fused_kernel(Params p) {
         const int rr = j * bs + t;
         // a row the new tokens overwrite is stale: after the scatter it
         // holds the new row, which the virtual block already counted
-        for (int s = 0; s < p.S; ++s)
-          if (qp[s] >= 0 && (cur + s) % ring == rr) kp = -1;
+        if (kNew)
+          for (int s = 0; s < p.S; ++s)
+            if (qp[s] >= 0 && (cur + s) % ring == rr) kp = -1;
         skp[t] = kp;
       }
     }
@@ -222,19 +236,22 @@ paged_attention_fused_kernel(Params p) {
         l > 0.f ? sacc[idx] / l : 0.f;
   }
 
-  // the write of head g: every read of this CTA is behind the last barrier
-  for (int s = 0; s < p.S; ++s) {
-    if (qp[s] < 0) continue;
-    const int rr = (cur + s) % ring;
-    const int dst = p.tables[(size_t)b * p.nb + rr / bs];
-    if (dst == 0) continue;
-    const size_t src = (((size_t)b * p.S + s) * p.n_kv + g) * hd;
-    const size_t to = (((size_t)dst * bs + rr % bs) * p.n_kv + g) * hd;
-    for (int d = tid; d < hd; d += kThreads) {
-      static_cast<TKV*>(p.k_arena)[to + d] =
-          static_cast<const TKV*>(p.k_new)[src + d];
-      static_cast<TKV*>(p.v_arena)[to + d] =
-          static_cast<const TKV*>(p.v_new)[src + d];
+  // the write of head g (K8 only): every read of this CTA is behind the last
+  // barrier
+  if constexpr (kNew) {
+    for (int s = 0; s < p.S; ++s) {
+      if (qp[s] < 0) continue;
+      const int rr = (cur + s) % ring;
+      const int dst = p.tables[(size_t)b * p.nb + rr / bs];
+      if (dst == 0) continue;
+      const size_t src = (((size_t)b * p.S + s) * p.n_kv + g) * hd;
+      const size_t to = (((size_t)dst * bs + rr % bs) * p.n_kv + g) * hd;
+      for (int d = tid; d < hd; d += kThreads) {
+        static_cast<TKV*>(p.k_arena)[to + d] =
+            static_cast<const TKV*>(p.k_new)[src + d];
+        static_cast<TKV*>(p.v_arena)[to + d] =
+            static_cast<const TKV*>(p.v_new)[src + d];
+      }
     }
   }
 }
@@ -252,20 +269,34 @@ __global__ void paged_write_pos_kernel(Params p) {
   p.pos_arena[(size_t)dst * p.bs + rr % p.bs] = qq;
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_fused(const Params& p, size_t smem, cudaStream_t stream) {
-  // opt in to the largest dynamic shared memory asked for so far, once
+template <typename TQ, typename TKV, bool kNew>
+cudaError_t launch_attention(const Params& p, size_t smem,
+                             cudaStream_t stream) {
+  // opt in to the largest dynamic shared memory asked for so far, once per
+  // instantiation
   static size_t opted_in = 0;
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_fused_kernel<TQ, TKV>,
+        paged_attention_fused_kernel<TQ, TKV, kNew>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  paged_attention_fused_kernel<TQ, TKV>
+  paged_attention_fused_kernel<TQ, TKV, kNew>
       <<<dim3(p.B, p.n_kv), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kNew>
+cudaError_t launch_attention(const Params& p, int q_bf16, int kv_bf16,
+                             size_t smem, cudaStream_t st) {
+  if (q_bf16)
+    return kv_bf16
+               ? launch_attention<__nv_bfloat16, __nv_bfloat16, kNew>(p, smem,
+                                                                      st)
+               : launch_attention<__nv_bfloat16, float, kNew>(p, smem, st);
+  return kv_bf16 ? launch_attention<float, __nv_bfloat16, kNew>(p, smem, st)
+                 : launch_attention<float, float, kNew>(p, smem, st);
 }
 
 }  // namespace
@@ -282,16 +313,25 @@ extern "C" int paged_attention_fused_launch(
            cursor, out, B, S, h, n_kv, hd, bs, nb, scale, causal, window,
            softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (q_bf16) {
-    err = kv_bf16 ? launch_fused<__nv_bfloat16, __nv_bfloat16>(p, smem, st)
-                  : launch_fused<__nv_bfloat16, float>(p, smem, st);
-  } else {
-    err = kv_bf16 ? launch_fused<float, __nv_bfloat16>(p, smem, st)
-                  : launch_fused<float, float>(p, smem, st);
-  }
+  const cudaError_t err = launch_attention<true>(p, q_bf16, kv_bf16, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = B * S;
   paged_write_pos_kernel<<<(n + 127) / 128, 128, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7: the attention of q against the arenas the tables name; nothing is
+// written. smem as above (the same plan; S rows share no block buffer).
+extern "C" int paged_attention_launch(
+    const void* q, int q_bf16, const void* k_arena, const void* v_arena,
+    int kv_bf16, const int* pos_arena, const int* tables, const int* q_pos,
+    float* out, int B, int S, int h, int n_kv, int hd, int bs, int nb,
+    float scale, int causal, int window, float softcap, size_t smem,
+    void* stream) {
+  Params p{q, nullptr, nullptr, const_cast<void*>(k_arena),
+           const_cast<void*>(v_arena), const_cast<int*>(pos_arena), tables,
+           q_pos, nullptr, out, B, S, h, n_kv, hd, bs, nb, scale, causal,
+           window, softcap};
+  return static_cast<int>(launch_attention<false>(
+      p, q_bf16, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
 }

@@ -2,17 +2,17 @@
 repro/kernels/ops.py).
 
 Each parameter tensor is viewed flat and handed to the kernels of
-kernels/lans.py as it is: the CUDA kernels take any length and mask
-their tail, so nothing is padded (the JAX wrappers pad to (256, 128)
-tiles only because the TPU tiles that way; zero padding was exact, so
-the results agree). CUDA tensors go through the kernels, CPU tensors
+kernels/lans.py (K1-K4) and kernels/lamb.py (K5-K6) as it is: the CUDA
+kernels take any length and mask their tail, so nothing is padded (the
+JAX wrappers pad to (256, 128) tiles only because the TPU tiles that
+way; zero padding was exact, so the results agree). CUDA tensors go through the kernels, CPU tensors
 through their plain versions.
 
 Step scalars are built on the operands' device from `eta` and `step`
 (Python numbers or 0-d tensors), so a training step passes its device
 count and schedule value through without a host round trip. The
 optimizer transforms build a whole step's scalars at once
-(lans_scalar_rows) and hand each tensor its row.
+(lans_scalar_rows, lamb_scalar_rows) and hand each tensor its row.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import lamb as KB
 from repro_torch.kernels import lans as K
 
 
@@ -42,6 +43,12 @@ def _flat(t):
     return t.reshape(-1).contiguous()
 
 
+def _put(s, i, val):
+    """s[i] = val, a Python number or a 0-d tensor (kept on the device)."""
+    s[i] = (val.to(device=s.device, dtype=torch.float32)
+            if torch.is_tensor(val) else float(val))
+
+
 def lans_scalars(eta, step, *, beta1: float, beta2: float, lam: float,
                  apply_trust: bool, device) -> torch.Tensor:
     """The kernels' scalars [bc1, bc2, eta, lam, trust, g_sq=0, 0, 0] as
@@ -54,13 +61,18 @@ def lans_scalars(eta, step, *, beta1: float, beta2: float, lam: float,
     betas[0] = beta1
     betas[1] = beta2
     s[0:2] = 1.0 - torch.pow(betas, t)
-    if torch.is_tensor(eta):
-        s[2] = eta.to(device=device, dtype=torch.float32)
-    else:
-        s[2] = float(eta)
+    _put(s, 2, eta)
     s[3] = lam
     s[4] = 1.0 if apply_trust else 0.0
     return s
+
+
+def _decay_rows(on, decay):
+    """One row per tensor: `on` where decay[i], else `on` with lam 0 and
+    trust off (slots 3-4)."""
+    off = on.clone()
+    off[3:5] = 0.0
+    return torch.stack([on if d else off for d in decay])
 
 
 def lans_scalar_rows(eta, step, decay, *, beta1: float, beta2: float,
@@ -70,11 +82,9 @@ def lans_scalar_rows(eta, step, decay, *, beta1: float, beta2: float,
     bc1, bc2 and eta are the same in every row, so they are built once
     per step, not once per tensor; each row is contiguous and takes its
     tensor's g_sq from K1."""
-    on = lans_scalars(eta, step, beta1=beta1, beta2=beta2, lam=lam,
-                      apply_trust=True, device=device)
-    off = on.clone()
-    off[3:5] = 0.0
-    return torch.stack([on if d else off for d in decay])
+    return _decay_rows(lans_scalars(eta, step, beta1=beta1, beta2=beta2,
+                                    lam=lam, apply_trust=True,
+                                    device=device), decay)
 
 
 def _scalars(scalars, eta, step, beta1, beta2, lam, apply_trust, device):
@@ -128,9 +138,49 @@ def fused_lans_mixed_step(g, m, v, x, *, eta=None, step=None, lp_dtype,
                         v_new.view(x.shape), x_lp.view(x.shape))
 
 
-def fused_lamb_step(*args, **kwargs):
-    raise NotImplementedError("fused_lamb_step is not ported yet: the LAMB "
-                              "kernels K5-K6 come with the next slice")
+def lamb_scalars(eta, step, clip, *, beta1: float, beta2: float,
+                 lam: float, apply_trust: bool, device) -> torch.Tensor:
+    """The LAMB kernels' scalars [bc1, bc2, eta, lam, trust, clip, 0, 0]:
+    LANS's layout with the global clip factor (a Python number or a 0-d
+    tensor) in slot 5."""
+    s = lans_scalars(eta, step, beta1=beta1, beta2=beta2, lam=lam,
+                     apply_trust=apply_trust, device=device)
+    _put(s, 5, clip)
+    return s
+
+
+def lamb_scalar_rows(eta, step, clip, decay, *, beta1: float, beta2: float,
+                     lam: float, device) -> torch.Tensor:
+    """The LAMB scalars of a whole step, one (8,) row per parameter
+    tensor: lam and trust on where `decay[i]`, lam 0 and trust off
+    elsewhere. bc1, bc2, eta and clip are built once per step."""
+    return _decay_rows(lamb_scalars(eta, step, clip, beta1=beta1,
+                                    beta2=beta2, lam=lam, apply_trust=True,
+                                    device=device), decay)
+
+
+def fused_lamb_step(g, m, v, x, *, eta=None, step=None, clip=1.0,
+                    beta1: float = 0.9, beta2: float = 0.999,
+                    eps: float = 1e-6, lam: float = 0.01,
+                    apply_trust: bool = True,
+                    scalars: Optional[torch.Tensor] = None) -> StepOut:
+    """One fused LAMB update for a single parameter tensor (any shape):
+    K5, then K6. `clip` is the caller's global-clip factor. Returns new
+    tensors, x_new in x's dtype, moments fp32. `scalars` (a row of
+    lamb_scalar_rows) stands in for eta, step, clip, lam and apply_trust
+    when given."""
+    gf, mf, vf, xf = map(_flat, (g, m, v, x))
+    if scalars is None:
+        if eta is None or step is None:
+            raise TypeError("give eta and step, or scalars")
+        scalars = lamb_scalars(eta, step, clip, beta1=beta1, beta2=beta2,
+                               lam=lam, apply_trust=apply_trust,
+                               device=g.device)
+    m_new, v_new, norms = KB.lamb_phase1(scalars, gf, mf, vf, xf,
+                                         beta1=beta1, beta2=beta2, eps=eps)
+    x_new = KB.lamb_phase2(scalars, norms, m_new, v_new, xf, eps=eps)
+    return StepOut(x_new.view(x.shape), m_new.view(x.shape),
+                   v_new.view(x.shape))
 
 
 def block_sq_norm(x) -> torch.Tensor:

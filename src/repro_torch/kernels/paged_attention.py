@@ -1,12 +1,21 @@
-"""Paged decode attention with the K/V/pos write fused in.
+"""Paged decode attention: K8 with the K/V/pos write fused in, and K7,
+its read side.
 
-`paged_attention_fused` is the wrapper the model calls once per attention
-layer per decode step. On CUDA tensors it launches the hand-written
-kernel of `csrc/paged_attention.cu` (which replaces the TPU kernel
-`repro/kernels/paged_attention_kernel.py:paged_attention_fused`); on CPU
-tensors it runs `paged_attention_fused_plain`, the plain PyTorch version
-both are held to. Either way the arenas are updated IN PLACE (the JAX
-kernel aliased them in and out) and the attention output is returned.
+`paged_attention_fused` (K8) is the wrapper the model calls once per
+attention layer per decode step. On CUDA tensors it launches the
+hand-written kernel of `csrc/paged_attention.cu` (which replaces the TPU
+kernel `repro/kernels/paged_attention_kernel.py:paged_attention_fused`);
+on CPU tensors it runs `paged_attention_fused_plain`, the plain PyTorch
+version both are held to. Either way the arenas are updated IN PLACE
+(the JAX kernel aliased them in and out) and the attention output is
+returned.
+
+`paged_attention` (K7, replacing the TPU kernel `paged_attention`) is
+the library entry of the read side: attention of q against arenas that
+already hold the new rows, nothing written. Its kernel is K8's without
+the new rows and the writes; its plain version is
+`paged_attention_plain`. No model path calls it (the reference's only
+caller is its kernel benchmark).
 
 Contract (the same as the JAX kernel's):
   q (B, [S,] h, hd) fp32 or bf16; k_new / v_new (B, [S,] n_kv, hd) in
@@ -50,19 +59,21 @@ def smem_bytes(S: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
-                        n_kv: int, dtype, *, S: int = 1) -> list:
+                        n_kv: int, dtype, *, S: int = 1,
+                        new_rows: bool = True) -> list:
     """Why this layout does not fit the kernel's tiling (empty: fits).
 
     One CTA holds the S * (n_heads / n_kv) query rows of one KV head and
-    one arena block of K and V in shared memory, and reuses the block
-    buffer for the S new rows, so S may not exceed block_size."""
+    one arena block of K and V in shared memory. K8 (new_rows) reuses the
+    block buffer for the S new rows, so S may not exceed block_size
+    there; K7 folds no new rows."""
     problems = []
     if dtype not in _FLOAT_TYPES:
         problems.append(f"arena dtype {dtype} is not float32 or bfloat16")
     if n_kv <= 0 or n_heads % n_kv:
         problems.append(f"n_heads {n_heads} is not a multiple of n_kv {n_kv}")
         return problems
-    if not 1 <= S <= block_size:
+    if S < 1 or (new_rows and S > block_size):
         problems.append(f"S={S} query rows must be in [1, block_size "
                         f"{block_size}]: the kernel folds the new rows in "
                         f"its block buffer")
@@ -74,13 +85,13 @@ def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
 
 
 def ensure_kernel_fit(block_size: int, head_dim: int, n_heads: int,
-                      n_kv: int, dtype, *, S: int = 1,
+                      n_kv: int, dtype, *, S: int = 1, new_rows: bool = True,
                       device="cpu") -> list:
-    """Raise, for a CUDA device, on a layout the kernel cannot take.
-    Returns the problem list; on the CPU (the plain version takes any
-    layout) the problems are advisory."""
+    """Raise, for a CUDA device, on a layout the kernel (K8, or K7 without
+    new_rows) cannot take. Returns the problem list; on the CPU (the
+    plain versions take any layout) the problems are advisory."""
     problems = kernel_fit_problems(block_size, head_dim, n_heads, n_kv,
-                                   dtype, S=S)
+                                   dtype, S=S, new_rows=new_rows)
     if problems and torch.device(device).type == "cuda":
         raise ValueError("paged-attention kernel cannot take this layout: "
                          + "; ".join(problems))
@@ -203,7 +214,7 @@ def decode_case(*, B: int, S: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 # --------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # --------------------------------------------------------------------------
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -213,13 +224,19 @@ def _ptr(t) -> ctypes.c_void_p:
 def _library():
     from repro_torch.kernels import build
     lib = build.load("paged_attention")
-    fn = lib.paged_attention_fused_launch
-    if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, P, P, P, P, I, P, P, P, P, P,
-                       I, I, I, I, I, I, I, F, I, I, F, ctypes.c_size_t, P]
-        fn.restype = I
-    return fn
+    if lib.paged_attention_fused_launch.argtypes is None:
+        P, I, F, Z = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_size_t)
+        lib.paged_attention_fused_launch.argtypes = [
+            P, I, P, P, P, P, I, P, P, P, P, P,
+            I, I, I, I, I, I, I, F, I, I, F, Z, P]
+        lib.paged_attention_launch.argtypes = [
+            P, I, P, P, I, P, P, P, P,
+            I, I, I, I, I, I, I, F, I, I, F, Z, P]
+        for fn in (lib.paged_attention_fused_launch,
+                   lib.paged_attention_launch):
+            fn.restype = I
+    return lib
 
 
 def _check(name, t, device, dtypes, shape):
@@ -235,29 +252,15 @@ def _check(name, t, device, dtypes, shape):
         raise ValueError(f"{name} is not contiguous")
 
 
-def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
-                          tables, q_pos, cursor, *, scale,
-                          causal: bool = True, window: Optional[int] = None,
-                          softcap: Optional[float] = None):
-    """Attention output (fp32, shaped like q) of the new rows against the
-    slot's paged history; the arenas are updated in place. CPU tensors
-    run the plain version; CUDA tensors launch the kernel or raise.
-    `paged_attention_fused.launches` counts kernel launches."""
-    if q.device.type == "cpu":
-        return paged_attention_fused_plain(
-            q, k_new, v_new, k_arena, v_arena, pos_arena, tables, q_pos,
-            cursor, scale=scale, causal=causal, window=window,
-            softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged-attention kernel for {q.device}")
+def _launch(name, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
+            q_pos, cursor, *, scale, causal, window, softcap):
+    """Check the operands (q (B, S, h, hd); k_new, v_new and cursor None
+    for K7), launch K8 or K7 on q's stream and return the fp32 output
+    (B, S, h, hd)."""
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    squeeze = q.ndim == 3
-    if squeeze:
-        q, q_pos = q[:, None], q_pos[:, None]
-        k_new, v_new = k_new[:, None], v_new[:, None]
     if q.ndim != 4 or k_arena.ndim != 4:
         raise ValueError("q must be (B, [S,] h, hd) and the arenas "
                          "(n_blocks, bs, n_kv, hd)")
@@ -270,29 +273,94 @@ def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
     _check("q", q, dev, _FLOAT_TYPES, (B, S, h, hd))
     _check("k_arena", k_arena, dev, _FLOAT_TYPES, (n_blocks, bs, n_kv, hd))
     _check("v_arena", v_arena, dev, (kv_dt,), (n_blocks, bs, n_kv, hd))
-    _check("k_new", k_new, dev, (kv_dt,), (B, S, n_kv, hd))
-    _check("v_new", v_new, dev, (kv_dt,), (B, S, n_kv, hd))
+    new_rows = k_new is not None
+    if new_rows:
+        _check("k_new", k_new, dev, (kv_dt,), (B, S, n_kv, hd))
+        _check("v_new", v_new, dev, (kv_dt,), (B, S, n_kv, hd))
+        _check("cursor", cursor, dev, i32, (B,))
     _check("pos_arena", pos_arena, dev, i32, (n_blocks, bs))
     _check("tables", tables, dev, i32, (B, nb))
     _check("q_pos", q_pos, dev, i32, (B, S))
-    _check("cursor", cursor, dev, i32, (B,))
-    ensure_kernel_fit(bs, hd, h, n_kv, kv_dt, S=S, device=dev)
+    ensure_kernel_fit(bs, hd, h, n_kv, kv_dt, S=S, new_rows=new_rows,
+                      device=dev)
     out = torch.empty((B, S, h, hd), dtype=torch.float32, device=dev)
     if B == 0:
-        return out[:, 0] if squeeze else out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library()(
-        _ptr(q), int(q.dtype == torch.bfloat16), _ptr(k_new), _ptr(v_new),
-        _ptr(k_arena), _ptr(v_arena), int(kv_dt == torch.bfloat16),
-        _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(cursor), _ptr(out),
-        B, S, h, n_kv, hd, bs, nb, float(scale), int(bool(causal)),
-        int(window or 0), float(softcap or 0.0),
-        smem_bytes(S, h, n_kv, hd, bs), ctypes.c_void_p(stream))
+        return out
+    lib = _library()
+    common = (B, S, h, n_kv, hd, bs, nb, float(scale), int(bool(causal)),
+              int(window or 0), float(softcap or 0.0),
+              smem_bytes(S, h, n_kv, hd, bs),
+              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    q_bf16, kv_bf16 = int(q.dtype == torch.bfloat16), int(
+        kv_dt == torch.bfloat16)
+    if new_rows:
+        err = lib.paged_attention_fused_launch(
+            _ptr(q), q_bf16, _ptr(k_new), _ptr(v_new), _ptr(k_arena),
+            _ptr(v_arena), kv_bf16, _ptr(pos_arena), _ptr(tables),
+            _ptr(q_pos), _ptr(cursor), _ptr(out), *common)
+    else:
+        err = lib.paged_attention_launch(
+            _ptr(q), q_bf16, _ptr(k_arena), _ptr(v_arena), kv_bf16,
+            _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(out), *common)
     if err != 0:
-        raise RuntimeError(f"paged_attention_fused launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    return out
+
+
+def _on_cuda(q):
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-attention kernel for {q.device}")
+    return True
+
+
+def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
+                          tables, q_pos, cursor, *, scale,
+                          causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None):
+    """K8: attention output (fp32, shaped like q) of the new rows against
+    the slot's paged history; the arenas are updated in place. CPU tensors
+    run the plain version; CUDA tensors launch the kernel or raise.
+    `paged_attention_fused.launches` counts kernel launches."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if not _on_cuda(q):
+        return paged_attention_fused_plain(
+            q, k_new, v_new, k_arena, v_arena, pos_arena, tables, q_pos,
+            cursor, **kw)
+    squeeze = q.ndim == 3
+    if squeeze:
+        q, q_pos = q[:, None], q_pos[:, None]
+        k_new, v_new = k_new[:, None], v_new[:, None]
+    out = _launch("paged_attention_fused", q, k_new, v_new, k_arena,
+                  v_arena, pos_arena, tables, q_pos, cursor, **kw)
     paged_attention_fused.launches += 1
     return out[:, 0] if squeeze else out
 
 
+def paged_attention(q, k_arena, v_arena, pos_arena, tables, q_pos, *,
+                    scale, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None):
+    """K7: attention (fp32, shaped like q: (B, h, hd) with q_pos (B,), or
+    (B, S, h, hd) with q_pos (B, S)) of q against the post-write arenas
+    through the block tables; nothing is written. A query row with no
+    valid key returns exactly 0. CPU tensors run paged_attention_plain;
+    CUDA tensors launch the kernel or raise. `paged_attention.launches`
+    counts kernel launches."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    squeeze = q.ndim == 3
+    if squeeze:
+        q, q_pos = q[:, None], q_pos[:, None]
+    if _on_cuda(q):
+        out = _launch("paged_attention", q, None, None, k_arena, v_arena,
+                      pos_arena, tables, q_pos, None, **kw)
+        paged_attention.launches += 1
+    else:
+        out = paged_attention_plain(q, k_arena, v_arena, pos_arena, tables,
+                                    q_pos, **kw)
+    return out[:, 0] if squeeze else out
+
+
 paged_attention_fused.launches = 0
+paged_attention.launches = 0

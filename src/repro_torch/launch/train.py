@@ -12,10 +12,12 @@ Mixed precision (--precision {fp32,bf16,fp16}): bf16/fp16 hold the model
 copy in half precision with fp32 master weights in the optimizer state;
 fp16 adds dynamic loss scaling (skip the step and halve the scale on
 overflow). `loss_scale` and `overflow_count` appear in the console line
-and the JSONL metrics. The optimizer is the unfused `lans`, as in the
-JAX launcher; the fused kernels are reached through the library
-(`build_train_step(..., fused_lans(...))`). `--optimizer lamb|adamw`
-and archs other than bert are not ported yet and raise.
+and the JSONL metrics. `--optimizer {lans,lamb,adamw}` picks the unfused
+transform, as the JAX launcher does (only lans stores its moments in the
+policy's moment dtype; under bf16/fp16 every optimizer goes through the
+generic `mixed_precision` wrapper). The fused kernels are reached
+through the library: `build_train_step(..., fused_lans(...))` or
+`fused_lamb(...)`. Archs other than bert are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch import precision as prec
 from repro_torch import select_device
 from repro_torch.checkpoint import save as ckpt_save
 from repro_torch.configs import get_arch, reduced_arch
-from repro_torch.core.optim import lans
+from repro_torch.core.optim import adamw, lamb, lans
 from repro_torch.core.schedules import (constant, warmup_hold_decay,
                                         warmup_linear_decay)
 from repro_torch.data.corpus import SyntheticCorpus, mlm_batch_iterator
@@ -40,13 +42,10 @@ from repro_torch.metrics import MetricsLogger
 
 
 def make_optimizer(name: str, schedule, *, policy=None, **kw):
-    if name != "lans":
-        raise NotImplementedError(f"--optimizer {name} is not ported yet "
-                                  f"(LAMB/AdamW come with kernels K5-K6)")
-    if policy is not None:
+    if name == "lans" and policy is not None:
         # moments store in the policy's dtype (math stays fp32)
         kw.setdefault("mu_dtype", policy.moment_dtype)
-    return lans(schedule, **kw)
+    return {"lans": lans, "lamb": lamb, "adamw": adamw}[name](schedule, **kw)
 
 
 def make_data(arch, *, batch: int, seq: int, num_workers: int = 1,

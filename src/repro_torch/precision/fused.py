@@ -17,8 +17,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.optim.base import (WeightDecayMask, tree_device,
-                                         tree_map, tree_paths)
+from repro_torch.core.optim.base import (WeightDecayMask, as_schedule,
+                                         tree_device, tree_map, tree_paths)
 from repro_torch.core.optim.fused import step_scalars
 from repro_torch.kernels import ops
 from repro_torch.precision.loss_scale import LossScaleState, all_finite
@@ -45,9 +45,7 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
     transform."""
     ls = loss_scale if loss_scale is not None else policy.make_loss_scale()
     mask_fn = decay_mask or WeightDecayMask()
-    sched = learning_rate if callable(learning_rate) else (
-        lambda count: torch.full((), learning_rate, dtype=torch.float32,
-                                 device=count.device))
+    sched = as_schedule(learning_rate)
 
     def init_fn(params):
         dev = tree_device(params)

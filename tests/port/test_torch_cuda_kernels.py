@@ -193,3 +193,158 @@ def test_cuda_sq_norm_is_bitwise_repeatable():
                               device="cuda")
     a, b = kl.sq_norm(g).clone(), kl.sq_norm(g).clone()
     assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# K5-K6, the fused LAMB step (kernels/lamb.py, csrc/lamb.cu)
+#
+# Tolerance: 2e-5 (rtol and atol) for every fp32 output (K5's m, v and
+# norms, K6's fp32 x), whatever g and x are, as for K1/K2 above; 2e-2 for
+# K6's x when x is bf16 (tests/test_kernels.py's tolerance). K5's norms
+# repeat bit for bit. A NaN in g is not guarded (as in the reference), so
+# outputs are compared with equal_nan.
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import lamb as kb  # noqa: E402
+
+
+def test_lamb_wrappers_reject_unsupported_operands_on_cuda_only():
+    """On the CPU a wrapper runs its plain version for any float dtype;
+    on CUDA it raises on what the kernel does not take (fp16 g, a
+    non-contiguous m, a scalars tensor of the wrong size)."""
+    g, m, v, x = kl.lans_case(6, torch.float32)
+    scal = kops.lamb_scalars(0.01, 1, 0.5, beta1=0.9, beta2=0.999, lam=0.0,
+                             apply_trust=True, device="cpu")
+    before = [k.launches for k in kb.KERNELS]
+    out = kb.lamb_phase1(scal, g.half(), m, v, x, beta1=0.9, beta2=0.999,
+                         eps=1e-6)
+    assert all(torch.isfinite(t).all() for t in out)
+    assert [k.launches for k in kb.KERNELS] == before
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, m, v, x, scal = (t.cuda() for t in (g, m, v, x, scal))
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
+    with pytest.raises(TypeError):
+        kb.lamb_phase1(scal, g.half(), m, v, x, **kw)
+    with pytest.raises(ValueError):
+        kb.lamb_phase1(scal, g, torch.zeros(12, device="cuda")[::2], v, x,
+                       **kw)
+    with pytest.raises(ValueError):
+        kb.lamb_phase2(scal[:4], torch.zeros(8, device="cuda"), m, v, x,
+                       eps=1e-6)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.3])
+@pytest.mark.parametrize("kind,lam,trust", [("normal", 0.01, True),
+                                            ("normal", 0.0, False),
+                                            ("zero_grad", 0.01, True),
+                                            ("nan_grad", 0.01, True)])
+@pytest.mark.parametrize("step", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 127, 32773, 1048579])
+def test_cuda_lamb_kernels_match_plain(n, dtype, step, kind, lam, trust,
+                                       clip):
+    """Needs the card: K5 and K6 each against its plain version on the
+    same inputs, K5's norms bitwise repeatable, and the composed step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol, f32 = _lans_tol(dtype), _lans_tol(torch.float32)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
+    g, m, v, x = kl.lans_case(n, dtype, kind=kind, seed=n + step,
+                              device="cuda")
+    scal = kops.lamb_scalars(0.02, step, clip, beta1=0.9, beta2=0.999,
+                             lam=lam, apply_trust=trust, device="cuda")
+    before = [k.launches for k in kb.KERNELS]
+    got1 = kb.lamb_phase1(scal, g, m, v, x, **kw)
+    want1 = kb.lamb_phase1_plain(scal, g, m, v, x, **kw)
+    for a, b in zip(got1, want1):   # fp32 outputs whatever g and x are
+        torch.testing.assert_close(a, b, **f32, equal_nan=True)
+    assert torch.equal(kb.lamb_phase1(scal, g, m, v, x, **kw)[2], got1[2]) \
+        or kind == "nan_grad"
+    m1, v1, norms = want1
+    x6 = kb.lamb_phase2(scal, norms, m1, v1, x, eps=1e-6)
+    torch.testing.assert_close(
+        x6.float(), kb.lamb_phase2_plain(scal, norms, m1, v1, x,
+                                         eps=1e-6).float(), **tol,
+        equal_nan=True)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kb.KERNELS, before)] == [2, 1]
+    out = kops.fused_lamb_step(g, m, v, x, eta=0.02, step=step, clip=clip,
+                               lam=lam, apply_trust=trust)
+    cpu = [t.cpu() for t in (g, m, v, x)]
+    want = kops.fused_lamb_step(*cpu, eta=0.02, step=step, clip=clip,
+                                lam=lam, apply_trust=trust)
+    for a, b, t in zip(out, want, (tol, f32, f32)):   # x, m, v
+        assert torch.isfinite(a).all() or kind == "nan_grad"
+        torch.testing.assert_close(a.cpu().float(), b.float(), **t,
+                                   equal_nan=True)
+
+
+# --------------------------------------------------------------------------
+# K7, the read side of the paged-attention kernel
+#
+# Tolerance: 1e-5 (atol and rtol) against paged_attention_plain, fp32
+# arithmetic on both sides in another summation order, as for K8; on
+# K8's post-write arenas K7 equals K8's output to the same tolerance.
+# --------------------------------------------------------------------------
+
+def _read_args(args):
+    """K7's operands (q, arenas, pos, tables, q_pos) of a decode case."""
+    q, _, _, k_arena, v_arena, pos, tables, q_pos, _ = args
+    return q, k_arena, v_arena, pos, tables, q_pos
+
+
+def test_k7_wrapper_on_cpu_counts_no_launch_and_is_plain():
+    args = pa.decode_case(B=4, S=3, n_heads=4, n_kv=2, head_dim=16,
+                          block_size=8, nb=3, dtype=torch.float32,
+                          device="cpu")
+    before = pa.paged_attention.launches
+    read = _read_args(args)
+    kw = dict(scale=0.25, window=12, softcap=5.0)
+    out = pa.paged_attention(*read, **kw)
+    assert pa.paged_attention.launches == before
+    assert torch.equal(out, pa.paged_attention_plain(*read, **kw))
+    assert (out[-1] == 0).all()
+    q, k, v, pos, tables, q_pos = read
+    one = pa.paged_attention(q[:, 0], k, v, pos, tables, q_pos[:, 0], **kw)
+    assert one.shape == q[:, 0].shape
+    assert torch.equal(one, pa.paged_attention_plain(
+        q[:, :1], k, v, pos, tables, q_pos[:, :1], **kw)[:, 0])
+
+
+def test_k7_fit_takes_more_query_rows_than_a_block():
+    """K8 folds its S new rows in the block buffer, so S <= block_size;
+    K7 folds none and takes S > block_size."""
+    layout = (4, 64, 4, 2, torch.bfloat16)
+    assert pa.kernel_fit_problems(*layout, S=8)
+    assert pa.kernel_fit_problems(*layout, S=8, new_rows=False) == []
+    assert pa.ensure_kernel_fit(*layout, S=8, new_rows=False,
+                                device="cuda") == []
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, 50.0)])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k7_matches_plain_and_k8(S, dtype, window, softcap):
+    """Needs the card: K7 against its plain version at gemma2-2b's head
+    shapes (h=8, n_kv=4, hd=256, block 16), a dead slot returning exactly
+    0; then K8 writes the new rows and K7 on its post-write arenas, with
+    the same q, equals K8's output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = pa.decode_case(B=4, S=S, n_heads=8, n_kv=4, head_dim=256,
+                          block_size=16, nb=6, dtype=dtype, q_dtype=dtype,
+                          device="cuda", seed=10 + S)
+    kw = dict(scale=0.0625, window=window, softcap=softcap)
+    read = _read_args(args)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(*read, **kw)
+    want = pa.paged_attention_plain(*read, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    assert (out[-1] == 0).all()
+    k8 = pa.paged_attention_fused(*args, **kw)
+    k7 = pa.paged_attention(*read, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k7, k8, rtol=1e-5, atol=1e-5)

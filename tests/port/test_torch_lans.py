@@ -173,14 +173,6 @@ def test_scalar_rows_are_the_per_tensor_scalars():
         tops.fused_lans_step(*kl.lans_case(4), eta=0.1)
 
 
-def test_fused_lamb_is_not_ported():
-    from repro_torch.core.optim.fused import fused_lamb
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fused_lamb(1e-3)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tops.fused_lamb_step()
-
-
 # --------------------------------------------------------------------------
 # transforms over trees
 # --------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The paged decode-attention kernel's plain version against the JAX
-oracle (repro/kernels/ref.py:paged_attention_fused_ref). The CUDA
-kernel is held to this plain version in test_torch_cuda_kernels.py.
+"""The paged decode-attention kernels' plain versions against the JAX
+oracles: K8's (paged_attention_fused_plain) against
+repro/kernels/ref.py:paged_attention_fused_ref, K7's (the CPU route of
+paged_attention) against ref.py:paged_attention_ref. The CUDA kernels
+are held to these plain versions in test_torch_cuda_kernels.py.
 
 Tolerance: outputs agree to 1e-5 (atol and rtol) — fp32 arithmetic on
 both sides, differing only in summation order. Arenas must be
@@ -110,3 +112,33 @@ def test_cpu_wrapper_counts_no_launch():
     pa.paged_attention_fused(*_torch_args(_jax_args(case, jnp.float32,
                                                     True)), scale=0.25)
     assert pa.paged_attention_fused.launches == before
+
+
+READ = ("q", "k_arena", "v_arena", "pos_arena", "tables", "q_pos")
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=8, softcap=5.0),
+                                dict(wrap=True, window=12)],
+                         ids=lambda k: str(k) or "plain")
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_k7_plain_matches_jax_oracle(kw, S, dt):
+    """K7's CPU route (q (B, h, hd) for S=1, (B, S, h, hd) otherwise)
+    against the read-side oracle on the same arenas; the dead slot
+    returns exactly 0 and nothing is written."""
+    kw = dict(kw)
+    case = _case(S * 7 + len(kw), S=S, wrap=kw.pop("wrap", False))
+    jargs = dict(zip(ORDER, _jax_args(case, DTYPES[dt][0], S == 1)))
+    want = ref.paged_attention_ref(*(jargs[k] for k in READ), scale=0.25,
+                                   **kw)
+    targs = dict(zip(ORDER, _torch_args([jargs[k] for k in ORDER])))
+    before = [targs[k].clone() for k in READ]
+    before_launches = pa.paged_attention.launches
+    out = pa.paged_attention(*(targs[k] for k in READ), scale=0.25, **kw)
+    assert pa.paged_attention.launches == before_launches
+    assert out.dtype == torch.float32 and out.shape == targs["q"].shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert (out[-1] == 0).all() and torch.isfinite(out).all()
+    for a, k in zip(before, READ):
+        assert torch.equal(a, targs[k]), k
