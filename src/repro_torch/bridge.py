@@ -63,36 +63,36 @@ def params_from_jax(cfg, np_tree, device="cpu"):
     return _convert(np_tree, device)
 
 
-def opt_state_from_jax(state, device="cpu"):
-    """A JAX optimizer state as the port's, so that a trajectory started in
-    the JAX package can go on in the port: LansState, LambState,
-    AdamWState, FusedState (count, mu, nu), MomentumState (momentum),
-    ScaleByScheduleState (count), EmptyState / ScaleState, and tuples of
-    them (what `chain` builds).
-    Leaves may be JAX or numpy arrays; the classes are matched by name,
-    so nothing of JAX is imported. Raises on any other state."""
+def _state_classes():
     from repro_torch.core.optim.adamw import AdamWState, MomentumState
     from repro_torch.core.optim.base import (EmptyState, ScaleByScheduleState,
                                              ScaleState)
     from repro_torch.core.optim.fused import FusedState
     from repro_torch.core.optim.lamb import LambState
     from repro_torch.core.optim.lans import LansState
-    counted = {c.__name__: c for c in (LansState, LambState, AdamWState,
-                                       FusedState)}
-    empty = {c.__name__: c for c in (EmptyState, ScaleState)}
-    name = type(state).__name__
-    count = lambda c: torch.tensor(int(np.asarray(c)), dtype=torch.int32,
-                                   device=device)
-    if name in counted:
-        return counted[name](count=count(state.count),
-                             mu=_convert(state.mu, device),
-                             nu=_convert(state.nu, device))
-    if name == "MomentumState":
-        return MomentumState(_convert(state.momentum, device))
-    if name == "ScaleByScheduleState":
-        return ScaleByScheduleState(count=count(state.count))
-    if name in empty:
-        return empty[name]()
+    return {c.__name__: c for c in (
+        LansState, LambState, AdamWState, FusedState, MomentumState,
+        ScaleByScheduleState, EmptyState, ScaleState)}
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """A JAX optimizer state as the port's, so that a trajectory started in
+    the JAX package can go on in the port. The state is a NamedTuple of
+    the optimizer modules (matched by class name, so nothing of JAX is
+    imported) or a tuple of them (what `chain` builds); its `count`
+    becomes a 0-d int32 tensor and every other field, a tree of JAX or
+    numpy arrays, the same tree of tensors. Raises on any other state."""
     if type(state) is tuple:
         return tuple(opt_state_from_jax(s, device) for s in state)
-    raise ValueError(f"no port of optimizer state {name}")
+    cls = _state_classes().get(type(state).__name__)
+    if cls is None:
+        raise ValueError(f"no port of optimizer state "
+                         f"{type(state).__name__}")
+
+    def field(name, v):
+        if name == "count":
+            return torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                                device=device)
+        return _convert(v, device)
+
+    return cls(**{f: field(f, getattr(state, f)) for f in cls._fields})

@@ -25,11 +25,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.lans import (_CODE, _GX_TYPES, _check,
-                                      _check_operands, _on_cuda, _ptr,
-                                      _raise_on, _stream, _trust_ratio)
-
-MAX_PARTS = 1024   # per-CTA partials of one sum (csrc/optim_common.cuh)
+from repro_torch.kernels.optim_common import (
+    DTYPE_CODE, MAX_PARTS, check_max_parts, check_operands, on_cuda, ptr,
+    raise_on, stream, trust_ratio)
 
 
 # --------------------------------------------------------------------------
@@ -59,7 +57,7 @@ def lamb_phase2_plain(scalars, norms, m, v, x, *, eps):
     eta, flag = scalars[2], scalars[4]
     xf = x.float()
     u = _u(scalars, m.float(), v.float(), xf, eps)
-    trust = _trust_ratio(torch.sqrt(norms[1]), norms[0], flag)
+    trust = trust_ratio(torch.sqrt(norms[1]), norms[0], flag)
     return (xf - eta * trust * u).to(x.dtype)
 
 
@@ -73,11 +71,7 @@ def _library():
     if lib.lamb_phase1_launch.argtypes is None:
         P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
-        lib.lamb_max_parts.argtypes = []
-        lib.lamb_max_parts.restype = I
-        if lib.lamb_max_parts() != MAX_PARTS:
-            raise RuntimeError("csrc/lamb.cu and kernels/lamb.py disagree "
-                               "on the number of partials")
+        check_max_parts(lib, "lamb_max_parts", "lamb.cu")
         lib.lamb_phase1_launch.argtypes = [P, P, I, P, P, P, I, P, P, L,
                                            F, F, F, F, F, P, P, P]
         lib.lamb_phase2_launch.argtypes = [P, P, P, P, P, I, P, L, F, P]
@@ -90,38 +84,33 @@ def lamb_phase1(scalars, g, m, v, x, *, beta1, beta2, eps
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: (m_new, v_new, norms). New tensors; the inputs are not
     written."""
-    if not _on_cuda(g, "lamb_phase1"):
+    if not on_cuda(g, "lamb_phase1"):
         return lamb_phase1_plain(scalars, g, m, v, x, beta1=beta1,
                                  beta2=beta2, eps=eps)
-    _check_operands(scalars, g, m, v, x)
+    check_operands(scalars, None, g, m, v, x)
     m_new, v_new = torch.empty_like(m), torch.empty_like(v)
     norms = torch.empty(8, dtype=torch.float32, device=g.device)
     parts = torch.empty(2 * MAX_PARTS, dtype=torch.float32, device=g.device)
     err = _library().lamb_phase1_launch(
-        _ptr(scalars), _ptr(g), _CODE[g.dtype], _ptr(m), _ptr(v), _ptr(x),
-        _CODE[x.dtype], _ptr(m_new), _ptr(v_new), g.numel(), beta1,
-        1.0 - beta1, beta2, 1.0 - beta2, eps, _ptr(parts), _ptr(norms),
-        _stream(g))
-    _raise_on(err, "lamb_phase1")
+        ptr(scalars), ptr(g), DTYPE_CODE[g.dtype], ptr(m), ptr(v), ptr(x),
+        DTYPE_CODE[x.dtype], ptr(m_new), ptr(v_new), g.numel(), beta1,
+        1.0 - beta1, beta2, 1.0 - beta2, eps, ptr(parts), ptr(norms),
+        stream(g))
+    raise_on(err, "lamb_phase1")
     lamb_phase1.launches += 1
     return m_new, v_new, norms
 
 
 def lamb_phase2(scalars, norms, m, v, x, *, eps) -> torch.Tensor:
     """K6: x_new in x's dtype (m, v are K5's new moments)."""
-    if not _on_cuda(x, "lamb_phase2"):
+    if not on_cuda(x, "lamb_phase2"):
         return lamb_phase2_plain(scalars, norms, m, v, x, eps=eps)
-    dev, n, f32 = x.device, x.numel(), (torch.float32,)
-    _check("scalars", scalars, dev, f32, 8)
-    _check("norms", norms, dev, f32, 8)
-    _check("m", m, dev, f32, n)
-    _check("v", v, dev, f32, n)
-    _check("x", x, dev, _GX_TYPES, n)
+    check_operands(scalars, norms, None, m, v, x)
     x_new = torch.empty_like(x)
     err = _library().lamb_phase2_launch(
-        _ptr(scalars), _ptr(norms), _ptr(m), _ptr(v), _ptr(x),
-        _CODE[x.dtype], _ptr(x_new), n, eps, _stream(x))
-    _raise_on(err, "lamb_phase2")
+        ptr(scalars), ptr(norms), ptr(m), ptr(v), ptr(x),
+        DTYPE_CODE[x.dtype], ptr(x_new), x.numel(), eps, stream(x))
+    raise_on(err, "lamb_phase2")
     lamb_phase2.launches += 1
     return x_new
 

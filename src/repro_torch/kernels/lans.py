@@ -31,10 +31,11 @@ from typing import Optional, Tuple
 
 import torch
 
-_GX_TYPES = (torch.float32, torch.bfloat16)
+from repro_torch.kernels.optim_common import (
+    DTYPE_CODE, GX_TYPES, MAX_PARTS, check, check_max_parts, check_operands,
+    on_cuda, ptr, raise_on, stream, trust_ratio)
+
 _LP_TYPES = (torch.bfloat16, torch.float16, torch.float32)
-_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_PARTS = 1024   # per-CTA partials of one sum (csrc/lans.cu kMaxCtas)
 
 
 # --------------------------------------------------------------------------
@@ -72,13 +73,6 @@ def lans_phase1_plain(scalars, g, m, v, x, *, beta1, beta2, eps):
     return m_new, v_new, norms
 
 
-def _trust_ratio(x_norm, u_sq, trust):
-    one = torch.ones_like(x_norm)
-    s = torch.where(u_sq > 0.0,
-                    x_norm * torch.rsqrt(torch.clamp(u_sq, min=1e-38)), one)
-    return torch.where(trust > 0.0, s, one)
-
-
 def _phase2_x_new_plain(scalars, norms, g, m, v, x, *, beta1, eps):
     """The fp32 updated x - eta * d shared by K3 and K4."""
     bc1, bc2, eta, lam = scalars[0], scalars[1], scalars[2], scalars[3]
@@ -89,8 +83,8 @@ def _phase2_x_new_plain(scalars, norms, g, m, v, x, *, beta1, eps):
     r_full = (m.float() / bc1) / denom + lam * x
     c_full = g_t / denom + lam * x
     x_norm = torch.sqrt(norms[2])
-    sr = _trust_ratio(x_norm, norms[0], trust)
-    sc = _trust_ratio(x_norm, norms[1], trust)
+    sr = trust_ratio(x_norm, norms[0], trust)
+    sc = trust_ratio(x_norm, norms[1], trust)
     d = beta1 * sr * r_full + (1.0 - beta1) * sc * c_full
     return x - eta * d
 
@@ -113,21 +107,13 @@ def lans_phase2_cast_plain(scalars, norms, g, m, v, x, *, lp_dtype, beta1,
 # the wrappers
 # --------------------------------------------------------------------------
 
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _library():
     from repro_torch.kernels import build
     lib = build.load("lans")
     if lib.lans_sq_norm_launch.argtypes is None:
         P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
-        lib.lans_max_parts.argtypes = []
-        lib.lans_max_parts.restype = I
-        if lib.lans_max_parts() != MAX_PARTS:
-            raise RuntimeError("csrc/lans.cu and kernels/lans.py disagree "
-                               "on the number of partials")
+        check_max_parts(lib, "lans_max_parts", "lans.cu")
         lib.lans_sq_norm_launch.argtypes = [P, I, L, P, P, P]
         lib.lans_phase1_launch.argtypes = [P, P, I, P, P, P, I, P, P, L,
                                            F, F, F, F, F, P, P, P]
@@ -139,67 +125,25 @@ def _library():
     return lib
 
 
-def _check(name, t, device, dtypes, numel=None):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
-                        f"{dtypes}")
-    if t.ndim != 1 or (numel is not None and t.numel() != numel):
-        raise ValueError(f"{name} must be 1-D with {numel} elements, got "
-                         f"shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def _check_operands(scalars, g, m, v, x, norms=None):
-    dev, n = g.device, g.numel()
-    f32 = (torch.float32,)
-    _check("scalars", scalars, dev, f32, 8)
-    if norms is not None:
-        _check("norms", norms, dev, f32, 8)
-    _check("g", g, dev, _GX_TYPES, n)
-    _check("m", m, dev, f32, n)
-    _check("v", v, dev, f32, n)
-    _check("x", x, dev, _GX_TYPES, n)
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _on_cuda(t, name) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no {name} kernel for {t.device}")
-    return True
-
-
 def sq_norm(x, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: sum of squares of a flat fp32/bf16 tensor, in fp32. Written
     into `out` (a 1-element fp32 tensor, e.g. the g_sq slot of the
     scalars) when given; returned as a 0-d tensor."""
-    if not _on_cuda(x, "sq_norm"):
+    if not on_cuda(x, "sq_norm"):
         val = sq_norm_plain(x)
         if out is None:
             return val
         out.copy_(val.reshape(out.shape))
         return out.reshape(())
-    _check("x", x, x.device, _GX_TYPES)
+    check("x", x, x.device, GX_TYPES)
     if out is None:
         out = torch.empty(1, dtype=torch.float32, device=x.device)
-    _check("out", out, x.device, (torch.float32,), 1)
+    check("out", out, x.device, (torch.float32,), 1)
     parts = torch.empty(MAX_PARTS, dtype=torch.float32, device=x.device)
     err = _library().lans_sq_norm_launch(
-        _ptr(x), _CODE[x.dtype], x.numel(), _ptr(parts), _ptr(out),
-        _stream(x))
-    _raise_on(err, "sq_norm")
+        ptr(x), DTYPE_CODE[x.dtype], x.numel(), ptr(parts), ptr(out),
+        stream(x))
+    raise_on(err, "sq_norm")
     sq_norm.launches += 1
     return out.reshape(())
 
@@ -208,46 +152,46 @@ def lans_phase1(scalars, g, m, v, x, *, beta1, beta2, eps
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: (m_new, v_new, norms). New tensors; the inputs are not
     written."""
-    if not _on_cuda(g, "lans_phase1"):
+    if not on_cuda(g, "lans_phase1"):
         return lans_phase1_plain(scalars, g, m, v, x, beta1=beta1,
                                  beta2=beta2, eps=eps)
-    _check_operands(scalars, g, m, v, x)
+    check_operands(scalars, None, g, m, v, x)
     m_new, v_new = torch.empty_like(m), torch.empty_like(v)
     norms = torch.empty(8, dtype=torch.float32, device=g.device)
     parts = torch.empty(3 * MAX_PARTS, dtype=torch.float32, device=g.device)
     err = _library().lans_phase1_launch(
-        _ptr(scalars), _ptr(g), _CODE[g.dtype], _ptr(m), _ptr(v), _ptr(x),
-        _CODE[x.dtype], _ptr(m_new), _ptr(v_new), g.numel(), beta1,
-        1.0 - beta1, beta2, 1.0 - beta2, eps, _ptr(parts), _ptr(norms),
-        _stream(g))
-    _raise_on(err, "lans_phase1")
+        ptr(scalars), ptr(g), DTYPE_CODE[g.dtype], ptr(m), ptr(v), ptr(x),
+        DTYPE_CODE[x.dtype], ptr(m_new), ptr(v_new), g.numel(), beta1,
+        1.0 - beta1, beta2, 1.0 - beta2, eps, ptr(parts), ptr(norms),
+        stream(g))
+    raise_on(err, "lans_phase1")
     lans_phase1.launches += 1
     return m_new, v_new, norms
 
 
 def _phase2(scalars, norms, g, m, v, x, lp_dtype, beta1, eps):
-    _check_operands(scalars, g, m, v, x, norms)
+    check_operands(scalars, norms, g, m, v, x)
     x_new = torch.empty_like(x)
     # an fp32 copy of the fp32 master is the master: write it once
     cast = lp_dtype not in (None, torch.float32)
     lp = (torch.empty(x.shape, dtype=lp_dtype, device=x.device) if cast
           else x_new)
     err = _library().lans_phase2_launch(
-        _ptr(scalars), _ptr(norms), _ptr(g), _CODE[g.dtype], _ptr(m),
-        _ptr(v), _ptr(x), _CODE[x.dtype], _ptr(x_new),
+        ptr(scalars), ptr(norms), ptr(g), DTYPE_CODE[g.dtype], ptr(m),
+        ptr(v), ptr(x), DTYPE_CODE[x.dtype], ptr(x_new),
         ctypes.c_void_p(lp.data_ptr() if cast else None),
-        _CODE[lp_dtype] if cast else 0, g.numel(), beta1, 1.0 - beta1, eps,
-        _stream(g))
+        DTYPE_CODE[lp_dtype] if cast else 0, g.numel(), beta1, 1.0 - beta1,
+        eps, stream(g))
     return x_new, lp, err
 
 
 def lans_phase2(scalars, norms, g, m, v, x, *, beta1, eps) -> torch.Tensor:
     """K3: x_new in x's dtype (m, v are K2's new moments)."""
-    if not _on_cuda(g, "lans_phase2"):
+    if not on_cuda(g, "lans_phase2"):
         return lans_phase2_plain(scalars, norms, g, m, v, x, beta1=beta1,
                                  eps=eps)
     x_new, _, err = _phase2(scalars, norms, g, m, v, x, None, beta1, eps)
-    _raise_on(err, "lans_phase2")
+    raise_on(err, "lans_phase2")
     lans_phase2.launches += 1
     return x_new
 
@@ -256,7 +200,7 @@ def lans_phase2_cast(scalars, norms, g, m, v, x, *, lp_dtype, beta1, eps
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (x_new fp32, x_new in lp_dtype) from an fp32 master x, in one
     pass. lp_dtype fp32 returns the master twice (the same tensor)."""
-    if not _on_cuda(g, "lans_phase2_cast"):
+    if not on_cuda(g, "lans_phase2_cast"):
         return lans_phase2_cast_plain(scalars, norms, g, m, v, x,
                                       lp_dtype=lp_dtype, beta1=beta1,
                                       eps=eps)
@@ -268,7 +212,7 @@ def lans_phase2_cast(scalars, norms, g, m, v, x, *, lp_dtype, beta1, eps
                         f"{lp_dtype}")
     x_new, lp, err = _phase2(scalars, norms, g, m, v, x, lp_dtype, beta1,
                              eps)
-    _raise_on(err, "lans_phase2_cast")
+    raise_on(err, "lans_phase2_cast")
     lans_phase2_cast.launches += 1
     return x_new, lp
 

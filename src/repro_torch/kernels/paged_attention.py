@@ -252,11 +252,12 @@ def _check(name, t, device, dtypes, shape):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(name, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
+def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
             q_pos, cursor, *, scale, causal, window, softcap):
     """Check the operands (q (B, S, h, hd); k_new, v_new and cursor None
     for K7), launch K8 or K7 on q's stream and return the fp32 output
-    (B, S, h, hd)."""
+    (B, S, h, hd). Adds one to `wrapper.launches` once the launch has
+    succeeded; an empty batch launches nothing and counts nothing."""
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
@@ -303,7 +304,9 @@ def _launch(name, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
             _ptr(q), q_bf16, _ptr(k_arena), _ptr(v_arena), kv_bf16,
             _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(out), *common)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{wrapper.__name__} launch failed: "
+                           f"cudaError_t {err}")
+    wrapper.launches += 1
     return out
 
 
@@ -332,9 +335,8 @@ def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
     if squeeze:
         q, q_pos = q[:, None], q_pos[:, None]
         k_new, v_new = k_new[:, None], v_new[:, None]
-    out = _launch("paged_attention_fused", q, k_new, v_new, k_arena,
+    out = _launch(paged_attention_fused, q, k_new, v_new, k_arena,
                   v_arena, pos_arena, tables, q_pos, cursor, **kw)
-    paged_attention_fused.launches += 1
     return out[:, 0] if squeeze else out
 
 
@@ -353,9 +355,8 @@ def paged_attention(q, k_arena, v_arena, pos_arena, tables, q_pos, *,
     if squeeze:
         q, q_pos = q[:, None], q_pos[:, None]
     if _on_cuda(q):
-        out = _launch("paged_attention", q, None, None, k_arena, v_arena,
+        out = _launch(paged_attention, q, None, None, k_arena, v_arena,
                       pos_arena, tables, q_pos, None, **kw)
-        paged_attention.launches += 1
     else:
         out = paged_attention_plain(q, k_arena, v_arena, pos_arena, tables,
                                     q_pos, **kw)

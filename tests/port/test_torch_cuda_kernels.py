@@ -312,6 +312,48 @@ def test_k7_wrapper_on_cpu_counts_no_launch_and_is_plain():
         q[:, :1], k, v, pos, tables, q_pos[:, :1], **kw)[:, 0])
 
 
+def _empty_batch(device):
+    """A decode case cut to B = 0 slots (arenas kept)."""
+    q, k_new, v_new, k, v, pos, tables, q_pos, cursor = pa.decode_case(
+        B=4, S=2, n_heads=8, n_kv=4, head_dim=256, block_size=16, nb=6,
+        dtype=torch.float32, device=device)
+    return (q[:0], k_new[:0], v_new[:0], k, v, pos, tables[:0], q_pos[:0],
+            cursor[:0])
+
+
+def _counts():
+    return pa.paged_attention.launches, pa.paged_attention_fused.launches
+
+
+def test_empty_batch_launch_counts_nothing():
+    """The shared launcher returns before the library for B = 0 and adds
+    to a wrapper's count only after a launch, so an empty batch counts
+    nothing (CPU operands: the path up to the launch is the card's)."""
+    args = _empty_batch("cpu")
+    kw = dict(scale=0.0625, causal=True, window=None, softcap=None)
+    before = _counts()
+    out8 = pa._launch(pa.paged_attention_fused, *args, **kw)
+    out7 = pa._launch(pa.paged_attention, args[0], None, None,
+                      *_read_args(args)[1:], None, **kw)
+    assert _counts() == before
+    assert out8.shape == out7.shape == (0, 2, 8, 256)
+
+
+def test_cuda_empty_batch_counts_no_launch():
+    """Needs the card: K7 and K8 on B = 0 slots launch nothing, and their
+    counts stay as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _empty_batch("cuda")
+    kw = dict(scale=0.0625)
+    before = _counts()
+    out8 = pa.paged_attention_fused(*args, **kw)
+    out7 = pa.paged_attention(*_read_args(args), **kw)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert out8.shape == out7.shape == (0, 2, 8, 256)
+
+
 def test_k7_fit_takes_more_query_rows_than_a_block():
     """K8 folds its S new rows in the block buffer, so S <= block_size;
     K7 folds none and takes S > block_size."""

@@ -91,12 +91,13 @@ def _schedules(kind, lr=2e-3):
             tsched.warmup_linear_decay(lr, STEPS + 1, 1))
 
 
-def _optimizers(name, schedule, jpol, tpol):
+def _optimizers(name, schedule, precision):
     """The JAX and port optimizers as the launchers build them: only lans
-    stores its moments in the policy's moment dtype. AdamW trains at
-    BERT's own AdamW rate, 1e-4 (Devlin et al.): at the LANS rate of
-    2e-3 its bf16 trajectories part on rounding noise (see
-    test_adamw_bf16_moves_key_bias_on_rounding_noise)."""
+    stores its moments in the policy's moment dtype. All train at the
+    LANS rate of 2e-3 but bf16 AdamW, which trains at BERT's own AdamW
+    rate, 1e-4 (Devlin et al.): at 2e-3 its bf16 trajectories part on
+    rounding noise (see test_adamw_bf16_moves_key_bias_on_rounding_noise)."""
+    jpol, tpol = jpolicy(precision), tpolicy(precision)
     if name == "lans":
         jsch, tsch = _schedules(schedule)
         return (jlans(jsch, mu_dtype=jpol.moment_dtype),
@@ -104,7 +105,8 @@ def _optimizers(name, schedule, jpol, tpol):
     if name == "lamb":
         jsch, tsch = _schedules(schedule)
         return jlamb(jsch), tlamb(tsch)
-    jsch, tsch = _schedules(schedule, lr=1e-4)
+    jsch, tsch = _schedules(schedule,
+                            lr=1e-4 if precision == "bf16" else 2e-3)
     return jadamw(jsch), tadamw(tsch)
 
 
@@ -149,8 +151,7 @@ def _run_pair(reduced_pair, precision, jtx, ttx, n_steps):
 @pytest.mark.parametrize("schedule", ["hold", "linear"])
 def test_train_step_trajectory_matches_jax(reduced_pair, schedule, precision,
                                            optimizer):
-    jtx, ttx = _optimizers(optimizer, schedule, jpolicy(precision),
-                           tpolicy(precision))
+    jtx, ttx = _optimizers(optimizer, schedule, precision)
     jl, tl, jm, tm, _, tparams = _run_pair(reduced_pair, precision, jtx, ttx,
                                            STEPS)
     tol = 1e-4 if precision == "fp32" else 3e-2
@@ -166,9 +167,9 @@ def test_train_step_trajectory_matches_jax(reduced_pair, schedule, precision,
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_adamw_bf16_moves_key_bias_on_rounding_noise(reduced_pair,
                                                      precision):
-    """Why AdamW's trajectories are compared at 1e-4: the attention key
-    bias has a true gradient of 0 (it adds one constant to every logit
-    of a query row), so its gradient is rounding noise. AdamW scales each
+    """Why bf16 AdamW's trajectories are compared at 1e-4: the attention
+    key bias has a true gradient of 0 (it adds one constant to every
+    logit of a query row), so its gradient is rounding noise. AdamW scales each
     element to about +-lr whatever its size, above eps = 1e-6. With bf16
     compute the noise is above eps, and after one step at 2e-3 the key
     bias has moved by most of a step in BOTH packages, in directions that
