@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one GPU.
 
-  python3 chip_smoke.py      # needs one CUDA card
+  python3 chip_smoke.py                # needs one CUDA card
+  python3 chip_smoke.py --paged-only   # phases 1-2 only, no result line
 
 Phases, in the order they run, each of which fails the run:
   1. build every kernel under src/repro_torch/kernels/csrc (one nvcc per
@@ -12,12 +13,15 @@ Phases, in the order they run, each of which fails the run:
      off, softcap on, with and without a new row routed to a null table
      entry): K8 (paged_attention_fused) and K7 (paged_attention, on the
      arenas before the write) within 1e-5 (fp32 summation order), arenas
-     torch.equal, dead slots exactly 0; K7 on the arenas K8 has just
-     written, with the same q, equal to K8's output within 1e-5; then
-     time both at the shapes the serving run gives K8, with the L2 cache
-     flushed before each launch, beside their bounds; and drive K7's
-     path, its library entry as a read of one decode step (26 layers),
-     which must launch it 26 times;
+     torch.equal, dead slots exactly 0, a second launch on the same
+     inputs equal bit for bit; K7 on the arenas K8 has just written, with
+     the same q, equal to K8's output within 1e-5; then the same checks
+     and the timing of both, with the L2 cache evicted (a 256 MB read)
+     before each launch, beside their bounds and their launches' device
+     times from torch.profiler, at two shapes: the serving run's (6 blocks of 16
+     rows) and a long context (256 blocks, a 4096-row ring); and drive
+     K7's path, its library entry as a read of one decode step (26
+     layers), which must launch it 26 times;
   3. serve gemma2-2b at full width and depth through the port's CLI
      (`repro_torch.launch.serve.main`): first a short warm-up stream (2
      requests, 4 new tokens) so that first-use costs land on neither
@@ -77,6 +81,8 @@ import itertools
 import json
 import math
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -86,6 +92,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
+SLEEP_CYCLES = 1_000_000            # ~0.5 ms of card time ahead of a timing
 LANS_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5),
             "bf16": dict(rtol=2e-2, atol=2e-2)}
 LARGEST_LEAF = 24 * 1024 * 4096      # BERT-large layers/mlp/up/kernel
@@ -116,24 +123,58 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def evict_l2(flush):
+    """Fill the L2 cache with clean lines of `flush` (256 MB, read): the
+    serving loop reaches a layer's arena after streaming the model's
+    weights, so it finds the cache cold and clean. A write flush would
+    leave dirty lines whose write-back the timed call would pay."""
+    flush.sum()
+
+
 def time_ms(fn, flush, n=30, warmup=3):
-    """Mean device time of fn() over n launches, each after an L2 flush
-    (the serving loop reaches a layer's arena after streaming the whole
-    model's weights, so it finds it cold)."""
+    """Median device time of fn() over n launches, each after evict_l2.
+    The card sleeps between the eviction and the start event, so fn()'s
+    host work is queued while it sleeps and the events time the device
+    work alone; the median drops the odd launch that a host stall longer
+    than the sleep still reaches."""
     import torch
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(n):
-        flush.zero_()
+        evict_l2(flush)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / n
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_launches(torch, fn, flush, n=10):
+    """{kernel: (launches per call, mean device us per launch)} of the
+    paged-attention kernels fn() launches, from torch.profiler over n
+    calls, each after evict_l2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            evict_l2(flush)
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and "paged" in e.key and us > 0:
+            name = re.search(r"\w*paged\w*", e.key).group(0)
+            out[name] = (e.count / n, us / e.count)
+    return out
 
 
 def time_reps(torch, fn, reps):
@@ -189,10 +230,51 @@ def read_args(args):
     return q, k_arena, v_arena, pos, tables, q_pos
 
 
+def paged_parity_at(torch, pa, args, kw, where):
+    """K7 on the arenas before the write and K8 against their plain
+    versions within 1e-5, arenas torch.equal, dead slots exactly 0; K7
+    on the arenas K8 has just written, with the same q, equal to K8's
+    output within 1e-5; a second launch of each on the same inputs equal
+    bit for bit. Leaves `args` written as K8 writes them. Returns the
+    largest |kernel - plain| of each and of K7 on K8's arenas."""
+    read = read_args(args)
+    fresh = [a.clone() for a in args]
+    out7 = pa.paged_attention(*read, **kw)
+    again7 = pa.paged_attention(*read, **kw)
+    want7 = pa.paged_attention_plain(*read, **kw)
+    plain = [a.clone() for a in args]
+    out = pa.paged_attention_fused(*args, **kw)
+    want = pa.paged_attention_fused_plain(*plain, **kw)
+    again = pa.paged_attention_fused(*fresh, **kw)
+    after7 = pa.paged_attention(*read_args(args), **kw)
+    torch.cuda.synchronize()
+    err = {}
+    for name, got, ref in (("paged_attention", out7, want7),
+                           ("paged_attention_fused", out, want)):
+        torch.testing.assert_close(got, ref, **TOL,
+                                   msg=lambda m: f"{name} {where}: {m}")
+        err[name] = (got - ref).abs().max().item()
+        check(bool((got[-1] == 0).all()), f"{name}: dead slot is not 0 "
+                                          f"{where}")
+    torch.testing.assert_close(after7, out, **TOL,
+                               msg=lambda m: f"K7 on K8's arenas {where}: "
+                                             f"{m}")
+    err["k7_on_k8"] = (after7 - out).abs().max().item()
+    check(torch.equal(out7, again7), f"K7 does not repeat bit for bit "
+                                     f"{where}")
+    check(torch.equal(out, again), f"K8 does not repeat bit for bit {where}")
+    for name, got, ref, rep in zip(("k", "v", "pos"), args[3:6], plain[3:6],
+                                   fresh[3:6]):
+        check(torch.equal(got, ref) and torch.equal(rep, ref),
+              f"{name} arena differs from the plain version {where}")
+    return err
+
+
 def phase_kernels(torch, pa):
     """Phase 2: K8 and K7 parity cases, K7 on K8's post-write arenas,
-    then timing at the serving shapes, and K7's path. Returns the two
-    kernels' entries; K8's lacks `launches` until the serving run."""
+    then parity and timing at the serving shapes and at a long context,
+    and K7's path. Returns the two kernels' entries; K8's lacks
+    `launches` until the serving run."""
     max_err = {"paged_attention_fused": 0.0, "paged_attention": 0.0}
     k7_vs_k8 = 0.0
     n_cases = 0
@@ -210,77 +292,80 @@ def phase_kernels(torch, pa):
                 where = (f"({kv_dt}, S={S}, window={window}, "
                          f"null_write={null_write})")
                 kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
-                # K7 on the arenas before the write: no new rows
-                read = read_args(args)
-                out7 = pa.paged_attention(*read, **kw)
-                want7 = pa.paged_attention_plain(*read, **kw)
-                plain = [a.clone() for a in args]
-                out = pa.paged_attention_fused(*args, **kw)
-                want = pa.paged_attention_fused_plain(*plain, **kw)
-                # K7 on the arenas K8 has just written, with the same q
-                after7 = pa.paged_attention(*read_args(args), **kw)
-                torch.cuda.synchronize()
-                for name, got, ref in (("paged_attention", out7, want7),
-                                       ("paged_attention_fused", out,
-                                        want)):
-                    torch.testing.assert_close(
-                        got, ref, **TOL, msg=lambda m: f"{name} {where}: {m}")
-                    max_err[name] = max(max_err[name],
-                                        (got - ref).abs().max().item())
-                    check(bool((got[-1] == 0).all()),
-                          f"{name}: dead slot is not 0 {where}")
-                torch.testing.assert_close(
-                    after7, out, **TOL,
-                    msg=lambda m: f"K7 on K8's arenas {where}: {m}")
-                k7_vs_k8 = max(k7_vs_k8, (after7 - out).abs().max().item())
-                for name, got, ref in zip(("k", "v", "pos"), args[3:6],
-                                          plain[3:6]):
-                    check(torch.equal(got, ref),
-                          f"{name} arena differs from the plain version "
-                          f"{where}")
+                err = paged_parity_at(torch, pa, args, kw, where)
+                k7_vs_k8 = max(k7_vs_k8, err.pop("k7_on_k8"))
+                for name, e in err.items():
+                    max_err[name] = max(max_err[name], e)
                 n_cases += 1
     print(f"kernel parity: paged_attention_fused (K8) and paged_attention "
           f"(K7), {n_cases} cases each, max |out - plain| K8 "
           f"{max_err['paged_attention_fused']:.3e}, K7 "
           f"{max_err['paged_attention']:.3e}, K7 on K8's post-write arenas "
           f"vs K8 {k7_vs_k8:.3e} (tolerance 1e-5); arenas torch.equal; "
-          f"dead slots exactly 0")
+          f"dead slots exactly 0; second launches bit for bit equal")
 
     # the serving run's shapes: 4 slots, S=1, ring 96 rows = 6 blocks of
     # 16, bf16 arenas (the pool's storage dtype), fp32 queries (fp32
-    # policy), window 4096 on local layers and softcap 50
-    args = pa.decode_case(B=4, S=1, n_heads=8, n_kv=4, head_dim=256,
-                          block_size=16, nb=6, dtype=torch.bfloat16,
-                          q_dtype=torch.float32, device="cuda", seed=99)
-    read = read_args(args)
-    plain = [a.clone() for a in args]
-    kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
+    # policy), window 4096 on local layers and softcap 50; then the same
+    # with a 4096-row ring (256 blocks): the context of gemma2-2b's window
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     entries = {}
-    for name, kern, plain_fn, operands in (
-            ("paged_attention_fused",
-             lambda: pa.paged_attention_fused(*args, **kw),
-             lambda: pa.paged_attention_fused_plain(*plain, **kw), args),
-            ("paged_attention", lambda: pa.paged_attention(*read, **kw),
-             lambda: pa.paged_attention_plain(*read, **kw), read)):
-        ms = time_ms(kern, flush)
-        plain_ms = time_ms(plain_fn, flush)
-        bound_ms, bound_by, nbytes, flops = paged_bound(operands, 1)
-        print(f"kernel timing {name} (B=4 S=1 h=8 n_kv=4 hd=256 bs=16 "
-              f"nb=6, bf16 arenas, L2 flushed): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
-              f"({nbytes} bytes at 3.35 TB/s, {flops} flops at 67 TFLOP/s "
-              f"fp32)")
-        line = 527 if name == "paged_attention_fused" else 342
-        entries[name] = dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/paged_attention.cu",
-            replaces=f"src/repro/kernels/paged_attention_kernel.py:{line}",
-            max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
+    for shape, nb in (("serving", 6), ("long-context", 256)):
+        args = pa.decode_case(B=4, S=1, n_heads=8, n_kv=4, head_dim=256,
+                              block_size=16, nb=nb, dtype=torch.bfloat16,
+                              q_dtype=torch.float32, device="cuda", seed=99)
+        read = read_args(args)
+        errs = paged_parity_at(torch, pa, args, kw, f"({shape} shape)")
+        print(f"kernel parity at the {shape} shape (nb={nb}): max |out - "
+              f"plain| K8 {errs['paged_attention_fused']:.3e}, K7 "
+              f"{errs['paged_attention']:.3e}, K7 on K8's arenas "
+              f"{errs['k7_on_k8']:.3e} (tolerance 1e-5); arenas "
+              f"torch.equal; second launches bit for bit equal")
+        for name in max_err:
+            max_err[name] = max(max_err[name], errs[name])
+        plain = [a.clone() for a in args]
+        for name, kern, plain_fn, operands in (
+                ("paged_attention_fused",
+                 lambda: pa.paged_attention_fused(*args, **kw),
+                 lambda: pa.paged_attention_fused_plain(*plain, **kw), args),
+                ("paged_attention", lambda: pa.paged_attention(*read, **kw),
+                 lambda: pa.paged_attention_plain(*read, **kw), read)):
+            ms = time_ms(kern, flush)
+            plain_ms = time_ms(plain_fn, flush)
+            launches = device_launches(torch, kern, flush)
+            bound_ms, bound_by, nbytes, flops = paged_bound(operands, 1)
+            print(f"kernel timing {name} ({shape} shape: B=4 S=1 h=8 n_kv=4 "
+                  f"hd=256 bs=16 nb={nb}, bf16 arenas, L2 evicted): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at 3.35 "
+                  f"TB/s, {flops} flops at 67 TFLOP/s fp32), bound / time "
+                  f"{bound_ms / ms:.3f}; device time per launch (profiler) "
+                  + ", ".join(f"{k} {c:g} x {us:.2f} us"
+                              for k, (c, us) in launches.items())
+                  + f", sum {sum(c * us for c, us in launches.values()):.2f}"
+                  f" us per call")
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, device_us={
+                              k: us for k, (_, us) in launches.items()})
+            if shape == "serving":
+                line = 527 if name == "paged_attention_fused" else 342
+                entries[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/paged_attention.cu",
+                    replaces=f"src/repro/kernels/paged_attention_kernel.py:"
+                             f"{line}", library_ms=None, **timing)
+            else:
+                entries[name]["long_context"] = dict(nb=nb, **timing)
+    for name in entries:
+        entries[name]["max_abs_err"] = max_err[name]
 
     # K7's path: its library entry, as a read of one decode step of
     # gemma2-2b at the serving shapes (26 layers, local ones windowed)
+    read = read_args(pa.decode_case(
+        B=4, S=1, n_heads=8, n_kv=4, head_dim=256, block_size=16, nb=6,
+        dtype=torch.bfloat16, q_dtype=torch.float32, device="cuda",
+        seed=99))
     n_layers = 26
     pa.paged_attention.launches = 0
     for layer in range(n_layers):
@@ -389,7 +474,7 @@ def lans_parity(torch, kl, kops):
 
 def time_calls(torch, n, calls):
     """Time each {name: (kernel, plain, library call or None, bytes moved,
-    flops)} at n fp32 elements, L2 flushed, beside its bound (the larger
+    flops)} at n fp32 elements, L2 evicted, beside its bound (the larger
     of bytes at 3.35 TB/s and flops at 67 TFLOP/s). Returns {name:
     timing entry}."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -404,7 +489,7 @@ def time_calls(torch, n, calls):
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations")
-        print(f"kernel timing {name} (n={n} fp32, L2 flushed): kernel "
+        print(f"kernel timing {name} (n={n} fp32, L2 evicted): kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
@@ -648,10 +733,12 @@ def fused_lamb_timing(torch, arch):
                 bound_ms=bound_ms, clip_bound_ms=clip_bound_ms)
 
 
-def profile_step(torch, step_fn, params, state, batch):
+def profile_step(torch, step_fn, params, state, batch, n_params):
     """One training step under torch.profiler: wall time, device busy
-    time (the sum of the kernels' own device times), the idle share and
-    the device time by kernel family."""
+    time (the sum of the kernels' own device times), the idle share, the
+    device time by kernel family, and K1-K3's device time summed over
+    the step's launches beside their bounds summed over the leaves (4,
+    24 and 20 bytes per parameter at 3.35 TB/s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -663,10 +750,12 @@ def profile_step(torch, step_fn, params, state, batch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}     # device-side events only (CPU ops carry device time
-    for e in prof.key_averages():     # of their kernels too)
+    counts = {}      # of their kernels too)
+    for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == DeviceType.CUDA and us > 0:
             kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+            counts[e.key] = counts.get(e.key, 0) + e.count
     busy = sum(kernels.values())
     families = {"lans K1-K4": ("sq_norm_kernel", "lans_phase",
                                "finish_sums_kernel"),
@@ -688,6 +777,23 @@ def profile_step(torch, step_fn, params, state, batch):
           + ", ".join(f"{f} {ms:.2f} ms" for f, ms in by_family.items()))
     for name, ms in top:
         print(f"  {ms:8.3f} ms  {name[:110]}")
+    # the finishing pass (finish_sums_kernel) of K1 and K2 is shared and
+    # listed on its own
+    for label, word, per_param in (("K1 sq_norm", "sq_norm_kernel", 4),
+                                   ("K2 lans_phase1", "lans_phase1_kernel",
+                                    24),
+                                   ("K3 lans_phase2", "lans_phase2_kernel",
+                                    20),
+                                   ("K1/K2 finishing pass",
+                                    "finish_sums_kernel", 0)):
+        ms = sum(v for k, v in kernels.items() if word in k)
+        n = sum(c for k, c in counts.items() if word in k)
+        bound = per_param * n_params / H100_BYTES_PER_S * 1e3
+        print(f"profile[fused route step]: {label}: {n} launches, device "
+              f"time summed {ms:.4f} ms"
+              + (f", bound summed over the leaves {bound:.4f} ms (bytes), "
+                 f"bound / time {bound / ms:.3f}" if per_param and ms
+                 else ""))
 
 
 def mixed_step1(torch, arch, sched, batches):
@@ -790,6 +896,7 @@ def train_routes(torch, kl):
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.core.optim import fused_lans, lans
+    from repro_torch.core.optim.base import tree_leaves
     from repro_torch.distributed.steps import build_train_step
     from repro_torch.launch import train as train_mod
     from repro_torch.precision import fused_mixed_lans, get_policy
@@ -840,7 +947,8 @@ def train_routes(torch, kl):
               f"{name} launched {launches[name]} times, expected "
               f"{steps} x {BERT_LEAVES}")
     check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
-    profile_step(torch, step_fn, params, state, next(batches()))
+    profile_step(torch, step_fn, params, state, next(batches()),
+                 sum(t.numel() for t in tree_leaves(params)))
     del params, state
     torch.cuda.empty_cache()
 
@@ -999,6 +1107,10 @@ def run() -> int:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     paged_entries = phase_kernels(torch, pa)
+    if "--paged-only" in sys.argv[1:]:
+        print(card_line())
+        print(json.dumps({"paged_kernels": list(paged_entries.values())}))
+        return 0
     kernel = paged_entries["paged_attention_fused"]
 
     warm_argv = list(SERVE_ARGV)

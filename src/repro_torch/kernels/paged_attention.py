@@ -3,7 +3,7 @@ its read side.
 
 `paged_attention_fused` (K8) is the wrapper the model calls once per
 attention layer per decode step. On CUDA tensors it launches the
-hand-written kernel of `csrc/paged_attention.cu` (which replaces the TPU
+hand-written kernels of `csrc/paged_attention.cu` (which replace the TPU
 kernel `repro/kernels/paged_attention_kernel.py:paged_attention_fused`);
 on CPU tensors it runs `paged_attention_fused_plain`, the plain PyTorch
 version both are held to. Either way the arenas are updated IN PLACE
@@ -12,10 +12,26 @@ returned.
 
 `paged_attention` (K7, replacing the TPU kernel `paged_attention`) is
 the library entry of the read side: attention of q against arenas that
-already hold the new rows, nothing written. Its kernel is K8's without
+already hold the new rows, nothing written. Its kernels are K8's without
 the new rows and the writes; its plain version is
 `paged_attention_plain`. No model path calls it (the reference's only
 caller is its kernel benchmark).
+
+On the card a call is two launches (split KV, or flash-decoding). The
+first runs one CTA per (table split, KV head, slot group): `split_plan`
+deals each slot's table entries to splits (split k: entries k, k +
+n_split, ...) and the slots to groups from the shapes and the SM count
+alone, so that every CTA streams about as many blocks whichever slots
+are long, short or dead. Each CTA streams its blocks with bulk copies
+(TMA) through a ring of shared-memory buffers and folds each block, four
+warps over its keys, into fp32 online-softmax states; it merges them
+into one partial per slot and row (K8 adds a split that folds the new
+rows). The second launch, started early (programmatic dependent
+launch), merges the partials in a fixed order (the output repeats bit
+for bit) and, for K8, writes the new K/V rows and positions once the
+first launch has finished reading. The wrapper allocates the partials'
+scratch; `smem_bytes` is the first launch's shared-memory plan and
+`kernel_fit_problems` its limits.
 
 Contract (the same as the JAX kernel's):
   q (B, [S,] h, hd) fp32 or bf16; k_new / v_new (B, [S,] n_kv, hd) in
@@ -33,6 +49,7 @@ Contract (the same as the JAX kernel's):
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -42,20 +59,60 @@ from repro_torch.kernels import NEG_INF
 
 # Shared memory a Hopper block may use (dynamic, after opting in).
 SMEM_LIMIT = 232448
+# csrc/paged_attention.cu's kStages (blocks of K/V in the ring of a split
+# CTA) and kWarps (warps of a CTA).
+STAGES = 2
+WARPS = 4
+# Split CTAs aimed at per SM: a bf16 CTA of gemma2-2b's serving layout
+# takes ~46 KB of shared memory, so four fit on one SM.
+CTAS_PER_SM = 4
+# Table entries of one split at most: a split CTA keeps them one per lane.
+MAX_CHUNK = 32
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 
+def split_plan(nb: int, B: int, n_kv: int, n_sm: int) -> tuple:
+    """(n_split, chunk, n_groups) for B slots with tables of nb entries
+    and n_kv KV heads on a card of n_sm SMs. Split k takes the entries
+    k, k + n_split, ... (chunk of them at most, at most MAX_CHUNK) of a
+    slot's table: together the splits cover each entry once, and the null
+    entries at the end of a short slot's table spread over all of them.
+    A split CTA takes the slots z, z + n_groups, ... of its group z, so
+    that CTAs of long, short and dead slots do about the same work. Aims
+    at CTAS_PER_SM CTAs per SM: as many splits as that allows (never
+    more than entries), then slot groups for what is left. Depends on the
+    shapes and the SM count only, never on the tables' contents."""
+    ctas = CTAS_PER_SM * n_sm
+    n_split = max(1, min(nb, max(-(-ctas // n_kv), -(-nb // MAX_CHUNK))))
+    chunk = max(1, -(-nb // n_split))
+    n_split = max(1, -(-nb // chunk))
+    n_groups = max(1, min(B, ctas // (n_split * n_kv)))
+    return n_split, chunk, n_groups
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """cudaDevAttrMultiProcessorCount of the card."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def smem_bytes(S: int, n_heads: int, n_kv: int, head_dim: int,
-               block_size: int) -> int:
-    """Dynamic shared memory, in bytes, of one CTA of the kernel: the
-    layout carved at the top of csrc/paged_attention.cu (queries and
-    accumulators of the R = S * n_heads / n_kv rows, one K and one V
-    block, R x block_size probabilities, three R-vectors of softmax
-    state, the block's key positions). The wrapper passes it to the
-    launch."""
+               block_size: int, dtype) -> int:
+    """Dynamic shared memory, in bytes, of one split CTA: the plan carved
+    in csrc/paged_attention.cu (STAGES mbarriers rounded up to 16 bytes; a
+    ring of STAGES blocks of K and of V in the arena dtype; a ring of
+    STAGES copies of the R = S * n_heads / n_kv query rows and the rows
+    being folded, 4 bytes an element (fp32 or bf16); an accumulator per
+    warp and row in fp32; the ring's key positions and STAGES records of
+    4 + S ints; a running max and sum per warp and row in fp32; the rows'
+    query positions). The wrapper passes it to the launch."""
     R = S * (n_heads // n_kv)
-    return (2 * R * head_dim + 2 * block_size * head_dim + R * block_size
-            + 3 * R) * 4 + block_size * 4
+    esz = torch.empty((), dtype=dtype).element_size()
+    return (-(-STAGES * 8 // 16) * 16
+            + 2 * STAGES * block_size * head_dim * esz
+            + ((STAGES + 1) * R * head_dim + WARPS * R * head_dim) * 4
+            + (STAGES * block_size + STAGES * (4 + S)) * 4
+            + 2 * WARPS * R * 4 + R * 4)
 
 
 def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
@@ -63,21 +120,32 @@ def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
                         new_rows: bool = True) -> list:
     """Why this layout does not fit the kernel's tiling (empty: fits).
 
-    One CTA holds the S * (n_heads / n_kv) query rows of one KV head and
-    one arena block of K and V in shared memory. K8 (new_rows) reuses the
-    block buffer for the S new rows, so S may not exceed block_size
-    there; K7 folds no new rows."""
+    One split CTA holds the S * (n_heads / n_kv) query rows of one KV
+    head and a ring of STAGES arena blocks of K and V in shared memory,
+    copied in 16-byte pieces, so a K/V row (head_dim elements) must be a
+    multiple of 8 elements and a block's positions (block_size int32) a
+    multiple of 4. K8 (new_rows) reuses a block buffer for the
+    S new rows, so S may not exceed block_size there; K7 folds no new
+    rows."""
     problems = []
     if dtype not in _FLOAT_TYPES:
         problems.append(f"arena dtype {dtype} is not float32 or bfloat16")
+        return problems
     if n_kv <= 0 or n_heads % n_kv:
         problems.append(f"n_heads {n_heads} is not a multiple of n_kv {n_kv}")
         return problems
+    if head_dim % 8:
+        problems.append(f"head_dim {head_dim} is not a multiple of 8: the "
+                        f"kernel copies K/V rows in 16-byte pieces")
+    if block_size % 4:
+        problems.append(f"block_size {block_size} is not a multiple of 4: "
+                        f"the kernel copies a block's positions in 16-byte "
+                        f"pieces")
     if S < 1 or (new_rows and S > block_size):
         problems.append(f"S={S} query rows must be in [1, block_size "
                         f"{block_size}]: the kernel folds the new rows in "
-                        f"its block buffer")
-    smem = smem_bytes(S, n_heads, n_kv, head_dim, block_size)
+                        f"a block buffer")
+    smem = smem_bytes(S, n_heads, n_kv, head_dim, block_size, dtype)
     if smem > SMEM_LIMIT:
         problems.append(f"shared memory {smem} bytes exceeds the "
                         f"{SMEM_LIMIT}-byte limit: shrink block_size or S")
@@ -228,11 +296,11 @@ def _library():
         P, I, F, Z = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_size_t)
         lib.paged_attention_fused_launch.argtypes = [
-            P, I, P, P, P, P, I, P, P, P, P, P,
-            I, I, I, I, I, I, I, F, I, I, F, Z, P]
+            P, I, P, P, P, P, I, P, P, P, P, P, P,
+            I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
         lib.paged_attention_launch.argtypes = [
-            P, I, P, P, I, P, P, P, P,
-            I, I, I, I, I, I, I, F, I, I, F, Z, P]
+            P, I, P, P, I, P, P, P, P, P,
+            I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
         for fn in (lib.paged_attention_fused_launch,
                    lib.paged_attention_launch):
             fn.restype = I
@@ -284,13 +352,25 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
     _check("q_pos", q_pos, dev, i32, (B, S))
     ensure_kernel_fit(bs, hd, h, n_kv, kv_dt, S=S, new_rows=new_rows,
                       device=dev)
+    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena),
+                    ("k_new", k_new), ("v_new", v_new),
+                    ("pos_arena", pos_arena)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned: the kernel "
+                             f"copies its rows in 16-byte pieces")
     out = torch.empty((B, S, h, hd), dtype=torch.float32, device=dev)
     if B == 0:
         return out
     lib = _library()
-    common = (B, S, h, n_kv, hd, bs, nb, float(scale), int(bool(causal)),
-              int(window or 0), float(softcap or 0.0),
-              smem_bytes(S, h, n_kv, hd, bs),
+    n_split, chunk, n_groups = split_plan(nb, B, n_kv, _sm_count(dev.index))
+    n_split += int(new_rows)          # K8's split of the new rows
+    R = S * (h // n_kv)
+    part = torch.empty(B * n_kv * n_split * R * (hd + 2),
+                       dtype=torch.float32, device=dev)
+    common = (B, S, h, n_kv, hd, bs, nb, n_split, chunk, n_groups,
+              float(scale), int(bool(causal)), int(window or 0),
+              float(softcap or 0.0),
+              smem_bytes(S, h, n_kv, hd, bs, kv_dt),
               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     q_bf16, kv_bf16 = int(q.dtype == torch.bfloat16), int(
         kv_dt == torch.bfloat16)
@@ -298,11 +378,12 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
         err = lib.paged_attention_fused_launch(
             _ptr(q), q_bf16, _ptr(k_new), _ptr(v_new), _ptr(k_arena),
             _ptr(v_arena), kv_bf16, _ptr(pos_arena), _ptr(tables),
-            _ptr(q_pos), _ptr(cursor), _ptr(out), *common)
+            _ptr(q_pos), _ptr(cursor), _ptr(out), _ptr(part), *common)
     else:
         err = lib.paged_attention_launch(
             _ptr(q), q_bf16, _ptr(k_arena), _ptr(v_arena), kv_bf16,
-            _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(out), *common)
+            _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(out),
+            _ptr(part), *common)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: "
                            f"cudaError_t {err}")

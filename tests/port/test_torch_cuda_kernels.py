@@ -390,3 +390,83 @@ def test_cuda_k7_matches_plain_and_k8(S, dtype, window, softcap):
     k7 = pa.paged_attention(*read, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(k7, k8, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The split-KV design of K7/K8 (csrc/paged_attention.cu): a long ring cut
+# into several splits, splits that hold null blocks only, windows that
+# exclude whole splits, and the fixed-order combine.
+#
+# Tolerance as above: 1e-5 against the plain versions, arenas torch.equal;
+# two launches on the same inputs are equal bit for bit.
+# --------------------------------------------------------------------------
+
+def _long_case(dtype, S, seed, null_write=False):
+    """A decode case on a 64-block ring at gemma2-2b's head shapes, with
+    its split plan on this card."""
+    args = pa.decode_case(B=4, S=S, n_heads=8, n_kv=4, head_dim=256,
+                          block_size=16, nb=64, dtype=dtype,
+                          q_dtype=torch.float32, device="cuda", seed=seed,
+                          null_write=null_write)
+    plan = pa.split_plan(64, 4, 4, pa._sm_count(args[0].device.index))
+    return args, plan
+
+
+@pytest.mark.parametrize("null_write", [False, True])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_split_kv_long_ring(dtype, S, window, null_write):
+    """Needs the card: K7 (before the write) and K8 against their plain
+    versions on a 64-block ring cut into several splits (split k: the
+    entries k, k + n_split, ...). Slot 1 backs half its table, so some of
+    its splits hold null blocks only; with window 40 whole splits of
+    slot 0 lie outside the window. Arenas equal, the dead slot exactly 0,
+    and K7 on K8's post-write arenas equal to K8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, (n_split, _, _) = _long_case(dtype, S, 20 + S, null_write)
+    tables, pos, q_pos = (a.cpu() for a in (args[6], args[5], args[7]))
+    ranges = [range(k, 64, n_split) for k in range(n_split)]
+    assert n_split > 1
+    assert any(not tables[1, list(r)].any() for r in ranges)
+    if window:
+        def outside(r):
+            kp = pos[tables[0, list(r)]]
+            return bool(((kp < 0) | (q_pos[0, 0] - kp >= window)).all())
+        assert any(outside(r) for r in ranges)
+    kw = dict(scale=0.0625, window=window, softcap=50.0)
+    read = _read_args(args)
+    out7 = pa.paged_attention(*read, **kw)
+    want7 = pa.paged_attention_plain(*read, **kw)
+    plain = [a.clone() for a in args]
+    out = pa.paged_attention_fused(*args, **kw)
+    want = pa.paged_attention_fused_plain(*plain, **kw)
+    after7 = pa.paged_attention(*_read_args(args), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out7, want7, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(after7, out, rtol=1e-5, atol=1e-5)
+    for got, w in zip(args[3:6], plain[3:6]):
+        assert torch.equal(got, w)
+    assert (out[-1] == 0).all() and (out7[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_split_kv_repeats_bit_for_bit(dtype):
+    """Needs the card: two launches of K8 on copies of the same inputs
+    give equal outputs and arenas, and two of K7 equal outputs: the
+    combine adds the splits in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, _ = _long_case(dtype, 4, 7)
+    kw = dict(scale=0.0625, window=100, softcap=50.0)
+    read = _read_args(args)
+    k7 = [pa.paged_attention(*read, **kw) for _ in range(2)]
+    copies = [[a.clone() for a in args] for _ in range(2)]
+    k8 = [pa.paged_attention_fused(*c, **kw) for c in copies]
+    torch.cuda.synchronize()
+    assert torch.equal(k7[0], k7[1])
+    assert torch.equal(k8[0], k8[1])
+    for a, b in zip(copies[0][3:6], copies[1][3:6]):
+        assert torch.equal(a, b)
