@@ -30,6 +30,26 @@ Phases, in the order they run, each of which fails the run:
      have launched decode steps x 26 times;
   4. serve once in bf16 with the kernel: it must finish with finite
      logits;
+  S. speculative and sampled serving of the same model and stream
+     (after phase 4): (a) --spec-draft self --spec-k 4 greedy fp32 tokens
+     equal phase 3's, with --attn-kernel paged (K8 launched exactly
+     rounds x 26 times: the draft, on its dense pool, launches none) and
+     with xla (no launch); (d) --sampler
+     temperature=0.8,top_k=50,top_p=0.9,seed=3: the sampled stream equal
+     between the paged non-spec, self-draft spec and dense runs; (b)
+     reject churn: make_spec_pair's one-period draft of an independently
+     seeded gemma2-2b, paired with the target through the engine API,
+     greedy and with (d)'s sampler: tokens equal phase 3's and (d)'s,
+     every verify call a (4, 4) query block against row-margined tables
+     of 7 blocks, K8 launched calls x 26 times, acceptance printed; (e)
+     --engine static --cache dense greedy tokens equal phase 3's; (f)
+     bf16 spec with --sampler temperature=0,stable=1 ends with finite
+     logits, its share of tokens equal to the bf16 non-spec run printed
+     (not gated); (g) K8 at S = 4 at the serving shapes with a
+     row-margined table (pa.verify_case), held to its plain version as
+     in phase 2 and timed beside its byte bound and the profiler's split
+     and combine times, and spec vs non-spec tokens/s and ITL p50
+     printed (no gain claimed);
   5. hold the fused LANS kernels K1-K4 against their plain versions
      (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
      and 4; lam 0 with trust off, a zero-gradient leaf, a NaN in g; K4
@@ -77,6 +97,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -104,6 +125,9 @@ TRAIN_ARGV = ["--arch", "bert-large", "--full", "--optimizer", "lans",
 SERVE_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
               "--attn-kernel", "paged", "--requests", "8", "--max-batch",
               "4", "--prompt-len", "64", "--new-tokens", "32", "--seed", "0"]
+SPEC_ARGV = ["--spec-draft", "self", "--spec-k", "4"]
+SAMPLER_ARGV = ["--sampler", "temperature=0.8,top_k=50,top_p=0.9,seed=3"]
+N_LAYERS = 26                        # gemma2-2b
 
 
 class SmokeFailure(RuntimeError):
@@ -385,10 +409,16 @@ def phase_kernels(torch, pa):
 
 
 def serve(serve_mod, argv, label):
+    """Serve through the CLI; check 8 requests and, on the continuous
+    engine (the static one counts no logits), finite logits."""
     stats, done = serve_mod.main(argv)
+    # the engine's step closures hold it in reference cycles: collect
+    # them now, or their pools and parameter copies pile up on the card
+    gc.collect()
     tokens = {r.rid: r.generated.tolist() for r in done}
     print(f"serve[{label}]: requests={stats['requests']} "
-          f"tokens={stats['tokens']} decode_steps={stats['decode_steps']} "
+          f"tokens={stats['tokens']} "
+          f"decode_steps={stats.get('decode_steps', 'n/a')} "
           f"tokens_per_s={stats['tokens_per_s']:.2f} "
           f"ttft_p50_ms={stats['ttft_p50_ms']:.2f} "
           f"ttft_p99_ms={stats['ttft_p99_ms']:.2f} "
@@ -397,10 +427,202 @@ def serve(serve_mod, argv, label):
           f"wall_s={stats['wall_s']:.2f}")
     check(stats["requests"] == 8 and stats["tokens"] > 0,
           f"{label}: served {stats['requests']} requests")
-    check(stats["nonfinite_logit_steps"] == 0,
-          f"{label}: {stats['nonfinite_logit_steps']} steps had NaN/inf "
-          f"logits")
+    if stats["engine"] == "continuous":
+        check(stats["nonfinite_logit_steps"] == 0,
+              f"{label}: {stats['nonfinite_logit_steps']} steps had "
+              f"NaN/inf logits")
     return stats, tokens
+
+
+def with_flag(argv, flag, value):
+    """argv with `flag`'s value replaced (or the flag appended)."""
+    out = list(argv)
+    if flag in out:
+        out[out.index(flag) + 1] = value
+    else:
+        out += [flag, value]
+    return out
+
+
+def without_flag(argv, flag):
+    out = list(argv)
+    i = out.index(flag)
+    return out[:i] + out[i + 2:]
+
+
+def spec_verify_timing(torch, pa, flush):
+    """Phase S (g): K8 at S = 4 at the serving shapes (4 slots, 7-block
+    tables: 96 rows + the row margin's block, bf16 arenas, fp32 q, window
+    4096, softcap 50) held to its plain version and timed as in phase 2.
+    Returns its entry (without `launches`)."""
+    args, fl = pa.verify_case(S=4, n_heads=8, n_kv=4, head_dim=256,
+                              block_size=16, nb=7, dtype=torch.bfloat16,
+                              q_dtype=torch.float32, device="cuda",
+                              seed=11)
+    kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
+    errs = paged_parity_at(torch, pa, args, kw, "(verify shape, S=4)")
+    plain = [a.clone() for a in args]
+    kern = lambda: pa.paged_attention_fused(*args, **kw)  # noqa: E731
+    ms = time_ms(kern, flush)
+    plain_ms = time_ms(
+        lambda: pa.paged_attention_fused_plain(*plain, **kw), flush)
+    launches = device_launches(torch, kern, flush)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args, 4)
+    print(f"kernel parity and timing paged_attention_fused at S=4 (verify "
+          f"shape: B=4 h=8 n_kv=4 hd=256 bs=16 nb=7 row-margined, real rows "
+          f"per slot {fl.tolist()}, bf16 arenas, L2 evicted): max |out - "
+          f"plain| {errs['paged_attention_fused']:.3e} (tolerance 1e-5), "
+          f"arenas torch.equal, second launch bit for bit; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"by {bound_by} ({nbytes} bytes, {flops} flops), bound / time "
+          f"{bound_ms / ms:.3f}; device time per launch (profiler) "
+          + ", ".join(f"{k} {c:g} x {us:.2f} us"
+                      for k, (c, us) in launches.items()))
+    return dict(S=4, nb=7, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=errs["paged_attention_fused"],
+                device_us={k: us for k, (_, us) in launches.items()})
+
+
+def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
+    """Phase S: speculative and sampled serving of full-width gemma2-2b
+    (see the module docstring). `paged` / `paged_tokens` are phase 3's
+    fp32 kernel run. Returns K8's S = 4 entry for the kernels line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.decoder import paged_layout
+    from repro_torch.serving import (ContinuousEngine, make_spec_pair,
+                                     synthetic_requests)
+
+    # (a) + (c): self-draft speculation through the CLI
+    spec_argv = SERVE_ARGV + SPEC_ARGV
+    pa.paged_attention_fused.launches = 0
+    spec, spec_tokens = serve(serve_mod, spec_argv, "fp32 spec self paged")
+    launches = pa.paged_attention_fused.launches
+    check(spec_tokens == paged_tokens,
+          "spec self (paged) greedy tokens differ from the non-spec run")
+    check(spec["spec_rounds"] == spec["decode_steps"] > 0,
+          f"spec run: {spec['spec_rounds']} rounds for "
+          f"{spec['decode_steps']} decode steps")
+    check(launches == spec["spec_rounds"] * N_LAYERS,
+          f"K8 launched {launches} times for {spec['spec_rounds']} verify "
+          f"rounds x {N_LAYERS} layers")
+    print(f"spec self (paged): tokens equal the non-spec kernel run; "
+          f"{spec['spec_rounds']} rounds, acceptance "
+          f"{spec['acceptance_rate']:.4f}; K8 launches {launches} = "
+          f"{spec['spec_rounds']} rounds x {N_LAYERS} (the draft: none)")
+    before = pa.paged_attention_fused.launches
+    _, xla_tokens = serve(serve_mod, with_flag(spec_argv, "--attn-kernel",
+                                               "xla"), "fp32 spec self xla")
+    check(pa.paged_attention_fused.launches == before,
+          "the xla spec run launched K8")
+    check(xla_tokens == paged_tokens,
+          "spec self (xla) greedy tokens differ from the non-spec run")
+    print("spec self (xla): tokens equal the non-spec kernel run")
+
+    # (d) sampled decoding
+    samp = {}
+    for label, argv in (
+            ("paged", SERVE_ARGV + SAMPLER_ARGV),
+            ("spec", SERVE_ARGV + SAMPLER_ARGV + SPEC_ARGV),
+            ("dense", without_flag(SERVE_ARGV, "--attn-kernel")
+             + SAMPLER_ARGV + ["--cache", "dense"])):
+        _, samp[label] = serve(serve_mod, argv, f"fp32 sampled {label}")
+    check(samp["paged"] == samp["spec"],
+          "sampled stream differs between spec and non-spec")
+    check(samp["paged"] == samp["dense"],
+          "sampled stream differs between the paged and the dense pool")
+    check(samp["paged"] != paged_tokens, "the sampled stream is greedy")
+    print("sampled (temperature=0.8,top_k=50,top_p=0.9,seed=3): paged == "
+          "spec == dense streams")
+
+    # (b) + (c): reject churn, through the engine API, greedy and sampled
+    arch = get_arch("gemma2-2b")
+    dev = torch.device("cuda")
+    # the CLI's max_len (prompt + new tokens, whole blocks) and its rings
+    # widened by the row margin of spec_k - 1 = 3 rows (one block)
+    tables = tuple((4, ring // 16)
+                   for _, ring in paged_layout(arch.cfg, 96, 16, 3))
+    params = arch.init(torch.Generator(device=dev).manual_seed(0))
+    # the one-period draft of an independently seeded gemma2-2b
+    _, draft_arch, draft = make_spec_pair(
+        arch, arch.init(torch.Generator(device=dev).manual_seed(1)))
+    for sampler, want in ((None, paged_tokens),
+                          (SAMPLER_ARGV[1], samp["paged"])):
+        eng = ContinuousEngine(arch, params, max_batch=4, max_len=96,
+                               policy="fp32", prefill_bucket=8,
+                               attn_kernel="paged", sampler=sampler,
+                               spec_draft=(draft_arch, draft), spec_k=4)
+        shapes = []
+        verify = eng._verify
+
+        def recording_verify(params, tokens, positions, cache, *keys):
+            shapes.append((tuple(tokens.shape),
+                           tuple(t.shape for t in cache["tables"])))
+            return verify(params, tokens, positions, cache, *keys)
+
+        eng._verify = recording_verify
+        pa.paged_attention_fused.launches = 0
+        reqs = synthetic_requests(8, arch.cfg.vocab, prompt_len=64,
+                                  new_tokens=32, seed=0)
+        eng.run(reqs)
+        launches = pa.paged_attention_fused.launches
+        rep = eng.report(1.0)
+        label = sampler or "greedy"
+        check({r.rid: r.generated.tolist() for r in reqs} == want,
+              f"reject-churn spec tokens ({label}) differ from the "
+              f"non-spec run")
+        check(rep["nonfinite_logit_steps"] == 0,
+              f"reject churn ({label}): NaN/inf logits")
+        check(len(shapes) == rep["spec_rounds"] > 0
+              and all(s == ((4, 4), tables) for s in shapes),
+              f"verify calls were not (4, 4) query blocks on the tables "
+              f"{tables}: {sorted(set(shapes))}")
+        check(launches == len(shapes) * N_LAYERS,
+              f"K8 launched {launches} times for {len(shapes)} verify "
+              f"calls")
+        print(f"spec reject churn ({label}; make_spec_pair's one-period "
+              f"draft of a gemma2-2b seeded 1): tokens equal the non-spec "
+              f"run; {rep['spec_rounds']} rounds, {rep['drafted_tokens']} "
+              f"drafted, {rep['accepted_tokens']} accepted, acceptance rate "
+              f"{rep['acceptance_rate']:.4f}; every verify call (4, 4) rows "
+              f"on {tables} tables; K8 launches {launches} = {len(shapes)} "
+              f"x {N_LAYERS}")
+        eng._verify = verify
+        del eng, reqs
+        gc.collect()
+    del params, draft, draft_arch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the static engine on the dense pool
+    _, static_tokens = serve(serve_mod, without_flag(
+        SERVE_ARGV, "--attn-kernel") + ["--engine", "static", "--cache",
+                                        "dense"], "fp32 static dense")
+    check(static_tokens == paged_tokens,
+          "static dense greedy tokens differ from continuous paged")
+    print("static (dense): greedy tokens equal the continuous paged run")
+
+    # (f) bf16
+    bf16 = with_flag(with_flag(SERVE_ARGV, "--precision", "bf16"),
+                     "--sampler", "temperature=0,stable=1")
+    _, bf16_plain = serve(serve_mod, bf16, "bf16 stable paged")
+    _, bf16_spec = serve(serve_mod, bf16 + SPEC_ARGV, "bf16 stable spec")
+    same = sum(a == b for rid in bf16_plain
+               for a, b in zip(bf16_plain[rid], bf16_spec[rid]))
+    total = sum(len(t) for t in bf16_plain.values())
+    print(f"bf16 spec (stable argmax): finite logits; {same} of {total} "
+          f"tokens ({same / total:.4f}) equal the bf16 non-spec run (not "
+          f"gated)")
+
+    # (g) K8 at S = 4, and the end-to-end numbers of this call
+    entry = spec_verify_timing(torch, pa, flush)
+    print(f"serve spec vs non-spec (fp32, kernel, same call): tokens_per_s "
+          f"{spec['tokens_per_s']:.2f} vs {paged['tokens_per_s']:.2f}, "
+          f"itl_p50_ms {spec['itl_p50_ms']:.2f} vs "
+          f"{paged['itl_p50_ms']:.2f}, itl_p99_ms {spec['itl_p99_ms']:.2f} "
+          f"vs {paged['itl_p99_ms']:.2f} (a round's tokens share one "
+          f"timestamp; no gain claimed)")
+    entry["launches"] = spec["spec_rounds"] * N_LAYERS
+    return entry
 
 
 def close(torch, err, name, got, want, tol, where=""):
@@ -1121,7 +1343,7 @@ def run() -> int:
     pa.paged_attention_fused.launches = 0
     paged, paged_tokens = serve(serve_mod, SERVE_ARGV, "fp32 paged")
     kernel["launches"] = pa.paged_attention_fused.launches
-    n_layers = 26
+    n_layers = N_LAYERS
     check(kernel["launches"] == paged["decode_steps"] * n_layers,
           f"kernel launched {kernel['launches']} times for "
           f"{paged['decode_steps']} decode steps x {n_layers} layers")
@@ -1139,6 +1361,11 @@ def run() -> int:
     bf16_argv = list(SERVE_ARGV)
     bf16_argv[bf16_argv.index("fp32")] = "bf16"
     serve(serve_mod, bf16_argv, "bf16 paged")
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kernel["spec_verify"] = phase_spec(torch, pa, serve_mod, paged,
+                                       paged_tokens, flush)
+    del flush
     torch.cuda.empty_cache()
 
     errs = lans_parity(torch, kl, kops)

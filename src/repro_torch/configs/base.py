@@ -42,19 +42,28 @@ class Arch:
             raise NotImplementedError(f"serving the {self.kind} family is "
                                       f"not ported yet")
 
+    def init_cache(self, batch: int, max_len: int, *, device="cpu"):
+        """Pooled per-slot serving cache: `batch` slots of max_len rows
+        (window-sized rings on sliding-window layers), cursors at 0."""
+        self._serving()
+        return dec_lib.init_decoder_cache(self.cfg, batch, max_len,
+                                          device=device)
+
     def init_paged_cache(self, batch: int, max_len: int, *,
-                         block_size: int = 16, n_blocks=None, device="cpu"):
+                         block_size: int = 16, n_blocks=None, device="cpu",
+                         row_margin: int = 0):
         """Paged (block-arena) serving cache. n_blocks defaults to the
         dense-equivalent budget: `batch` slots' worth of blocks per
-        attention slot-type."""
+        attention slot-type. row_margin widens the rings (speculative
+        decoding; models/decoder.paged_layout)."""
         self._serving()
         if n_blocks is None:
             n_blocks = {si: batch * (ring // block_size) for si, ring
                         in dec_lib.paged_layout(self.cfg, max_len,
-                                                block_size)}
+                                                block_size, row_margin)}
         return dec_lib.init_paged_decoder_cache(
             self.cfg, batch, max_len, block_size=block_size,
-            n_blocks=n_blocks, device=device)
+            n_blocks=n_blocks, device=device, row_margin=row_margin)
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,
                 positions=None):

@@ -1,5 +1,6 @@
 """Train and serve step builders (port of repro/distributed/steps.py,
-build_train_step, build_serve_step and greedy_next, on one device).
+build_train_step, build_serve_step, build_verify_step and greedy_next,
+on one device).
 
 PyTorch runs eagerly, so where the JAX package jitted a step the port
 returns a plain function. The serving cache (arenas, tables, cursors) is
@@ -41,22 +42,57 @@ def build_serve_step(decode_fn: Callable, *, sampler=None):
         step(params, tokens (B, 1), positions (B, 1), cache)
             -> (next_tokens (B,) int32, cache)
 
-    picking tokens from fp32 logits. A non-greedy sampler raises (see
-    serving/sampler.py)."""
-    if sampler is not None and not sampler.greedy:
-        raise NotImplementedError("sampled decoding is not ported yet")
-    stable = sampler is not None and sampler.stable_tiebreak
+    or, with a non-greedy `sampler` (serving.sampler.Sampler),
+
+        step(params, tokens, positions, cache, keys (B, 2) uint32)
+            -> (next_tokens (B,) int32, cache)
+
+    picking tokens from fp32 logits whatever the serving precision."""
+    pick = _picker(sampler)
 
     @torch.no_grad()
-    def step(params, tokens, positions, cache):
+    def step(params, tokens, positions, cache, keys=None):
         logits, new_cache = decode_fn(
             params, {"tokens": tokens, "positions": positions}, cache)
-        logits = logits.float()
-        if stable:
-            return sampler.sample(logits[:, -1, :]), new_cache
-        return greedy_next(logits), new_cache
+        return pick(logits[:, -1, :].float(), keys), new_cache
 
     return step
+
+
+def build_verify_step(decode_fn: Callable, *, sampler=None):
+    """The speculative verify step: K tokens per slot in one forward.
+
+    decode_fn(params, batch, cache) -> (logits (B, K, V), cache). Returns
+
+        step(params, tokens (B, K), positions (B, K), cache)
+            -> (tokens (B, K) int32, cache)
+
+    or, with a non-greedy sampler, step(..., cache, keys (B, K, 2)
+    uint32). Row (b, i) is the target's pick for the position after
+    positions[b, i], made exactly as build_serve_step makes its single
+    row (fp32 logits, the row's own key), so a speculative stream equals
+    the non-speculative one token for token."""
+    pick = _picker(sampler)
+
+    @torch.no_grad()
+    def step(params, tokens, positions, cache, keys=None):
+        logits, new_cache = decode_fn(
+            params, {"tokens": tokens, "positions": positions}, cache)
+        B, K, V = logits.shape
+        flat_keys = None if keys is None else keys.reshape(B * K, 2)
+        out = pick(logits.reshape(B * K, V).float(), flat_keys)
+        return out.reshape(B, K), new_cache
+
+    return step
+
+
+def _picker(sampler):
+    """(fp32 logits (N, V), keys (N, 2) or None) -> (N,) int32: the
+    sampler's pick (greedy, tie-stable greedy or sampled), argmax without
+    one."""
+    if sampler is not None:
+        return sampler.sample
+    return lambda logits, keys: torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def loss_and_grads(loss_fn, params, batch, scale):

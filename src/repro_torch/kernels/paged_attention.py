@@ -281,6 +281,50 @@ def decode_case(*, B: int, S: int, n_heads: int, n_kv: int, head_dim: int,
                   for a in (pos, tables, q_pos, cursor)]
 
 
+def verify_case(*, S: int, n_heads: int, n_kv: int, head_dim: int,
+                block_size: int, nb: int, dtype=torch.bfloat16,
+                q_dtype=torch.float32, device="cpu", seed: int = 0):
+    """The operands of a speculative verify step (S query rows in each of
+    4 slots) as the engine's paged pool makes them, in the argument order
+    of paged_attention_fused. Each table has nb entries: nb - 1 blocks of
+    rows plus the row margin's block. Slot b owns blocks 1 + b*nb ..
+    (b+1)*nb; its history holds positions 0..cursor-1 (~10% at -1), rows
+    from the cursor on are -1 (fresh or rolled back), and only blocks
+    that rows of this round or the next reach are backed. The first
+    fl[b] query rows are real (q_pos = cursor + s), the rest -1, as in a
+    round cut short by the budget: slot 0 writes the last two rows before
+    the margin (fl = min(S, 2); its margin entry is null, so its padding
+    rows fall on it), slot 1 has one padding row, slot 2 a full round and
+    slot 3 is dead. Returns (operands, fl)."""
+    rng = np.random.default_rng(seed)
+    B, bs = 4, block_size
+    ring = nb * bs
+    rows = (nb - 1) * bs
+    cursor = np.array([rows - 2, rows // 2 - 3, 5, 0], np.int32)
+    fl = np.array([min(S, 2), S - 1, S, 0], np.int32)
+    tables = np.zeros((B, nb), np.int32)
+    pos = np.full((1 + B * nb, bs), -1, np.int32)
+    for b in range(B - 1):
+        reach = nb - 1 if b == 0 else min(nb, -(-(cursor[b] + 2 * S) // bs))
+        tables[b, :reach] = 1 + b * nb + np.arange(reach)
+        for p in range(cursor[b]):
+            if rng.random() > 0.1:
+                pos[tables[b, p // bs], p % bs] = p
+    q_pos = np.full((B, S), -1, np.int32)
+    for b in range(B - 1):
+        q_pos[b, :fl[b]] = cursor[b] + np.arange(fl[b])
+    assert ring >= rows + S - 1, "the margin block must hold S - 1 rows"
+    shp = dict(q=(B, S, n_heads, head_dim), k_new=(B, S, n_kv, head_dim),
+               v_new=(B, S, n_kv, head_dim),
+               k_arena=(1 + B * nb, bs, n_kv, head_dim),
+               v_arena=(1 + B * nb, bs, n_kv, head_dim))
+    out = [torch.from_numpy(rng.standard_normal(shp[k], np.float32)).to(
+        device=device, dtype=q_dtype if k == "q" else dtype)
+        for k in ("q", "k_new", "v_new", "k_arena", "v_arena")]
+    return out + [torch.from_numpy(a).to(device)
+                  for a in (pos, tables, q_pos, cursor)], fl
+
+
 # --------------------------------------------------------------------------
 # the wrappers
 # --------------------------------------------------------------------------

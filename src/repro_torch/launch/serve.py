@@ -1,19 +1,26 @@
-"""Serving launcher of the port: continuous-batching decode of a decoder
-arch over the paged KV pool, on CUDA unless --device cpu.
+"""Serving launcher of the port: decode of a decoder arch through the
+continuous engine (paged or dense pool) or the static baseline, on CUDA
+unless --device cpu.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --full --precision fp32 --attn-kernel paged --requests 8 \\
-      --max-batch 4 --prompt-len 64 --new-tokens 32 --seed 0
+      --max-batch 4 --prompt-len 64 --new-tokens 32 --seed 0 \\
+      --spec-draft self --spec-k 4 --sampler temperature=0.8,top_k=50
 
 The flags and defaults are those of `repro.launch.serve`, plus
---device. It generates the same synthetic request stream from --seed,
-builds random weights from --seed with a torch.Generator on the device,
-serves the stream through ContinuousEngine and prints a JSON report
-(tokens/s, TTFT and ITL percentiles, slot utilization, decode steps,
-preemptions, prefix-block hits). --attn-kernel paged runs the
-hand-written CUDA kernel for decode attention (its plain PyTorch version
-on the CPU); xla runs the plain-torch gather. Flags whose feature is not
-ported yet raise and say so.
+--device, and so are the flag-compatibility errors (`flag_errors`). It
+generates the same synthetic request stream from --seed, builds random
+weights from --seed with a torch.Generator on the device, serves the
+stream and prints a JSON report (tokens/s, TTFT and ITL percentiles,
+slot utilization, decode steps, preemptions, prefix-block hits, and
+under --spec-draft the rounds and acceptance rate). --attn-kernel paged
+runs the hand-written CUDA kernel for decode attention (its plain
+PyTorch version on the CPU); xla runs the plain-torch gather. --cache
+dense keeps per-slot rows; --engine static runs the padded lockstep
+baseline in waves of --max-batch; --sampler samples with JAX's keys;
+--spec-draft self|truncated arms speculative decoding with --spec-k
+tokens per round. Flags whose feature is not ported yet raise and say
+so.
 """
 from __future__ import annotations
 
@@ -26,29 +33,77 @@ import torch
 from repro_torch import select_device
 from repro_torch.configs import get_arch, reduced_arch
 from repro_torch.metrics import MetricsLogger
-from repro_torch.serving import ContinuousEngine, synthetic_requests
+from repro_torch.serving import (ContinuousEngine, ServeEngine,
+                                 aggregate, make_spec_pair,
+                                 synthetic_requests)
+
+# Flags that configure the continuous engine's PAGED pool (or features
+# built on it), as in repro.launch.serve: each fails under --engine
+# static or --cache dense, where what it configures does not exist.
+PAGED_ONLY_FLAGS = (
+    ("--growth", lambda a: a.growth is not None),
+    ("--slots-budget", lambda a: a.slots_budget != 0),
+    ("--retain-blocks", lambda a: a.retain_blocks is not None),
+    ("--watermark", lambda a: a.watermark != 0),
+    ("--chunk-budget", lambda a: a.chunk_budget is not None),
+    ("--spec-draft", lambda a: a.spec_draft != "none"),
+    ("--spec-k", lambda a: a.spec_k is not None),
+    ("--replicas", lambda a: a.replicas != 1),
+    ("--route-policy", lambda a: a.route_policy is not None),
+    ("--attn-kernel paged", lambda a: a.attn_kernel == "paged"),
+    ("--interpret", lambda a: a.interpret),
+)
+
+# Flags of the continuous engine's scheduler/traffic loop: valid with
+# either cache, invalid under --engine static (no scheduler there).
+CONTINUOUS_ONLY_FLAGS = (
+    ("--sched-policy", lambda a: a.sched_policy != "fifo"),
+    ("--slo-ms", lambda a: a.slo_ms is not None),
+    ("--no-preempt", lambda a: not a.preempt),
+    ("--arrival-rate", lambda a: a.arrival_rate is not None),
+    ("--mesh", lambda a: a.mesh is not None),
+)
 
 # (flag, requested?) for features of repro.launch.serve the port does not
 # have yet and that no layer below the CLI sees: each raises "not yet
 # ported" instead of running something else. An unported arch or model
-# family, scheduling policy or sampler is rejected by the registry, Arch,
-# scheduler or serve step it reaches. The fp16 policy exists (training
-# uses it) but fp16 serving is not ported.
+# family, or scheduling policy, is rejected by the registry, Arch or
+# scheduler it reaches. The fp16 policy exists (training uses it) but
+# fp16 serving is not ported.
 NOT_PORTED_FLAGS = (
     ("--precision fp16", lambda a: a.precision == "fp16"),
-    ("--engine static", lambda a: a.engine != "continuous"),
     ("--task", lambda a: a.task != "generate"),
     ("--shared-inputs", lambda a: a.shared_inputs != 0),
-    ("--cache dense", lambda a: a.cache != "paged"),
     ("--chunk-budget", lambda a: a.chunk_budget is not None),
-    ("--spec-draft", lambda a: a.spec_draft != "none"),
-    ("--spec-k", lambda a: a.spec_k is not None),
     ("--mesh", lambda a: a.mesh is not None),
     ("--replicas", lambda a: a.replicas != 1),
     ("--route-policy", lambda a: a.route_policy is not None),
     ("--arrival-rate", lambda a: a.arrival_rate is not None),
     ("--interpret", lambda a: a.interpret),
 )
+
+
+def flag_errors(args) -> list:
+    """Every flag-compatibility error of this parse, in the JAX
+    launcher's wording; one SystemExit lists them all."""
+    errs = []
+    paged = args.engine == "continuous" and args.cache == "paged"
+    bad = [f for f, req in PAGED_ONLY_FLAGS if req(args) and not paged]
+    if bad:
+        errs.append(
+            f"{' '.join(bad)}: only apply to the continuous engine's "
+            f"paged pool (--engine continuous --cache paged)")
+    if args.engine != "continuous":
+        bad = [f for f, req in CONTINUOUS_ONLY_FLAGS if req(args)]
+        if bad:
+            errs.append(
+                f"{' '.join(bad)}: only apply to the continuous "
+                f"engine's scheduler (--engine continuous)")
+    if paged and args.interpret and args.attn_kernel != "paged":
+        errs.append(
+            "--interpret: only applies to the Pallas kernel path "
+            "(--attn-kernel paged)")
+    return errs
 
 
 def build_parser():
@@ -75,7 +130,9 @@ def build_parser():
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--prefill-bucket", type=int, default=8,
                     help="round prompt lengths up to this multiple")
-    ap.add_argument("--cache", choices=["paged", "dense"], default="paged")
+    ap.add_argument("--cache", choices=["paged", "dense"], default="paged",
+                    help="paged: block arena + shared prompt prefixes; "
+                         "dense: per-slot rows (the baseline)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged cache block granularity")
     ap.add_argument("--slots-budget", type=int, default=0,
@@ -105,8 +162,15 @@ def build_parser():
     ap.add_argument("--interpret", action="store_true")
     ap.add_argument("--chunk-budget", type=int, default=None)
     ap.add_argument("--spec-draft", default="none",
-                    choices=["none", "self", "truncated"])
-    ap.add_argument("--spec-k", type=int, default=None)
+                    choices=["none", "self", "truncated"],
+                    help="speculative draft-verify decode: 'self' drafts "
+                         "with the target itself, 'truncated' doctors the "
+                         "target's upper periods inert and drafts with its "
+                         "first period (make_spec_pair; acceptance 1.0). "
+                         "Continuous engine + paged cache only")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens proposed and verified per round "
+                         "(>= 2; default 4)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--route-policy", default=None,
@@ -115,7 +179,9 @@ def build_parser():
     ap.add_argument("--ttft-slo-ms", type=float, default=1000.0)
     ap.add_argument("--itl-slo-ms", type=float, default=200.0)
     ap.add_argument("--sampler", default="greedy",
-                    help="'greedy' or 'temperature=0[,stable=1]'")
+                    help="'greedy' or 'temperature=0.8,top_k=40,"
+                         "top_p=0.95,seed=0' (temperature=0 == greedy; "
+                         "add stable=1 for the bf16 tie-stable argmax)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="common system-prompt tokens prepended to every "
                          "request (exercises prefix sharing)")
@@ -129,6 +195,9 @@ def main(argv=None):
     """Parse `argv` (default: sys.argv), serve, print the JSON report.
     Returns (report dict, completed requests)."""
     args = build_parser().parse_args(argv)
+    errs = flag_errors(args)
+    if errs:
+        raise SystemExit("; ".join(errs))
     bad = [flag for flag, req in NOT_PORTED_FLAGS if req(args)]
     if bad:
         raise SystemExit(f"{', '.join(bad)}: not yet ported to "
@@ -138,10 +207,22 @@ def main(argv=None):
     except NotImplementedError as e:     # a feature not ported yet
         raise SystemExit(str(e)) from None
     t0 = time.perf_counter()
-    done = engine.run(reqs)
-    stats = engine.report(time.perf_counter() - t0)
-    stats.update(engine="continuous", precision=args.precision,
-                 cache="paged", attn_kernel=engine.pool.attn_kernel,
+    if args.engine == "continuous":
+        done = engine.run(reqs)
+        stats = engine.report(time.perf_counter() - t0)
+        attn_kernel = engine.pool.attn_kernel if engine.paged else "xla"
+    else:
+        for r in reqs:          # TTFT includes the inter-wave queue wait
+            r.trace.mark_submit()
+        for i in range(0, len(reqs), args.max_batch):
+            engine.run_batch(reqs[i:i + args.max_batch])
+        stats = aggregate([r.trace for r in reqs], time.perf_counter() - t0,
+                          sum(len(r.generated) for r in reqs))
+        done, attn_kernel = reqs, "xla"
+    stats.update(engine=args.engine, task=args.task,
+                 precision=args.precision,
+                 cache=args.cache if args.engine == "continuous"
+                 else "static", attn_kernel=attn_kernel,
                  sampler=args.sampler, device=str(device))
     log.log(-1, **{k: v for k, v in stats.items()
                    if isinstance(v, (int, float))})
@@ -154,6 +235,8 @@ def main(argv=None):
 def _build(args):
     """(engine, requests, metrics logger, device) for the parsed flags."""
     arch = reduced_arch(args.arch) if args.reduced else get_arch(args.arch)
+    if args.engine == "static" and arch.kind != "decoder":
+        raise SystemExit(f"--engine static is decoder-only, got {arch.kind}")
     device = select_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = arch.init(gen)
@@ -163,8 +246,21 @@ def _build(args):
                               new_tokens=args.new_tokens, seed=args.seed,
                               shared_prefix=args.shared_prefix)
     max_len += args.shared_prefix
-    max_len = -(-max_len // args.block_size) * args.block_size
+    if args.cache == "paged":        # arena rows come in whole blocks
+        max_len = -(-max_len // args.block_size) * args.block_size
     log = MetricsLogger(args.metrics)
+    if args.engine == "static":
+        engine = ServeEngine(arch, params, max_len=max_len,
+                             policy=args.precision, sampler=args.sampler)
+        return engine, reqs, log, device
+
+    spec_kw = {}
+    spec_k = args.spec_k if args.spec_k is not None else 4
+    if args.spec_draft == "self":
+        spec_kw = dict(spec_draft=(arch, params), spec_k=spec_k)
+    elif args.spec_draft == "truncated":
+        params, draft_arch, draft_params = make_spec_pair(arch, params)
+        spec_kw = dict(spec_draft=(draft_arch, draft_params), spec_k=spec_k)
     last = {"t": time.perf_counter()}
 
     def on_step(rec):
@@ -177,12 +273,12 @@ def _build(args):
     engine = ContinuousEngine(
         arch, params, max_batch=args.max_batch, max_len=max_len,
         policy=args.precision, prefill_bucket=args.prefill_bucket,
-        on_step=on_step, block_size=args.block_size,
+        on_step=on_step, cache=args.cache, block_size=args.block_size,
         slots_budget=args.slots_budget or None, sampler=args.sampler,
         attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
         sched_policy=args.sched_policy, slo_ms=args.slo_ms,
         preempt=args.preempt, retain_blocks=args.retain_blocks,
-        watermark=args.watermark)
+        watermark=args.watermark, **spec_kw)
     return engine, reqs, log, device
 
 

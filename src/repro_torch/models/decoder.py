@@ -199,16 +199,25 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
             "index": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int):
+def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int,
+                 row_margin: int = 0):
     """Per-superblock-slot paged layout: [(slot_idx, ring_len)]. The ring
-    is max_len rows, or the sliding window for "attn_local" slots. (The
-    speculative row margin of the JAX layout is not ported yet.)"""
+    is max_len rows, or the sliding window for "attn_local" slots.
+
+    row_margin > 0 widens every ring by that many rows, rounded up to
+    whole blocks: the speculative verify step writes its K rows before
+    attention reads, so a ring needs K - 1 rows beyond what any live
+    query still attends to (window + K - 1 for sliding-window rings;
+    max_len + K - 1 for full rings, which a budget-truncated final round
+    still writes up to cursor + K - 1)."""
+    margin = -(-row_margin // block_size) * block_size if row_margin else 0
     out = []
     for si, (mixer, ffn) in enumerate(cfg.superblock):
         _check_slot(mixer, ffn)
         L = max_len
         if mixer == "attn_local" and cfg.sliding_window:
             L = min(max_len, cfg.sliding_window)
+        L += margin
         if L % block_size != 0:
             raise ValueError(
                 f"slot {si} ({mixer}): cache length {L} not a multiple of "
@@ -219,14 +228,15 @@ def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int):
 
 def init_paged_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                              *, block_size: int, n_blocks,
-                             dtype=torch.bfloat16, device="cpu"):
+                             dtype=torch.bfloat16, device="cpu",
+                             row_margin: int = 0):
     """Paged cache: per attention slot-type a (n_periods, n_blocks + 1,
     block_size, ...) arena (block 0 the null block) and a (batch,
     ring_len // block_size) int32 table of zeros; per-slot LOCAL write
     cursors under "index". n_blocks: data blocks per arena, an int or
-    {slot_idx: int}."""
+    {slot_idx: int}. row_margin widens the rings (paged_layout)."""
     slots, tables = [], []
-    for si, ring_len in paged_layout(cfg, max_len, block_size):
+    for si, ring_len in paged_layout(cfg, max_len, block_size, row_margin):
         nb = n_blocks[si] if isinstance(n_blocks, dict) else n_blocks
         slots.append(attn_lib.init_paged_kv_cache(
             nb + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim,

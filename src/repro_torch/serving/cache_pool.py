@@ -1,19 +1,32 @@
-"""Paged KV cache pool for continuous batching (port of
-repro/serving/cache_pool.py: PagedCachePool and its helpers).
+"""KV cache pools for continuous batching (port of
+repro/serving/cache_pool.py: CachePool, PagedCachePool and their
+helpers).
 
-Attention KV lives in block ARENAS of (n_periods, n_blocks, block_size,
-...) addressed through per-slot block TABLES of (max_batch, max_blocks)
-int32 arena indices, managed by the refcounted host-side allocator of
-serving/block_allocator.py. Identical prompt prefixes are
+`CachePool` (the dense baseline, and the speculative draft's pool): every
+slot owns max_len rows of every layer, (n_periods, max_batch, rows, ...)
+with positions (n_periods, max_batch, rows) and -1 marking invalid rows.
+Admission copies a prefilled batch-1 cache into the slot's row; eviction
+blanks it.
+
+`PagedCachePool`: attention KV lives in block ARENAS of (n_periods,
+n_blocks, block_size, ...) addressed through per-slot block TABLES of
+(max_batch, max_blocks) int32 arena indices, managed by the refcounted
+host-side allocator of serving/block_allocator.py. Identical prompt prefixes are
 content-addressed and stored once; eviction returns blocks to the free
 list (or parks registered prefix blocks on the retained LRU); lazy
 growth allocates decode blocks as each slot's cursor reaches them and
 copy-on-writes a shared block at a ring wrap.
 
+Speculative decoding writes K rows per slot per verify step, so the
+paged rings carry a `row_margin` of K - 1 rows (rounded up to blocks;
+models/decoder.paged_layout), and a rejected round rolls back by
+rewinding the cursors and lowering the stale rows' positions to -1
+(`rollback_rows`, both pools), never by copying a block.
+
 Where the JAX pool rebuilt donated arenas through jitted scatters, the
 port writes the arenas IN PLACE with indexed assignment; block 0 (the
-null block) is never written, so its positions stay -1. The dense
-`CachePool` and the encoder-decoder pool are not ported yet.
+null block) is never written, so its positions stay -1. The
+encoder-decoder pool is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +39,71 @@ from repro_torch.models import decoder as dec_lib
 from repro_torch.serving.block_allocator import BlockTableMap, NoBlocksError
 
 PyTree = Any
+
+
+def _min_rows(pos, index, rows):
+    """pos[:, index, rows] = min(pos[:, index, rows], -1): the speculative
+    rollback's min-scatter (left-pad rows keep their lower positions, as
+    in the JAX pool)."""
+    pos[:, index, rows] = torch.clamp(pos[:, index, rows], max=-1)
+
+
+class CachePool:
+    """Owns the pooled per-slot decode cache and its insert / evict /
+    rollback ops, on `device`."""
+
+    def __init__(self, arch, max_batch: int, max_len: int, *,
+                 device="cpu"):
+        self.arch = arch
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.device = torch.device(device)
+        self.cache = arch.init_cache(max_batch, max_len, device=device)
+
+    def _check_slot(self, slot: int):
+        if not (0 <= slot < self.max_batch):
+            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+
+    def insert(self, request_cache: PyTree, slot: int):
+        """Copy a prefilled batch-1 cache (max_len rows) into `slot`."""
+        self._check_slot(slot)
+        for pool, req in zip(self.cache["slots"], request_cache["slots"]):
+            for name in ("k", "v", "pos"):
+                pool[name][:, slot] = req[name][:, 0].to(pool[name].dtype)
+        self.cache["index"][slot] = request_cache["index"][0]
+
+    def evict(self, slot: int):
+        """Blank `slot`: zero K/V, positions -1, cursor 0."""
+        self._check_slot(slot)
+        for pool in self.cache["slots"]:
+            pool["k"][:, slot] = 0
+            pool["v"][:, slot] = 0
+            pool["pos"][:, slot] = -1
+        self.cache["index"][slot] = 0
+
+    def lengths(self):
+        """Per-slot write cursors (host array) — diagnostic only."""
+        return self.cache["index"].cpu().numpy()
+
+    def rollback_rows(self, rows: dict, new_index, capacity: int):
+        """Rewind after a speculative round (this pool holds the draft's
+        cache): lower the positions of each slot's stale STORAGE rows to
+        -1 (rows taken modulo each slot-type's own row count, which
+        differs between full and sliding-window layers) and replace the
+        write cursors. `capacity` bounds the stale rows, as in the JAX
+        pool's fixed-shape scatter."""
+        total = sum(len(r) for r in rows.values())
+        assert total <= capacity, (total, capacity)
+        pairs = [(slot, r) for slot, rws in rows.items() for r in rws]
+        b = torch.as_tensor([p[0] for p in pairs], dtype=torch.long,
+                            device=self.device)
+        for leaf in self.cache["slots"] if pairs else ():
+            L = leaf["pos"].shape[2]
+            r = torch.as_tensor([p[1] % L for p in pairs], dtype=torch.long,
+                                device=self.device)
+            _min_rows(leaf["pos"], b, r)
+        self.cache["index"] = torch.as_tensor(
+            np.asarray(new_index, np.int32), device=self.device)
 
 
 def _arena_insert(arena, req, src_rows, dst_blocks, row_valid):
@@ -71,13 +149,18 @@ class PagedCachePool:
 
     def __init__(self, arch, max_batch: int, max_len: int, *,
                  block_size: int = 16, slots_budget: Optional[int] = None,
+                 share_prefix: bool = True,
                  attn_kernel: Optional[str] = None, growth: str = "eager",
-                 retain_blocks: int = 0, watermark: int = 0, device="cpu"):
-        """Args as the JAX pool's, plus `device`, where
-        the arenas, tables and cursors live. attn_kernel="paged" checks
-        the layout against the kernel's limits here, at construction:
-        on CUDA a layout the kernel cannot take raises
-        (kernels/paged_attention.ensure_kernel_fit)."""
+                 retain_blocks: int = 0, watermark: int = 0,
+                 row_margin: int = 0, device="cpu"):
+        """Args as the JAX pool's, plus `device`, where the arenas,
+        tables and cursors live. row_margin widens every ring for a
+        speculative verify burst (pass spec_k - 1). attn_kernel="paged"
+        checks the layout against the kernel's limits here, at
+        construction, for the widest launch the pool feeds (S =
+        row_margin + 1 query rows): on CUDA a layout the kernel cannot
+        take raises (kernels/paged_attention.ensure_kernel_fit); on the
+        CPU the problems are kept in `tile_problems`."""
         if arch.kind != "decoder":
             raise NotImplementedError("paged serving is decoder-only")
         if attn_kernel is None:
@@ -94,28 +177,36 @@ class PagedCachePool:
         self.max_len = max_len
         self.block_size = block_size
         self.growth = growth
+        self.share_prefix = share_prefix
+        self.row_margin = row_margin
         self.device = torch.device(device)
         budget = slots_budget if slots_budget is not None else max_batch
+        layout = dec_lib.paged_layout(arch.cfg, max_len, block_size,
+                                      row_margin)
+        base = dec_lib.paged_layout(arch.cfg, max_len, block_size)
         self.maps = {}
         n_blocks = {}
-        for si, ring in dec_lib.paged_layout(arch.cfg, max_len, block_size):
+        for (si, ring), (_, src_len) in zip(layout, base):
             n_blocks[si] = budget * (ring // block_size)
             self.maps[si] = BlockTableMap(
                 max_batch, ring, block_size, n_blocks[si] + 1,
                 retain_limit=min(retain_blocks, max(n_blocks[si] - 1, 0)),
-                watermark=min(watermark, max(n_blocks[si] - 1, 0)))
+                watermark=min(watermark, max(n_blocks[si] - 1, 0)),
+                src_len=src_len)
         full = arch.init_paged_cache(max_batch, max_len,
                                      block_size=block_size,
-                                     n_blocks=n_blocks, device=device)
+                                     n_blocks=n_blocks, device=device,
+                                     row_margin=row_margin)
         full.pop("tables")               # host-owned: see device_tables()
         self.cache = full
+        self.tile_problems: list = []
         if attn_kernel == "paged":
             from repro_torch.kernels.paged_attention import ensure_kernel_fit
             cfg = arch.cfg
-            ensure_kernel_fit(
+            self.tile_problems = ensure_kernel_fit(
                 block_size, cfg.resolved_head_dim, cfg.n_heads,
                 cfg.n_kv_heads, full["slots"][0]["k"].dtype,
-                device=self.device)
+                S=row_margin + 1, device=self.device)
         self._pending_grown = {si: [] for si in self.maps}
         self.shared_hits = 0
         self._dev_tables = None
@@ -153,6 +244,7 @@ class PagedCachePool:
         """{slot-type: fresh blocks + retained revivals} an insert would
         consume; lazy growth counts prompt-backed positions only."""
         return {si: sum(m.admission_plan(prompt, plen, padded_len, budget,
+                                         self.share_prefix,
                                          lazy=self.growth == "lazy"))
                 for si, m in self.maps.items()}
 
@@ -173,6 +265,7 @@ class PagedCachePool:
         try:
             for si, m in self.maps.items():
                 placed[si] = m.insert(slot, prompt, plen, padded_len, budget,
+                                      self.share_prefix,
                                       lazy=self.growth == "lazy")
         except NoBlocksError:
             for si in placed:
@@ -245,6 +338,35 @@ class PagedCachePool:
                 arena["pos"][:, torch.as_tensor(
                     grown, dtype=torch.long, device=self.device)] = -1
                 self._pending_grown[si] = []
+
+    # ---------------- speculative rollback ----------------
+
+    def rollback_rows(self, rows: dict, new_index, capacity: int):
+        """Rewind after a speculative verify round: lower the positions of
+        each slot's stale LOCAL rows (the verify rows past the accepted
+        prefix, {slot: rows}) to -1 through the slot's table, and replace
+        the write cursors wholesale (the device cursors advanced by K in
+        the verify step). Only an invalidation: with the row margin no
+        live query needs what those writes overwrote, so no block is
+        copied and sharing is untouched. `capacity` bounds the stale
+        rows, as in the JAX pool's fixed-shape scatter."""
+        total = sum(len(r) for r in rows.values())
+        assert total <= capacity, (total, capacity)
+        for si, m in self.maps.items():
+            blks, offs = [], []
+            for slot, rws in rows.items():
+                for r in rws:
+                    rr = r % m.ring_len
+                    blks.append(int(m.table[slot, rr // m.block_size]))
+                    offs.append(rr % m.block_size)
+            if blks:
+                _min_rows(self.cache["slots"][si]["pos"],
+                          torch.as_tensor(blks, dtype=torch.long,
+                                          device=self.device),
+                          torch.as_tensor(offs, dtype=torch.long,
+                                          device=self.device))
+        self.cache["index"] = torch.as_tensor(
+            np.asarray(new_index, np.int32), device=self.device)
 
     # ---------------- telemetry ----------------
 

@@ -1,23 +1,46 @@
-"""Continuous-batching serving engine (port of repro/serving/engine.py,
-the paged decoder `generate` path).
+"""Serving engines (port of repro/serving/engine.py, the decoder
+`generate` path): continuous batching over a paged or dense pool, the
+static baseline, sampled and speculative decoding.
 
-`ContinuousEngine` keeps a fixed pool of `max_batch` decode slots backed
-by a PagedCachePool: attention KV lives in block arenas addressed
-through per-slot block tables, identical prompt prefixes are stored once
-and shared, and evicted prefix blocks stay warm on a bounded LRU.
-Admission is fifo and batched: one left-padded prefill per padded-length
-bucket (group sizes padded to powers of two), gated on block
-availability. With the default `growth="lazy"` only prompt blocks are
-allocated at admission and decode blocks grow as each slot's cursor
-reaches them; when growth exhausts the arena a victim slot (the youngest
-admission) is preempted and re-enters the queue with its generated
-tokens as a continuation prefill. One decode step advances every active
-slot per iteration; its attention runs the hand-written kernel
-(`attn_kernel="paged"`) or the plain-torch gather (`"xla"`).
+`ContinuousEngine` keeps a fixed pool of `max_batch` decode slots. With
+the default `cache="paged"` it is backed by a PagedCachePool: attention
+KV lives in block arenas addressed through per-slot block tables,
+identical prompt prefixes are stored once and shared, and evicted prefix
+blocks stay warm on a bounded LRU. With the default `growth="lazy"` only
+prompt blocks are allocated at admission and decode blocks grow as each
+slot's cursor reaches them; when growth exhausts the arena a victim slot
+(the youngest admission) is preempted and re-enters the queue with its
+generated tokens as a continuation prefill. `cache="dense"` keeps the
+per-slot-rows CachePool (the differential baseline). Admission is fifo
+and batched: one left-padded prefill per padded-length bucket (group
+sizes padded to powers of two). One decode step advances every active
+slot per iteration; on the paged pool its attention runs the
+hand-written kernel (`attn_kernel="paged"`) or the plain-torch gather
+(`"xla"`).
 
-Not ported yet: the dense pool, the static engine, chunked prefill,
-speculative decoding, sampled decoding, meshes, the encoder-decoder and
-BERT families and batch-1 `run_one`.
+`ServeEngine` is the static baseline: one padded prefill of the whole
+batch, then lockstep decode for max(max_new_tokens) steps.
+
+Sampling (`sampler`): temperature / top-k / top-p with per-token PRNG
+keys fold(fold(PRNGKey(seed), rid), token index) — a pure function of
+(seed, request id, token index), so a sampled stream does not depend on
+slot placement, admission order or batch-mates (serving/sampler.py).
+
+Speculative decoding (`spec_draft=(draft_arch, draft_params)`,
+`spec_k=K`): every decode iteration is a draft-verify round. The draft
+(its own dense CachePool, prefilled at admission beside the target) runs
+K micro-steps proposing d_1..d_K; the target verifies them in one step
+of S = K query rows per slot ([t0, d_1..d_{K-1}], which on the kernel
+path is one K8 launch per layer) and emits y_1..y_K. The leading run of
+a agreements yields min(a + 1, K, budget) tokens, each the target's
+pick given an all-accepted context, so the stream equals non-speculative
+decoding token for token (sampled too: row i draws with the key of token
+emitted + i). A round where some slot emitted fewer than K rolls both
+pools back: cursors rewind and the stale rows' positions drop to -1.
+The paged rings carry a K - 1 row margin (models/decoder.paged_layout).
+
+Not ported yet: chunked prefill, meshes, the encoder-decoder and BERT
+families and batch-1 `run_one`.
 """
 from __future__ import annotations
 
@@ -28,11 +51,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.steps import build_serve_step, greedy_next
+from repro_torch.core.optim.base import tree_map
+from repro_torch.distributed.steps import (build_serve_step,
+                                           build_verify_step, greedy_next)
 from repro_torch.serving.block_allocator import NoBlocksError
-from repro_torch.serving.cache_pool import PagedCachePool
+from repro_torch.serving.cache_pool import CachePool, PagedCachePool
 from repro_torch.serving.metrics import DepthTracker, RequestTrace, aggregate
-from repro_torch.serving.sampler import Sampler
+from repro_torch.serving.sampler import Sampler, fold_keys
 from repro_torch.serving.scheduler import (PolicyContext, Scheduler,
                                            SchedulingPolicy)
 
@@ -41,7 +66,8 @@ from repro_torch.serving.scheduler import (PolicyContext, Scheduler,
 class Request:
     """One serving request: a prompt and a generation budget. The engine
     fills `generated` ((n,) int32, n <= max_new_tokens) on completion,
-    `rid` at submit, and `trace` with submit/admit/token timestamps."""
+    `rid` at submit (it seeds the sampler's request key), and `trace`
+    with submit/admit/token timestamps."""
     prompt: np.ndarray          # (prompt_len,) int32
     max_new_tokens: int = 16
     generated: Optional[np.ndarray] = None
@@ -60,6 +86,14 @@ def apply_serving_policy(arch, params, policy=None):
     return dataclasses.replace(arch, cfg=cfg), policy.cast_params(params)
 
 
+def prompt_granularity(cfg) -> int:
+    """Smallest prefill length multiple the arch supports: mamba's chunked
+    scan needs S % chunk == 0; attention takes any length."""
+    if any(m == "mamba" for m, _ in getattr(cfg, "superblock", ())):
+        return int(cfg.mamba_chunk)
+    return 1
+
+
 def build_prefill_fn(arch, max_len: int):
     """(params, tokens, positions) -> (fp32 last-position logits
     (B, 1, V), pooled cache of max_len rows)."""
@@ -69,6 +103,34 @@ def build_prefill_fn(arch, max_len: int):
                                      cache_len=max_len, positions=positions)
         return logits.float(), cache
     return prefill
+
+
+def build_first_token_fn(sampler: Optional[Sampler]):
+    """(first-token fn, wants_keys). Greedy unless a non-greedy sampler
+    is given; the sampled variant takes (logits, keys (B, 2)). A greedy
+    sampler with stable_tiebreak picks through its one-ulp-band argmax."""
+    if sampler is None or sampler.greedy:
+        if sampler is not None and sampler.stable_tiebreak:
+            return lambda logits: sampler.sample(logits[:, -1, :]), False
+        return greedy_next, False
+    return (lambda logits, keys: sampler.sample(logits[:, -1, :], keys),
+            True)
+
+
+def first_tokens(first_fn, sampler: Optional[Sampler], wants_keys: bool,
+                 logits, requests, token_idx=None):
+    """Prefill logits -> (first token per request (B,) np.int32, request
+    base keys (B, 2) np.uint32 or None). A sampled first token draws with
+    the request's token-`token_idx` key (0 for a fresh admission; a
+    preempted request's continuation passes the tokens it already has).
+    The one definition both engines use, so their keys agree."""
+    if not wants_keys:
+        return first_fn(logits).cpu().numpy(), None
+    rkeys = np.stack([sampler.request_key(r.rid) for r in requests])
+    tvec = (np.zeros(len(requests), np.int32) if token_idx is None
+            else np.asarray(token_idx, np.int32))
+    toks = first_fn(logits, fold_keys(rkeys, tvec))
+    return toks.cpu().numpy(), rkeys
 
 
 def synthetic_requests(n: int, vocab: int, *, prompt_len: int,
@@ -90,6 +152,46 @@ def synthetic_requests(n: int, vocab: int, *, prompt_len: int,
         reqs.append(Request(prompt=np.concatenate([prefix, tail]),
                             max_new_tokens=new))
     return reqs
+
+
+def make_spec_pair(arch, params):
+    """Speculative fixture with acceptance 1.0 by construction: returns
+    (target_params, draft_arch, draft_params), where the target's periods
+    above the first are made inert (attention out-projection and MLP
+    down-projection zeroed, so both residual branches add exactly 0) and
+    the draft is the same config cut to one period, sharing the
+    embedding, final norm and the bottom period's weights. The doctored
+    target computes the draft's function, so every proposal is accepted.
+    Attention/MLP superblocks only."""
+    cfg = arch.cfg
+    if cfg.n_periods < 2:
+        raise ValueError(f"need >= 2 periods to truncate, got "
+                         f"{cfg.n_periods}")
+    for mixer, ffn in cfg.superblock:
+        if mixer not in ("attn", "attn_local") or ffn != "mlp":
+            raise ValueError(f"make_spec_pair supports attn/mlp "
+                             f"superblocks only, got ({mixer}, {ffn})")
+
+    def inert_upper(a):        # zero periods 1.. of an output projection
+        a = a.clone()
+        a[1:] = 0
+        return a
+
+    target_params = dict(params)
+    draft_params = {"embed": params["embed"],
+                    "final_norm": params["final_norm"]}
+    for si in range(len(cfg.superblock)):
+        slot = dict(params[f"slot{si}"])
+        slot["mixer"] = {**slot["mixer"],
+                         "wo": tree_map(inert_upper, slot["mixer"]["wo"])}
+        slot["ffn"] = {**slot["ffn"],
+                       "down": tree_map(inert_upper, slot["ffn"]["down"])}
+        target_params[f"slot{si}"] = slot
+        draft_params[f"slot{si}"] = tree_map(lambda a: a[:1],
+                                             params[f"slot{si}"])
+    draft_arch = dataclasses.replace(
+        arch, cfg=dataclasses.replace(cfg, n_layers=len(cfg.superblock)))
+    return target_params, draft_arch, draft_params
 
 
 def pad_prompts(prompts: List[np.ndarray], granularity: int = 1,
@@ -118,26 +220,61 @@ def _slice_request(cache, g: int):
 
 
 class ContinuousEngine:
-    """Continuous-batching decode over a fixed slot pool (paged)."""
+    """Continuous-batching decode over a fixed slot pool (paged by
+    default; `cache="dense"` for the per-slot-rows baseline)."""
 
     def __init__(self, arch, params, *, max_batch: int = 8,
                  max_len: int = 256, policy=None, prefill_bucket: int = 1,
-                 on_step=None, block_size: int = 16,
-                 slots_budget: Optional[int] = None, sampler=None,
+                 on_step=None, cache: str = "paged", block_size: int = 16,
+                 slots_budget: Optional[int] = None,
+                 share_prefix: bool = True, sampler=None,
                  attn_kernel: Optional[str] = None, growth: str = "lazy",
                  sched_policy="fifo", slo_ms: Optional[float] = None,
                  preempt: bool = True, retain_blocks: Optional[int] = None,
-                 watermark: int = 0):
-        """Args as the JAX engine's for the paged decoder path (mesh,
-        chunking, speculation and the other families excepted). Caches
-        live on the device of the params. attn_kernel "paged" runs the
-        hand-written kernel, "xla" the plain-torch gather; None adopts
-        arch.cfg.attn_kernel."""
+                 watermark: int = 0, spec_draft=None, spec_k: int = 4):
+        """Args as the JAX engine's for the decoder path (mesh, chunking
+        and the other families excepted). Caches live on the device of
+        the params. cache "paged" or "dense"; attn_kernel "paged" runs the
+        hand-written kernel, "xla" the plain-torch gather (paged pool
+        only), None adopts arch.cfg.attn_kernel. spec_draft=(draft_arch,
+        draft_params) enables speculative decoding with spec_k (>= 2)
+        tokens per round; it needs the paged pool and attention-only
+        superblocks on both models."""
         if arch.kind != "decoder":
             raise NotImplementedError(
                 f"serving {arch.kind} archs is not ported yet")
+        if cache not in ("paged", "dense"):
+            raise ValueError(f"cache must be 'paged' or 'dense', got {cache}")
+        if growth not in ("lazy", "eager"):
+            raise ValueError(f"growth must be 'lazy' or 'eager', got {growth}")
         if attn_kernel is None:
             attn_kernel = arch.cfg.attn_kernel
+        if attn_kernel not in ("xla", "paged"):
+            raise ValueError(
+                f"attn_kernel must be 'xla' or 'paged', got {attn_kernel}")
+        if attn_kernel == "paged" and cache != "paged":
+            raise ValueError("attn_kernel='paged' requires cache='paged' "
+                             "(the dense pool has no block tables)")
+        self.spec = spec_draft is not None
+        if self.spec:
+            if spec_k < 2:
+                raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+            if cache != "paged":
+                raise ValueError(
+                    "speculative decoding requires cache='paged' "
+                    "(rollback and the row margin are paged-pool features)")
+            draft_arch, draft_params = spec_draft
+            for who, a in (("target", arch), ("draft", draft_arch)):
+                if any(m == "mamba" for m, _ in a.cfg.superblock):
+                    raise ValueError(
+                        f"speculative decoding needs an attention-only "
+                        f"{who}: SSM state cannot be stepped S=K "
+                        f"(target) or rewound on rejection (draft)")
+            if draft_arch.cfg.vocab != arch.cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_arch.cfg.vocab} != target "
+                    f"vocab {arch.cfg.vocab}")
+        self.spec_k = spec_k if self.spec else 1
         self.arch, self.params = apply_serving_policy(arch, params, policy)
         if attn_kernel != self.arch.cfg.attn_kernel:
             self.arch = dataclasses.replace(self.arch, cfg=dataclasses.replace(
@@ -145,21 +282,29 @@ class ContinuousEngine:
         self.device = self.params["embed"]["embedding"].device
         self.max_batch = max_batch
         self.max_len = max_len
+        self.paged = cache == "paged"
         self.sampler = Sampler.parse(sampler)
-        self.prefill_bucket = max(prefill_bucket, 1)
-        if retain_blocks is None:
-            # one BATCH's worth of blocks: a multi-tenant set of hot
-            # prefixes thrashes an LRU of one request's worth
-            retain_blocks = max(1, max_batch * (max_len // block_size))
-        self.pool = PagedCachePool(
-            self.arch, max_batch, max_len, block_size=block_size,
-            slots_budget=slots_budget,
-            attn_kernel=attn_kernel, growth=growth,
-            retain_blocks=retain_blocks, watermark=watermark,
-            device=self.device)
-        # slack rows so the padded prompt never reaches the request
-        # cache's last row, which stays pos=-1 (the insert's filler)
-        self._prefill_len = max_len + max(block_size, self.prefill_bucket)
+        self.prefill_bucket = max(prefill_bucket,
+                                  prompt_granularity(self.arch.cfg))
+        if self.paged:
+            if retain_blocks is None:
+                # one BATCH's worth of blocks: a multi-tenant set of hot
+                # prefixes thrashes an LRU of one request's worth
+                retain_blocks = max(1, max_batch * (max_len // block_size))
+            self.pool = PagedCachePool(
+                self.arch, max_batch, max_len, block_size=block_size,
+                slots_budget=slots_budget, share_prefix=share_prefix,
+                attn_kernel=attn_kernel, growth=growth, retain_blocks=retain_blocks,
+                watermark=watermark, row_margin=self.spec_k - 1,
+                device=self.device)
+            # slack rows so the padded prompt never reaches the request
+            # cache's last row, which stays pos=-1 (the insert's filler)
+            self._prefill_len = max_len + max(block_size,
+                                              self.prefill_bucket)
+        else:
+            self.pool = CachePool(self.arch, max_batch, max_len,
+                                  device=self.device)
+            self._prefill_len = max_len
         self.scheduler = Scheduler(max_batch)
         slo_s = slo_ms / 1e3 if slo_ms is not None else None
         self.sched_policy = SchedulingPolicy.parse(sched_policy, slo_s=slo_s)
@@ -172,8 +317,26 @@ class ContinuousEngine:
         self._step = build_serve_step(self._decode_step,
                                       sampler=self.sampler)
         self._prefill = build_prefill_fn(self.arch, self._prefill_len)
+        self._first, self._wants_keys = build_first_token_fn(self.sampler)
+        if self.spec:
+            self.draft_arch, self.draft_params = apply_serving_policy(
+                draft_arch, draft_params, policy)
+            self.draft_pool = CachePool(self.draft_arch, max_batch, max_len,
+                                        device=self.device)
+            self._draft_prefill = build_prefill_fn(self.draft_arch, max_len)
+            self._draft_step = build_serve_step(self.draft_arch.decode_step,
+                                                sampler=self.sampler)
+            self._verify = build_verify_step(self._decode_step,
+                                             sampler=self.sampler)
+            # host mirror of the draft pool's write cursors (PADDED rows,
+            # unlike _positions' local timeline)
+            self._draft_rows = np.zeros(max_batch, np.int64)
+            self.spec_rounds = 0
+            self.drafted_tokens = 0     # proposals verified
+            self.accepted_tokens = 0    # proposals the target agreed with
         self._tokens = np.zeros((max_batch, 1), np.int32)
         self._positions = np.full((max_batch, 1), -1, np.int32)
+        self._req_keys = np.zeros((max_batch, 2), np.uint32)
         self._emitted: Dict[int, list] = {}     # slot -> generated ids
         self._resume: Dict[int, list] = {}      # rid -> preempted tokens
         self._admit_seq: Dict[int, int] = {}
@@ -202,17 +365,23 @@ class ContinuousEngine:
         request.trace.mark_submit()
         self.scheduler.submit(request)
 
+    def _release(self, slot: int):
+        """Free the slot's cache rows (both pools) and mark it inactive:
+        position -1 sends its decode writes nowhere."""
+        self.pool.evict(slot)
+        if self.spec:
+            self.draft_pool.evict(slot)
+            self._draft_rows[slot] = 0
+        self._admit_seq.pop(slot, None)
+        self._admit_time.pop(slot, None)
+        self._positions[slot, 0] = -1
+        self._tokens[slot, 0] = 0
+
     def _finish(self, slot: int):
         req = self.scheduler.complete(slot)
         req.generated = np.array(self._emitted.pop(slot), np.int32)
         req.trace.done_t = time.perf_counter()
-        self.pool.evict(slot)
-        self._admit_seq.pop(slot, None)
-        self._admit_time.pop(slot, None)
-        # position -1 marks the slot inactive: its decode writes go
-        # nowhere and its attention rows are dead
-        self._positions[slot, 0] = -1
-        self._tokens[slot, 0] = 0
+        self._release(slot)
         return req
 
     def _count_nonfinite(self, logits):
@@ -222,12 +391,6 @@ class ContinuousEngine:
         logits, cache = self.arch.decode_step(params, batch, cache)
         self._count_nonfinite(logits)
         return logits, cache
-
-    def _pick(self, logits):
-        """(B, 1, V) fp32 prefill logits -> (B,) first tokens."""
-        if self.sampler is not None:
-            return self.sampler.sample(logits[:, -1, :])
-        return greedy_next(logits)
 
     def _resume_of(self, req: Request) -> list:
         return self._resume.get(req.rid, [])
@@ -255,7 +418,9 @@ class ContinuousEngine:
 
     def _fits(self, req: Request, pending: dict):
         """Would this request's block plan fit beside the admissions
-        already planned in this pass?"""
+        already planned in this pass? (The dense pool always fits.)"""
+        if not self.paged:
+            return True, None
         budget = req.max_new_tokens - len(self._resume_of(req))
         need = self.pool.admission_plan(self._full_prompt(req),
                                         self._plen(req),
@@ -267,8 +432,8 @@ class ContinuousEngine:
 
     def _admit(self):
         """Fill free slots from the queue in policy order: one batched
-        prefill per padded-length bucket, then each cache row is inserted
-        into its slot."""
+        prefill per padded-length bucket (the draft prefills the same
+        group), then each cache row is inserted into its slot."""
         while True:
             pairs, pending = [], {}
             while self.scheduler.free_slots and self.scheduler.queued:
@@ -278,7 +443,7 @@ class ContinuousEngine:
                 ok, need = self._fits(req, pending)
                 if not ok:
                     break   # head of line waits for evictions
-                for si, n in need.items():
+                for si, n in (need or {}).items():
                     pending[si] = pending.get(si, 0) + n
                 pairs.append(self.scheduler.assign_at(i))
             if not pairs:
@@ -294,27 +459,45 @@ class ContinuousEngine:
                 # last request (outputs discarded), as the JAX engine does
                 n = len(grp)
                 n_pad = 1 << (n - 1).bit_length()
+                pad_reqs = [r for _, r in grp] + [grp[-1][1]] * (n_pad - n)
                 tokens, positions, lens = pad_prompts(
                     prompts + [prompts[-1]] * (n_pad - n),
                     self.prefill_bucket, pad_len=padded)
-                logits, batch_cache = self._prefill(
-                    self.params,
-                    torch.as_tensor(tokens, device=self.device),
-                    torch.as_tensor(positions, device=self.device))
+                tokens = torch.as_tensor(tokens, device=self.device)
+                positions = torch.as_tensor(positions, device=self.device)
+                logits, batch_cache = self._prefill(self.params, tokens,
+                                                    positions)
                 self._count_nonfinite(logits)
-                first = self._pick(logits).cpu().numpy()
+                draft_cache = None
+                if self.spec:
+                    # the draft's slot state must hold exactly the context
+                    # the target slot holds
+                    _, draft_cache = self._draft_prefill(
+                        self.draft_params, tokens, positions)
+                first, rkeys = first_tokens(
+                    self._first, self.sampler, self._wants_keys, logits,
+                    pad_reqs,
+                    token_idx=[len(self._resume_of(r)) for r in pad_reqs])
                 now = time.perf_counter()
                 for g, (slot, req) in enumerate(grp):
                     resume = self._resume_of(req)
                     try:
-                        self.pool.insert(
-                            _slice_request(batch_cache, g), slot,
-                            prompt=prompts[g], plen=len(prompts[g]),
-                            padded_len=padded,
-                            budget=req.max_new_tokens - len(resume))
+                        if self.paged:
+                            self.pool.insert(
+                                _slice_request(batch_cache, g), slot,
+                                prompt=prompts[g], plen=len(prompts[g]),
+                                padded_len=padded,
+                                budget=req.max_new_tokens - len(resume))
+                        else:
+                            self.pool.insert(_slice_request(batch_cache, g),
+                                             slot)
                     except NoBlocksError:
                         failed.append(slot)
                         continue
+                    if self.spec:
+                        self.draft_pool.insert(
+                            _slice_request(draft_cache, g), slot)
+                        self._draft_rows[slot] = padded
                     self._resume.pop(req.rid, None)
                     t0 = int(first[g])
                     if req.trace.admit_t is None:   # the FIRST admission
@@ -326,6 +509,8 @@ class ContinuousEngine:
                     self._admit_counter += 1
                     self._admit_seq[slot] = self._admit_counter
                     self._admit_time[slot] = now
+                    if rkeys is not None:
+                        self._req_keys[slot] = rkeys[g]
                     if len(self._emitted[slot]) >= req.max_new_tokens:
                         self._finish(slot)
             for slot in reversed(failed):
@@ -340,43 +525,50 @@ class ContinuousEngine:
         self._resume[req.rid] = self._emitted.pop(slot)
         req.trace.preemptions += 1
         self.preemptions += 1
-        self.pool.evict(slot)
+        self._release(slot)
         self.scheduler.preempt(slot)
-        self._admit_seq.pop(slot, None)
-        self._admit_time.pop(slot, None)
-        self._positions[slot, 0] = -1
-        self._tokens[slot, 0] = 0
 
     def _grow_active(self):
-        """Back every active slot's next write with a block, preempting
-        the policy's victim when the arena is exhausted. Oldest
-        admissions grow first, so the oldest request always progresses."""
+        """Back every active slot's next writes with blocks (one row, or
+        every real verify row of a speculative round), preempting the
+        policy's victim when the arena is exhausted. Oldest admissions
+        grow first, so the oldest request always progresses."""
         for slot in sorted(self.scheduler.active,
                            key=lambda s: self._admit_seq.get(s, 0)):
             if slot not in self.scheduler.active:
                 continue            # preempted as a victim earlier in loop
             row = int(self._positions[slot, 0])
-            while True:
-                try:
-                    self.pool.grow(slot, row)
-                    break
-                except NoBlocksError:
-                    if not self.preempt_enabled:
-                        raise RuntimeError(
-                            "paged arena exhausted mid-decode with "
-                            "preemption disabled: raise slots_budget / "
-                            "watermark, or enable preempt")
-                    candidates = sorted(self.scheduler.active)
-                    victim = self.sched_policy.victim(candidates,
-                                                      self._policy_ctx())
-                    if victim == slot and len(candidates) == 1:
-                        raise RuntimeError(
-                            "single active slot cannot grow: the arena "
-                            "is smaller than one request's chain (raise "
-                            "slots_budget)")
-                    self._preempt(victim)
-                    if victim == slot:
+            n_rows = 1
+            if self.spec:
+                # verify rows past the remaining budget carry position -1
+                # and write nothing, so they need no backing
+                req = self.scheduler.active[slot]
+                n_rows = min(self.spec_k,
+                             req.max_new_tokens - len(self._emitted[slot]))
+            for r in range(row, row + n_rows):
+                if slot not in self.scheduler.active:
+                    break           # became the sacrifice below
+                while True:
+                    try:
+                        self.pool.grow(slot, r)
                         break
+                    except NoBlocksError:
+                        if not self.preempt_enabled:
+                            raise RuntimeError(
+                                "paged arena exhausted mid-decode with "
+                                "preemption disabled: raise slots_budget "
+                                "/ watermark, or enable preempt")
+                        candidates = sorted(self.scheduler.active)
+                        victim = self.sched_policy.victim(
+                            candidates, self._policy_ctx())
+                        if victim == slot and len(candidates) == 1:
+                            raise RuntimeError(
+                                "single active slot cannot grow: the arena "
+                                "is smaller than one request's chain (raise "
+                                "slots_budget)")
+                        self._preempt(victim)
+                        if victim == slot:
+                            break   # this slot was the sacrifice
 
     def _evict_overdue(self):
         """SLO eviction: an active request older (since admission) than
@@ -389,12 +581,18 @@ class ContinuousEngine:
                 self.scheduler.active[slot].trace.evicted_slo = True
                 self._finish(slot)
 
+    def _step_cache(self):
+        if self.paged:
+            return {**self.pool.cache, "tables": self.pool.device_tables()}
+        return self.pool.cache
+
     def step(self) -> bool:
         """One iteration: SLO evictions, admissions, lazy growth, then
-        one decode step over the active slots. False when idle."""
+        one decode step (or speculative round) over the active slots.
+        False when idle."""
         self._evict_overdue()
         self._admit()
-        if self.pool.growth == "lazy":
+        if self.paged and self.pool.growth == "lazy":
             self._grow_active()
             self.pool.flush_growth()
         active = sorted(self.scheduler.active)
@@ -408,28 +606,148 @@ class ContinuousEngine:
                     f"budget {req.max_new_tokens}) cannot fit an empty "
                     f"paged arena: raise slots_budget or max_len")
             return self.scheduler.has_work
-        cache = {**self.pool.cache, "tables": self.pool.device_tables()}
-        nxt, new_cache = self._step(
-            self.params, torch.as_tensor(self._tokens, device=self.device),
-            torch.as_tensor(self._positions, device=self.device), cache)
+        if self.spec:
+            self._spec_round(active)
+        else:
+            args = (self.params,
+                    torch.as_tensor(self._tokens, device=self.device),
+                    torch.as_tensor(self._positions, device=self.device),
+                    self._step_cache())
+            if self._wants_keys:
+                tvec = np.zeros(self.max_batch, np.int32)
+                for slot in active:
+                    tvec[slot] = len(self._emitted[slot])
+                args += (fold_keys(self._req_keys, tvec),)
+            nxt, new_cache = self._step(*args)
+            self.pool.cache["index"] = new_cache["index"]
+            nxt = nxt.cpu().numpy()      # host sync: tokens feed next step
+            now = time.perf_counter()
+            self.steps_run += 1
+            self.slot_steps += len(active)
+            for slot in active:
+                req = self.scheduler.active[slot]
+                self._emitted[slot].append(int(nxt[slot]))
+                req.trace.mark_token(now)
+                self._tokens[slot, 0] = int(nxt[slot])
+                self._positions[slot, 0] += 1
+                if len(self._emitted[slot]) >= req.max_new_tokens:
+                    self._finish(slot)
+        if self.on_step is not None:
+            info = {"step": self.steps_run, "active": len(active),
+                    "queued": self.scheduler.queued,
+                    "preemptions": self.preemptions}
+            if self.spec:
+                info.update(spec_rounds=self.spec_rounds,
+                            drafted_tokens=self.drafted_tokens,
+                            accepted_tokens=self.accepted_tokens)
+            self.on_step(info)
+        return self.scheduler.has_work
+
+    def _spec_round(self, active):
+        """One draft-verify round over the active slots.
+
+        Per slot with remaining budget rem and cursor position p:
+          1. K draft micro-steps (S=1, the draft's dense pool) propose
+             d_1..d_K with keys fold(rkey, emitted + i), the target's.
+          2. One verify step feeds [t0, d_1..d_{K-1}] at positions
+             p..p+fl-1 (fl = min(K, rem); padding rows carry -1) and
+             emits y_1..y_K.
+          3. The leading agreement run a emits y_1..y_n, n = min(a+1, fl).
+          4. If any slot emitted fewer than K, both pools roll back:
+             cursors rewind to q + n and the stale rows' positions drop
+             to -1. A full-acceptance round skips the rollback."""
+        K = self.spec_k
+        B = self.max_batch
+        dev = self.device
+        tvec = np.zeros(B, np.int32)
+        feed_len = np.zeros(B, np.int32)
+        for slot in active:
+            req = self.scheduler.active[slot]
+            tvec[slot] = len(self._emitted[slot])
+            feed_len[slot] = min(K, req.max_new_tokens
+                                 - len(self._emitted[slot]))
+
+        # ---- 1. draft micro-steps ----------------------------------
+        fed = np.zeros((B, K), np.int32)       # d_0..d_{K-1} (d_0 = t0)
+        props = np.zeros((B, K), np.int32)     # d_1..d_K
+        tok = self._tokens.copy()
+        pos = self._positions.copy()
+        live = pos[:, 0] >= 0
+        for i in range(K):
+            fed[:, i] = tok[:, 0]
+            args = (self.draft_params, torch.as_tensor(tok, device=dev),
+                    torch.as_tensor(pos, device=dev), self.draft_pool.cache)
+            if self._wants_keys:
+                args += (fold_keys(self._req_keys, tvec + i),)
+            nxt, dcache = self._draft_step(*args)
+            self.draft_pool.cache["index"] = dcache["index"]
+            nxt = nxt.cpu().numpy()
+            props[:, i] = nxt
+            tok[:, 0] = np.where(live, nxt, 0)
+            pos[:, 0] = np.where(live, pos[:, 0] + 1, -1)
+
+        # ---- 2. target verify --------------------------------------
+        vpos = np.full((B, K), -1, np.int32)
+        for slot in active:
+            fl = int(feed_len[slot])
+            vpos[slot, :fl] = (int(self._positions[slot, 0])
+                               + np.arange(fl, dtype=np.int32))
+        args = (self.params, torch.as_tensor(fed, device=dev),
+                torch.as_tensor(vpos, device=dev), self._step_cache())
+        if self._wants_keys:
+            ti = tvec[:, None] + np.arange(K, dtype=np.int32)[None, :]
+            flat = fold_keys(np.repeat(self._req_keys, K, axis=0),
+                             ti.reshape(-1))
+            args += (flat.reshape(B, K, 2),)
+        ys, new_cache = self._verify(*args)
         self.pool.cache["index"] = new_cache["index"]
-        nxt = nxt.cpu().numpy()          # host sync: tokens feed next step
+        ys = ys.cpu().numpy()
         now = time.perf_counter()
         self.steps_run += 1
         self.slot_steps += len(active)
+        self.spec_rounds += 1
+
+        # ---- 3. acceptance -----------------------------------------
+        emits = {}
         for slot in active:
+            fl = int(feed_len[slot])
+            prop = props[slot, :fl]            # d_1..d_fl
+            tgt = ys[slot, :fl]                # y_1..y_fl
+            neq = np.nonzero(prop != tgt)[0]
+            a = int(neq[0]) if len(neq) else fl
+            n_emit = min(a + 1, fl)
+            emits[slot] = (n_emit, tgt[:n_emit])
+            self.drafted_tokens += fl
+            self.accepted_tokens += min(a, n_emit)
+
+        # ---- 4. rollback (reject or budget-truncated rounds) -------
+        if any(ne != K for ne, _ in emits.values()):
+            stale_t, stale_d = {}, {}
+            new_ti = np.zeros(B, np.int32)
+            new_di = np.zeros(B, np.int32)
+            for slot in active:
+                ne = emits[slot][0]
+                q = int(self._positions[slot, 0])
+                c = int(self._draft_rows[slot])
+                stale_t[slot] = range(q + ne, q + K)
+                stale_d[slot] = range(c + ne, c + K)
+                new_ti[slot] = q + ne
+                new_di[slot] = c + ne
+            self.pool.rollback_rows(stale_t, new_ti, B * K)
+            self.draft_pool.rollback_rows(stale_d, new_di, B * K)
+
+        # ---- bookkeeping (mirrors the non-spec step) ---------------
+        for slot in active:
+            ne, toks = emits[slot]
             req = self.scheduler.active[slot]
-            self._emitted[slot].append(int(nxt[slot]))
-            req.trace.mark_token(now)
-            self._tokens[slot, 0] = int(nxt[slot])
-            self._positions[slot, 0] += 1
+            self._emitted[slot].extend(int(t) for t in toks)
+            for _ in range(ne):
+                req.trace.mark_token(now)
+            self._tokens[slot, 0] = int(toks[-1])
+            self._positions[slot, 0] += ne
+            self._draft_rows[slot] += ne
             if len(self._emitted[slot]) >= req.max_new_tokens:
                 self._finish(slot)
-        if self.on_step is not None:
-            self.on_step({"step": self.steps_run, "active": len(active),
-                          "queued": self.scheduler.queued,
-                          "preemptions": self.preemptions})
-        return self.scheduler.has_work
 
     def run(self, requests: Optional[List[Request]] = None) -> List[Request]:
         """Submit `requests` (if given) and step until idle."""
@@ -439,11 +757,18 @@ class ContinuousEngine:
             pass
         return self.scheduler.completed
 
+    def run_batch(self, requests: List[Request]) -> List[Request]:
+        """ServeEngine-compatible alias for run(): submit and drain,
+        return the same request objects."""
+        self.run(requests)
+        return requests
+
     def report(self, wall_s: float) -> dict:
         """Throughput/latency stats of the completed requests plus slot
         utilization, decode steps, peak concurrency, queue depth,
-        preemptions, prefix-block hits and the number of steps whose
-        logits were not all finite."""
+        preemptions, the number of steps whose logits were not all
+        finite, (paged) prefix-block hits and (speculative) rounds and
+        acceptance."""
         done = self.scheduler.completed
         stats = aggregate([r.trace for r in done], wall_s,
                           sum(len(r.generated) for r in done))
@@ -455,10 +780,92 @@ class ContinuousEngine:
         stats["sched_policy"] = self.sched_policy.name
         stats.update(self._depth.stats())
         stats["task"] = "generate"
-        stats["growth"] = self.pool.growth
-        stats["shared_block_hits"] = self.pool.shared_hits
-        stats["retained_block_hits"] = self.pool.retained_hits
-        stats["prefix_misses"] = self.pool.prefix_misses
-        stats["retained_hit_rate"] = self.pool.retained_hit_rate
+        if self.paged:
+            stats["growth"] = self.pool.growth
+            stats["shared_block_hits"] = self.pool.shared_hits
+            stats["retained_block_hits"] = self.pool.retained_hits
+            stats["prefix_misses"] = self.pool.prefix_misses
+            stats["retained_hit_rate"] = self.pool.retained_hit_rate
+        if self.spec:
+            stats["spec_k"] = self.spec_k
+            stats["spec_rounds"] = self.spec_rounds
+            stats["drafted_tokens"] = self.drafted_tokens
+            stats["accepted_tokens"] = self.accepted_tokens
+            stats["acceptance_rate"] = (self.accepted_tokens
+                                        / max(1, self.drafted_tokens))
         stats["nonfinite_logit_steps"] = int(self._nonfinite)
         return stats
+
+
+class ServeEngine:
+    """Static-batch baseline: one padded prefill, lockstep decode. Shares
+    the decode step, precision policy, sampler keys and left-pad masking
+    with ContinuousEngine."""
+
+    def __init__(self, arch, params, *, max_len: int = 512, policy=None,
+                 sampler=None):
+        if arch.kind != "decoder":
+            raise ValueError(f"serving needs a decoder arch, got {arch.kind}")
+        self.arch, self.params = apply_serving_policy(arch, params, policy)
+        self.device = self.params["embed"]["embedding"].device
+        self.max_len = max_len
+        self.granularity = prompt_granularity(self.arch.cfg)
+        self.sampler = Sampler.parse(sampler)
+        self._step = build_serve_step(self.arch.decode_step,
+                                      sampler=self.sampler)
+        self._prefill = build_prefill_fn(self.arch, max_len)
+        self._first, self._wants_keys = build_first_token_fn(self.sampler)
+        self._next_rid = 0
+
+    def run_batch(self, requests: List[Request]) -> List[Request]:
+        """Serve one padded batch to completion: a single left-padded
+        prefill, then lockstep decode for max(max_new_tokens) steps.
+        Fills each request's `generated`/trace in place and returns the
+        same list."""
+        assert requests
+        steps = max(r.max_new_tokens for r in requests)
+        tokens, positions, lens = pad_prompts(
+            [r.prompt for r in requests], self.granularity)
+        if tokens.shape[1] + steps > self.max_len:
+            raise ValueError(
+                f"padded prompt {tokens.shape[1]} + {steps} new tokens "
+                f"exceeds max_len {self.max_len}")
+        for r in requests:
+            # keep an earlier submission stamp: callers running waves
+            # stamp the whole workload up front, so TTFT includes the
+            # wait behind earlier waves
+            if r.trace.submit_t == 0.0:
+                r.trace.mark_submit()
+            if r.rid is None:
+                r.rid = self._next_rid
+                self._next_rid += 1
+        dev = self.device
+        logits, cache = self._prefill(
+            self.params, torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(positions, device=dev))
+        tok, rkeys = first_tokens(self._first, self.sampler,
+                                  self._wants_keys, logits, requests)
+        out = [tok]
+        now = time.perf_counter()
+        for r in requests:
+            r.trace.admit_t = now
+            r.trace.mark_token(now)
+        pos_next = lens.copy()
+        for i in range(steps - 1):
+            args = (self.params, torch.as_tensor(tok[:, None], device=dev),
+                    torch.as_tensor(pos_next[:, None], device=dev), cache)
+            if self._wants_keys:
+                args += (fold_keys(rkeys, np.full(len(requests), i + 1)),)
+            nxt, cache = self._step(*args)
+            tok = nxt.cpu().numpy()
+            now = time.perf_counter()
+            out.append(tok)
+            pos_next += 1
+            for r in requests:
+                if len(r.trace.token_ts) < r.max_new_tokens:
+                    r.trace.mark_token(now)
+        gen = np.stack(out, axis=1)      # (B, steps)
+        for i, r in enumerate(requests):
+            r.generated = gen[i, :r.max_new_tokens]
+            r.trace.done_t = r.trace.token_ts[-1]
+        return requests

@@ -1,20 +1,44 @@
-"""Token selection for the serving decode step (port of
-repro/serving/sampler.py, greedy part).
+"""Token sampling for the serving decode step (port of
+repro/serving/sampler.py).
 
-`Sampler.parse` reads the same spec strings as the JAX package. Greedy
-decoding (`greedy`, or temperature=0) is ported, with the optional
-bf16 tie band of `stable_argmax`. Sampled decoding draws from JAX's
-threefry keys; without a port of that generator a sampled stream could
-not match the reference, so a non-greedy sampler raises.
+`Sampler.parse` reads the same spec strings as the JAX package.
+temperature 0 is greedy argmax (with the optional bf16 tie band of
+`stable_argmax`); otherwise the logits are divided by the temperature,
+masked to the top-k and then to the top-p set, and one categorical draw
+per row picks the token with that row's PRNG key.
+
+The keys and the draw are JAX's, bit for bit: the port carries its own
+threefry2x32 so that a sampled stream equals the reference's. As in the
+JAX package,
+
+    request key   = fold_in(PRNGKey(sampler.seed), request.rid)
+    token-t key   = fold_in(request key, t)
+
+so a stream depends only on (seed, rid, token index). The generator
+follows jax 0.9.0's defaults: `jax_threefry_partitionable` on (the
+random bits of a shape hash the hi and lo words of each element's flat
+index, and 32-bit output is the xor of the two hash words) and the
+"low" gumbel mode (`-log(-log(u))`, u uniform in [tiny, 1)). Keys,
+bits and uniforms are bit-exact; torch's and XLA's `log` differ by up to
+one ulp, so a gumbel value may differ by two ulps at magnitude
+max(|g|, 1), and a pick only where two noisy logits tie that closely.
+
+The 32-bit arithmetic runs in int64 with 0xffffffff masks (torch's
+uint32 lacks several ops). Keys are (..., 2) uint32 numpy arrays on
+the host; the draw runs on the logits' device.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # one bf16 unit-in-last-place at magnitude ~1
 BF16_EPS = 2.0 ** -7
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def stable_argmax(logits):
@@ -31,15 +55,108 @@ def stable_argmax(logits):
     return torch.where(tied, idx, big).min(dim=-1).values.to(torch.int32)
 
 
+# --------------------------------------------------------------------------
+# threefry2x32, as jax 0.9.0 computes it
+# --------------------------------------------------------------------------
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counter words (x1, x2) under
+    key (k1, k2): int64 numpy arrays or torch tensors holding uint32
+    values, broadcast together. Returns the two output words the same
+    way."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _MASK
+    x2 = (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _MASK
+            x2 = ((x2 << r) & _MASK) | (x2 >> (32 - r))
+            x2 = x1 ^ x2
+        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x1, x2
+
+
+def _words(keys, device="cpu"):
+    """(..., 2) uint32 keys -> (k1, k2) int64 tensors of shape (...) on
+    `device`."""
+    k = torch.as_tensor(np.asarray(keys, np.uint32).astype(np.int64),
+                        device=device)
+    return k[..., 0], k[..., 1]
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """jax.random.PRNGKey(seed): (2,) uint32 [seed >> 32, seed &
+    0xffffffff] of the seed as JAX holds it. With jax_enable_x64 off
+    (the default, and the JAX package's setting) the seed is a 32-bit
+    integer, so the high word is 0 and the low word is the seed modulo
+    2**32."""
+    return np.array([0, int(seed) & _MASK], np.uint32)
+
+
+def fold_keys(request_keys, token_indices) -> np.ndarray:
+    """(B, 2) keys + (B,) integers -> (B, 2) uint32 keys: row b is
+    jax.random.fold_in(request_keys[b], token_indices[b]), the hash of
+    the counter pair (0, data) under the key."""
+    k = np.asarray(request_keys, np.uint32).astype(np.int64)
+    data = np.asarray(token_indices).astype(np.int64) & _MASK
+    y1, y2 = threefry2x32(k[..., 0], k[..., 1], np.zeros_like(data), data)
+    return np.stack([y1, y2], axis=-1).astype(np.uint32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """jax.random.fold_in for one (2,) key and one integer."""
+    return fold_keys(np.asarray(key, np.uint32)[None], [data])[0]
+
+
+def random_bits(keys, n: int, device="cpu"):
+    """(B, 2) keys -> (B, n) int64 tensor of the uint32 values
+    jax.random.bits(keys[b], (n,)) draws (partitionable threefry)."""
+    k1, k2 = _words(keys, device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1[:, None], k2[:, None], torch.zeros_like(lo),
+                          lo)
+    return b1 ^ b2
+
+
+def uniform(keys, n: int, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu"):
+    """(B, 2) keys -> (B, n) fp32 jax.random.uniform draws in [minval,
+    maxval): the top 23 random bits as the mantissa of a float in [1, 2),
+    minus 1, scaled and shifted in fp32, then held at >= minval. Over
+    [0, 1) and [tiny, 1), the sampler's ranges, the scale is exactly 1
+    and the result is XLA's bit for bit; elsewhere XLA's fused
+    multiply-add may round the scale-and-shift differently."""
+    bits = random_bits(keys, n, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    f = f - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def gumbel(keys, n: int, device="cpu"):
+    """(B, 2) keys -> (B, n) fp32 jax.random.gumbel draws, "low" mode."""
+    u = uniform(keys, n, _TINY, 1.0, device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys, logits):
+    """jax.vmap(jax.random.categorical)(keys, logits): (B, V) fp32
+    logits, one (2,) key per row -> (B,) int32, argmax of logits + gumbel
+    noise (the first index on ties)."""
+    g = gumbel(keys, logits.shape[-1], logits.device)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Sampler:
-    """temperature / top-k / top-p settings; only temperature 0 (greedy)
-    decodes in the port so far."""
+    """temperature / top-k / top-p sampling with per-row PRNG keys."""
     temperature: float = 1.0
-    top_k: int = 0
-    top_p: float = 1.0
+    top_k: int = 0          # 0 disables
+    top_p: float = 1.0      # 1.0 disables
     seed: int = 0
-    stable_tiebreak: bool = False
+    stable_tiebreak: bool = False   # greedy: bf16-ulp tie band, min index
 
     def __post_init__(self):
         if self.temperature < 0:
@@ -75,12 +192,34 @@ class Sampler:
                 kwargs[k] = int(v) if k in ("top_k", "seed") else float(v)
         return cls(**kwargs)
 
-    def sample(self, logits):
-        """logits (B, V) fp32 -> (B,) int32 tokens (greedy only)."""
-        if not self.greedy:
-            raise NotImplementedError(
-                "sampled decoding is not ported yet (it needs JAX's "
-                "threefry keys to match the reference); use greedy")
-        if self.stable_tiebreak:
-            return stable_argmax(logits)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    def sample(self, logits, keys=None):
+        """logits (B, V) fp32, keys (B, 2) uint32 (unused when greedy)
+        -> (B,) int32 tokens. Masking happens in logit space, in fp32,
+        before one categorical draw per row."""
+        if self.greedy:
+            if self.stable_tiebreak:
+                return stable_argmax(logits)
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # a device tensor, not a Python scalar: CUDA divides by a host
+        # scalar as a multiply by its reciprocal, one bit off XLA's divide
+        t = logits / torch.tensor(self.temperature, dtype=torch.float32,
+                                  device=logits.device)
+        top_k = min(self.top_k, logits.shape[-1])   # k >= vocab: keep all
+        if top_k:
+            kth = torch.topk(t, top_k, dim=-1).values[..., -1:]
+            t = torch.where(t < kth, -torch.inf, t)
+        if self.top_p < 1.0:
+            srt = torch.sort(t, dim=-1, descending=True).values
+            probs = torch.softmax(srt, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            # the smallest prefix whose mass reaches top_p (the first
+            # token always survives: cum - probs is 0 there)
+            keep = (cum - probs) < self.top_p
+            thr = torch.where(keep, srt, torch.inf).min(
+                dim=-1, keepdim=True).values
+            t = torch.where(t < thr, -torch.inf, t)
+        return categorical(keys, t)
+
+    def request_key(self, rid: int) -> np.ndarray:
+        """fold_in(PRNGKey(seed), rid): the base key of request `rid`."""
+        return fold_in(prng_key(self.seed), rid)

@@ -11,6 +11,7 @@ and rtol), fp32 arithmetic on both sides in another summation order;
 the arenas must be equal (torch.equal): the kernel copies the new rows,
 it never computes them.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -89,6 +90,110 @@ def test_cuda_kernel_matches_plain(S, dtype, window, softcap, null_write):
     for got, w in zip(args[3:6], plain[3:6]):
         assert torch.equal(got, w)
     assert (out[-1] == 0).all()
+
+
+def _next_round(args, fl, n_emit, seed):
+    """After a verify round in which slot b emitted n_emit[b] of its
+    fl[b] rows: the pool's rollback (positions of rows cursor + n_emit ..
+    cursor + S - 1 lowered to -1 through the table, as
+    PagedCachePool.rollback_rows does; cursors rewound), then the next
+    round's operands: fresh q / new rows, fl' = fl - n_emit real rows
+    for a slot whose budget ran into the round (slot 0), fl again for
+    the others. Mutates the arenas in args (they hold the first round's
+    writes) and returns (operands, fl')."""
+    q, k_new, v_new, k_arena, v_arena, pos, tables, q_pos, cursor = args
+    B, S = q_pos.shape
+    bs = pos.shape[1]
+    ring = tables.shape[1] * bs
+    tbl = tables.cpu().numpy()
+    cur = cursor.cpu().numpy().copy()
+    nxt = fl.copy()
+    for b in range(B - 1):
+        for r in range(cur[b] + n_emit[b], cur[b] + S):
+            blk = tbl[b, (r % ring) // bs]
+            if blk:
+                pos[blk, (r % ring) % bs] = min(int(pos[blk, (r % ring) % bs]),
+                                                -1)
+        cur[b] += n_emit[b]
+        if b == 0:
+            nxt[b] = fl[b] - n_emit[b]
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    fresh = [torch.randn(t.shape, generator=g, device=t.device).to(t.dtype)
+             for t in (q, k_new, v_new)]
+    qp = torch.full_like(q_pos, -1)
+    for b in range(B - 1):
+        qp[b, :nxt[b]] = torch.arange(nxt[b]) + int(cur[b])
+    return fresh + [k_arena, v_arena, pos, tables, qp,
+                    torch.as_tensor(cur, device=cursor.device)], nxt
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("S", range(2, 17))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k8_verify_rounds_match_plain(dtype, S, window):
+    """Needs the card: K8 as the speculative verify step runs it, at S =
+    2..block_size query rows (gemma2-2b's heads, block 16): row-margined
+    tables one block wider than the rows, trailing rows at position -1
+    (a budget-cut round), a dead slot; then, after a rollback (stale rows
+    lowered to -1 by min, cursors rewound), a second round on the arenas
+    the first wrote. Outputs within 1e-5 of the plain version, arenas
+    torch.equal after each round. Where S query rows do not fit the
+    kernel's shared memory (S >= 12 with fp32 arenas, S >= 14 with bf16
+    at these heads), the wrapper raises before launching, as a pool
+    built for that spec_k does at construction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(scale=0.0625, window=window, softcap=50.0)
+    args, fl = pa.verify_case(S=S, n_heads=8, n_kv=4, head_dim=256,
+                              block_size=16, nb=7, dtype=dtype,
+                              q_dtype=dtype, device="cuda", seed=S)
+    if pa.kernel_fit_problems(16, 256, 8, 4, dtype, S=S):
+        before = pa.paged_attention_fused.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            pa.paged_attention_fused(*args, **kw)
+        assert pa.paged_attention_fused.launches == before
+        return
+    plain = [a.clone() for a in args]
+    n_emit = np.array([1, 1, S, 0])
+    for rnd in range(2):
+        before = pa.paged_attention_fused.launches
+        out = pa.paged_attention_fused(*args, **kw)
+        want = pa.paged_attention_fused_plain(*plain, **kw)
+        torch.cuda.synchronize()
+        assert pa.paged_attention_fused.launches == before + 1
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"round {rnd}: {m}")
+        for got, w in zip(args[3:6], plain[3:6]):
+            assert torch.equal(got, w), f"round {rnd}"
+        assert (out[-1] == 0).all()
+        if rnd == 0:
+            args, nxt = _next_round(args, fl, n_emit, seed=S)
+            plain, _ = _next_round(plain, fl, n_emit, seed=S)
+            fl = nxt
+
+
+def test_verify_case_and_rollback_on_cpu():
+    """The verify case's contract, on the CPU (plain version): every real
+    row lands in a backed block and the padding rows write nothing; the
+    rollback leaves no position at or past each live slot's new cursor
+    and the null block at -1."""
+    S = 5
+    args, fl = pa.verify_case(S=S, n_heads=4, n_kv=2, head_dim=16,
+                              block_size=8, nb=5, device="cpu")
+    tables = args[6]
+    pos_before = args[5].clone()
+    out = pa.paged_attention_fused(*args, scale=0.25, window=12,
+                                   softcap=5.0)
+    assert torch.isfinite(out).all() and (out[-1] == 0).all()
+    assert int((args[5] != pos_before).sum()) == int(fl.sum())
+    assert fl.tolist() == [2, S - 1, S, 0]
+    args, nxt = _next_round(args, fl, np.array([1, 1, S, 0]), seed=0)
+    assert nxt.tolist() == [1, S - 1, S, 0]
+    pos, cur = args[5], args[8]
+    for b in range(3):
+        for blk in tables[b][tables[b] != 0].tolist():
+            assert (pos[blk] < int(cur[b])).all()
+    assert (pos[0] == -1).all()
 
 
 # --------------------------------------------------------------------------

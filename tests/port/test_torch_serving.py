@@ -147,14 +147,92 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--engine", "static"], ["--cache", "dense"], ["--chunk-budget", "32"],
-    ["--spec-draft", "self"], ["--mesh", "2x1"], ["--replicas", "2"],
+    ["--chunk-budget", "32"], ["--mesh", "2x1"], ["--replicas", "2"],
     ["--arrival-rate", "5"], ["--task", "score"], ["--precision", "fp16"],
-    ["--sampler", "temperature=0.8"], ["--sched-policy", "prefix-affinity"],
-    ["--arch", "mamba2-130m"], ["--arch", "bert-large"]])
+    ["--sched-policy", "prefix-affinity"], ["--arch", "mamba2-130m"],
+    ["--arch", "bert-large"]])
 def test_cli_unported_features_raise(argv):
     with pytest.raises(SystemExit, match="not (yet )?ported"):
         tserve.main(["--device", "cpu", *argv])
+
+
+CLI_ARGV = ["--device", "cpu", "--requests", "4", "--prompt-len", "12",
+            "--new-tokens", "6", "--seed", "1"]
+
+
+def _cli(capsys, *argv):
+    stats, done = tserve.main([*CLI_ARGV, *argv])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["requests"] == 4 == len(done)
+    assert report["tokens"] == sum(len(r.generated) for r in done) > 0
+    return report, {r.rid: r.generated.tolist() for r in done}
+
+
+def test_cli_serves_static_engine(capsys):
+    """--engine static runs the padded lockstep baseline in waves of
+    --max-batch: greedy fp32 tokens equal the continuous paged run's."""
+    report, static = _cli(capsys, "--engine", "static")
+    assert (report["engine"], report["cache"]) == ("static", "static")
+    assert report["attn_kernel"] == "xla"
+    _, paged = _cli(capsys, "--attn-kernel", "paged")
+    assert static == paged
+
+
+def test_cli_serves_dense_cache(capsys):
+    report, dense = _cli(capsys, "--cache", "dense")
+    assert (report["engine"], report["cache"]) == ("continuous", "dense")
+    assert report["attn_kernel"] == "xla" and "growth" not in report
+    _, paged = _cli(capsys)
+    assert dense == paged
+
+
+def test_cli_serves_self_draft_speculation(capsys):
+    """--spec-draft self --spec-k 3: the draft is the target, so every
+    proposal is accepted and the tokens equal the non-spec run's."""
+    report, spec = _cli(capsys, "--spec-draft", "self", "--spec-k", "3",
+                        "--attn-kernel", "paged")
+    assert report["spec_k"] == 3 and report["spec_rounds"] > 0
+    assert report["acceptance_rate"] == 1.0
+    assert report["decode_steps"] == report["spec_rounds"]
+    _, plain = _cli(capsys, "--attn-kernel", "paged")
+    assert spec == plain
+
+
+def test_cli_serves_sampled_decoding(capsys):
+    """A sampled stream is a function of (seed, rid, token index): equal
+    between the paged and the dense pool and between spec and non-spec,
+    and not the greedy stream."""
+    sampler = ["--sampler", "temperature=0.8,top_k=50,top_p=0.9,seed=3"]
+    report, paged = _cli(capsys, *sampler)
+    assert report["sampler"] == sampler[1]
+    _, dense = _cli(capsys, *sampler, "--cache", "dense")
+    _, spec = _cli(capsys, *sampler, "--spec-draft", "self")
+    _, greedy = _cli(capsys)
+    assert paged == dense == spec != greedy
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--spec-draft", "truncated", "--spec-k", "2"],
+    ["--engine", "static", "--attn-kernel", "paged"],
+    ["--cache", "dense", "--spec-draft", "self", "--spec-k", "3"],
+    ["--engine", "static", "--cache", "dense", "--growth", "eager",
+     "--watermark", "2", "--slots-budget", "2", "--retain-blocks", "4"],
+    ["--engine", "static", "--sched-policy", "arrival-deadline",
+     "--slo-ms", "5", "--no-preempt", "--spec-k", "3"],
+    ["--cache", "dense", "--chunk-budget", "8", "--replicas", "2",
+     "--route-policy", "rr", "--interpret"],
+    ["--interpret"], ["--attn-kernel", "xla", "--interpret"],
+    ["--engine", "static", "--mesh", "2x1", "--arrival-rate", "3"]])
+def test_cli_flag_errors_match_jax_launcher(argv):
+    """The ported flag-compatibility matrix gives the JAX launcher's
+    errors word for word, and main raises them before anything runs."""
+    from repro.launch import serve as jserve
+    errs = tserve.flag_errors(tserve.build_parser().parse_args(argv))
+    assert errs == jserve.flag_errors(jserve.build_parser().parse_args(argv))
+    if errs:
+        with pytest.raises(SystemExit) as e:
+            tserve.main(["--device", "cpu", *argv])
+        assert str(e.value) == "; ".join(errs)
 
 
 @pytest.mark.parametrize("spec", ["greedy", "temperature=0",
