@@ -48,7 +48,8 @@ Phases, in the order they run, each of which fails the run:
      (not gated); (g) K8 at S = 4 at the serving shapes with a
      row-margined table (pa.verify_case), held to its plain version as
      in phase 2 and timed beside its byte bound and the profiler's split
-     and combine times, and spec vs non-spec tokens/s and ITL p50
+     and combine times, the same at S = 16 (a whole block of rows) with
+     bf16 and fp32 arenas, and spec vs non-spec tokens/s and ITL p50
      printed (no gain claimed);
   5. hold the fused LANS kernels K1-K4 against their plain versions
      (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
@@ -87,7 +88,31 @@ Phases, in the order they run, each of which fails the run:
      last for the global clip's sums of squares, each launched 4 x 29
      times, K2-K4 not at all); then 2 steps each of the CLI with
      --optimizer adamw and with --optimizer lamb --precision bf16, with
-     finite losses.
+     finite losses;
+  T. causal-LM pretraining of gemma2-2b at full width (seq 1024, so the
+     chunked loss runs in 2 chunks of 512; batch 2, seed 0,
+     warmup-hold-decay, fp32 policy): (d) at full depth on one batch, the
+     chunked loss equals lm_loss on the whole (2, 1024, 256000) logits
+     within 1e-5 relative and is what Arch.loss_fn returns, and the
+     gradients with each period recomputed (remat) equal those with every
+     activation kept within 1e-5, peak memory printed both ways; (b) at
+     full width and 2 periods (4 layers: the 589,824,000-element
+     embedding leaf whole, and both routes fit the card), one shared set
+     of step-1 gradients applied by lans and fused_lans agrees leaf by
+     leaf within 2e-5, and on the bf16 policy fused_mixed_lans against
+     mixed_precision(lans) (masters and moments 2e-5, bf16 params 2e-2);
+     (a) at full depth, 3 steps through the CLI (--arch gemma2-2b --full
+     --optimizer lans, unfused) and through build_train_step +
+     fused_lans from the same seed and batches: losses finite, the
+     trajectories within 1e-2 relative, K1-K3 each launched 3 x 24 (the
+     leaves) times, step times and peak memory printed, one fused step
+     profiled (launches per step, device busy and idle share); (c) 2 bf16
+     steps through fused_mixed_lans at full depth: K4 launched applied
+     steps x 24 times, K3 never; (e) K1-K4 at the embedding leaf held to
+     their plain versions (K1 bitwise repeatable with its capped
+     partials) and timed beside their byte bounds, and the kernels of one
+     whole fused LANS update over gemma2-2b's 2,614,341,888 parameters
+     beside 48 bytes per parameter. Each sub-phase's time is printed.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -97,7 +122,6 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
-import gc
 import itertools
 import json
 import math
@@ -110,6 +134,11 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase T holds two generations of gemma2-2b's params and moments (~73 GB
+# on the bf16 route): grow the allocator's segments instead of carving
+# fixed blocks, so that freed leaves of different sizes do not strand
+# memory between them
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -118,6 +147,11 @@ LANS_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5),
             "bf16": dict(rtol=2e-2, atol=2e-2)}
 LARGEST_LEAF = 24 * 1024 * 4096      # BERT-large layers/mlp/up/kernel
 BERT_LEAVES = 29
+EMBED_LEAF = 256000 * 2304           # gemma2-2b's embedding, its largest
+DECODER_ARGV = ["--arch", "gemma2-2b", "--full", "--optimizer", "lans",
+                "--precision", "fp32", "--steps", "3", "--batch", "2",
+                "--seq", "1024", "--seed", "0", "--schedule", "hold",
+                "--device", "cuda", "--log-every", "1"]
 TRAIN_ARGV = ["--arch", "bert-large", "--full", "--optimizer", "lans",
               "--precision", "fp32", "--steps", "4", "--batch", "16",
               "--seq", "128", "--seed", "0", "--schedule", "hold",
@@ -412,9 +446,6 @@ def serve(serve_mod, argv, label):
     """Serve through the CLI; check 8 requests and, on the continuous
     engine (the static one counts no logits), finite logits."""
     stats, done = serve_mod.main(argv)
-    # the engine's step closures hold it in reference cycles: collect
-    # them now, or their pools and parameter copies pile up on the card
-    gc.collect()
     tokens = {r.rid: r.generated.tolist() for r in done}
     print(f"serve[{label}]: requests={stats['requests']} "
           f"tokens={stats['tokens']} "
@@ -450,27 +481,33 @@ def without_flag(argv, flag):
     return out[:i] + out[i + 2:]
 
 
-def spec_verify_timing(torch, pa, flush):
-    """Phase S (g): K8 at S = 4 at the serving shapes (4 slots, 7-block
-    tables: 96 rows + the row margin's block, bf16 arenas, fp32 q, window
-    4096, softcap 50) held to its plain version and timed as in phase 2.
-    Returns its entry (without `launches`)."""
-    args, fl = pa.verify_case(S=4, n_heads=8, n_kv=4, head_dim=256,
-                              block_size=16, nb=7, dtype=torch.bfloat16,
+def spec_verify_timing(torch, pa, flush, S=4, dtype=None):
+    """Phase S (g): K8 at S query rows (4: the spec run's; 16, a whole
+    block, also with fp32 arenas: the rows that fold with two key groups)
+    at the serving shapes (4 slots, 7-block tables: 96 rows + the row
+    margin's block, bf16 arenas, fp32 q, window 4096, softcap 50) held to
+    its plain version and timed as in phase 2. Returns its entry (without
+    `launches`)."""
+    dtype = dtype or torch.bfloat16
+    args, fl = pa.verify_case(S=S, n_heads=8, n_kv=4, head_dim=256,
+                              block_size=16, nb=7, dtype=dtype,
                               q_dtype=torch.float32, device="cuda",
                               seed=11)
     kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
-    errs = paged_parity_at(torch, pa, args, kw, "(verify shape, S=4)")
+    errs = paged_parity_at(torch, pa, args, kw, f"(verify shape, S={S})")
     plain = [a.clone() for a in args]
     kern = lambda: pa.paged_attention_fused(*args, **kw)  # noqa: E731
     ms = time_ms(kern, flush)
     plain_ms = time_ms(
         lambda: pa.paged_attention_fused_plain(*plain, **kw), flush)
     launches = device_launches(torch, kern, flush)
-    bound_ms, bound_by, nbytes, flops = paged_bound(args, 4)
-    print(f"kernel parity and timing paged_attention_fused at S=4 (verify "
-          f"shape: B=4 h=8 n_kv=4 hd=256 bs=16 nb=7 row-margined, real rows "
-          f"per slot {fl.tolist()}, bf16 arenas, L2 evicted): max |out - "
+    bound_ms, bound_by, nbytes, flops = paged_bound(args, S)
+    arena = "bf16" if dtype == torch.bfloat16 else "fp32"
+    print(f"kernel parity and timing paged_attention_fused at S={S} "
+          f"(verify shape: B=4 h=8 n_kv=4 hd=256 bs=16 nb=7 row-margined, "
+          f"real rows per slot {fl.tolist()}, {arena} arenas, key groups "
+          f"{pa.key_groups(S, 8, 4, 256, 16, dtype)}, L2 evicted): max "
+          f"|out - "
           f"plain| {errs['paged_attention_fused']:.3e} (tolerance 1e-5), "
           f"arenas torch.equal, second launch bit for bit; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
@@ -478,7 +515,7 @@ def spec_verify_timing(torch, pa, flush):
           f"{bound_ms / ms:.3f}; device time per launch (profiler) "
           + ", ".join(f"{k} {c:g} x {us:.2f} us"
                       for k, (c, us) in launches.items()))
-    return dict(S=4, nb=7, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(S=S, nb=7, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=errs["paged_attention_fused"],
                 device_us={k: us for k, (_, us) in launches.items()})
 
@@ -588,9 +625,7 @@ def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
               f"x {N_LAYERS}")
         eng._verify = verify
         del eng, reqs
-        gc.collect()
     del params, draft, draft_arch
-    gc.collect()
     torch.cuda.empty_cache()
 
     # (e) the static engine on the dense pool
@@ -613,8 +648,13 @@ def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
           f"tokens ({same / total:.4f}) equal the bf16 non-spec run (not "
           f"gated)")
 
-    # (g) K8 at S = 4, and the end-to-end numbers of this call
+    # (g) K8 at S = 4, at S = 16 (bf16 and fp32 arenas: two key
+    # groups; not on the serving path, no launches counted), and the
+    # end-to-end numbers of this call
     entry = spec_verify_timing(torch, pa, flush)
+    entry["block_of_rows"] = [
+        spec_verify_timing(torch, pa, flush, S=16, dtype=dt)
+        for dt in (torch.bfloat16, torch.float32)]
     print(f"serve spec vs non-spec (fp32, kernel, same call): tokens_per_s "
           f"{spec['tokens_per_s']:.2f} vs {paged['tokens_per_s']:.2f}, "
           f"itl_p50_ms {spec['itl_p50_ms']:.2f} vs "
@@ -719,12 +759,12 @@ def time_calls(torch, n, calls):
     return out
 
 
-def lans_timing(torch, kl, kops, err):
-    """Phase 5b: at the largest leaf (fp32), the main path's size, where
-    the reductions run with their cap of per-CTA partials, each kernel
-    first against its plain version (updating `err`), then timed beside
-    its plain version, its byte bound and, for K1, a library call."""
-    n = LARGEST_LEAF
+def lans_timing(torch, kl, kops, err, n=LARGEST_LEAF):
+    """Phase 5b (and T(e) at gemma2-2b's embedding): at the largest leaf
+    (fp32), the main path's size, where the reductions run with their cap
+    of per-CTA partials, each kernel first against its plain version
+    (updating `err`), then timed beside its plain version, its byte bound
+    and, for K1, a library call."""
     f32 = LANS_TOL["fp32"]
     g, m, v, x = kl.lans_case(n, torch.float32, seed=3, device="cuda")
     kw = dict(beta1=0.9, eps=1e-6)
@@ -1018,7 +1058,7 @@ def profile_step(torch, step_fn, params, state, batch, n_params):
                  else ""))
 
 
-def mixed_step1(torch, arch, sched, batches):
+def mixed_step1(torch, arch, sched, batches, leaves=BERT_LEAVES):
     """One shared set of bf16-policy step-1 gradients applied by
     fused_mixed_lans (K1, K2, K4) and by mixed_precision(lans) (fp32
     moments, as the kernels keep) to copies of the same state: the fp32
@@ -1060,12 +1100,12 @@ def mixed_step1(torch, arch, sched, batches):
           f"mixed_precision(lans) on shared gradients, {n_leaves} leaves, "
           f"max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
           + " (tolerance 2e-5; bf16 params 2e-2)")
-    check(n_leaves == BERT_LEAVES, f"bert-large has {n_leaves} leaves")
+    check(n_leaves == leaves, f"{arch.name} has {n_leaves} leaves")
     del params, grads, fused_st, plain_st, fused_p, plain_p, trees, inner
     torch.cuda.empty_cache()
 
 
-def bert_batches(torch, train_mod, arch, batch_size, seq, seed):
+def cli_batches(torch, train_mod, arch, batch_size, seq, seed):
     """A function that starts the CLI's data stream anew (the same
     batches each time), as CUDA tensors."""
     def batches():
@@ -1076,7 +1116,8 @@ def bert_batches(torch, train_mod, arch, batch_size, seq, seed):
     return batches
 
 
-def shared_step1(torch, arch, batches, unfused, fused, label):
+def shared_step1(torch, arch, batches, unfused, fused, label,
+                 leaves=BERT_LEAVES):
     """One shared set of step-1 gradients (seed 0, the first batch)
     applied by an unfused transform and its fused counterpart to the same
     params: params and moments agree leaf by leaf within 2e-5."""
@@ -1104,7 +1145,7 @@ def shared_step1(torch, arch, batches, unfused, fused, label):
           f"{n_leaves} leaves, max |diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
           + " (tolerance 2e-5)")
-    check(n_leaves == BERT_LEAVES, f"bert-large has {n_leaves} leaves")
+    check(n_leaves == leaves, f"{arch.name} has {n_leaves} leaves")
     del params, grads, outs
     torch.cuda.empty_cache()
 
@@ -1127,7 +1168,7 @@ def train_routes(torch, kl):
     steps, batch_size, seq, seed = 4, 16, 128, 0
     sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
 
-    batches = bert_batches(torch, train_mod, arch, batch_size, seq, seed)
+    batches = cli_batches(torch, train_mod, arch, batch_size, seq, seed)
 
     shared_step1(torch, arch, batches, lans(sched), fused_lans(sched),
                  "lans vs fused_lans")
@@ -1241,7 +1282,7 @@ def lamb_routes(torch, kl, kb):
     arch = get_arch("bert-large")
     steps, batch_size, seq, seed = 4, 16, 128, 0
     sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
-    batches = bert_batches(torch, train_mod, arch, batch_size, seq, seed)
+    batches = cli_batches(torch, train_mod, arch, batch_size, seq, seed)
     shared_step1(torch, arch, batches, lamb(sched), fused_lamb(sched),
                  "lamb vs fused_lamb")
 
@@ -1294,6 +1335,229 @@ def lamb_routes(torch, kl, kb):
               f"{[round(t * 1e3, 2) for t in out['step_s']]}")
         torch.cuda.empty_cache()
     return launches
+
+
+def peak_gb(torch):
+    """torch.cuda.max_memory_allocated() in GB (1e9 bytes)."""
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def run_steps(torch, step_fn, params, state, batches, steps):
+    """`steps` training steps on the stream's batches: (params, state,
+    losses, step ms, the last metrics). The caller hands over its only
+    references to params and state (`run_steps(..., *init_fn(gen),
+    ...)`): at full size two generations of them fit the card, three do
+    not."""
+    losses, step_ms, metrics = [], [], None
+    for _, b in zip(range(steps), batches()):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return params, state, losses, step_ms, metrics
+
+
+def decoder_update_timing(torch, arch, kops, n_leaves):
+    """Phase T(e): the kernels of one fused LANS update (K1, K2, K3 per
+    leaf, the scalars built once per step as fused_lans builds them, and
+    the additive update x_new - x) over gemma2-2b's fp32 leaves, each
+    leaf's outputs dropped before the next (fused_lans's whole update
+    tree beside the params, gradients and moments would not fit the
+    card), against 48 bytes per parameter at 3.35 TB/s."""
+    from repro_torch.core.optim.base import (WeightDecayMask, tree_items,
+                                             tree_map)
+    from repro_torch.core.optim.fused import step_scalars
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = arch.init(gen)
+    g = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                       device="cuda"), x)
+    zeros = tree_map(torch.zeros_like, x)
+    leaves = list(zip(tree_items(x), tree_items(g), tree_items(zeros)))
+    n_params = sum(t.numel() for (_, t), _, _ in leaves)
+    eta = torch.full((), 1e-3, device="cuda")
+    step = torch.ones((), dtype=torch.int32, device="cuda")
+
+    def update():
+        rows = step_scalars(eta, step, x, WeightDecayMask(), beta1=0.9,
+                            beta2=0.999, lam=0.01)
+        for (path, xt), (_, gt), (_, z) in leaves:
+            o = kops.fused_lans_step(gt, z, z, xt, scalars=rows[path])
+            o.x.sub(xt)
+
+    ms = (time_reps(torch, update, 3) + time_reps(torch, update, 3)) / 2
+    bound_ms = 48 * n_params / H100_BYTES_PER_S * 1e3
+    print(f"fused LANS update, gemma2-2b fp32 ({len(leaves)} leaves, "
+          f"{n_params} params): K1+K2+K3 over every leaf {ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms (48 B/param at 3.35 TB/s), bound / "
+          f"time {bound_ms / ms:.3f}")
+    check(len(leaves) == n_leaves, f"gemma2-2b has {len(leaves)} leaves")
+    del x, g, zeros, leaves
+    torch.cuda.empty_cache()
+    return dict(update_ms=ms, bound_ms=bound_ms, n_params=n_params)
+
+
+def decoder_routes(torch, kl, kops):
+    """Phase T: causal-LM pretraining of gemma2-2b at full width (see the
+    module docstring). Returns (K1-K3 launches of the fused fp32 route,
+    launches of the bf16 route, K1-K4 timings and errors at the
+    embedding leaf, the whole update's timing)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lans, lans
+    from repro_torch.core.optim.base import tree_items, tree_leaves
+    from repro_torch.distributed.steps import (build_train_step,
+                                               loss_and_grads)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import decoder as dec
+    from repro_torch.precision import fused_mixed_lans, get_policy
+
+    arch = get_arch("gemma2-2b")
+    steps, batch_size, seq, seed = 3, 2, 1024, 0
+    sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
+    batches = cli_batches(torch, train_mod, arch, batch_size, seq, seed)
+    with torch.device("meta"):
+        shapes = tree_items(arch.init(None))
+    n_leaves = len(shapes)
+    n_params = sum(t.numel() for _, t in shapes)
+    check(dict(shapes)["embed/embedding"].numel() == EMBED_LEAF,
+          "gemma2-2b's embedding is not its 256000 x 2304 leaf")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)
+    print(f"phase T: gemma2-2b, {n_leaves} leaves, {n_params} params, "
+          f"seq {seq}, batch {batch_size}")
+
+    # (d) the chunked loss against lm_loss on the whole logits, and the
+    # gradients with each period recomputed (remat) and kept
+    t0 = time.perf_counter()
+    params = arch.init(gen())
+    b = next(batches())
+    with torch.no_grad():
+        hidden, _, _ = dec.decoder_apply(params, arch.cfg, b["tokens"],
+                                         return_hidden=True)
+        chunked = float(dec.chunked_lm_loss(params, arch.cfg, hidden,
+                                            b["labels"]))
+        logits = dec._head_logits(params, arch.cfg, hidden)   # 2.1 GB
+        full = float(dec.lm_loss(logits, b["labels"]))
+        via_arch = float(arch.loss_fn(params, b)[0])
+        del hidden, logits
+    rel = abs(chunked - full) / abs(full)
+    check(math.isfinite(full) and rel <= 1e-5,
+          f"chunked loss {chunked} vs lm_loss {full}: {rel:.3e} relative "
+          f"(> 1e-5)")
+    check(abs(via_arch - chunked) <= 1e-6 * abs(chunked),
+          f"Arch.loss_fn's loss {via_arch} is not the chunked loss")
+    grads, peaks = {}, {}
+    for remat in (True, False):
+        a = dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, grads[remat] = loss_and_grads(a.loss_fn, params, b, None)
+        torch.cuda.synchronize()
+        peaks[remat] = peak_gb(torch)
+    err = {"grads": 0.0}
+    for (path, x), (_, y) in zip(tree_items(grads[True]),
+                                 tree_items(grads[False])):
+        close(torch, err, "grads", x, y, dict(rtol=1e-5, atol=1e-5), path)
+    print(f"train[gemma2-2b, loss checks]: chunked loss (2 chunks of 512) "
+          f"{chunked:.6f} vs lm_loss on the (2, 1024, 256000) fp32 logits "
+          f"{full:.6f}, {rel:.3e} relative (tolerance 1e-5); grads with "
+          f"remat vs without, max |diff| {err['grads']:.3e} (tolerance "
+          f"1e-5); peak memory of a forward and backward {peaks[True]:.2f} "
+          f"GB with remat, {peaks[False]:.2f} GB without")
+    del params, grads, b
+    torch.cuda.empty_cache()
+    print(f"phase T(d): {time.perf_counter() - t0:.1f} s")
+
+    # (b) shared step-1 gradients at full width, 2 periods (4 layers):
+    # the embedding leaf whole, and both routes fit the card
+    t0 = time.perf_counter()
+    arch4 = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=4))
+    shared_step1(torch, arch4, batches, lans(sched), fused_lans(sched),
+                 "gemma2-2b (4 layers), lans vs fused_lans",
+                 leaves=n_leaves)
+    mixed_step1(torch, arch4, sched, batches, leaves=n_leaves)
+    print(f"phase T(b): {time.perf_counter() - t0:.1f} s")
+
+    # (a) 3 steps through the CLI (unfused lans) and through
+    # build_train_step + fused_lans, from the same seed and batches
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cli = train_mod.main(DECODER_ARGV)
+    cli_peak = peak_gb(torch)
+    torch.cuda.empty_cache()
+    print(f"train[gemma2-2b, cli, unfused lans, fp32 policy]: losses "
+          f"{[round(v, 6) for v in cli['losses']]} step_ms "
+          f"{[round(t * 1e3, 2) for t in cli['step_s']]} peak memory "
+          f"{cli_peak:.2f} GB")
+    step_fn, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
+                                        param_init_fn=arch.init,
+                                        policy="fp32")
+    torch.cuda.reset_peak_memory_stats()
+    for k in kl.KERNELS:
+        k.launches = 0
+    params, state, losses, step_ms, _ = run_steps(
+        torch, step_fn, *init_fn(gen()), batches, steps)
+    launches = {k.__name__: k.launches for k in kl.KERNELS}
+    fused_peak = peak_gb(torch)
+    print(f"train[gemma2-2b, build_train_step + fused_lans, fp32 policy]: "
+          f"losses {[round(v, 6) for v in losses]} step_ms "
+          f"{[round(t, 2) for t in step_ms]} peak memory {fused_peak:.2f} "
+          f"GB; launches {launches}")
+    check(all(math.isfinite(v) for v in losses + cli["losses"]),
+          "a gemma2-2b training loss is not finite")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cli["losses"]))
+    check(rel <= 1e-2, f"gemma2-2b fused and CLI loss trajectories differ "
+          f"by {rel:.3e} relative (> 1e-2)")
+    print(f"train: gemma2-2b fused vs CLI loss trajectory, max relative "
+          f"diff {rel:.3e} (tolerance 1e-2)")
+    for name in ("sq_norm", "lans_phase1", "lans_phase2"):
+        check(launches[name] == steps * n_leaves,
+              f"{name} launched {launches[name]} times, expected "
+              f"{steps} x {n_leaves}")
+    check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
+    profile_step(torch, step_fn, params, state, next(batches()), n_params)
+    del params, state, step_fn, init_fn
+    torch.cuda.empty_cache()
+    print(f"phase T(a): {time.perf_counter() - t0:.1f} s")
+
+    # (c) bf16 steps through fused_mixed_lans: K1, K2, K4
+    t0 = time.perf_counter()
+    policy = get_policy("bf16")
+    arch16 = dataclasses.replace(arch, cfg=policy.apply_to_cfg(arch.cfg))
+    step_fn, init_fn = build_train_step(
+        arch16.loss_fn, fused_mixed_lans(sched, policy),
+        param_init_fn=arch16.init, policy=policy)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kl.KERNELS:
+        k.launches = 0
+    params, state, bf16_losses, bf16_ms, metrics = run_steps(
+        torch, step_fn, *init_fn(gen()), batches, 2)
+    applied = 2 - int(metrics["overflow_count"])
+    bf16_launches = {k.__name__: k.launches for k in kl.KERNELS}
+    print(f"train[gemma2-2b, build_train_step + fused_mixed_lans, bf16 "
+          f"policy]: losses {[round(v, 6) for v in bf16_losses]} step_ms "
+          f"{[round(t, 2) for t in bf16_ms]} peak memory "
+          f"{peak_gb(torch):.2f} GB; applied steps {applied}; launches "
+          f"{bf16_launches}")
+    check(all(math.isfinite(v) for v in bf16_losses),
+          "a gemma2-2b bf16 training loss is not finite")
+    check(bf16_launches["lans_phase2_cast"] == applied * n_leaves,
+          f"K4 launched {bf16_launches['lans_phase2_cast']} times for "
+          f"{applied} applied steps x {n_leaves} leaves")
+    check(bf16_launches["lans_phase2"] == 0, "the mixed route launched K3")
+    del params, state, step_fn, init_fn, metrics
+    torch.cuda.empty_cache()
+    print(f"phase T(c): {time.perf_counter() - t0:.1f} s")
+
+    # (e) K1-K4 at the embedding leaf, and the whole update
+    t0 = time.perf_counter()
+    errs = {k.__name__: 0.0 for k in kl.KERNELS}
+    times = lans_timing(torch, kl, kops, errs, n=EMBED_LEAF)
+    torch.cuda.empty_cache()
+    update = decoder_update_timing(torch, arch, kops, n_leaves)
+    print(f"phase T(e): {time.perf_counter() - t0:.1f} s")
+    return launches, bf16_launches, times, errs, update
 
 
 def run() -> int:
@@ -1378,6 +1642,12 @@ def run() -> int:
     torch.cuda.empty_cache()
     fp32_launches, bf16_launches = train_routes(torch, kl)
     lamb_launches = lamb_routes(torch, kl, kb)
+    t0 = time.perf_counter()
+    dec_fp32, dec_bf16, dec_times, dec_errs, dec_update = decoder_routes(
+        torch, kl, kops)
+    print(f"phase T: {time.perf_counter() - t0:.1f} s")
+    decoder = {"sq_norm": dec_fp32, "lans_phase1": dec_fp32,
+               "lans_phase2": dec_fp32, "lans_phase2_cast": dec_bf16}
     # name: (TPU source, launches of its main path)
     optim = {
         "sq_norm": ("lans_kernel.py:68", fp32_launches),
@@ -1396,6 +1666,12 @@ def run() -> int:
             replaces=f"src/repro/kernels/{line}",
             launches=launches[name], max_abs_err=errs[name],
             **times[name]))
+        if name in decoder:     # phase T: gemma2-2b's embedding leaf
+            entries[-1]["decoder"] = dict(
+                n=EMBED_LEAF, launches=decoder[name][name],
+                max_abs_err=dec_errs[name], **dec_times[name])
+    next(e for e in entries if e["name"] == "sq_norm")["decoder"][
+        "whole_update"] = dec_update
 
     print(card_line())
     print(json.dumps({"kernels": entries}))

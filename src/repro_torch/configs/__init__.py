@@ -11,14 +11,17 @@ import importlib
 from repro_torch.configs.base import Arch, reduced_decoder
 
 _MODULES = {
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "chameleon-34b": "chameleon_34b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
     "gemma2-2b": "gemma2_2b",
     "bert-large": "bert_large",
 }
 
 # archs of the JAX package that the port does not serve yet
-NOT_PORTED = ("grok-1-314b", "granite-moe-3b-a800m", "qwen2.5-14b",
-              "qwen2.5-32b", "chameleon-34b", "whisper-large-v3",
-              "mistral-nemo-12b", "jamba-1.5-large-398b", "mamba2-130m")
+NOT_PORTED = ("grok-1-314b", "granite-moe-3b-a800m", "whisper-large-v3",
+              "jamba-1.5-large-398b", "mamba2-130m")
 
 
 def get_arch(name: str) -> Arch:
@@ -32,8 +35,9 @@ def get_arch(name: str) -> Arch:
 
 
 def reduced_arch(name: str) -> Arch:
-    """Smoke-test variant: decoders <= 2 periods, d_model 256, vocab 1k;
-    bert 2L / 128d / 4H / ff 256 / vocab 512 / max_pos 128."""
+    """Smoke-test variant: decoders <= 2 periods, d_model 256, vocab 1k,
+    max_seq 256, fp32 params; bert 2L / 128d / 4H / ff 256 / vocab 512 /
+    max_pos 128."""
     arch = get_arch(name)
     if arch.kind == "bert":
         return dataclasses.replace(arch, cfg=dataclasses.replace(

@@ -1,9 +1,10 @@
 """Arch: binds a model family to its config (port of repro/configs/base.py).
 
-Ported: the decoder family's serving side (init, the paged serving
-cache, prefill into a pooled cache, one decode step) and the bert
-family's pretraining side (init, loss). The decoder losses and BERT
-serving are not ported yet and raise.
+Ported: the decoder family's training (the causal-LM loss, chunked over
+the sequence for big vocabularies) and serving (init, the paged serving
+cache, prefill into a pooled cache, one decode step), and the bert
+family's pretraining side (init, loss). BERT serving is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ class Arch:
     kind: str                      # "decoder" | "bert"
     cfg: Any
     source: str                    # citation for the config
+    embeds_input: bool = False     # VLM stub: the model takes embeddings
+    train_microbatches: int = 4    # grad-accum splits of the global batch
 
     def init(self, gen: torch.Generator):
         """Random params drawn from `gen`, on `gen.device`."""
@@ -31,11 +34,31 @@ class Arch:
 
     def loss_fn(self, params, batch):
         """(loss, aux) for one batch — what the train step
-        differentiates."""
-        if self.kind != "bert":
-            raise NotImplementedError(f"training the {self.kind} family is "
-                                      f"not ported yet")
-        return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
+        differentiates. Decoders: next-token cross entropy of
+        batch["labels"] given batch["tokens"] (or batch["embeds"] for an
+        embeds_input arch), chunked over the sequence (the (B, S, V)
+        logits never live at once) when the vocab is >= 65536 and the
+        sequence is >= 1024 and a multiple of 512, the JAX package's
+        rule."""
+        if self.kind == "bert":
+            return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
+        seq = batch["labels"].shape[1]
+        chunked = (self.cfg.vocab >= 65536 and seq >= 1024
+                   and seq % 512 == 0)
+        kw = (dict(embeds=batch["embeds"])
+              if self.embeds_input and "embeds" in batch
+              else dict(tokens=batch["tokens"]))
+        if chunked:
+            hidden, _, aux = dec_lib.decoder_apply(
+                params, self.cfg, return_hidden=True, **kw)
+            loss = dec_lib.chunked_lm_loss(params, self.cfg, hidden,
+                                           batch["labels"],
+                                           moe_aux=aux["moe_aux_loss"])
+        else:
+            logits, _, aux = dec_lib.decoder_apply(params, self.cfg, **kw)
+            loss = dec_lib.lm_loss(logits, batch["labels"],
+                                   moe_aux=aux["moe_aux_loss"])
+        return loss, {"router_entropy": aux["router_entropy"]}
 
     def _serving(self):
         if self.kind != "decoder":
@@ -75,23 +98,25 @@ class Arch:
         cache = dec_lib.init_decoder_cache(
             self.cfg, toks.shape[0], cache_len or toks.shape[1],
             device=toks.device)
-        logits, cache = dec_lib.decoder_apply(params, self.cfg, toks,
-                                              caches=cache,
-                                              positions=positions)
+        logits, cache, _ = dec_lib.decoder_apply(params, self.cfg, toks,
+                                                 caches=cache,
+                                                 positions=positions)
         return logits[:, -1:], cache
 
     def decode_step(self, params, batch, cache):
         """New tokens against the cache -> (logits, cache written in
         place). batch may carry "positions" (B, S)."""
         self._serving()
-        return dec_lib.decoder_apply(params, self.cfg, batch["tokens"],
-                                     caches=cache,
-                                     positions=batch.get("positions"))
+        logits, cache, _ = dec_lib.decoder_apply(
+            params, self.cfg, batch["tokens"], caches=cache,
+            positions=batch.get("positions"))
+        return logits, cache
 
 
 def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):
     """Smoke-test variant: one superblock period x2, d_model 256, vocab
-    1k (the JAX package's reduced_decoder, decoder fields only)."""
+    1k, max_seq 256, fp32 params (the JAX package's reduced_decoder, for
+    the fields the port has)."""
     n_slots = len(cfg.superblock)
     small = dict(
         n_layers=max(2, n_slots) if n_slots > 1 else 2,
@@ -102,7 +127,8 @@ def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):
         d_ff=512,
         vocab=1024,
         sliding_window=16 if cfg.sliding_window else None,
-        param_dtype=torch.float32,
+        max_seq=256,
+        param_dtype=torch.float32,  # smoke numerics even for bf16 configs
     )
     small.update(over)
     if small["n_layers"] % n_slots != 0:

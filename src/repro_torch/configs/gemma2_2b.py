@@ -26,6 +26,7 @@ CONFIG = DecoderConfig(
     activation="gelu",
     gated_mlp=True,
     superblock=(("attn_local", "mlp"), ("attn", "mlp")),
+    max_seq=8192,
 )
 
 ARCH = Arch(

@@ -35,6 +35,33 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_consume(fn, tree, *rest):
+    """tree_map over a COPY of `tree`'s dicts that gives each leaf up once
+    fn has run on it: where nothing else holds the leaves, each is freed
+    as soon as it has been used, which at full size keeps an update's
+    peak one tree lower. The train step hands the transform its only
+    reference to the gradients, and a transform passes it on as
+    `tree_consume(fn, box.pop(), ...)` from a one-item list that held it.
+    A caller that keeps its own reference gets its tree back whole."""
+    work = [tree_map(lambda x: x, tree)]
+    del tree
+    return _consume(fn, work.pop(), rest)
+
+
+def _consume(fn, tree, rest):
+    # a module-level function, not a closure over itself: a recursive
+    # closure is a reference cycle that would keep fn, and what fn holds
+    # (an optimizer's old state), alive until the collector runs
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        rs = [r[k] for r in rest]
+        out[k] = (_consume(fn, v, rs) if isinstance(v, dict)
+                  else fn(v, *rs))
+        del v, rs
+    return out
+
+
 def tree_items(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs, paths '/'-joined and in sorted-key order, the
     order in which the JAX package flattens a dict."""
@@ -125,9 +152,11 @@ def scale_by_schedule(schedule: Schedule) -> GradientTransformation:
     def update_fn(updates, state, params=None):
         lr = schedule(state.count)
         # -lr * u in the promoted type, as JAX promotes bf16 x f32 to f32
-        updates = tree_map(
+        box = [updates]           # the only reference: see tree_consume
+        del updates
+        updates = tree_consume(
             lambda u: -lr * u.to(torch.promote_types(u.dtype, lr.dtype)),
-            updates)
+            box.pop())
         return updates, ScaleByScheduleState(count=state.count + 1)
 
     return GradientTransformation(init_fn, update_fn)
@@ -138,19 +167,28 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
         return tuple(t.init(params) for t in transforms)
 
     def update_fn(updates, state, params=None):
+        # hold no reference to a stage's input while the next stage runs
+        # (see tree_consume)
+        box = [updates]
+        del updates
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
-            new_state.append(s)
-        return updates, tuple(new_state)
+            res = t.update(box.pop(), s, params)
+            box.append(res[0])
+            new_state.append(res[1])
+            del res
+        return box.pop(), tuple(new_state)
 
     return GradientTransformation(init_fn, update_fn)
 
 
 def apply_updates(params, updates):
-    """params + updates, in each param's dtype (master-weight safe)."""
-    return tree_map(lambda p, u: p if u is None else p + u.to(p.dtype),
-                    params, updates)
+    """params + updates, in each param's dtype (master-weight safe). Each
+    update is given up once applied (tree_consume)."""
+    box = [updates]               # the only reference: see tree_consume
+    del updates
+    return tree_consume(lambda u, p: p if u is None else p + u.to(p.dtype),
+                        box.pop(), params)
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from repro_torch.core.optim.base import (
     GradientTransformation,
     WeightDecayMask,
     as_schedule,
+    tree_consume,
     tree_device,
     tree_items,
     tree_leaves,
@@ -71,8 +72,10 @@ def _fused(sched, mask_fn, rows_fn, step_fn) -> GradientTransformation:
             # and parity depends on taking the same route
             return (o.x - x).to(x.dtype), o.m, o.v
 
-        outs = tree_map(one, updates, state.mu, state.nu, params,
-                        tree_paths(params))
+        box = [updates]           # the only reference: see tree_consume
+        del updates
+        outs = tree_consume(one, box.pop(), state.mu, state.nu, params,
+                            tree_paths(params))
         pick = lambda i: tree_map(lambda o: o[i], outs)
         return pick(0), FusedState(count=t, mu=pick(1), nu=pick(2))
 

@@ -34,6 +34,7 @@ from repro_torch.core.optim.base import (
     safe_div,
     safe_norm,
     scale_by_schedule,
+    tree_consume,
     tree_device,
     tree_map,
     tree_paths,
@@ -69,17 +70,21 @@ def _lans_block_update(g, m, v, x, *, count, beta1: float, beta2: float,
     m_new = beta1 * m + (1.0 - beta1) * g_tilde
     v_new = beta2 * v + (1.0 - beta2) * (g_tilde * g_tilde)
 
-    # count is the completed-steps counter; this step is t = count + 1
+    # count is the completed-steps counter; this step is t = count + 1.
+    # Each intermediate is dropped once used: at a full-size leaf they are
+    # what sets the update's peak memory.
     t = count + 1
     m_hat = m_new / bias_correction(beta1, t)
-    v_hat = v_new / bias_correction(beta2, t)
-
-    denom = torch.sqrt(v_hat) + eps
+    denom = torch.sqrt(v_new / bias_correction(beta2, t)) + eps
     r = m_hat / denom
+    del m_hat
     c = g_tilde / denom
+    del denom, g_tilde
 
     r_full = r + lam * x32
+    del r
     c_full = c + lam * x32
+    del c
 
     phi = safe_norm(x32)
     if phi_clip is not None:
@@ -126,13 +131,15 @@ def scale_by_lans(beta1: float = 0.9, beta2: float = 0.999,
         if params is None:
             raise ValueError("LANS requires params (trust-ratio + weight "
                              "decay).")
-        outs = tree_map(
+        box = [updates]           # the only reference: see tree_consume
+        del updates
+        outs = tree_consume(
             lambda g, m, v, x, pth: _lans_block_update(
                 g, m, v, x, count=state.count, beta1=beta1, beta2=beta2,
                 eps=eps, weight_decay=weight_decay,
                 decay_this_block=bool(mask_fn(pth)), phi_clip=phi_clip,
                 normalize_grads=normalize_grads, nesterov=nesterov),
-            updates, state.mu, state.nu, params, tree_paths(params))
+            box.pop(), state.mu, state.nu, params, tree_paths(params))
         pick = lambda i: tree_map(lambda o: o[i], outs)
         return pick(0), LansState(count=state.count + 1, mu=pick(1),
                                   nu=pick(2))

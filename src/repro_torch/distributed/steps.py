@@ -163,14 +163,25 @@ def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
                    else v for k, v in auxs[-1].items()}
 
         with torch.no_grad():
-            updates, new_opt = tx.update(grads, opt_state, params)
-            new_params = apply_updates(params, updates)
             gnorm = torch.sqrt(sum(torch.sum(g * g)
                                    for g in tree_leaves(grads)))
             metrics = {"loss": loss, "grad_norm": gnorm, **aux}
             if mixed:
                 metrics["grad_norm"] = gnorm / scale   # report unscaled
                 metrics["grads_finite"] = precision.all_finite(grads)
+            # the transform gets the only reference to the gradients and
+            # the update applies the only reference to the updates, so
+            # that each leaf is freed once used (core/optim/base.py:
+            # tree_consume): a full-size step then peaks at the old and
+            # new params and state, without a whole gradient or update
+            # tree beside them
+            box = [grads]
+            del grads
+            updates, new_opt = tx.update(box.pop(), opt_state, params)
+            box.append(updates)
+            del updates
+            new_params = apply_updates(params, box.pop())
+            if mixed:
                 metrics["loss_scale"] = precision.loss_scale_value(new_opt)
                 metrics["overflow_count"] = precision.overflow_count(new_opt)
         return new_params, new_opt, metrics

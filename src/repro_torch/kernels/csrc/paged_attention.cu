@@ -47,7 +47,11 @@
 //     out of the ring: a lane holds each of the split's entries of a slot,
 //     the next slot's loaded one slot ahead;
 //   * the four warps share out each block's keys in tiles of kKeys, and
-//     each keeps its own online-softmax state of every query row: lanes
+//     each keeps its own online-softmax state of every query row (where
+//     four fp32 states of every row do not fit the shared memory, as at
+//     gemma2-2b's heads from S = 12, the warps form two groups of keys and
+//     two groups of rows instead, so that a row has two states; the
+//     template's kKG, which the wrapper picks: key_groups): lanes
 //     over head_dim for the QK dots of a tile of kRows rows x kKeys keys
 //     (8 elements a lane, converted in registers), one transposing shuffle
 //     sum for the tile, the lanes of each (row, key) pair for the mask,
@@ -77,8 +81,9 @@
 // h % n_kv == 0, hd % 8 == 0 and bs % 4 == 0 (16-byte rows of K/V and of
 // positions), K8 S <= bs (the new rows share a block buffer), 16-byte
 // aligned operands, and the shared-memory plan below must fit the 227 KB a
-// block may use. The wrapper computes that plan's size
-// (paged_attention.py:smem_bytes) and passes it in.
+// block may use with two key groups. The wrapper computes that plan's
+// size (paged_attention.py:smem_bytes) and the key groups (key_groups)
+// and passes both in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +122,7 @@ struct Params {
   int n_split;         // partials of a row: the table's splits (K8: + 1)
   int chunk;           // table entries of a slot per split
   int n_groups;        // slot groups: a split CTA takes slots z + n * this
+  int key_groups;      // warps sharing each row's keys: 4 or 2 (kKG)
   float scale;
   int causal;
   int window;          // <= 0: no window
@@ -250,10 +256,10 @@ __device__ __forceinline__ void transpose_sum(float (&v)[kPairs], int lane) {
 //   V ring   kStages * bs * hd    arena dtype
 //   q ring   kStages * R * hd     4 bytes an element, q's dtype (fp32, bf16)
 //   q        R * hd               the same, of the slot being folded
-//   acc      kWarps * R * hd      fp32, unnormalised, per warp and row
+//   acc      kg * R * hd          fp32, unnormalised, per key group and row
 //   key pos  kStages * bs         int (bs % 4 == 0: 16-byte aligned rows)
 //   meta     kStages * (4 + S)    int: slot, entry, first, cursor, q_pos
-//   m, l     2 * kWarps * R       fp32, running max and sum, per warp
+//   m, l     2 * kg * R           fp32, running max and sum, per key group
 //   q pos    R                    int, of the slot being folded
 // paged_attention.py:smem_bytes mirrors it.
 
@@ -262,15 +268,19 @@ __device__ __forceinline__ void transpose_sum(float (&v)[kPairs], int lane) {
 // the split's table entries of slot b (K8's split 0: over the slot's S new
 // rows). Every CTA of a launch so streams about the same number of blocks,
 // whichever slots are long, short or dead. One ring runs through all of
-// the group's slots; warp 0 feeds it. Warp w folds the key tiles w,
-// w + kWarps, ... of each block into its own (m, l, acc) of every row,
-// kRows query rows x kKeys keys at a time: lanes over head_dim for the dot
-// products and P.V, and 32 / kPairs lanes per (row, key) pair for the mask
-// and the softmax. When the slot changes, the warps' states are merged in
-// warp order into the slot's partial.
-template <typename TQ, typename TKV, bool kNew>
+// the group's slots; warp 0 feeds it. With kKG key groups, warp w is in
+// key group w % kKG and row group w / kKG: it folds the key tiles w % kKG,
+// w % kKG + kKG, ... of each block into its key group's (m, l, acc) of the
+// rows of its row group (tiles of kRows rows: w / kKG, w / kKG + kWarps /
+// kKG,
+// ...), kRows query rows x kKeys keys at a time: lanes over head_dim for
+// the dot products and P.V, and 32 / kPairs lanes per (row, key) pair for
+// the mask and the softmax. When the slot changes, the key groups' states
+// are merged in group order into the slot's partial.
+template <typename TQ, typename TKV, bool kNew, int kKG>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(Params p) {
+  static_assert(kKG == kWarps || kKG == kWarps / 2, "4 or 2 key groups");
   const int k = blockIdx.x;
   const int g = blockIdx.y;
   const int z = blockIdx.z;
@@ -281,6 +291,9 @@ paged_split_kernel(Params p) {
   const int ring = p.nb * bs;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  constexpr int kg = kKG;
+  const int kgrp = warp % kg;       // this warp's key group
+  const int rgrp = warp / kg;       // and row group, of kWarps / kg
   const size_t stride = (size_t)p.n_kv * hd;
   const int meta_len = 4 + p.S;
   // K8's split 0 folds the slots' new rows; table split kt (partial
@@ -296,15 +309,15 @@ paged_split_kernel(Params p) {
   float* qring = reinterpret_cast<float*>(sv + (size_t)kStages * bs * hd);
   TQ* sq = reinterpret_cast<TQ*>(qring + (size_t)kStages * R * hd);
   float* sacc = reinterpret_cast<float*>(sq) + R * hd;
-  int* skp = reinterpret_cast<int*>(sacc + kWarps * R * hd);  // 16-aligned
+  int* skp = reinterpret_cast<int*>(sacc + kg * R * hd);  // 16-aligned
   int* smeta = skp + kStages * bs;
   float* sm = reinterpret_cast<float*>(smeta + kStages * meta_len);
-  float* sl = sm + kWarps * R;
-  int* sqpos = reinterpret_cast<int*>(sl + kWarps * R);
-  // this warp's states: row r at [r]
-  float* wacc = sacc + warp * R * hd;
-  float* wm = sm + warp * R;
-  float* wl = sl + warp * R;
+  float* sl = sm + kg * R;
+  int* sqpos = reinterpret_cast<int*>(sl + kg * R);
+  // this warp's key group's states: row r at [r]
+  float* wacc = sacc + kgrp * R * hd;
+  float* wm = sm + kgrp * R;
+  float* wl = sl + kgrp * R;
   float* ml = p.part + (size_t)p.B * p.n_kv * p.n_split * R * hd;
   // partial (b, g, k) of row r is row base(b) + r
   auto base = [&](int b) {
@@ -447,8 +460,8 @@ paged_split_kernel(Params p) {
     const int* kpb = skp + st * bs;
     const int pair = lane / (32 / kPairs);
     const int lr = pair / kKeys, lt = pair % kKeys;   // this lane's pair
-    for (int r0 = 0; r0 < R; r0 += kRows) {
-      for (int t0 = warp * kKeys; t0 < rows; t0 += kKeys * kWarps) {
+    for (int r0 = rgrp * kRows; r0 < R; r0 += kRows * (kWarps / kg)) {
+      for (int t0 = kgrp * kKeys; t0 < rows; t0 += kKeys * kg) {
         float dot[kPairs];
 #pragma unroll
         for (int i = 0; i < kPairs; ++i) dot[i] = 0.f;
@@ -564,17 +577,17 @@ paged_split_kernel(Params p) {
       }
     }
   };
-  // merge the warps' states of each row in warp order into slot b's
+  // merge the key groups' states of each row in group order into slot b's
   // partial; a state with no valid key (m = -inf) weighs 0
   auto merge = [&](int b) {
     for (int r = warp; r < R; r += kWarps) {
       float M = -INFINITY;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm[w * R + r]);
-      float wt[kWarps];
+      for (int w = 0; w < kg; ++w) M = fmaxf(M, sm[w * R + r]);
+      float wt[kg];
       float L = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
+      for (int w = 0; w < kg; ++w) {
         const float m = sm[w * R + r];
         wt[w] = (m == -INFINITY) ? 0.f : expf(m - M);
         L += wt[w] * sl[w * R + r];
@@ -582,7 +595,7 @@ paged_split_kernel(Params p) {
       for (int c = lane * 4; c < hd; c += 128) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
+        for (int w = 0; w < kg; ++w) {
           const float4 x = *reinterpret_cast<const float4*>(
               sacc + (w * R + r) * hd + c);
           a.x = fmaf(wt[w], x.x, a.x);
@@ -631,10 +644,10 @@ paged_split_kernel(Params p) {
         reinterpret_cast<uint32_t*>(sq)[d] = from[d];
       for (int r = threadIdx.x; r < R; r += kThreads)
         sqpos[r] = meta[4 + r / G];
-      for (int d = lane; d < R * hd; d += 32) wacc[d] = 0.f;
-      for (int r = lane; r < R; r += 32) {
-        wm[r] = -INFINITY;
-        wl[r] = 0.f;
+      for (int d = threadIdx.x; d < kg * R * hd; d += kThreads) sacc[d] = 0.f;
+      for (int r = threadIdx.x; r < kg * R; r += kThreads) {
+        sm[r] = -INFINITY;
+        sl[r] = 0.f;
       }
       __syncthreads();
       active = b;
@@ -816,22 +829,32 @@ size_t combine_smem(const Params& p) {
          (size_t)kGroups * (p.hd / 4) * sizeof(float4) + p.S * sizeof(int);
 }
 
-template <typename TQ, typename TKV, bool kNew>
-cudaError_t launch_attention(const Params& p, size_t smem,
-                             cudaStream_t stream) {
+template <typename TQ, typename TKV, bool kNew, int kKG>
+cudaError_t launch_split(const Params& p, size_t smem, cudaStream_t stream) {
   // opt in to the largest dynamic shared memory asked for so far, once per
   // instantiation
   static size_t opted_in = 0;
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<TQ, TKV, kNew>,
+        paged_split_kernel<TQ, TKV, kNew, kKG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  paged_split_kernel<TQ, TKV, kNew>
+  paged_split_kernel<TQ, TKV, kNew, kKG>
       <<<dim3(p.n_split, p.n_kv, p.n_groups), kThreads, smem, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, bool kNew>
+cudaError_t launch_attention(const Params& p, size_t smem,
+                             cudaStream_t stream) {
+  if (p.key_groups != kWarps && p.key_groups != kWarps / 2)
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      p.key_groups == kWarps
+          ? launch_split<TQ, TKV, kNew, kWarps>(p, smem, stream)
+          : launch_split<TQ, TKV, kNew, kWarps / 2>(p, smem, stream);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.S * (p.h / p.n_kv), p.n_kv, p.B);
@@ -861,19 +884,20 @@ cudaError_t launch_attention(const Params& p, int q_bf16, int kv_bf16,
 }  // namespace
 
 // part: fp32 scratch of B * n_kv * n_split * R * (hd + 2) floats, n_split
-// counting K8's split of new rows; smem: the
-// dynamic shared memory of one split CTA, in bytes. Returns a cudaError_t;
-// 0 when both launches were accepted.
+// counting K8's split of new rows; key_groups: 4 or 2, the warps that
+// share each row's keys; smem: the dynamic shared memory of one split CTA,
+// in bytes (paged_attention.py:smem_bytes at that key_groups). Returns a
+// cudaError_t; 0 when both launches were accepted.
 extern "C" int paged_attention_fused_launch(
     const void* q, int q_bf16, const void* k_new, const void* v_new,
     void* k_arena, void* v_arena, int kv_bf16, int* pos_arena,
     const int* tables, const int* q_pos, const int* cursor, float* out,
     float* part, int B, int S, int h, int n_kv, int hd, int bs, int nb,
-    int n_split, int chunk, int n_groups, float scale, int causal,
-    int window, float softcap, size_t smem, void* stream) {
+    int n_split, int chunk, int n_groups, int key_groups, float scale,
+    int causal, int window, float softcap, size_t smem, void* stream) {
   Params p{q, k_new, v_new, k_arena, v_arena, pos_arena, tables, q_pos,
            cursor, out, part, B, S, h, n_kv, hd, bs, nb, n_split, chunk,
-           n_groups, scale, causal, window, softcap};
+           n_groups, key_groups, scale, causal, window, softcap};
   return static_cast<int>(launch_attention<true>(
       p, q_bf16, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
 }
@@ -884,12 +908,13 @@ extern "C" int paged_attention_launch(
     const void* q, int q_bf16, const void* k_arena, const void* v_arena,
     int kv_bf16, const int* pos_arena, const int* tables, const int* q_pos,
     float* out, float* part, int B, int S, int h, int n_kv, int hd, int bs,
-    int nb, int n_split, int chunk, int n_groups, float scale, int causal,
-    int window, float softcap, size_t smem, void* stream) {
+    int nb, int n_split, int chunk, int n_groups, int key_groups,
+    float scale, int causal, int window, float softcap, size_t smem,
+    void* stream) {
   Params p{q, nullptr, nullptr, const_cast<void*>(k_arena),
            const_cast<void*>(v_arena), const_cast<int*>(pos_arena), tables,
            q_pos, nullptr, out, part, B, S, h, n_kv, hd, bs, nb, n_split,
-           chunk, n_groups, scale, causal, window, softcap};
+           chunk, n_groups, key_groups, scale, causal, window, softcap};
   return static_cast<int>(launch_attention<false>(
       p, q_bf16, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
 }

@@ -97,22 +97,41 @@ def _sm_count(index: int) -> int:
 
 
 def smem_bytes(S: int, n_heads: int, n_kv: int, head_dim: int,
-               block_size: int, dtype) -> int:
+               block_size: int, dtype, groups: Optional[int] = None) -> int:
     """Dynamic shared memory, in bytes, of one split CTA: the plan carved
     in csrc/paged_attention.cu (STAGES mbarriers rounded up to 16 bytes; a
     ring of STAGES blocks of K and of V in the arena dtype; a ring of
     STAGES copies of the R = S * n_heads / n_kv query rows and the rows
     being folded, 4 bytes an element (fp32 or bf16); an accumulator per
-    warp and row in fp32; the ring's key positions and STAGES records of
-    4 + S ints; a running max and sum per warp and row in fp32; the rows'
-    query positions). The wrapper passes it to the launch."""
+    key group and row in fp32; the ring's key positions and STAGES
+    records of 4 + S ints; a running max and sum per key group and row in
+    fp32; the rows' query positions). `groups` is the number of key
+    groups (default: key_groups's choice). The wrapper passes it to the
+    launch."""
+    if groups is None:
+        groups = key_groups(S, n_heads, n_kv, head_dim, block_size, dtype)
     R = S * (n_heads // n_kv)
     esz = torch.empty((), dtype=dtype).element_size()
     return (-(-STAGES * 8 // 16) * 16
             + 2 * STAGES * block_size * head_dim * esz
-            + ((STAGES + 1) * R * head_dim + WARPS * R * head_dim) * 4
+            + ((STAGES + 1) * R * head_dim + groups * R * head_dim) * 4
             + (STAGES * block_size + STAGES * (4 + S)) * 4
-            + 2 * WARPS * R * 4 + R * 4)
+            + 2 * groups * R * 4 + R * 4)
+
+
+def key_groups(S: int, n_heads: int, n_kv: int, head_dim: int,
+               block_size: int, dtype) -> int:
+    """Warps of a split CTA that share out each query row's keys: WARPS
+    (each warp keeps its own fp32 state of every row and folds every
+    WARPS-th key tile) where that plan fits the shared memory, else
+    WARPS / 2 (the warps then also split the rows two ways, so that each
+    row has two states; kernel_fit_problems says whether that fits). At
+    gemma2-2b's heads (8 / 4, head dim 256, block 16) S <= 11 (fp32
+    arenas) or 13 (bf16) keep all four; S up to 16 takes 2."""
+    if smem_bytes(S, n_heads, n_kv, head_dim, block_size, dtype,
+                  WARPS) <= SMEM_LIMIT:
+        return WARPS
+    return WARPS // 2
 
 
 def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
@@ -147,8 +166,9 @@ def kernel_fit_problems(block_size: int, head_dim: int, n_heads: int,
                         f"a block buffer")
     smem = smem_bytes(S, n_heads, n_kv, head_dim, block_size, dtype)
     if smem > SMEM_LIMIT:
-        problems.append(f"shared memory {smem} bytes exceeds the "
-                        f"{SMEM_LIMIT}-byte limit: shrink block_size or S")
+        problems.append(f"shared memory {smem} bytes (two key groups) "
+                        f"exceeds the {SMEM_LIMIT}-byte limit: shrink "
+                        f"block_size or S")
     return problems
 
 
@@ -341,10 +361,10 @@ def _library():
                       ctypes.c_size_t)
         lib.paged_attention_fused_launch.argtypes = [
             P, I, P, P, P, P, I, P, P, P, P, P, P,
-            I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
+            I, I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
         lib.paged_attention_launch.argtypes = [
             P, I, P, P, I, P, P, P, P, P,
-            I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
+            I, I, I, I, I, I, I, I, I, I, I, F, I, I, F, Z, P]
         for fn in (lib.paged_attention_fused_launch,
                    lib.paged_attention_launch):
             fn.restype = I
@@ -411,10 +431,11 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
     R = S * (h // n_kv)
     part = torch.empty(B * n_kv * n_split * R * (hd + 2),
                        dtype=torch.float32, device=dev)
-    common = (B, S, h, n_kv, hd, bs, nb, n_split, chunk, n_groups,
+    groups = key_groups(S, h, n_kv, hd, bs, kv_dt)
+    common = (B, S, h, n_kv, hd, bs, nb, n_split, chunk, n_groups, groups,
               float(scale), int(bool(causal)), int(window or 0),
               float(softcap or 0.0),
-              smem_bytes(S, h, n_kv, hd, bs, kv_dt),
+              smem_bytes(S, h, n_kv, hd, bs, kv_dt, groups),
               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     q_bf16, kv_bf16 = int(q.dtype == torch.bfloat16), int(
         kv_dt == torch.bfloat16)

@@ -1,12 +1,17 @@
 """Training launcher of the port (port of repro/launch/train.py).
 
-Trains bert-large (reduced by default, `--full` for the real widths and
-depth) with the paper's recipe: LANS + warmup-hold-decay schedule +
-sharded-without-replacement data. Same flags as the JAX launcher, plus
-`--device` (CUDA unless `--device cpu`; it raises without a GPU):
+Trains bert-large or a dense decoder (gemma2-2b, qwen2.5-14b/32b,
+mistral-nemo-12b, chameleon-34b; reduced by default, `--full` for the
+real widths and depth) with the paper's recipe: LANS + warmup-hold-decay
+schedule + sharded-without-replacement data (masked-LM batches for BERT,
+next-token batches for the decoders, with random input embeddings for
+chameleon's stubbed image tokenizer). Same flags as the JAX launcher,
+plus `--device` (CUDA unless `--device cpu`; it raises without a GPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch bert-large --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch qwen2.5-14b --steps 3
 
 Mixed precision (--precision {fp32,bf16,fp16}): bf16/fp16 hold the model
 copy in half precision with fp32 master weights in the optimizer state;
@@ -17,7 +22,7 @@ transform, as the JAX launcher does (only lans stores its moments in the
 policy's moment dtype; under bf16/fp16 every optimizer goes through the
 generic `mixed_precision` wrapper). The fused kernels are reached
 through the library: `build_train_step(..., fused_lans(...))` or
-`fused_lamb(...)`. Archs other than bert are not ported yet and raise.
+`fused_lamb(...)`. Archs not ported yet (MoE, Mamba, whisper) raise.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import precision as prec
@@ -35,7 +41,8 @@ from repro_torch.configs import get_arch, reduced_arch
 from repro_torch.core.optim import adamw, lamb, lans
 from repro_torch.core.schedules import (constant, warmup_hold_decay,
                                         warmup_linear_decay)
-from repro_torch.data.corpus import SyntheticCorpus, mlm_batch_iterator
+from repro_torch.data.corpus import (SyntheticCorpus, lm_batch_iterator,
+                                     mlm_batch_iterator)
 from repro_torch.data.sharding import ShardSpec
 from repro_torch.distributed.steps import build_train_step
 from repro_torch.metrics import MetricsLogger
@@ -51,16 +58,28 @@ def make_optimizer(name: str, schedule, *, policy=None, **kw):
 def make_data(arch, *, batch: int, seq: int, num_workers: int = 1,
               seed: int = 0):
     """Sharded-without-replacement stream (paper §3.4), worker 0 view;
-    numpy batches."""
-    if arch.kind != "bert":
+    numpy batches: masked-LM batches for bert, next-token batches for the
+    decoders, and for an embeds_input arch (fp32 N(0, 0.02^2) embeddings
+    from a numpy generator seeded `seed`, labels), as the JAX launcher
+    makes them."""
+    if arch.kind not in ("bert", "decoder"):
         raise NotImplementedError(f"training data for the {arch.kind} "
                                   f"family is not ported yet")
     corpus = SyntheticCorpus(vocab=arch.cfg.vocab, num_docs=4096,
                              doc_len=max(2 * seq + 2, 256), seed=seed)
     spec = ShardSpec(num_samples=corpus.num_docs, num_workers=num_workers,
                      worker=0, seed=seed)
-    return mlm_batch_iterator(corpus, spec, per_worker_batch=batch,
-                              seq_len=seq, seed=seed)
+    if arch.kind == "bert":
+        return mlm_batch_iterator(corpus, spec, per_worker_batch=batch,
+                                  seq_len=seq, seed=seed)
+    lm = lm_batch_iterator(corpus, spec, per_worker_batch=batch,
+                           seq_len=seq)
+    if not arch.embeds_input:
+        return lm
+    rng = np.random.default_rng(seed)
+    return ({"embeds": rng.normal(size=(batch, seq, arch.cfg.d_model)
+                                  ).astype(np.float32) * 0.02,
+             "labels": b["labels"]} for b in lm)
 
 
 def make_schedule(kind: str, lr: float, steps: int, warmup_frac: float,

@@ -1,14 +1,15 @@
 """Grouped-query attention (port of repro/models/attention.py).
 
 Variants ported: GQA / MHA / MQA, causal with RoPE (the decoders) or
-bidirectional without a positional op (BERT), optional QKV bias and
-query scale, attention-logit soft-capping and sliding-window masking;
-the full-sequence path (cache-free; sequences of `q_chunk_threshold` or
-more that divide into `q_block`s would take the JAX package's
-remat-chunked branch, which is not ported and raises), the pooled
-per-slot cache (prefill into a dense cache, including the ring-tail
-write of sliding-window layers) and the paged serving branch with both
-decode implementations:
+bidirectional without a positional op (BERT), optional QKV bias, QK-norm
+(RMSNorm over head_dim of q and k, before RoPE; chameleon) and query
+scale, attention-logit soft-capping and sliding-window masking; the
+full-sequence path (cache-free; sequences of `q_chunk_threshold` or
+more that divide into `q_block`s attend one query block at a time, each
+recomputed in the backward pass, as the JAX package's remat-chunked
+branch), the pooled per-slot cache (prefill into a dense cache,
+including the ring-tail write of sliding-window layers) and the paged
+serving branch with both decode implementations:
 
   decode_kernel="paged"  the hand-written kernel
                          (kernels/paged_attention.py) attends and writes
@@ -18,8 +19,8 @@ decode implementations:
 
 Caches are updated IN PLACE where the JAX code returned updated copies
 of donated buffers: the returned cache dict holds the same arena
-tensors, already written. Cross-attention, the read-only `kv_cache`
-form and QK-norm are not ported yet.
+tensors, already written. Cross-attention and the read-only `kv_cache`
+form are not ported yet.
 
 Shapes: x (B, S, d_model); dense cache k/v (B, L, n_kv, head_dim);
 paged arenas (n_blocks, block_size, n_kv, head_dim).
@@ -31,10 +32,11 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import NEG_INF
 from repro_torch.models.common import (apply_rope, dense_apply, dense_init,
-                                       softcap)
+                                       rmsnorm_apply, rmsnorm_init, softcap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +46,16 @@ class AttnConfig:
     n_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
+    qk_norm: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
     causal: bool = True
     sliding_window: Optional[int] = None
     logit_softcap: Optional[float] = None
     query_scale: Optional[float] = None  # default 1/sqrt(head_dim)
-    # Sequences >= q_chunk_threshold (and divisible by q_block) take the
-    # JAX package's remat-chunked attention, which is not ported.
+    # Sequences >= q_chunk_threshold (and divisible by q_block) attend in
+    # query blocks of q_block rows, each recomputed in the backward pass:
+    # the live logits are (B, H, q_block, S), not (B, H, S, S).
     q_chunk_threshold: int = 4096
     q_block: int = 1024
     # Paged decode implementation: "xla" scatters then gathers
@@ -64,12 +68,17 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.float32,
               lead: tuple = ()):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, lead=lead)
-    return {
+    p = {
         "wq": dense_init(gen, d, h * hd, use_bias=cfg.qkv_bias, **kw),
         "wk": dense_init(gen, d, kv * hd, use_bias=cfg.qkv_bias, **kw),
         "wv": dense_init(gen, d, kv * hd, use_bias=cfg.qkv_bias, **kw),
         "wo": dense_init(gen, h * hd, d, use_bias=False, **kw),
     }
+    if cfg.qk_norm:
+        dev = None if gen is None else gen.device
+        p["q_norm"] = rmsnorm_init(hd, dtype, dev, lead)
+        p["k_norm"] = rmsnorm_init(hd, dtype, dev, lead)
+    return p
 
 
 def _split_heads(x, n, hd):
@@ -126,6 +135,11 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
     q = _split_heads(dense_apply(p["wq"], x, compute_dtype), h, hd)
     k = _split_heads(dense_apply(p["wk"], x, compute_dtype), kv, hd)
     v = _split_heads(dense_apply(p["wv"], x, compute_dtype), kv, hd)
+    if cfg.qk_norm:
+        # every branch below, the paged kernel's included, sees the
+        # normed q and k
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -220,11 +234,6 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         v = cache["v"].to(compute_dtype)
         k_pos = cache["pos"]
     else:
-        if S >= cfg.q_chunk_threshold and S % cfg.q_block == 0:
-            raise NotImplementedError(
-                f"attention over {S} positions takes the remat-chunked "
-                f"branch (q_chunk_threshold {cfg.q_chunk_threshold}), "
-                f"which is not ported yet")
         k_pos = positions
         q_pos = positions
 
@@ -232,8 +241,24 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
     decode = attend_cached and (S == 1 or paged)
-    out = _attend(cfg, q, k, v, q_pos, k_pos, scale=scale, decode=decode,
-                  compute_dtype=compute_dtype)
+    kw = dict(scale=scale, decode=decode, compute_dtype=compute_dtype)
+    qb = cfg.q_block
+    if not attend_cached and S >= cfg.q_chunk_threshold and S % qb == 0:
+        # remat-chunked query blocks: the live logits are (B, H, qb, S),
+        # and the backward pass recomputes each block's probabilities
+        # instead of keeping them
+        outs = []
+        for i in range(0, S, qb):
+            qp = q_pos[..., i:i + qb]     # (qb,) or per-batch (B, qb)
+            if torch.is_grad_enabled():
+                o = checkpoint(_attend, cfg, q[:, i:i + qb], k, v, qp, k_pos,
+                               use_reentrant=False, **kw)
+            else:
+                o = _attend(cfg, q[:, i:i + qb], k, v, qp, k_pos, **kw)
+            outs.append(o)
+        out = torch.cat(outs, dim=1)
+    else:
+        out = _attend(cfg, q, k, v, q_pos, k_pos, **kw)
     out = out.reshape(B, S, h * hd)
     return dense_apply(p["wo"], out, compute_dtype), new_cache
 

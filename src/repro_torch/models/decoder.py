@@ -5,12 +5,18 @@ gemma2's (("attn_local", "mlp"), ("attn", "mlp")) x 13 periods. As in the
 JAX package, each slot's params are stacked over the periods
 (`params["slot{i}"]` leaves have a leading n_periods dim) and so are its
 caches; where JAX scans over periods, the port runs a Python loop and
-hands each layer the period's view `stacked[p]` — a contiguous slice, so
-the paged kernel writes the arena in place.
+hands each layer the period's view of each stacked leaf: one unbind per
+leaf per forward, so the backward pass stacks a leaf's gradient once
+(indexing it period by period would build a zero gradient the size of
+the whole stack per period), and on the paged path a contiguous slice,
+which the kernel writes in place. In training (no cache, grad enabled)
+each period is recomputed in the backward pass (`cfg.remat`, as the
+JAX package's `jax.checkpoint(..., nothing_saveable)` over its scan).
 
-Ported: "attn" / "attn_local" mixers with "mlp" ffns and tied
-embeddings (the readout is x @ E^T). MoE and Mamba slots, QK-norm, an
-untied head, remat and the losses are not ported yet.
+Ported: "attn" / "attn_local" mixers (with QK-norm) and "mlp" ffns, tied
+or untied (`lm_head`) readouts, token or embedding inputs, and the
+losses `lm_loss` and `chunked_lm_loss`. MoE and Mamba slots are not
+ported yet: their aux terms (moe_aux_loss, router_entropy) stay 0.
 """
 from __future__ import annotations
 
@@ -18,12 +24,14 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
-from repro_torch.models.common import (embed_apply, embed_attend,
-                                       embed_init, mlp_apply, mlp_init,
-                                       rmsnorm_apply, rmsnorm_init, softcap)
+from repro_torch.models.common import (dense_apply, dense_init, embed_apply,
+                                       embed_attend, embed_init, mlp_apply,
+                                       mlp_init, rmsnorm_apply, rmsnorm_init,
+                                       softcap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +46,7 @@ class DecoderConfig:
     head_dim: Optional[int] = None
 
     qkv_bias: bool = False
+    qk_norm: bool = False
     rope_theta: float = 10000.0
     sliding_window: Optional[int] = None       # window of "attn_local" slots
     attn_softcap: Optional[float] = None
@@ -50,7 +59,10 @@ class DecoderConfig:
 
     superblock: Tuple[Tuple[str, str], ...] = (("attn", "mlp"),)
 
+    tie_embeddings: bool = True
     scale_embeds: bool = False
+    remat: bool = True                         # recompute each period in bwd
+    max_seq: int = 8192
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
 
@@ -69,7 +81,8 @@ class DecoderConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
-            qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+            qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta,
             sliding_window=self.sliding_window if local else None,
             logit_softcap=self.attn_softcap,
             decode_kernel=self.attn_kernel)
@@ -107,13 +120,23 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig):
         "final_norm": rmsnorm_init(cfg.d_model, cfg.param_dtype,
                                    None if gen is None else gen.device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab,
+                                       dtype=cfg.param_dtype)
     for si, (mixer, ffn) in enumerate(cfg.superblock):
         params[f"slot{si}"] = _slot_init(gen, cfg, mixer, ffn)
     return params
 
 
+def _unbind(tree):
+    """Each stacked leaf of a slot's param subtree as the tuple of its
+    per-period views (one unbind per leaf)."""
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
 def _period(tree, p: int):
-    """Period p of a stacked param subtree (views, no copies)."""
+    """Period p of an unbound param subtree."""
     return {k: _period(v, p) if isinstance(v, dict) else v[p]
             for k, v in tree.items()}
 
@@ -134,36 +157,62 @@ def _run_slot(sp, cfg: DecoderConfig, mixer: str, x, positions, cache):
     return x + out
 
 
-def decoder_apply(params, cfg: DecoderConfig, tokens, *, positions=None,
-                  caches=None):
-    """Forward pass -> (logits fp32 (B, S, vocab), new_caches).
+def _run_period(cfg: DecoderConfig, x, positions, slot_params, caches):
+    """One period: the superblock's slots in order. slot_params[si] is
+    slot si's params of this period, caches[si] its cache or None."""
+    for si, (mixer, _) in enumerate(cfg.superblock):
+        x = _run_slot(slot_params[si], cfg, mixer, x, positions, caches[si])
+    return x
 
-    tokens (B, S) int. caches: from init_decoder_cache (per-slot dense)
-    or init_paged_decoder_cache; they are written in place and returned
-    with the advanced index (None without caches)."""
-    x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
-    if cfg.scale_embeds:
-        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
-            cfg.compute_dtype)
+
+def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
+                  positions=None, caches=None, return_hidden=False):
+    """Forward pass -> (logits fp32 (B, S, vocab), new_caches, aux).
+
+    tokens (B, S) int, or embeds (B, S, d_model): precomputed input
+    embeddings (the VLM stub). caches: from init_decoder_cache (per-slot
+    dense) or init_paged_decoder_cache; they are written in place and
+    returned with the advanced index (None without caches). aux holds the
+    MoE terms moe_aux_loss and router_entropy (0 until MoE is ported).
+    With return_hidden the first element is the final-norm hidden states
+    (B, S, d_model) instead of the logits (see chunked_lm_loss)."""
+    if (tokens is None) == (embeds is None):
+        raise ValueError("pass exactly one of tokens and embeds")
+    if embeds is None:
+        x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
+        if cfg.scale_embeds:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
+                cfg.compute_dtype)
+    else:
+        x = embeds.to(cfg.compute_dtype)
     B, S = x.shape[:2]
     if positions is None:
         ar = torch.arange(S, device=x.device)
         positions = (caches["index"][:, None] + ar if caches is not None
                      else ar)
     tables = caches.get("tables") if caches is not None else None
+    for mixer, ffn in cfg.superblock:
+        _check_slot(mixer, ffn)
+    # unbound once, outside the recomputed regions (see the module doc)
+    slots = [_unbind(params[f"slot{si}"])
+             for si in range(len(cfg.superblock))]
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
 
     for p in range(cfg.n_periods):
-        for si, (mixer, ffn) in enumerate(cfg.superblock):
-            _check_slot(mixer, ffn)
-            cache_i = None
-            if caches is not None:
-                stack = caches["slots"][si]
-                cache_i = {k: stack[k][p] for k in ("k", "v", "pos")}
-                cache_i["index"] = caches["index"]
+        slot_params = [_period(sp, p) for sp in slots]
+        slot_caches = [None] * len(cfg.superblock)
+        if caches is not None:
+            for si, stack in enumerate(caches["slots"]):
+                c = {k: stack[k][p] for k in ("k", "v", "pos")}
+                c["index"] = caches["index"]
                 if tables is not None:
-                    cache_i["table"] = tables[si]
-            x = _run_slot(_period(params[f"slot{si}"], p), cfg, mixer, x,
-                          positions, cache_i)
+                    c["table"] = tables[si]
+                slot_caches[si] = c
+        if remat:
+            x = checkpoint(_run_period, cfg, x, positions, slot_params,
+                           slot_caches, use_reentrant=False)
+        else:
+            x = _run_period(cfg, x, positions, slot_params, slot_caches)
 
     new_caches = None
     if caches is not None:
@@ -171,13 +220,75 @@ def decoder_apply(params, cfg: DecoderConfig, tokens, *, positions=None,
                       "index": caches["index"] + S}
         if tables is not None:
             new_caches["tables"] = tables
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"moe_aux_loss": zero, "router_entropy": zero}
     x = rmsnorm_apply(params["final_norm"], x)
-    return _head_logits(params, cfg, x), new_caches
+    if return_hidden:
+        return x, new_caches, aux
+    return _head_logits(params, cfg, x), new_caches, aux
 
 
 def _head_logits(params, cfg: DecoderConfig, x):
-    logits = embed_attend(params["embed"], x, cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        logits = embed_attend(params["embed"], x, cfg.compute_dtype)
+    else:
+        logits = dense_apply(params["lm_head"], x, cfg.compute_dtype)
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def _token_nll(logits, labels, ignore_id: int):
+    """(sum over the valid rows of -log p(label), count of valid rows),
+    the log-softmax in fp32."""
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -(ll * valid).sum(), valid.sum()
+
+
+def lm_loss(logits, labels, *, ignore_id: int = -100, moe_aux=None,
+            aux_weight: float = 0.01):
+    """Next-token cross entropy in fp32 over the labels that are not
+    ignore_id (labels already shifted by the data pipeline), plus
+    aux_weight * moe_aux when given."""
+    total, count = _token_nll(logits, labels, ignore_id)
+    loss = total / torch.clamp(count, min=1)
+    if moe_aux is not None:
+        loss = loss + aux_weight * moe_aux
+    return loss
+
+
+def _chunk_nll(params, cfg: DecoderConfig, hidden, labels, ignore_id: int):
+    return _token_nll(_head_logits(params, cfg, hidden), labels,
+                      ignore_id)[0]
+
+
+def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
+                    ignore_id: int = -100, chunk: int = 512, moe_aux=None,
+                    aux_weight: float = 0.01):
+    """lm_loss of the head's logits of `hidden` (B, S, d_model) without
+    materialising the (B, S, V) logits: `chunk` positions at a time, each
+    chunk's head, softcap and log-softmax recomputed in the backward
+    pass, so only (B, chunk, V) logits are ever live. An fp32 total and
+    an integer count of valid labels, then total / max(count, 1)."""
+    B, S, _ = hidden.shape
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(0, S, chunk):
+        h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            s = checkpoint(_chunk_nll, params, cfg, h, lab, ignore_id,
+                           use_reentrant=False)
+        else:
+            s = _chunk_nll(params, cfg, h, lab, ignore_id)
+        total = total + s
+        count = count + (lab != ignore_id).sum()
+    loss = total / torch.clamp(count, min=1)
+    if moe_aux is not None:
+        loss = loss + aux_weight * moe_aux
+    return loss
 
 
 def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,

@@ -18,7 +18,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.optim.base import (WeightDecayMask, as_schedule,
-                                         tree_device, tree_map, tree_paths)
+                                         tree_consume, tree_device,
+                                         tree_map, tree_paths)
 from repro_torch.core.optim.fused import step_scalars
 from repro_torch.kernels import ops
 from repro_torch.precision.loss_scale import LossScaleState, all_finite
@@ -63,13 +64,18 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
         master = _merge_master(state.master, params)
         grads32 = ls.unscale(updates, state.loss_scale)
         finite = all_finite(grads32)
+        box = [grads32]            # the only reference: see tree_consume
+        del updates, grads32
 
         def one(g, m, v, x, p, pth):
+            # x_lp of the result is the update of the model copy:
+            # new copy - copy (for non-float leaves p - p)
             if not _is_float(x):   # non-float leaves pass through
-                return ops.MixedStepOut(x, m, v, p)
-            return ops.fused_lans_mixed_step(
+                return ops.MixedStepOut(x, m, v, p - p)
+            o = ops.fused_lans_mixed_step(
                 g, m, v, x, lp_dtype=policy.leaf_dtype(pth), beta1=beta1,
                 beta2=beta2, eps=eps, scalars=rows[pth])
+            return o._replace(x_lp=o.x_lp - p)
 
         # One host read of the finite flag per step, in place of the JAX
         # package's lax.cond: an overflow step launches nothing.
@@ -77,16 +83,15 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
             rows = step_scalars(sched(state.count), state.count + 1, params,
                                 mask_fn, beta1=beta1, beta2=beta2,
                                 lam=weight_decay)
-            outs = tree_map(one, grads32, state.mu, state.nu, master, params,
-                            tree_paths(params))
+            outs = tree_consume(one, box.pop(), state.mu, state.nu, master,
+                                params, tree_paths(params))
             pick = lambda f: tree_map(lambda o: getattr(o, f), outs)
-            new_master, new_mu, new_nu, new_lp = (pick("x"), pick("m"),
-                                                  pick("v"), pick("x_lp"))
+            new_master, new_mu, new_nu, updates_out = (
+                pick("x"), pick("m"), pick("v"), pick("x_lp"))
         else:
             # lp params already equal cast(master): re-emit them unchanged
-            new_master, new_mu, new_nu, new_lp = (master, state.mu, state.nu,
-                                                  params)
-        updates_out = tree_map(lambda n, p: n - p, new_lp, params)
+            new_master, new_mu, new_nu = master, state.mu, state.nu
+            updates_out = tree_map(lambda p: p - p, params)
         return updates_out, FusedMixedState(
             loss_scale=ls.adjust(state.loss_scale, finite),
             # count advances on applied steps only, as in the generic

@@ -86,6 +86,17 @@ def apply_serving_policy(arch, params, policy=None):
     return dataclasses.replace(arch, cfg=cfg), policy.cast_params(params)
 
 
+def counting_decode(arch, nonfinite):
+    """arch.decode_step that adds one to `nonfinite` (a 0-d int64 device
+    tensor, updated in place) for each call whose fp32 logits hold a NaN
+    or inf."""
+    def decode(params, batch, cache):
+        logits, cache = arch.decode_step(params, batch, cache)
+        nonfinite.add_((~torch.isfinite(logits)).any())
+        return logits, cache
+    return decode
+
+
 def prompt_granularity(cfg) -> int:
     """Smallest prefill length multiple the arch supports: mamba's chunked
     scan needs S % chunk == 0; attention takes any length."""
@@ -314,8 +325,11 @@ class ContinuousEngine:
         # counted on the device and read only by report()
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
-        self._step = build_serve_step(self._decode_step,
-                                      sampler=self.sampler)
+        # the steps close over the arch and the counter, never over the
+        # engine: a dropped engine then holds no reference cycle, and its
+        # pools are freed at once, without the collector
+        decode = counting_decode(self.arch, self._nonfinite)
+        self._step = build_serve_step(decode, sampler=self.sampler)
         self._prefill = build_prefill_fn(self.arch, self._prefill_len)
         self._first, self._wants_keys = build_first_token_fn(self.sampler)
         if self.spec:
@@ -326,8 +340,7 @@ class ContinuousEngine:
             self._draft_prefill = build_prefill_fn(self.draft_arch, max_len)
             self._draft_step = build_serve_step(self.draft_arch.decode_step,
                                                 sampler=self.sampler)
-            self._verify = build_verify_step(self._decode_step,
-                                             sampler=self.sampler)
+            self._verify = build_verify_step(decode, sampler=self.sampler)
             # host mirror of the draft pool's write cursors (PADDED rows,
             # unlike _positions' local timeline)
             self._draft_rows = np.zeros(max_batch, np.int64)
@@ -386,11 +399,6 @@ class ContinuousEngine:
 
     def _count_nonfinite(self, logits):
         self._nonfinite += (~torch.isfinite(logits)).any()
-
-    def _decode_step(self, params, batch, cache):
-        logits, cache = self.arch.decode_step(params, batch, cache)
-        self._count_nonfinite(logits)
-        return logits, cache
 
     def _resume_of(self, req: Request) -> list:
         return self._resume.get(req.rid, [])

@@ -107,14 +107,58 @@ def test_bidirectional_attention_matches_jax(query_scale):
     assert not torch.allclose(causal[:, 0], got[:, 0])
 
 
-def test_chunked_attention_branch_raises():
-    cfg = tattn.AttnConfig(d_model=8, n_heads=2, n_kv_heads=2, head_dim=4,
-                           rope=False, causal=False, q_chunk_threshold=8,
-                           q_block=4)
-    p = {k: {"kernel": torch.zeros(8, 8)} for k in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tattn.attn_apply(p, cfg, torch.zeros(1, 8, 8),
-                         compute_dtype=torch.float32)
+@pytest.mark.parametrize("per_batch_positions", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_branch_matches_jax(causal, per_batch_positions):
+    """The remat-chunked query-block branch (S >= q_chunk_threshold and a
+    multiple of q_block: here 16 positions in blocks of 4, GQA, QK-norm
+    and RoPE on), causal and bidirectional, with shared or per-batch
+    (left-padded, pads at -1) positions: output and the gradients with
+    respect to x and every param against the JAX package's branch; and
+    the same output as the unchunked path of the port."""
+    rng = np.random.default_rng(7 + causal + 2 * per_batch_positions)
+    d, h, kv, hd, S = 32, 4, 2, 8, 16
+    kw = dict(d_model=d, n_heads=h, n_kv_heads=kv, head_dim=hd,
+              qkv_bias=True, qk_norm=True, causal=causal,
+              q_chunk_threshold=8, q_block=4)
+    dense = lambda i, o, b: {
+        "kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
+        **({"bias": rng.normal(size=(o,)).astype(np.float32)} if b else {})}
+    p = {"wq": dense(d, h * hd, True), "wk": dense(d, kv * hd, True),
+         "wv": dense(d, kv * hd, True), "wo": dense(h * hd, d, False),
+         "q_norm": {"scale": rng.normal(size=(hd,)).astype(np.float32)},
+         "k_norm": {"scale": rng.normal(size=(hd,)).astype(np.float32)}}
+    x = rng.normal(size=(2, S, d)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    if per_batch_positions:
+        pos = np.stack([pos, pos - 3]).astype(np.int32)
+        pos[1, :3] = -1
+    w = rng.normal(size=(2, S, d)).astype(np.float32)
+
+    def jf(x, p):
+        out, _ = jattn.attn_apply(p, jattn.AttnConfig(**kw), x,
+                                  positions=jnp.asarray(pos),
+                                  compute_dtype=jnp.float32)
+        return jnp.sum(out * w), out
+
+    (_, want), (jgx, jgp) = jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True)(jnp.asarray(x),
+                                          jax.tree.map(jnp.asarray, p))
+    tx = _t(x).requires_grad_(True)
+    tp = jax.tree.map(lambda a: _t(a).requires_grad_(True), p)
+    got, _ = tattn.attn_apply(tp, tattn.AttnConfig(**kw), tx,
+                              positions=_t(pos), compute_dtype=torch.float32)
+    (got * _t(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **F32)
+    for (path, a), b in zip(tree_items(tp), jax.tree.leaves(jgp)):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b),
+                                   err_msg=path, **F32)
+    with torch.no_grad():
+        whole, _ = tattn.attn_apply(
+            tp, tattn.AttnConfig(**{**kw, "q_chunk_threshold": 4096}), tx,
+            positions=_t(pos), compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.detach().numpy(), whole.numpy(), **F32)
 
 
 def test_reduced_bert_loss_and_grads_match_jax(bert_pair):

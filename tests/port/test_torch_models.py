@@ -221,8 +221,9 @@ def test_decoder_logits_match_jax(gemma_pair):
     tokens = np.random.default_rng(3).integers(
         0, jcfg.vocab, size=(2, 20)).astype(np.int32)
     want, _, _ = jdec.decoder_apply(jparams, jcfg, tokens)
-    got, caches = tdec.decoder_apply(tparams, tcfg, _t(tokens))
+    got, caches, aux = tdec.decoder_apply(tparams, tcfg, _t(tokens))
     assert caches is None and got.dtype == torch.float32
+    assert float(aux["moe_aux_loss"]) == float(aux["router_entropy"]) == 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
 
@@ -238,14 +239,14 @@ def test_paged_decode_equals_full_forward(gemma_pair, kernel):
     T, bs = 20, 8
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, tcfg.vocab, size=(1, T)).astype(np.int32))
-    full, _ = tdec.decoder_apply(tparams, tcfg, tokens)
+    full, _, _ = tdec.decoder_apply(tparams, tcfg, tokens)
     cache = tdec.init_paged_decoder_cache(tcfg, 1, 24, block_size=bs,
                                           n_blocks=4, dtype=torch.float32)
     cache["tables"] = tuple(torch.arange(1, 1 + t.shape[1],
                                          dtype=torch.int32)[None]
                             for t in cache["tables"])
     for t in range(T):
-        logits, cache = tdec.decoder_apply(
+        logits, cache, _ = tdec.decoder_apply(
             tparams, tcfg, tokens[:, t:t + 1], caches=cache,
             positions=torch.tensor([[t]], dtype=torch.int32))
         np.testing.assert_allclose(logits[0, 0].numpy(), full[0, t].numpy(),
@@ -259,15 +260,15 @@ def test_prefill_then_decode_equals_full_forward(gemma_pair):
     tcfg = dataclasses.replace(tarch.cfg, compute_dtype=torch.float32)
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, tcfg.vocab, size=(2, 14)).astype(np.int32))
-    full, _ = tdec.decoder_apply(tparams, tcfg, tokens)
+    full, _, _ = tdec.decoder_apply(tparams, tcfg, tokens)
     cache = tdec.init_decoder_cache(tcfg, 2, 40, torch.float32)
-    logits, cache = tdec.decoder_apply(tparams, tcfg, tokens[:, :10],
-                                       caches=cache)
+    logits, cache, _ = tdec.decoder_apply(tparams, tcfg, tokens[:, :10],
+                                          caches=cache)
     np.testing.assert_allclose(logits.numpy(), full[:, :10].numpy(),
                                rtol=1e-4, atol=1e-4)
     for t in range(10, 14):
-        logits, cache = tdec.decoder_apply(tparams, tcfg, tokens[:, t:t + 1],
-                                           caches=cache)
+        logits, cache, _ = tdec.decoder_apply(
+            tparams, tcfg, tokens[:, t:t + 1], caches=cache)
         np.testing.assert_allclose(logits[:, 0].numpy(), full[:, t].numpy(),
                                    rtol=1e-4, atol=1e-4)
     assert cache["index"].tolist() == [14, 14]

@@ -61,26 +61,31 @@ def test_smem_bytes_is_the_kernel_plan():
     """smem_bytes counts the regions the .cu carves, in its order: the
     mbarriers, the K and V rings of kStages blocks in the arena dtype,
     the q ring and the folded slot's q (4 bytes an element), fp32 acc per
-    warp and row, the ring's int32 key positions and records, fp32 m and
-    l per warp and row, and the rows' int32 query positions."""
+    key group and row, the ring's int32 key positions and records, fp32 m
+    and l per key group and row, and the rows' int32 query positions. The
+    key groups are all four warps where that fits (the serving and
+    S = 4 verify layouts), two at S = 16 with gemma2-2b's heads."""
     assert pa.STAGES == _cu_constant("kStages")
     assert pa.WARPS == _cu_constant("kThreads") // 32
-    for S, h, n_kv, hd, bs, dtype, esz in (
-            (1, 8, 4, 256, 16, torch.bfloat16, 2),
-            (4, 8, 4, 256, 16, torch.float32, 4),
-            (3, 4, 2, 16, 8, torch.bfloat16, 2)):
+    for S, h, n_kv, hd, bs, dtype, esz, groups in (
+            (1, 8, 4, 256, 16, torch.bfloat16, 2, 4),
+            (4, 8, 4, 256, 16, torch.float32, 4, 4),
+            (3, 4, 2, 16, 8, torch.bfloat16, 2, 4),
+            (16, 8, 4, 256, 16, torch.float32, 4, 2),
+            (16, 8, 4, 256, 16, torch.bfloat16, 2, 2)):
+        assert pa.key_groups(S, h, n_kv, hd, bs, dtype) == groups
         R = S * h // n_kv
         regions = [("barriers", -(-pa.STAGES * 8 // 16) * 16),
                    ("k ring", pa.STAGES * bs * hd * esz),
                    ("v ring", pa.STAGES * bs * hd * esz),
                    ("q ring", pa.STAGES * R * hd * 4), ("q", R * hd * 4),
-                   ("acc", pa.WARPS * R * hd * 4),
+                   ("acc", groups * R * hd * 4),
                    ("key pos", pa.STAGES * bs * 4),
                    ("meta", pa.STAGES * (4 + S) * 4),
-                   ("m", pa.WARPS * R * 4), ("l", pa.WARPS * R * 4),
+                   ("m", groups * R * 4), ("l", groups * R * 4),
                    ("q pos", R * 4)]
         assert pa.smem_bytes(S, h, n_kv, hd, bs, dtype) == sum(
-            n for _, n in regions)
+            n for _, n in regions) <= pa.SMEM_LIMIT
         # every region a bulk copy fills starts 16-byte aligned: the K
         # and V rings, q and the key positions
         offsets = dict(zip([n for n, _ in regions], itertools.accumulate(
@@ -97,8 +102,8 @@ def test_smem_bytes_is_the_kernel_plan():
     (dict(block_size=16, head_dim=128, n_heads=8, n_kv=4, S=16), True, True),
     (dict(block_size=16, head_dim=128, n_heads=8, n_kv=4, S=17), False,
      True),
-    (dict(block_size=16, head_dim=256, n_heads=8, n_kv=4, S=16), False,
-     False),
+    (dict(block_size=16, head_dim=256, n_heads=8, n_kv=4, S=16), True,
+     True),
     (dict(block_size=16, head_dim=12, n_heads=8, n_kv=4, S=1), False, False),
     (dict(block_size=6, head_dim=64, n_heads=8, n_kv=4, S=1), False, False),
     (dict(block_size=64, head_dim=256, n_heads=64, n_kv=1, S=4), False,
@@ -115,6 +120,20 @@ def test_fit_limits_of_the_split_tiling(layout, k8, k7):
     assert (pa.kernel_fit_problems(*args, **layout) == []) == k8
     assert (pa.kernel_fit_problems(*args, **layout, new_rows=False)
             == []) == k7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_takes_a_block_of_rows_at_gemma2_heads(dtype):
+    """K8 takes every S <= block_size (16) at gemma2-2b's heads (8 / 4,
+    head_dim 256), as the reference does, with fp32 and bf16 arenas: the
+    rows that do not fit four fp32 states each per row (S >= 12 with fp32
+    arenas, 14 with bf16) fold with two key groups. S > block_size stays
+    refused, as the reference's block-buffer rule refuses it."""
+    for S in range(1, 17):
+        assert pa.kernel_fit_problems(16, 256, 8, 4, dtype, S=S) == [], S
+        want = 4 if S < (12 if dtype == torch.float32 else 14) else 2
+        assert pa.key_groups(S, 8, 4, 256, 16, dtype) == want, S
+    assert pa.kernel_fit_problems(16, 256, 8, 4, dtype, S=17)
 
 
 def _split_kv(args, *, scale, window, softcap, n_split, chunk, new_rows):

@@ -127,6 +127,81 @@ def test_engine_tokens_match_jax_engine(gemma_pair, case):
     assert all(m.alloc.n_live == 0 for m in teng.pool.maps.values())
 
 
+@pytest.mark.parametrize("kernel", ["paged", "xla"])
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "chameleon-34b"])
+def test_new_decoders_serve_like_jax(name, kernel):
+    """Reduced qwen2.5-14b (QKV bias) and chameleon-34b (QK-norm) through
+    the port's continuous engine on the paged pool, with the kernel path
+    (its plain version on the CPU) and the gather path: the greedy
+    tokens of the JAX engine (XLA gather), fp32 policy on both sides."""
+    import jax
+    from repro.configs import reduced_arch as jreduced
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import reduced_arch as treduced
+    jarch, tarch = jreduced(name), treduced(name)
+    jparams = jarch.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(tarch.cfg, jax.tree.map(np.asarray, jparams))
+    kw = dict(max_batch=4, max_len=48, policy="fp32", prefill_bucket=8,
+              block_size=8)
+    req_kw = dict(prompt_len=16, new_tokens=12, seed=0, shared_prefix=8)
+    jdone = JaxEngine(jarch, jparams, cache="paged", attn_kernel="xla",
+                      **kw).run(jax_requests(5, jarch.cfg.vocab, **req_kw))
+    teng = ContinuousEngine(tarch, tparams, attn_kernel=kernel, **kw)
+    tdone = teng.run(synthetic_requests(5, tarch.cfg.vocab, **req_kw))
+    assert ({r.rid: r.generated.tolist() for r in tdone}
+            == {r.rid: r.generated.tolist() for r in jdone})
+    assert teng.report(1.0)["nonfinite_logit_steps"] == 0
+
+
+ENGINES = {
+    "paged": dict(attn_kernel="paged"),
+    "paged-xla": dict(attn_kernel="xla"),
+    "dense": dict(cache="dense"),
+    "paged-spec": dict(attn_kernel="paged", spec_k=3),
+    "dense-sampled": dict(cache="dense",
+                          sampler="temperature=0.8,top_k=20,seed=3"),
+    "static": None,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ENGINES))
+def test_dropped_engine_is_freed_without_the_collector(gemma_pair, kind):
+    """With the collector off, an engine that has served a few requests
+    is freed as soon as the last reference to it goes: its steps close
+    over the arch, params, pool and sampler, never over the engine, so
+    no reference cycle keeps its pools (card memory on the GPU) alive."""
+    import gc
+    import weakref
+    _, _, tarch, tparams = gemma_pair
+    reqs = synthetic_requests(3, tarch.cfg.vocab, prompt_len=8,
+                              new_tokens=4, seed=0)
+    kw = ENGINES[kind]
+    gc.collect()
+    gc.disable()
+    try:
+        if kw is None:
+            from repro_torch.serving import ServeEngine
+            eng = ServeEngine(tarch, tparams, max_len=32)
+            eng.run_batch(reqs)
+        else:
+            kw = dict(kw)
+            if "spec_k" in kw:
+                kw["spec_draft"] = (tarch, tparams)
+            eng = ContinuousEngine(tarch, tparams, max_batch=2, max_len=32,
+                                   block_size=8, **kw)
+            eng.run(reqs)
+        assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+        ref = weakref.ref(eng)
+        pools = [weakref.ref(p) for p in (getattr(eng, "pool", None),
+                                          getattr(eng, "draft_pool", None))
+                 if p is not None]
+        del eng
+        assert ref() is None
+        assert all(p() is None for p in pools)
+    finally:
+        gc.enable()
+
+
 def test_cli_serves_on_cpu(capsys):
     stats, done = tserve.main([
         "--device", "cpu", "--requests", "4", "--prompt-len", "16",
