@@ -51,6 +51,26 @@ Phases, in the order they run, each of which fails the run:
      and combine times, the same at S = 16 (a whole block of rows) with
      bf16 and fp32 arenas, and spec vs non-spec tokens/s and ITL p50
      printed (no gain claimed);
+  C. chunked-prefill admission and open-loop traffic (after phase S) on
+     the same model in fp32, 4 slots, block 16, prefill bucket 16, a
+     mixed stream of 12 requests (bimodal_requests: short prompts of
+     48-64 tokens and long ones of 384-512, 32 new tokens each, seed 4):
+     (a) through the CLI (`main(argv, requests=...)`), unchunked with
+     the kernel, --chunk-budget 64 with the kernel and with xla: greedy
+     tokens equal across the three, K8 launched decode steps x 26 times
+     in the kernel runs and never in the xla run (chunk forwards run on
+     the task's dense cache), chunked rows >= the padded prompt rows,
+     chunk forwards per size printed; (b) a warm unchunked and a warm
+     chunked engine (6 warm-up requests each, the controller's
+     warmup()) replay the stream on poisson_arrivals(12, 2.0, seed=2)
+     through OpenLoopDriver: tokens equal (a)'s, K8 launched decode
+     steps x 26 times, goodput, SLO attainment and TTFT/ITL p50/p99
+     printed against SLOs from the warm unchunked ITL p50 (ITL 4x it,
+     TTFT max(1 s, 40x the ITL bound)), not gated; the median wall time
+     of one chunk forward per size; (c) bf16 with --sampler
+     temperature=0,stable=1, unchunked vs chunked: equal streams of 12
+     and the first parting printed, not gated; and K8 held to its plain
+     version and timed at this pool's 34-block rings;
   5. hold the fused LANS kernels K1-K4 against their plain versions
      (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
      and 4; lam 0 with trust off, a zero-gradient leaf, a NaN in g; K4
@@ -665,6 +685,250 @@ def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
     return entry
 
 
+def chunked_stream(vocab, n=12, seed=4):
+    """Phase C's mixed stream: mostly short turns and a long-prompt
+    minority whose whole-prompt prefill stalls every running stream."""
+    from repro_torch.serving import bimodal_requests
+    return bimodal_requests(n, vocab, short_len=64, long_len=512,
+                            new_tokens=32, long_frac=0.25, seed=seed)
+
+
+def serve_stream(torch, pa, serve_mod, argv, reqs, label):
+    """Serve `reqs` through the CLI with `argv`, K8's count set to 0 just
+    before and read just after. Returns (report, tokens in stream order,
+    K8 launches)."""
+    pa.paged_attention_fused.launches = 0
+    stats, done = serve_mod.main(argv, requests=reqs)
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_fused.launches
+    check(len(done) == len(reqs) and stats["nonfinite_logit_steps"] == 0,
+          f"{label}: {len(done)} of {len(reqs)} requests done, "
+          f"{stats['nonfinite_logit_steps']} steps with NaN/inf logits")
+    print(f"serve[{label}]: tokens={stats['tokens']} decode_steps="
+          f"{stats['decode_steps']} chunk_steps="
+          f"{stats.get('chunk_steps', 0)} chunk_tokens="
+          f"{stats.get('chunk_tokens', 0)} chunk_sizes="
+          f"{stats.get('chunk_sizes', {})} K8 launches={launches} "
+          f"tokens_per_s={stats['tokens_per_s']:.2f} "
+          f"ttft_p50_ms={stats['ttft_p50_ms']:.2f} "
+          f"ttft_p99_ms={stats['ttft_p99_ms']:.2f} "
+          f"itl_p50_ms={stats['itl_p50_ms']:.2f} "
+          f"itl_p99_ms={stats['itl_p99_ms']:.2f} wall_s={stats['wall_s']:.2f}")
+    return stats, [r.generated.tolist() for r in reqs], launches
+
+
+def time_chunk_forwards(torch, ctrl, vocab, reps=10):
+    """{size: median wall ms of one chunk forward} for every size the
+    controller can run, each call against a fresh task cache and ended
+    by a synchronize: what one engine step pays for its chunk."""
+    out = {}
+    for size in ctrl.sizes():
+        tokens = torch.randint(5, vocab, (1, size), dtype=torch.int32,
+                               device="cuda")
+        positions = torch.arange(size, dtype=torch.int32,
+                                 device="cuda")[None]
+        wall = []
+        for _ in range(reps):
+            cache = ctrl._fresh_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctrl._fn(size)(ctrl.params, tokens, positions, cache)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out[size] = statistics.median(wall)
+    return out
+
+
+def print_profile(label, wall_ms, kernels, counts):
+    """Device busy time, idle share and the top kernels of one profiled
+    forward; returns (busy ms, idle share)."""
+    busy = sum(kernels.values())
+    check(busy > 0, f"profile[{label}]: the profiler saw no device work")
+    print(f"profile[{label}]: wall {wall_ms:.2f} ms (under the profiler), "
+          f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f},"
+          f" {sum(counts.values())} launches")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {ms:8.3f} ms  {counts[name]:5d} x  {name[:100]}")
+    return busy, 1 - busy / wall_ms
+
+
+def phase_chunked(torch, pa, serve_mod, flush):
+    """Phase C: chunked-prefill admission and open-loop Poisson traffic
+    on full-width gemma2-2b (see the module docstring). Returns what K8's
+    entry records of it: launches per run and K8 at this pool's shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import (SLO, ContinuousEngine, OpenLoopDriver,
+                                     percentile, poisson_arrivals,
+                                     slo_report)
+    t0 = time.perf_counter()
+    arch = get_arch("gemma2-2b")
+    vocab = arch.cfg.vocab
+    stream = chunked_stream(vocab)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in stream)
+    max_len = -(-max_len // 16) * 16
+    padded = sum(-(-len(r.prompt) // 16) * 16 for r in stream)
+    print(f"phase C: 12 requests, prompts "
+          f"{sorted(len(r.prompt) for r in stream)}, 32 new tokens each, "
+          f"max_len {max_len}, padded prompt rows {padded}")
+    argv = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
+            "--attn-kernel", "paged", "--max-batch", "4", "--block-size",
+            "16", "--prefill-bucket", "16", "--max-len", str(max_len),
+            "--seed", "0", "--device", "cuda"]
+    chunk = ["--chunk-budget", "64"]
+
+    # (a) closed loop: unchunked and chunked with the kernel, chunked with
+    # the plain-torch gather
+    runs, launches = {}, {}
+    for label, run_argv in (
+            ("unchunked paged", argv),
+            ("chunked paged", argv + chunk),
+            ("chunked xla", with_flag(argv, "--attn-kernel", "xla") + chunk)):
+        stats, runs[label], launches[label] = serve_stream(
+            torch, pa, serve_mod, run_argv, chunked_stream(vocab),
+            f"C {label}")
+        if "paged" in label:
+            check(launches[label] == stats["decode_steps"] * N_LAYERS,
+                  f"{label}: K8 launched {launches[label]} times for "
+                  f"{stats['decode_steps']} decode steps x {N_LAYERS}")
+        else:
+            check(launches[label] == 0, f"{label}: the xla run launched K8")
+        if label.startswith("chunked"):
+            check(stats["chunk_tokens"] >= padded,
+                  f"{label}: {stats['chunk_tokens']} rows chunked for "
+                  f"{padded} padded prompt rows")
+    want = runs["unchunked paged"]
+    check(runs["chunked paged"] == want and runs["chunked xla"] == want,
+          "closed-loop greedy tokens differ between unchunked-paged, "
+          "chunked-paged and chunked-xla")
+    print(f"phase C(a): tokens equal across unchunked paged, chunked paged "
+          f"and chunked xla; K8 launches = decode steps x {N_LAYERS} "
+          f"in the kernel runs, none in the xla run")
+
+    # (b) open loop: the same stream on a Poisson clock (2 requests/s),
+    # through a warm unchunked engine and a warm chunked one
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def engine(chunk_budget=None):
+        return ContinuousEngine(arch, params, max_batch=4, max_len=max_len,
+                                policy="fp32", prefill_bucket=16,
+                                block_size=16, attn_kernel="paged",
+                                chunk_budget=chunk_budget)
+
+    engines = {"unchunked": engine(), "chunked": engine(64)}
+    engines["chunked"]._admission.warmup()
+    warm_itl = []
+    for name, eng in engines.items():
+        warm = chunked_stream(vocab, n=6, seed=11)
+        eng.run(warm)
+        if name == "unchunked":
+            warm_itl = [g for r in warm for g in r.trace.inter_token_s]
+    # the SLOs of benchmarks/serving_load.py's open-loop workload: 4x the
+    # warm unchunked ITL p50, and a loose TTFT bound
+    itl_slo = 4 * percentile(warm_itl, 50) * 1e3
+    slo = SLO(ttft_ms=max(1000.0, 40 * itl_slo), itl_ms=itl_slo)
+    print(f"phase C(b): SLO from the warm unchunked ITL p50: ttft <= "
+          f"{slo.ttft_ms:.2f} ms, itl <= {slo.itl_ms:.4f} ms")
+    arrivals = poisson_arrivals(12, 2.0, seed=2)
+    open_reports = {}
+    for name, eng in engines.items():
+        reqs = chunked_stream(vocab)
+        steps = eng.steps_run
+        pa.paged_attention_fused.launches = 0
+        wall = OpenLoopDriver(eng, reqs, arrivals).run()
+        torch.cuda.synchronize()
+        n = pa.paged_attention_fused.launches
+        launches[f"open {name}"] = n
+        check(n == (eng.steps_run - steps) * N_LAYERS,
+              f"open loop ({name}): K8 launched {n} times for "
+              f"{eng.steps_run - steps} decode steps x {N_LAYERS}")
+        check([r.generated.tolist() for r in reqs] == want,
+              f"open-loop ({name}) tokens differ from the closed loop's")
+        check(eng.report(wall)["nonfinite_logit_steps"] == 0,
+              f"open loop ({name}): NaN/inf logits")
+        rep = slo_report(reqs, slo, wall)
+        open_reports[name] = rep
+        print(f"open loop ({name}, 12 requests at 2.0/s, Poisson seed 2): "
+              f"goodput {rep['goodput_tokens_per_s']:.2f} tokens/s (all "
+              f"{rep['tokens_per_s']:.2f}), attainment "
+              f"{rep['slo_attainment']:.4f}, ttft p50 "
+              f"{rep['ttft_p50_ms']:.2f} p99 {rep['ttft_p99_ms']:.2f} ms, "
+              f"itl p50 {rep['itl_p50_ms']:.2f} p99 "
+              f"{rep['itl_p99_ms']:.2f} ms, violations ttft "
+              f"{rep['ttft_violations']} itl {rep['itl_violations']}, "
+              f"wall {wall:.2f} s, decode steps {eng.steps_run - steps}, "
+              f"K8 launches {n} (tokens equal (a)'s)")
+    ctrl = engines["chunked"]._admission
+    chunk_ms = time_chunk_forwards(torch, ctrl, vocab)
+    print("chunk forward, median wall of 10 with a synchronize: "
+          + ", ".join(f"{size} rows {ms:.2f} ms"
+                      for size, ms in chunk_ms.items()))
+    # where a forward's time goes: one 32-row chunk (the size most chunks
+    # ran at) and one decode step of 4 slots, each under the profiler
+    tokens = torch.randint(5, vocab, (1, 32), dtype=torch.int32,
+                           device="cuda")
+    positions = torch.arange(32, dtype=torch.int32, device="cuda")[None]
+    cache = ctrl._fresh_cache()
+    profiles = {"chunk forward, 32 rows": print_profile(
+        "chunk forward, 32 rows", *device_profile(
+            torch, lambda: ctrl._fn(32)(ctrl.params, tokens, positions,
+                                        cache)))}
+    eng = engines["unchunked"]
+    for r in chunked_stream(vocab, n=4, seed=12):
+        r.prompt = r.prompt[:64]
+        eng.submit(r)
+    eng.step()                  # admits all four and decodes once
+    check(len(eng.scheduler.active) == 4, "decode profile: not 4 slots")
+    profiles["decode step, 4 slots"] = print_profile(
+        "decode step, 4 slots", *device_profile(torch, eng.step))
+    eng.run()
+    del engines, ctrl, params, eng, cache
+    torch.cuda.empty_cache()
+
+    # (c) bf16 with the tie-stable argmax: equality is printed, not gated
+    bf16 = with_flag(argv, "--precision", "bf16") + [
+        "--sampler", "temperature=0,stable=1"]
+    _, bf_whole, _ = serve_stream(torch, pa, serve_mod, bf16,
+                                  chunked_stream(vocab), "C bf16 unchunked")
+    _, bf_chunk, _ = serve_stream(torch, pa, serve_mod, bf16 + chunk,
+                                  chunked_stream(vocab), "C bf16 chunked")
+    same = sum(a == b for a, b in zip(bf_whole, bf_chunk))
+    parts = [(i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+             for i, (a, b) in enumerate(zip(bf_whole, bf_chunk)) if a != b]
+    print(f"phase C(c): bf16 (stable argmax) unchunked vs chunked paged: "
+          f"{same} of 12 streams equal; first parting (request, token): "
+          f"{parts[0] if parts else None} (not gated)")
+
+    # K8 at this pool's shape: 4 slots, 34-block (544-row) rings
+    args = pa.decode_case(B=4, S=1, n_heads=8, n_kv=4, head_dim=256,
+                          block_size=16, nb=max_len // 16,
+                          dtype=torch.bfloat16, q_dtype=torch.float32,
+                          device="cuda", seed=7)
+    kw = dict(scale=256 ** -0.5, window=4096, softcap=50.0)
+    errs = paged_parity_at(torch, pa, args, kw, "(phase C shape)")
+    plain = [a.clone() for a in args]
+    ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
+    plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
+                       flush)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args, 1)
+    print(f"kernel timing paged_attention_fused (phase C shape: B=4 S=1 "
+          f"nb={max_len // 16}, bf16 arenas, L2 evicted): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"by {bound_by} ({nbytes} bytes, {flops} flops), max |out - "
+          f"plain| {errs['paged_attention_fused']:.3e}")
+    print(f"phase C: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, max_len=max_len, chunk_budget=64,
+                nb=max_len // 16, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs["paged_attention_fused"],
+                chunk_forward_ms=chunk_ms,
+                busy_ms_idle_share=profiles,
+                open_loop={k: {m: v[m] for m in (
+                    "goodput_tokens_per_s", "slo_attainment",
+                    "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+                    "itl_p99_ms")} for k, v in open_reports.items()},
+                bf16_equal_streams=same)
+
+
 def close(torch, err, name, got, want, tol, where=""):
     """assert_close(got, want) and keep the largest finite |got - want|
     in err[name]."""
@@ -995,29 +1259,36 @@ def fused_lamb_timing(torch, arch):
                 bound_ms=bound_ms, clip_bound_ms=clip_bound_ms)
 
 
-def profile_step(torch, step_fn, params, state, batch, n_params):
-    """One training step under torch.profiler: wall time, device busy
-    time (the sum of the kernels' own device times), the idle share, the
-    device time by kernel family, and K1-K3's device time summed over
-    the step's launches beside their bounds summed over the leaves (4,
-    24 and 20 bytes per parameter at 3.35 TB/s)."""
+def device_profile(torch, fn):
+    """fn() under torch.profiler, ended by a synchronize: (wall ms,
+    {kernel: device ms}, {kernel: launches}) from the device-side events
+    only (CPU ops carry their kernels' device time too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, metrics = step_fn(params, state, batch)
-        float(metrics["loss"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}     # device-side events only (CPU ops carry device time
-    counts = {}      # of their kernels too)
+    kernels, counts = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == DeviceType.CUDA and us > 0:
             kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
             counts[e.key] = counts.get(e.key, 0) + e.count
+    return wall_ms, kernels, counts
+
+
+def profile_step(torch, step_fn, params, state, batch, n_params):
+    """One training step under torch.profiler: wall time, device busy
+    time (the sum of the kernels' own device times), the idle share, the
+    device time by kernel family, and K1-K3's device time summed over
+    the step's launches beside their bounds summed over the leaves (4,
+    24 and 20 bytes per parameter at 3.35 TB/s)."""
+    wall_ms, kernels, counts = device_profile(
+        torch, lambda: float(step_fn(params, state, batch)[2]["loss"]))
     busy = sum(kernels.values())
     families = {"lans K1-K4": ("sq_norm_kernel", "lans_phase",
                                "finish_sums_kernel"),
@@ -1629,6 +1900,8 @@ def run() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kernel["spec_verify"] = phase_spec(torch, pa, serve_mod, paged,
                                        paged_tokens, flush)
+    torch.cuda.empty_cache()
+    kernel["chunked_serving"] = phase_chunked(torch, pa, serve_mod, flush)
     del flush
     torch.cuda.empty_cache()
 

@@ -65,12 +65,15 @@ class Arch:
             raise NotImplementedError(f"serving the {self.kind} family is "
                                       f"not ported yet")
 
-    def init_cache(self, batch: int, max_len: int, *, device="cpu"):
+    def init_cache(self, batch: int, max_len: int, *, device="cpu",
+                   clamp_window: bool = True):
         """Pooled per-slot serving cache: `batch` slots of max_len rows
-        (window-sized rings on sliding-window layers), cursors at 0."""
+        (window-sized rings on sliding-window layers unless
+        clamp_window=False, the chunked prefill's cache), cursors at 0."""
         self._serving()
         return dec_lib.init_decoder_cache(self.cfg, batch, max_len,
-                                          device=device)
+                                          device=device,
+                                          clamp_window=clamp_window)
 
     def init_paged_cache(self, batch: int, max_len: int, *,
                          block_size: int = 16, n_blocks=None, device="cpu",

@@ -6,6 +6,8 @@ unless --device cpu.
       --full --precision fp32 --attn-kernel paged --requests 8 \\
       --max-batch 4 --prompt-len 64 --new-tokens 32 --seed 0 \\
       --spec-draft self --spec-k 4 --sampler temperature=0.8,top_k=50
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --chunk-budget 8 --arrival-rate 50 --requests 6
 
 The flags and defaults are those of `repro.launch.serve`, plus
 --device, and so are the flag-compatibility errors (`flag_errors`). It
@@ -19,7 +21,13 @@ PyTorch version on the CPU); xla runs the plain-torch gather. --cache
 dense keeps per-slot rows; --engine static runs the padded lockstep
 baseline in waves of --max-batch; --sampler samples with JAX's keys;
 --spec-draft self|truncated arms speculative decoding with --spec-k
-tokens per round. Flags whose feature is not ported yet raise and say
+tokens per round. --chunk-budget N admits prompts chunk by chunk within
+N tokens per step (chunked prefill; continuous engine, paged pool).
+--arrival-rate R replays the stream as seeded open-loop Poisson traffic
+at R requests/s (arrivals seeded by --seed) instead of submitting it all
+up front, and adds goodput and SLO attainment against --ttft-slo-ms /
+--itl-slo-ms to the report. --sched-policy arrival-deadline admits by
+earliest deadline. Flags whose feature is not ported yet raise and say
 so.
 """
 from __future__ import annotations
@@ -33,8 +41,9 @@ import torch
 from repro_torch import select_device
 from repro_torch.configs import get_arch, reduced_arch
 from repro_torch.metrics import MetricsLogger
-from repro_torch.serving import (ContinuousEngine, ServeEngine,
-                                 aggregate, make_spec_pair,
+from repro_torch.serving import (SLO, ContinuousEngine, OpenLoopDriver,
+                                 ServeEngine, aggregate, make_spec_pair,
+                                 poisson_arrivals, slo_report,
                                  synthetic_requests)
 
 # Flags that configure the continuous engine's PAGED pool (or features
@@ -67,18 +76,18 @@ CONTINUOUS_ONLY_FLAGS = (
 # (flag, requested?) for features of repro.launch.serve the port does not
 # have yet and that no layer below the CLI sees: each raises "not yet
 # ported" instead of running something else. An unported arch or model
-# family, or scheduling policy, is rejected by the registry, Arch or
-# scheduler it reaches. The fp16 policy exists (training uses it) but
-# fp16 serving is not ported.
+# family, or the prefix-affinity policy, is rejected by the registry,
+# Arch or scheduler it reaches. The fp16 policy exists (training uses
+# it) but fp16 serving is not ported (the paged kernel takes fp32 and
+# bf16 queries only). --interpret is the Pallas kernel's, which the port
+# has no counterpart of.
 NOT_PORTED_FLAGS = (
     ("--precision fp16", lambda a: a.precision == "fp16"),
     ("--task", lambda a: a.task != "generate"),
     ("--shared-inputs", lambda a: a.shared_inputs != 0),
-    ("--chunk-budget", lambda a: a.chunk_budget is not None),
     ("--mesh", lambda a: a.mesh is not None),
     ("--replicas", lambda a: a.replicas != 1),
     ("--route-policy", lambda a: a.route_policy is not None),
-    ("--arrival-rate", lambda a: a.arrival_rate is not None),
     ("--interpret", lambda a: a.interpret),
 )
 
@@ -160,7 +169,12 @@ def build_parser():
                          "hand-written kernel, 'xla' the plain-torch "
                          "gather (token-identical). Default: the arch's")
     ap.add_argument("--interpret", action="store_true")
-    ap.add_argument("--chunk-budget", type=int, default=None)
+    ap.add_argument("--chunk-budget", type=int, default=None,
+                    help="per-step token budget of chunked-prefill "
+                         "admission: prompts prefill chunk by chunk in "
+                         "the decode loop's spare capacity (continuous "
+                         "engine + paged cache only; token-identical to "
+                         "whole-prompt prefill)")
     ap.add_argument("--spec-draft", default="none",
                     choices=["none", "self", "truncated"],
                     help="speculative draft-verify decode: 'self' drafts "
@@ -175,9 +189,16 @@ def build_parser():
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--route-policy", default=None,
                     choices=["prefix", "depth", "rr"])
-    ap.add_argument("--arrival-rate", type=float, default=None)
-    ap.add_argument("--ttft-slo-ms", type=float, default=1000.0)
-    ap.add_argument("--itl-slo-ms", type=float, default=200.0)
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="open-loop Poisson arrival rate in requests/s: "
+                         "submit on the arrival clock instead of all up "
+                         "front, and report goodput/SLO attainment "
+                         "(continuous engine only; default closed loop)")
+    ap.add_argument("--ttft-slo-ms", type=float, default=1000.0,
+                    help="open-loop TTFT bound (submit -> first token)")
+    ap.add_argument("--itl-slo-ms", type=float, default=200.0,
+                    help="open-loop bound on every inter-token gap; one "
+                         "violation disqualifies the whole stream")
     ap.add_argument("--sampler", default="greedy",
                     help="'greedy' or 'temperature=0.8,top_k=40,"
                          "top_p=0.95,seed=0' (temperature=0 == greedy; "
@@ -191,9 +212,11 @@ def build_parser():
     return ap
 
 
-def main(argv=None):
+def main(argv=None, requests=None):
     """Parse `argv` (default: sys.argv), serve, print the JSON report.
-    Returns (report dict, completed requests)."""
+    Returns (report dict, completed requests). `requests` (a list of
+    Request) replaces the synthetic stream, e.g. a caller's own mix;
+    the pool's length still comes from the flags."""
     args = build_parser().parse_args(argv)
     errs = flag_errors(args)
     if errs:
@@ -206,10 +229,21 @@ def main(argv=None):
         engine, reqs, log, device = _build(args)
     except NotImplementedError as e:     # a feature not ported yet
         raise SystemExit(str(e)) from None
+    if requests is not None:
+        reqs = requests
     t0 = time.perf_counter()
     if args.engine == "continuous":
-        done = engine.run(reqs)
-        stats = engine.report(time.perf_counter() - t0)
+        if args.arrival_rate is not None:
+            arrivals = poisson_arrivals(len(reqs), args.arrival_rate,
+                                        seed=args.seed)
+            wall = OpenLoopDriver(engine, reqs, arrivals).run()
+            stats = engine.report(wall)
+            stats.update(slo_report(
+                reqs, SLO(args.ttft_slo_ms, args.itl_slo_ms), wall))
+        else:
+            engine.run(reqs)
+            stats = engine.report(time.perf_counter() - t0)
+        done = engine.scheduler.completed
         attn_kernel = engine.pool.attn_kernel if engine.paged else "xla"
     else:
         for r in reqs:          # TTFT includes the inter-wave queue wait
@@ -278,7 +312,7 @@ def _build(args):
         attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
         sched_policy=args.sched_policy, slo_ms=args.slo_ms,
         preempt=args.preempt, retain_blocks=args.retain_blocks,
-        watermark=args.watermark, **spec_kw)
+        watermark=args.watermark, chunk_budget=args.chunk_budget, **spec_kw)
     return engine, reqs, log, device
 
 

@@ -240,6 +240,9 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
     if kv != h:
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
+    # a chunk of a chunked prefill (S >= 2 rows on the dense cache) keeps
+    # decode False, the prefill's numerics: hence chunks of >= 2 rows
+    # (serving/admission.chunk_granularity)
     decode = attend_cached and (S == 1 or paged)
     kw = dict(scale=scale, decode=decode, compute_dtype=compute_dtype)
     qb = cfg.q_block

@@ -292,16 +292,24 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
 
 
 def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
-                       dtype=torch.bfloat16, *, device="cpu"):
+                       dtype=torch.bfloat16, *, device="cpu",
+                       clamp_window: bool = True):
     """Pooled per-slot caches stacked per superblock slot; "attn_local"
     slots get ring buffers of the window size. KV is stored in `dtype`
     (bf16 by default, as in the JAX package, whatever the compute
-    precision)."""
+    precision).
+
+    clamp_window=False gives "attn_local" slots the full max_len rows
+    too: the chunk-resumable prefill cache (serving/admission.py). Every
+    prompt chunk then takes attention's incremental write path, never
+    the roll branch (which assumes a prefill from scratch), the window
+    is enforced by the mask instead of the ring, and the paged pool's
+    insert picks the window's tail out of the full-length rows."""
     slots = []
     for mixer, ffn in cfg.superblock:
         _check_slot(mixer, ffn)
         L = max_len
-        if mixer == "attn_local" and cfg.sliding_window:
+        if clamp_window and mixer == "attn_local" and cfg.sliding_window:
             L = min(max_len, cfg.sliding_window)
         slots.append(attn_lib.init_kv_cache(
             batch, L, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,

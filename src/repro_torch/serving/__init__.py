@@ -10,14 +10,24 @@
   Sampler            temperature/top-k/top-p decode with JAX's threefry
                      keys (greedy and the bf16 tie-stable argmax too)
   fold_keys          per-token keys fold_in(request key, token index)
+  throughput_probe   warm-up-aware timed run -> tokens/s + percentiles
   Scheduler          ticketed slot admission (host side)
-  SchedulingPolicy   fifo admission / victim / SLO policy
+  SchedulingPolicy   admission / victim / SLO policy (fifo |
+                     arrival-deadline; see serving/scheduler.py)
   CachePool          dense per-slot KV pool (baseline, speculative draft)
   PagedCachePool     block-paged KV arena with shared prompt prefixes,
                      lazy chain growth and a retained-prefix LRU
   BlockAllocator     refcounted free list over arena blocks
   BlockTableMap      per-slot-type tables + prefix registry (host side)
+  AdmissionController  chunked-prefill admission: one resumable prompt
+                     chunk per step, fused into the decode token budget
+  plan_chunk         the budget partition (size + active <= budget)
+  SLO / OpenLoopDriver / poisson_arrivals / slo_report
+                     open-loop traffic: seeded Poisson arrivals with
+                     TTFT/ITL SLOs and goodput accounting (traffic.py)
 """
+from repro_torch.serving.admission import (AdmissionController, PrefillTask,
+                                           chunk_granularity, plan_chunk)
 from repro_torch.serving.block_allocator import (BlockAllocator,
                                                  BlockTableMap, NoBlocksError)
 from repro_torch.serving.cache_pool import CachePool, PagedCachePool
@@ -26,19 +36,26 @@ from repro_torch.serving.engine import (ContinuousEngine, Request,
                                         build_first_token_fn,
                                         build_prefill_fn, make_spec_pair,
                                         pad_prompts, prompt_granularity,
-                                        synthetic_requests)
+                                        synthetic_requests, throughput_probe)
 from repro_torch.serving.metrics import (DepthTracker, RequestTrace,
                                          aggregate, hit_rate, percentile)
 from repro_torch.serving.sampler import Sampler, fold_keys, stable_argmax
-from repro_torch.serving.scheduler import (PolicyContext, Scheduler,
+from repro_torch.serving.scheduler import (ArrivalDeadlinePolicy,
+                                           PolicyContext, Scheduler,
                                            SchedulerError, SchedulingPolicy)
+from repro_torch.serving.traffic import (SLO, OpenLoopDriver,
+                                         bimodal_requests, meets_slo,
+                                         poisson_arrivals, slo_report)
 
 __all__ = [
-    "BlockAllocator", "BlockTableMap", "CachePool", "ContinuousEngine",
-    "DepthTracker", "NoBlocksError", "PagedCachePool", "PolicyContext",
-    "Request", "RequestTrace", "Sampler", "Scheduler", "SchedulerError",
-    "SchedulingPolicy", "ServeEngine", "aggregate", "apply_serving_policy",
-    "build_first_token_fn", "build_prefill_fn", "fold_keys", "hit_rate",
-    "make_spec_pair", "pad_prompts", "percentile", "prompt_granularity",
-    "stable_argmax", "synthetic_requests",
+    "AdmissionController", "ArrivalDeadlinePolicy", "BlockAllocator",
+    "BlockTableMap", "CachePool", "ContinuousEngine", "DepthTracker",
+    "NoBlocksError", "OpenLoopDriver", "PagedCachePool", "PolicyContext",
+    "PrefillTask", "Request", "RequestTrace", "SLO", "Sampler", "Scheduler",
+    "SchedulerError", "SchedulingPolicy", "ServeEngine", "aggregate",
+    "apply_serving_policy", "bimodal_requests", "build_first_token_fn",
+    "build_prefill_fn", "chunk_granularity", "fold_keys", "hit_rate",
+    "make_spec_pair", "meets_slo", "pad_prompts", "percentile",
+    "plan_chunk", "poisson_arrivals", "prompt_granularity", "slo_report",
+    "stable_argmax", "synthetic_requests", "throughput_probe",
 ]

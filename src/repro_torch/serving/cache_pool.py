@@ -240,12 +240,15 @@ class PagedCachePool:
     # ---------------- admission ----------------
 
     def admission_plan(self, prompt, plen: int, padded_len: int,
-                       budget: int) -> dict:
+                       budget: int, *, share: Optional[bool] = None) -> dict:
         """{slot-type: fresh blocks + retained revivals} an insert would
-        consume; lazy growth counts prompt-backed positions only."""
+        consume; lazy growth counts prompt-backed positions only. `share`
+        overrides share_prefix for this plan (a chunked admission passes
+        False: see insert)."""
+        if share is None:
+            share = self.share_prefix
         return {si: sum(m.admission_plan(prompt, plen, padded_len, budget,
-                                         self.share_prefix,
-                                         lazy=self.growth == "lazy"))
+                                         share, lazy=self.growth == "lazy"))
                 for si, m in self.maps.items()}
 
     def admissible_blocks(self) -> dict:
@@ -254,19 +257,26 @@ class PagedCachePool:
         return {si: m.admissible() for si, m in self.maps.items()}
 
     def insert(self, request_cache: PyTree, slot: int, *, prompt,
-               plen: int, padded_len: int, budget: int):
+               plen: int, padded_len: int, budget: int,
+               share: Optional[bool] = None):
         """Admit a prefilled request: reserve its block chain, write the
         fresh blocks, share/revive prefix blocks without copying, and set
         the slot's cursor to plen. Atomic: on NoBlocksError nothing is
-        left allocated and the arenas are untouched."""
+        left allocated and the arenas are untouched. `share` overrides
+        share_prefix for this insert: a chunked prefill passes False (its
+        chunks change the reduction shapes, so its KV is not bit for bit
+        a whole prefill's and must never be content-addressed). The
+        request cache may be longer than a ring (the chunked prefill's
+        unclamped sliding-window rows): _src_rows takes the ring's tail."""
         if not (0 <= slot < self.max_batch):
             raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+        if share is None:
+            share = self.share_prefix
         placed = {}
         try:
             for si, m in self.maps.items():
                 placed[si] = m.insert(slot, prompt, plen, padded_len, budget,
-                                      self.share_prefix,
-                                      lazy=self.growth == "lazy")
+                                      share, lazy=self.growth == "lazy")
         except NoBlocksError:
             for si in placed:
                 self.maps[si].rollback_insert(slot, placed[si])

@@ -39,8 +39,20 @@ emitted + i). A round where some slot emitted fewer than K rolls both
 pools back: cursors rewind and the stale rows' positions drop to -1.
 The paged rings carry a K - 1 row margin (models/decoder.paged_layout).
 
-Not ported yet: chunked prefill, meshes, the encoder-decoder and BERT
-families and batch-1 `run_one`.
+Chunked prefill (`chunk_budget=N`, paged pool only, not with a draft):
+admission starts at most one prefill task at a time and advances it by
+one chunk per step, sized so that chunk rows + decoding slots <= N
+(serving/admission.py); the chunks run eagerly against the task's own
+dense cache (no paged kernel), and the decode step between them is the
+usual one. The task's slot stays out of the decode batch until its
+last chunk lands and its cache is inserted (share=False: chunked blocks
+are never content-addressed). The admission gate holds back one block
+per decoding slot on top of the pool's watermark, since the blocks are
+taken only at the insert; an insert that still finds the arena short
+requeues the request, and the continuation re-chunks identically.
+
+Not ported yet: meshes, the encoder-decoder and BERT families, the
+prefix-affinity policy and batch-1 `run_one`.
 """
 from __future__ import annotations
 
@@ -54,6 +66,8 @@ import torch
 from repro_torch.core.optim.base import tree_map
 from repro_torch.distributed.steps import (build_serve_step,
                                            build_verify_step, greedy_next)
+from repro_torch.serving.admission import (AdmissionController,
+                                           chunk_granularity)
 from repro_torch.serving.block_allocator import NoBlocksError
 from repro_torch.serving.cache_pool import CachePool, PagedCachePool
 from repro_torch.serving.metrics import DepthTracker, RequestTrace, aggregate
@@ -242,15 +256,18 @@ class ContinuousEngine:
                  attn_kernel: Optional[str] = None, growth: str = "lazy",
                  sched_policy="fifo", slo_ms: Optional[float] = None,
                  preempt: bool = True, retain_blocks: Optional[int] = None,
-                 watermark: int = 0, spec_draft=None, spec_k: int = 4):
-        """Args as the JAX engine's for the decoder path (mesh, chunking
-        and the other families excepted). Caches live on the device of
-        the params. cache "paged" or "dense"; attn_kernel "paged" runs the
+                 watermark: int = 0, spec_draft=None, spec_k: int = 4,
+                 chunk_budget: Optional[int] = None):
+        """Args as the JAX engine's for the decoder path (mesh and the
+        other families excepted). Caches live on the device of the
+        params. cache "paged" or "dense"; attn_kernel "paged" runs the
         hand-written kernel, "xla" the plain-torch gather (paged pool
         only), None adopts arch.cfg.attn_kernel. spec_draft=(draft_arch,
         draft_params) enables speculative decoding with spec_k (>= 2)
         tokens per round; it needs the paged pool and attention-only
-        superblocks on both models."""
+        superblocks on both models. chunk_budget=N admits prompts chunk
+        by chunk within N tokens per step (paged pool only; prefill_bucket
+        rounds up to the chunk granularity)."""
         if arch.kind != "decoder":
             raise NotImplementedError(
                 f"serving {arch.kind} archs is not ported yet")
@@ -274,6 +291,9 @@ class ContinuousEngine:
                 raise ValueError(
                     "speculative decoding requires cache='paged' "
                     "(rollback and the row margin are paged-pool features)")
+            if chunk_budget is not None:
+                raise ValueError("speculative decoding and chunked "
+                                 "prefill are mutually exclusive")
             draft_arch, draft_params = spec_draft
             for who, a in (("target", arch), ("draft", draft_arch)):
                 if any(m == "mamba" for m, _ in a.cfg.superblock):
@@ -297,6 +317,18 @@ class ContinuousEngine:
         self.sampler = Sampler.parse(sampler)
         self.prefill_bucket = max(prefill_bucket,
                                   prompt_granularity(self.arch.cfg))
+        self.chunk_budget = chunk_budget
+        if chunk_budget is not None:
+            if not self.paged:
+                raise ValueError(
+                    "chunk_budget requires cache='paged': the chunked "
+                    "prefill cache is unclamped (full-length sliding-"
+                    "window rows) and only the paged insert can take "
+                    "its window tail")
+            # padded prompt lengths must divide into chunk-granularity
+            # multiples or the final chunk could be unreachable
+            g = chunk_granularity(self.arch.cfg)
+            self.prefill_bucket = -(-self.prefill_bucket // g) * g
         if self.paged:
             if retain_blocks is None:
                 # one BATCH's worth of blocks: a multi-tenant set of hot
@@ -332,6 +364,11 @@ class ContinuousEngine:
         self._step = build_serve_step(decode, sampler=self.sampler)
         self._prefill = build_prefill_fn(self.arch, self._prefill_len)
         self._first, self._wants_keys = build_first_token_fn(self.sampler)
+        self._admission = None
+        if chunk_budget is not None:
+            self._admission = AdmissionController(
+                self.arch, self.params, chunk_budget=chunk_budget,
+                prefill_len=self._prefill_len)
         if self.spec:
             self.draft_arch, self.draft_params = apply_serving_policy(
                 draft_arch, draft_params, policy)
@@ -419,10 +456,34 @@ class ContinuousEngine:
         plen = max(self._plen(req), 1)
         return -(-plen // self.prefill_bucket) * self.prefill_bucket
 
+    def _decode_slots(self) -> list:
+        """Active slots that decode this step: every scheduler-active
+        slot except the one bound to an in-flight chunked-prefill task
+        (it holds no pool blocks yet, its position is -1, and growth,
+        preemption and SLO eviction must not see it until its insert).
+        Without a controller this is sorted(scheduler.active)."""
+        skip = None
+        if self._admission is not None and self._admission.task is not None:
+            skip = self._admission.task.slot
+        return sorted(s for s in self.scheduler.active if s != skip)
+
     def _policy_ctx(self) -> PolicyContext:
+        """Snapshot for the scheduling policy. Under chunked admission a
+        preemption's continuation is metered chunk work, so the policy
+        gets its exact size (resume_cost) for the base victim rule."""
+        resume_cost = None
+        if self._admission is not None:
+            def resume_cost(slot):
+                req = self.scheduler.active.get(slot)
+                if req is None:
+                    return 0
+                return len(req.prompt) + len(self._emitted.get(slot, ()))
         return PolicyContext(now=time.perf_counter(),
                              admit_seq=self._admit_seq,
-                             admit_t=self._admit_time)
+                             admit_t=self._admit_time,
+                             active=self.scheduler.active,
+                             submit_t=lambda r: r.trace.submit_t,
+                             resume_cost=resume_cost)
 
     def _fits(self, req: Request, pending: dict):
         """Would this request's block plan fit beside the admissions
@@ -526,6 +587,97 @@ class ContinuousEngine:
             if failed:
                 return
 
+    def _fits_chunked(self, req: Request) -> bool:
+        """Admission gate of a chunked prefill. Its blocks are taken
+        only at the insert, many steps after this decision, while every
+        decoding slot keeps growing: so on top of the pool's watermark
+        the gate holds back one block per decoding slot. Plans with
+        share=False, as the insert does. A stale True corrupts nothing:
+        the insert's NoBlocksError requeues the request."""
+        budget = req.max_new_tokens - len(self._resume_of(req))
+        need = self.pool.admission_plan(self._full_prompt(req),
+                                        self._plen(req),
+                                        self._padded_len(req), budget,
+                                        share=False)
+        hold = len(self._decode_slots())
+        avail = self.pool.admissible_blocks()
+        return all(n + hold <= avail[si] for si, n in need.items())
+
+    def _next_task_fits(self) -> bool:
+        """Chunked mode, nothing active or prefilling: does the policy's
+        next pick fit the (then empty) arena? A task that finalized and
+        finished at admission in this step leaves the engine so, and the
+        next step starts the next task. (The JAX engine raises "cannot
+        fit an empty paged arena" there: ROADMAP.md, Queue 3.)"""
+        if self._admission is None:
+            return False
+        i = self.sched_policy.pick(self.scheduler.queue_items(),
+                                   self._policy_ctx())
+        return self._fits_chunked(self.scheduler.peek(i))
+
+    def _admit_chunked(self):
+        """Start at most one prefill task (policy-picked, block-gated),
+        advance it by one budget-sized chunk, and on its last chunk
+        insert its cache and emit the first token, with _admit's
+        bookkeeping. The slot joins the decode batch in the same step."""
+        ctrl = self._admission
+        if ctrl.task is None and self.scheduler.free_slots \
+                and self.scheduler.queued:
+            i = self.sched_policy.pick(self.scheduler.queue_items(),
+                                       self._policy_ctx())
+            req = self.scheduler.peek(i)
+            if self._fits_chunked(req):
+                slot, req = self.scheduler.assign_at(i)
+                prompt = self._full_prompt(req)
+                padded = self._padded_len(req)
+                tokens, positions, _ = pad_prompts(
+                    [prompt], self.prefill_bucket, pad_len=padded)
+                ctrl.start(req, slot, tokens, positions,
+                           plen=len(prompt), padded_len=padded,
+                           resume_len=len(self._resume_of(req)),
+                           prompt=prompt)
+        task = ctrl.task
+        if task is None:
+            return
+        ctrl.advance(len(self._decode_slots()))
+        if not task.finished:
+            return
+        req, slot = task.req, task.slot
+        resume = self._resume_of(req)
+        try:
+            self.pool.insert(task.cache, slot, prompt=task.prompt,
+                             plen=task.plen, padded_len=task.padded_len,
+                             budget=req.max_new_tokens - len(resume),
+                             share=False)
+        except NoBlocksError:
+            # decoding slots grew past the gate's dynamic watermark:
+            # requeue at the arrival ticket, the continuation state
+            # stays parked, and re-admission re-chunks exactly
+            self.scheduler.requeue(slot)
+            ctrl.drop()
+            return
+        self._count_nonfinite(task.last_logits)
+        first, rkeys = first_tokens(self._first, self.sampler,
+                                    self._wants_keys, task.last_logits,
+                                    [req], token_idx=[task.resume_len])
+        now = time.perf_counter()
+        self._resume.pop(req.rid, None)
+        t0 = int(first[0])
+        if req.trace.admit_t is None:   # the FIRST admission
+            req.trace.admit_t = now     # counts for TTFT
+        req.trace.mark_token(now)
+        self._emitted[slot] = list(resume) + [t0]
+        self._tokens[slot, 0] = t0
+        self._positions[slot, 0] = task.plen
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        self._admit_time[slot] = now
+        if rkeys is not None:
+            self._req_keys[slot] = rkeys[0]
+        ctrl.drop()
+        if len(self._emitted[slot]) >= req.max_new_tokens:
+            self._finish(slot)
+
     def _preempt(self, slot: int):
         """Evict a mid-decode victim: blocks freed, generated tokens
         parked as continuation state, request requeued by arrival."""
@@ -541,7 +693,7 @@ class ContinuousEngine:
         every real verify row of a speculative round), preempting the
         policy's victim when the arena is exhausted. Oldest admissions
         grow first, so the oldest request always progresses."""
-        for slot in sorted(self.scheduler.active,
+        for slot in sorted(self._decode_slots(),
                            key=lambda s: self._admit_seq.get(s, 0)):
             if slot not in self.scheduler.active:
                 continue            # preempted as a victim earlier in loop
@@ -566,7 +718,7 @@ class ContinuousEngine:
                                 "paged arena exhausted mid-decode with "
                                 "preemption disabled: raise slots_budget "
                                 "/ watermark, or enable preempt")
-                        candidates = sorted(self.scheduler.active)
+                        candidates = self._decode_slots()
                         victim = self.sched_policy.victim(
                             candidates, self._policy_ctx())
                         if victim == slot and len(candidates) == 1:
@@ -584,7 +736,7 @@ class ContinuousEngine:
         if self.sched_policy.slo_s is None or not self.scheduler.active:
             return
         ctx = self._policy_ctx()
-        for slot in sorted(self.scheduler.active):
+        for slot in self._decode_slots():
             if self.sched_policy.overdue(slot, ctx):
                 self.scheduler.active[slot].trace.evicted_slo = True
                 self._finish(slot)
@@ -599,15 +751,21 @@ class ContinuousEngine:
         one decode step (or speculative round) over the active slots.
         False when idle."""
         self._evict_overdue()
-        self._admit()
+        if self._admission is not None:
+            self._admit_chunked()
+        else:
+            self._admit()
         if self.paged and self.pool.growth == "lazy":
             self._grow_active()
             self.pool.flush_growth()
-        active = sorted(self.scheduler.active)
+        active = self._decode_slots()
         self.max_concurrent = max(self.max_concurrent, len(active))
         self._depth.sample(self.scheduler.queued)
         if not active:
-            if self.scheduler.queued:
+            prefilling = (self._admission is not None
+                          and self._admission.task is not None)
+            if self.scheduler.queued and not prefilling \
+                    and not self._next_task_fits():
                 req = self.scheduler.peek()
                 raise RuntimeError(
                     f"request rid={req.rid} (prompt {len(req.prompt)}, "
@@ -775,7 +933,8 @@ class ContinuousEngine:
         """Throughput/latency stats of the completed requests plus slot
         utilization, decode steps, peak concurrency, queue depth,
         preemptions, the number of steps whose logits were not all
-        finite, (paged) prefix-block hits and (speculative) rounds and
+        finite, (paged) prefix-block hits, (chunked) chunk forwards,
+        rows and forwards per chunk size, and (speculative) rounds and
         acceptance."""
         done = self.scheduler.completed
         stats = aggregate([r.trace for r in done], wall_s,
@@ -794,6 +953,12 @@ class ContinuousEngine:
             stats["retained_block_hits"] = self.pool.retained_hits
             stats["prefix_misses"] = self.pool.prefix_misses
             stats["retained_hit_rate"] = self.pool.retained_hit_rate
+        if self._admission is not None:
+            stats["chunk_budget"] = self.chunk_budget
+            stats["chunk_steps"] = self._admission.chunks_run
+            stats["chunk_tokens"] = self._admission.chunk_tokens
+            stats["chunk_sizes"] = dict(sorted(
+                self._admission.size_counts.items()))
         if self.spec:
             stats["spec_k"] = self.spec_k
             stats["spec_rounds"] = self.spec_rounds
@@ -877,3 +1042,25 @@ class ServeEngine:
             r.generated = gen[i, :r.max_new_tokens]
             r.trace.done_t = r.trace.token_ts[-1]
         return requests
+
+
+def throughput_probe(engine, requests: List[Request], *,
+                     warmup: bool = True) -> dict:
+    """Timed run over `requests`: tokens/s and latency percentiles.
+    warmup=True first runs a shape-identical clone of the request set, so
+    that first-use costs (cuBLAS's kernel choice for each prefill and
+    decode shape, the allocator's segments) stay out of the measured wall
+    clock. On CUDA the host syncs on every step's tokens, so the wall
+    clock ends with the device's work."""
+    if warmup:
+        clones = [Request(prompt=r.prompt.copy(),
+                          max_new_tokens=r.max_new_tokens)
+                  for r in requests]
+        engine.run_batch(clones)
+    t0 = time.perf_counter()
+    done = engine.run_batch(requests)
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.generated) for r in done)
+    stats = aggregate([r.trace for r in done], dt, toks)
+    stats["warmup"] = warmup
+    return stats

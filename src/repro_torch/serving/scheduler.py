@@ -1,6 +1,6 @@
-"""Slot scheduler + the fifo policy for the continuous-batching engine
-(port of repro/serving/scheduler.py; pure host code). The
-arrival-deadline and prefix-affinity policies are not ported yet.
+"""Slot scheduler + the fifo and arrival-deadline policies for the
+continuous-batching engine (port of repro/serving/scheduler.py; pure
+host code). The prefix-affinity policy is not ported yet.
 
 Host-side admission control over a fixed pool of decode slots, split in
 two layers:
@@ -26,7 +26,13 @@ never mutate scheduler state, so any policy composes with the same
 engine invariants:
 
   fifo             admit in arrival order; preempt the youngest
-                   admission (it has the least work to redo).
+                   admission (it has the least work to redo), or under
+                   chunked admission the slot whose continuation
+                   re-chunks the fewest tokens.
+  arrival-deadline admit by earliest deadline (arrival + SLO); preempt
+                   the slot with the latest deadline. With a uniform SLO
+                   this is arrival-time-aware FIFO that also ranks
+                   preemption victims by arrival.
 
 SLO eviction (`slo_s`) is orthogonal to the admission order: any policy
 evicts a slot whose request has been running longer than the SLO since
@@ -40,10 +46,11 @@ import collections
 import copy
 import dataclasses
 import itertools
-from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple)
 
 
-NOT_PORTED = ("arrival-deadline", "prefix-affinity")
+NOT_PORTED = ("prefix-affinity",)
 
 
 class SchedulerError(RuntimeError):
@@ -182,11 +189,25 @@ class PolicyContext:
     admit_seq: slot -> monotone admission sequence number (higher =
         admitted later; survives slot reuse).
     admit_t: slot -> admission wall-clock time (RESETS on every
-        re-admission of a preempted request).
+        re-admission of a preempted request — use submit_t for
+        arrival/deadline ranking, which a continuation keeps).
+    active: slot -> in-flight request (victim selection ranks these).
+    submit_t: callable(request) -> submission wall-clock time.
+    prefix_warm: always None in the port (the prefix-affinity policy and
+        the pool's warm-prefix probe are not ported yet).
+    resume_cost: callable(slot) -> tokens a preemption of that slot
+        would re-prefill (prompt + generated so far). Set only under
+        chunked admission, where re-prefilling is metered chunk work;
+        the base victim rule then minimizes it. None keeps the
+        youngest-admission victim.
     """
     now: float = 0.0
     admit_seq: Dict[int, int] = dataclasses.field(default_factory=dict)
     admit_t: Dict[int, float] = dataclasses.field(default_factory=dict)
+    active: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    submit_t: Callable[[Any], float] = lambda req: 0.0
+    prefix_warm: Optional[Callable[[Any], bool]] = None
+    resume_cost: Optional[Callable[[int], int]] = None
 
 
 class SchedulingPolicy:
@@ -210,7 +231,14 @@ class SchedulingPolicy:
     def victim(self, slots: Sequence[int], ctx: PolicyContext) -> int:
         """Default: the youngest admission — it has generated the least
         (its continuation prefill redoes the least work) and preempting
-        it keeps arrival order intact when it re-enters the queue."""
+        it keeps arrival order intact when it re-enters the queue.
+
+        With a resume_cost in the context (chunked admission) the proxy
+        becomes exact: the slot whose continuation re-chunks the FEWEST
+        tokens, ties broken by youngest admission."""
+        if ctx.resume_cost is not None:
+            return min(slots, key=lambda s: (ctx.resume_cost(s),
+                                             -ctx.admit_seq.get(s, -1)))
         return max(slots, key=lambda s: ctx.admit_seq.get(s, -1))
 
     # -- SLO: should this active slot be evicted early? ---------------
@@ -225,7 +253,7 @@ class SchedulingPolicy:
         """Policy instance from a spec: an existing policy passes
         through — COPIED if an slo_s must be attached, so one policy
         object shared across engines never inherits another engine's
-        SLO; the name "fifo" constructs one."""
+        SLO; a name in {fifo, arrival-deadline} constructs one."""
         if isinstance(spec, SchedulingPolicy):
             if slo_s is not None and spec.slo_s is None:
                 spec = copy.copy(spec)
@@ -233,11 +261,39 @@ class SchedulingPolicy:
             return spec
         if spec is None:
             spec = "fifo"
+        policies = {p.name: p for p in (SchedulingPolicy,
+                                        ArrivalDeadlinePolicy)}
         if spec in NOT_PORTED:
             raise NotImplementedError(
                 f"scheduling policy {spec!r} is not ported yet; "
-                f"ported: fifo")
-        if spec != cls.name:
+                f"ported: {', '.join(sorted(policies))}")
+        if spec not in policies:
             raise ValueError(
-                f"unknown scheduling policy {spec!r}: expected fifo")
-        return cls(slo_s=slo_s)
+                f"unknown scheduling policy {spec!r}: "
+                f"expected one of {sorted(policies)}")
+        return policies[spec](slo_s=slo_s)
+
+
+class ArrivalDeadlinePolicy(SchedulingPolicy):
+    """Earliest-deadline-first admission over deadline = submit + SLO.
+
+    With one global SLO this equals arrival-time order, but it stays
+    arrival-aware through preemption churn (a continuation keeps its
+    submit time, hence its deadline) and ranks preemption victims by
+    slack: the latest submit time has the most room to absorb a requeue.
+    Ranking by admission time would invert this under churn: a
+    re-admitted continuation always carries the newest admit_t and would
+    be preempted again and again."""
+
+    name = "arrival-deadline"
+
+    def pick(self, queue, ctx):
+        return min(range(len(queue)),
+                   key=lambda i: (ctx.submit_t(queue[i][1]), queue[i][0]))
+
+    def victim(self, slots, ctx):
+        def deadline(s):
+            req = ctx.active.get(s)
+            return (ctx.submit_t(req) if req is not None else 0.0,
+                    ctx.admit_seq.get(s, -1))
+        return max(slots, key=deadline)

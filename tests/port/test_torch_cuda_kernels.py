@@ -569,3 +569,38 @@ def test_cuda_split_kv_repeats_bit_for_bit(dtype):
     assert torch.equal(k8[0], k8[1])
     for a, b in zip(copies[0][3:6], copies[1][3:6]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("attn_kernel", ["paged", "xla"])
+def test_cuda_chunked_engine_matches_unchunked(attn_kernel):
+    """Needs the card: reduced gemma2-2b (2 layers, block 8) served on
+    CUDA with chunked-prefill admission (budget 6) gives the whole-prompt
+    engine's greedy fp32 tokens; with the kernel path K8 launches
+    decode steps x layers times in each run (chunk forwards, on the
+    task's dense cache, launch none), with the gather path none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import reduced_arch
+    from repro_torch.serving import ContinuousEngine, Request
+    arch = reduced_arch("gemma2-2b")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    spec = [(7, 4), (23, 6), (5, 1), (17, 3), (11, 4), (21, 9)]
+    runs = []
+    for chunk_budget in (None, 6):
+        reqs = [Request(prompt=np.random.default_rng([1, i]).integers(
+                            5, arch.cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=m) for i, (n, m) in enumerate(spec)]
+        eng = ContinuousEngine(arch, params, max_batch=3, max_len=48,
+                               policy="fp32", block_size=8, prefill_bucket=8,
+                               attn_kernel=attn_kernel,
+                               chunk_budget=chunk_budget)
+        pa.paged_attention_fused.launches = 0
+        eng.run_batch(reqs)
+        rep = eng.report(1.0)
+        want = rep["decode_steps"] * arch.cfg.n_layers
+        assert pa.paged_attention_fused.launches == (
+            want if attn_kernel == "paged" else 0)
+        assert rep["nonfinite_logit_steps"] == 0
+        runs.append([r.generated.tolist() for r in reqs])
+    assert rep["chunk_steps"] > 0
+    assert runs[0] == runs[1]

@@ -12,7 +12,8 @@ from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import synthetic_requests as jax_requests
 from repro.serving.block_allocator import BlockTableMap as JaxMap
 from repro_torch.launch import serve as tserve
-from repro_torch.serving import ContinuousEngine, synthetic_requests
+from repro_torch.serving import (ContinuousEngine, Request,
+                                 synthetic_requests)
 from repro_torch.serving.block_allocator import BlockTableMap
 
 
@@ -158,6 +159,7 @@ ENGINES = {
     "paged-xla": dict(attn_kernel="xla"),
     "dense": dict(cache="dense"),
     "paged-spec": dict(attn_kernel="paged", spec_k=3),
+    "paged-chunked": dict(attn_kernel="paged", chunk_budget=4),
     "dense-sampled": dict(cache="dense",
                           sampler="temperature=0.8,top_k=20,seed=3"),
     "static": None,
@@ -222,8 +224,9 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--chunk-budget", "32"], ["--mesh", "2x1"], ["--replicas", "2"],
-    ["--arrival-rate", "5"], ["--task", "score"], ["--precision", "fp16"],
+    ["--shared-inputs", "2"], ["--mesh", "2x1"], ["--replicas", "2"],
+    ["--attn-kernel", "paged", "--interpret"], ["--task", "score"],
+    ["--precision", "fp16"],
     ["--sched-policy", "prefix-affinity"], ["--arch", "mamba2-130m"],
     ["--arch", "bert-large"]])
 def test_cli_unported_features_raise(argv):
@@ -286,6 +289,103 @@ def test_cli_serves_sampled_decoding(capsys):
     assert paged == dense == spec != greedy
 
 
+def test_cli_serves_chunked_open_loop(capsys):
+    """--chunk-budget 8 --arrival-rate 50: the stream is replayed on a
+    seeded Poisson clock through chunked admission; the report has the
+    chunk counters and the goodput keys, and the tokens equal the
+    closed-loop whole-prompt run's, also under arrival-deadline."""
+    report, chunked = _cli(capsys, "--chunk-budget", "8",
+                           "--arrival-rate", "50", "--attn-kernel", "paged")
+    assert report["chunk_budget"] == 8 and report["chunk_steps"] > 0
+    assert report["chunk_tokens"] >= 4 * 8
+    for key in ("goodput_tokens_per_s", "slo_attainment", "ttft_violations",
+                "itl_violations", "slo_ttft_ms", "slo_itl_ms"):
+        assert key in report, key
+    assert (report["slo_ttft_ms"], report["slo_itl_ms"]) == (1000.0, 200.0)
+    assert report["completed"] == 4
+    assert 0.0 <= report["slo_attainment"] <= 1.0
+    _, whole = _cli(capsys, "--attn-kernel", "paged")
+    report, deadline = _cli(capsys, "--sched-policy", "arrival-deadline",
+                            "--chunk-budget", "8")
+    assert report["sched_policy"] == "arrival-deadline"
+    assert chunked == whole == deadline
+
+
+def test_cli_chunk_budget_with_a_draft_raises_as_jax_does(gemma_pair):
+    """--chunk-budget with --spec-draft passes the flag checks (both are
+    paged-pool flags) and the engine refuses the pair with the JAX
+    engine's message."""
+    from repro.serving import ContinuousEngine as JaxContinuous
+    jarch, jparams, _, _ = gemma_pair
+    with pytest.raises(ValueError) as want:
+        JaxContinuous(jarch, jparams, max_batch=2, max_len=32,
+                      spec_draft=(jarch, jparams), chunk_budget=8)
+    with pytest.raises(ValueError) as got:
+        tserve.main([*CLI_ARGV, "--chunk-budget", "8", "--spec-draft",
+                     "self"])
+    assert str(got.value) == str(want.value)
+    assert "mutually exclusive" in str(got.value)
+
+
+DIFFERENTIAL = {"bf16": ("bf16", 0), "fp32-shared-prefix": ("fp32", 16)}
+
+
+@pytest.mark.parametrize("case", sorted(DIFFERENTIAL))
+@pytest.mark.parametrize("name", ["gemma2-2b", "qwen2.5-14b"])
+def test_engine_differential(name, case):
+    """docs/architecture.md's differential in the port: static, dense,
+    paged with the gather, paged with the kernel (its plain version on
+    the CPU) and chunked paged emit the same greedy tokens, in bf16 and
+    in fp32 with a 16-token shared prefix (tests/test_serving_engine.py's
+    workload); the whole-prompt paged pools share the prefix's blocks,
+    the chunked one never content-addresses its blocks."""
+    import jax
+    from repro.configs import reduced_arch as jreduced
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import reduced_arch as treduced
+    from repro_torch.serving import ServeEngine
+    policy, prefix = DIFFERENTIAL[case]
+    arch = treduced(name)
+    params = params_from_jax(arch.cfg, jax.tree.map(
+        np.asarray, jreduced(name).init(jax.random.PRNGKey(0))))
+    paged = dict(max_batch=3, max_len=48, policy=policy, cache="paged",
+                 block_size=8, prefill_bucket=8)
+    engines = {
+        "static": lambda: ServeEngine(arch, params, max_len=48,
+                                      policy=policy),
+        "dense": lambda: ContinuousEngine(arch, params, max_batch=2,
+                                          max_len=48, policy=policy,
+                                          cache="dense", prefill_bucket=8),
+        "paged-gather": lambda: ContinuousEngine(arch, params,
+                                                 attn_kernel="xla", **paged),
+        "paged-kernel": lambda: ContinuousEngine(arch, params,
+                                                 attn_kernel="paged",
+                                                 **paged),
+        "chunked": lambda: ContinuousEngine(arch, params, attn_kernel="paged",
+                                            chunk_budget=6, **paged)}
+    spec = [(7, 4), (11, 6), (5, 1), (9, 3), (11, 4)]
+    outs = {}
+    for kind, build in engines.items():
+        # tests/conftest.make_serving_requests
+        common = np.random.default_rng([1, 999]).integers(
+            5, arch.cfg.vocab, size=prefix).astype(np.int32)
+        reqs = [Request(prompt=np.concatenate([
+                            common, np.random.default_rng([1, i]).integers(
+                                5, arch.cfg.vocab, size=n).astype(np.int32)]),
+                        max_new_tokens=m) for i, (n, m) in enumerate(spec)]
+        eng = build()
+        eng.run_batch(reqs)
+        outs[kind] = [r.generated.tolist() for r in reqs]
+        if kind.startswith("paged"):
+            assert (eng.pool.shared_hits > 0) == (prefix > 0)
+        if kind == "chunked":
+            rep = eng.report(1.0)
+            assert rep["shared_block_hits"] == rep["prefix_misses"] == 0
+            eng.pool.check_invariants()
+    assert all(o == outs["static"] for o in outs.values()), {
+        k: o == outs["static"] for k, o in outs.items()}
+
+
 @pytest.mark.parametrize("argv", [
     [], ["--spec-draft", "truncated", "--spec-k", "2"],
     ["--engine", "static", "--attn-kernel", "paged"],
@@ -297,7 +397,13 @@ def test_cli_serves_sampled_decoding(capsys):
     ["--cache", "dense", "--chunk-budget", "8", "--replicas", "2",
      "--route-policy", "rr", "--interpret"],
     ["--interpret"], ["--attn-kernel", "xla", "--interpret"],
-    ["--engine", "static", "--mesh", "2x1", "--arrival-rate", "3"]])
+    ["--engine", "static", "--mesh", "2x1", "--arrival-rate", "3"],
+    ["--cache", "dense", "--chunk-budget", "8"],
+    ["--engine", "static", "--arrival-rate", "2"],
+    ["--engine", "static", "--cache", "dense", "--chunk-budget", "4",
+     "--arrival-rate", "2", "--sched-policy", "arrival-deadline"],
+    ["--chunk-budget", "8", "--arrival-rate", "2", "--sched-policy",
+     "arrival-deadline"]])
 def test_cli_flag_errors_match_jax_launcher(argv):
     """The ported flag-compatibility matrix gives the JAX launcher's
     errors word for word, and main raises them before anything runs."""
@@ -327,3 +433,45 @@ def test_sampler_greedy_picks_match_jax(spec):
     got = ts.sample(torch.from_numpy(logits))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _serve_decode_example():
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", root / "examples" / "serve_decode_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_serve_decode_example_matches_jax_example(gemma_pair):
+    """examples/serve_decode_torch.py started from examples/serve_decode.py's
+    params (reduced gemma2-2b, PRNGKey(0), carried over by the bridge)
+    serves that example's batch to its tokens through throughput_probe
+    (the JAX recipe is repeated here); on its own seed it runs too, and
+    its --device default is the card."""
+    import contextlib
+    import io
+    from repro.serving.engine import Request as JaxRequest
+    from repro.serving.engine import ServeEngine as JaxServe
+    from repro.serving.engine import throughput_probe as jax_probe
+    jarch, jparams, _, tparams = gemma_pair
+    rng = np.random.default_rng(0)
+    jreqs = [JaxRequest(prompt=rng.integers(5, jarch.cfg.vocab,
+                                            size=24).astype(np.int32),
+                        max_new_tokens=16) for _ in range(4)]
+    jax_probe(JaxServe(jarch, jparams, max_len=40), jreqs)
+    example = _serve_decode_example()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        stats, reqs = example.main(["--device", "cpu"], params=tparams)
+        example.main(["--device", "cpu", "--batch", "2"])
+    assert out.getvalue().strip().endswith("serve_decode OK")
+    assert ([r.generated.tolist() for r in reqs]
+            == [r.generated.tolist() for r in jreqs])
+    assert stats["warmup"] is True and stats["tokens"] == 4 * 16
+    assert stats["tokens_per_s"] > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])
