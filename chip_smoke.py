@@ -71,6 +71,37 @@ Phases, in the order they run, each of which fails the run:
      temperature=0,stable=1, unchunked vs chunked: equal streams of 12
      and the first parting printed, not gated; and K8 held to its plain
      version and timed at this pool's 34-block rings;
+  M. MoE, Mamba-2 and hybrid decoders and fp16 serving (after phase C):
+     (a) granite-moe-3b-a800m at full width and depth (32 layers, 40
+     experts top-8, 24 query heads over 8 KV heads of 64), fp32, through
+     the CLI with phase 3's stream (8 requests, prompts up to 64, 32 new
+     tokens, 4 slots, block 16, seed 0) after a warm-up stream, with the
+     kernel and with the plain gather: greedy tokens equal, K8 launched
+     decode steps x 32 times, none in the gather run; tokens/s, ITL
+     p50/p99 and peak memory printed, one 4-slot decode step profiled
+     (device busy, idle share, launches), and a decode step and a 4 x 64
+     prefill forward timed on each MoE expert route of models/moe.py
+     (dense buffer, gathered rows; alternated); (b) K8 and K7 held to
+     their plain versions at granite's heads as in phase 2: q fp32, bf16
+     and fp16, bf16 and fp32 arenas, S = 1 with and without a new row on
+     a null table entry and S = 4 on a row-margined table
+     (pa.verify_case), a dead slot, position -1 rows; within 1e-5 for
+     every q dtype (both sides widen q exactly to fp32), arenas
+     torch.equal, second launches bit for bit; both timed at the serving
+     shape (S = 1) beside their bounds and the profiler's split and
+     combine times, and K7's path driven over 32 granite layers with its
+     count read; (c) mamba2-130m at full width, fp32, after a warm-up
+     stream: --engine static --cache dense, --cache dense, --chunk-budget
+     128 (the granularity is its SSD chunk, 64) and --attn-kernel paged
+     (a pool with no arena): greedy tokens equal across the four, K8
+     never launched; (d) reduced jamba-1.5-large-398b (one period: one
+     attention and seven Mamba layers, 4 experts top-2; reduced: full
+     jamba does not fit one H100) with the kernel and the gather: tokens
+     equal, K8 launched decode steps x 1; (e) gemma2-2b at full width
+     with --precision fp16 and the kernel: finite logits, K8 launched
+     decode steps x 26, the share of greedy tokens equal to phase 3's
+     fp32 run printed (not gated), and K8 and K7 with fp16 q held and
+     timed at phase 2's serving shape, K7's path driven with fp16 q. Each sub-phase's time is printed;
   5. hold the fused LANS kernels K1-K4 against their plain versions
      (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
      and 4; lam 0 with trust off, a zero-gradient leaf, a NaN in g; K4
@@ -182,6 +213,13 @@ SERVE_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
 SPEC_ARGV = ["--spec-draft", "self", "--spec-k", "4"]
 SAMPLER_ARGV = ["--sampler", "temperature=0.8,top_k=50,top_p=0.9,seed=3"]
 N_LAYERS = 26                        # gemma2-2b
+GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--full", "--precision",
+                "fp32", "--attn-kernel", "paged", "--requests", "8",
+                "--max-batch", "4", "--prompt-len", "64", "--new-tokens",
+                "32", "--seed", "0", "--device", "cuda"]
+GRANITE_LAYERS = 32                  # granite-moe-3b-a800m
+GRANITE_HEADS = dict(n_heads=24, n_kv=8, head_dim=64, block_size=16)
+GEMMA_HEADS = dict(n_heads=8, n_kv=4, head_dim=256, block_size=16)
 
 
 class SmokeFailure(RuntimeError):
@@ -438,28 +476,40 @@ def phase_kernels(torch, pa):
     for name in entries:
         entries[name]["max_abs_err"] = max_err[name]
 
-    # K7's path: its library entry, as a read of one decode step of
-    # gemma2-2b at the serving shapes (26 layers, local ones windowed)
+    entries["paged_attention"]["launches"] = k7_path(
+        torch, pa, torch.float32, "gemma2-2b", gemma_layer_kw)
+    return entries
+
+
+def gemma_layer_kw(layer):
+    """gemma2-2b's K7/K8 arguments at `layer` (local layers windowed)."""
+    return dict(scale=256 ** -0.5, softcap=50.0,
+                window=4096 if layer % 2 == 0 else None)
+
+
+def k7_path(torch, pa, q_dtype, arch, layer_kw):
+    """K7's path: its library entry, as a read of one decode step of
+    `arch` at the serving shapes (4 slots, 96-row rings, bf16 arenas),
+    with K7's count set to 0 just before and read just after. Returns the
+    count."""
+    heads, n_layers = ((GEMMA_HEADS, N_LAYERS) if arch == "gemma2-2b"
+                       else (GRANITE_HEADS, GRANITE_LAYERS))
     read = read_args(pa.decode_case(
-        B=4, S=1, n_heads=8, n_kv=4, head_dim=256, block_size=16, nb=6,
-        dtype=torch.bfloat16, q_dtype=torch.float32, device="cuda",
-        seed=99))
-    n_layers = 26
+        B=4, S=1, nb=6, dtype=torch.bfloat16, q_dtype=q_dtype,
+        device="cuda", seed=99, **heads))
     pa.paged_attention.launches = 0
     for layer in range(n_layers):
-        out = pa.paged_attention(*read, scale=256 ** -0.5, softcap=50.0,
-                                 window=4096 if layer % 2 == 0 else None)
+        out = pa.paged_attention(*read, **layer_kw(layer))
     torch.cuda.synchronize()
-    entries["paged_attention"]["launches"] = pa.paged_attention.launches
-    check(pa.paged_attention.launches == n_layers,
-          f"K7 launched {pa.paged_attention.launches} times for "
-          f"{n_layers} layers")
+    launches = pa.paged_attention.launches
+    check(launches == n_layers,
+          f"K7 launched {launches} times for {n_layers} layers")
     check(bool(torch.isfinite(out).all()), "K7's path gave non-finite "
           "output")
-    print(f"K7 path: paged_attention over {n_layers} layers of one decode "
-          f"step at the serving shapes, {pa.paged_attention.launches} "
+    print(f"K7 path: paged_attention over {n_layers} layers of one {arch} "
+          f"decode step at the serving shapes, q {q_dtype}, {launches} "
           f"launches")
-    return entries
+    return launches
 
 
 def serve(serve_mod, argv, label):
@@ -927,6 +977,289 @@ def phase_chunked(torch, pa, serve_mod, flush):
                     "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
                     "itl_p99_ms")} for k, v in open_reports.items()},
                 bf16_equal_streams=same)
+
+
+def serve_counted(torch, pa, serve_mod, argv, label):
+    """serve() with K8's count set to 0 just before and read just after;
+    also the run's peak memory. Returns (report, tokens, K8 launches,
+    peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention_fused.launches = 0
+    stats, tokens = serve(serve_mod, argv, label)
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_fused.launches
+    peak = peak_gb(torch)
+    print(f"serve[{label}]: K8 launches {launches}, peak memory "
+          f"{peak:.2f} GB")
+    return stats, tokens, launches, peak
+
+
+def granite_case(pa, S, q_dtype, kv_dtype, seed, nb=6, null_write=False):
+    """K8's operands at granite-moe-3b-a800m's heads (h 24, n_kv 8, hd
+    64, block 16): decode_case at S = 1, verify_case (nb + 1 blocks, the
+    row margin's) at S > 1."""
+    kw = dict(**GRANITE_HEADS, dtype=kv_dtype, q_dtype=q_dtype,
+              device="cuda", seed=seed)
+    if S == 1:
+        return pa.decode_case(B=4, S=1, nb=nb, null_write=null_write, **kw)
+    return pa.verify_case(S=S, nb=nb + 1, **kw)[0]
+
+
+def kernel_timing(torch, pa, args, kw, flush, S, label):
+    """K8 and K7 (on the arenas before the write) at these operands:
+    median device ms after an L2 eviction, the plain versions', the
+    bounds and the profiler's split / combine times. Returns {name:
+    entry}; K8's operands are left written."""
+    read = read_args(args)
+    plain = [a.clone() for a in args]
+    out = {}
+    for name, kern, plain_fn, operands in (
+            ("paged_attention", lambda: pa.paged_attention(*read, **kw),
+             lambda: pa.paged_attention_plain(*read, **kw), read),
+            ("paged_attention_fused",
+             lambda: pa.paged_attention_fused(*args, **kw),
+             lambda: pa.paged_attention_fused_plain(*plain, **kw), args)):
+        ms = time_ms(kern, flush)
+        plain_ms = time_ms(plain_fn, flush)
+        launches = device_launches(torch, kern, flush)
+        bound_ms, bound_by, nbytes, flops = paged_bound(operands, S)
+        print(f"kernel timing {name} ({label}, L2 evicted): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes, {flops} "
+              f"flops), bound / time {bound_ms / ms:.3f}; device time per "
+              f"launch (profiler) "
+              + ", ".join(f"{k} {c:g} x {us:.2f} us"
+                          for k, (c, us) in launches.items()))
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None,
+                         device_us={k: us for k, (_, us) in launches.items()})
+    return out
+
+
+def moe_route_timing(torch, eng, reps=3):
+    """Median wall ms of one decode step of `eng`'s 4 active slots and of
+    a 4 x 64 forward (a batched prefill) on each MoE expert route of
+    models/moe.py (the dense (E, cap) buffer, or each expert on its
+    gathered rows), taken in the order dense, gathered, gathered, dense,
+    `reps` of each per turn. Takes 4 * reps decode steps from `eng`."""
+    from repro_torch.models import decoder as dec_lib
+    from repro_torch.models import moe as moe_lib
+    cfg = eng.arch.cfg
+    tokens = torch.randint(0, cfg.vocab, (4, 64), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {r: {"decode_ms": [], "prefill_ms": []}
+             for r in ("dense", "gathered")}
+    default = moe_lib.DENSE_ROWS
+    try:
+        for route in ("dense", "gathered", "gathered", "dense"):
+            moe_lib.DENSE_ROWS = 1 << 62 if route == "dense" else 0
+            for _ in range(reps):
+                times[route]["decode_ms"].append(wall(eng.step))
+            with torch.no_grad():
+                for _ in range(reps):
+                    times[route]["prefill_ms"].append(wall(
+                        lambda: dec_lib.decoder_apply(eng.params, cfg,
+                                                      tokens)))
+    finally:
+        moe_lib.DENSE_ROWS = default
+    out = {r: {k: statistics.median(v) for k, v in t.items()}
+           for r, t in times.items()}
+    rows = cfg.n_experts * cfg.top_k           # E * cap per token, dropless
+    print("granite MoE expert routes, median wall ms with a synchronize "
+          f"({2 * reps} of each; a decode step of 4 slots, E * cap = "
+          f"{rows * 4}; a 4 x 64 prefill forward, E * cap = {rows * 256}): "
+          + "; ".join(f"{r} decode {t['decode_ms']:.2f} prefill "
+                      f"{t['prefill_ms']:.2f}" for r, t in out.items())
+          + f" (DENSE_ROWS {default})")
+    return out
+
+
+def phase_moe_mamba(torch, pa, serve_mod, flush, fp32_tokens):
+    """Phase M: MoE, Mamba-2 and hybrid decoders served on the card, and
+    fp16 serving (see the module docstring). `fp32_tokens` are phase 3's
+    fp32 kernel run's. Returns K8's and K7's granite and fp16 entries."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousEngine, synthetic_requests
+    t_all = time.perf_counter()
+    entries = {"paged_attention_fused": {}, "paged_attention": {}}
+
+    # (a) granite-moe-3b-a800m at full width and depth, fp32
+    t0 = time.perf_counter()
+    warm = with_flag(with_flag(GRANITE_ARGV, "--requests", "2"),
+                     "--new-tokens", "4")
+    serve_mod.main(warm)
+    print("serve: granite warm-up stream done (2 requests, 4 new tokens)")
+    granite, g_tokens, g_launches, g_peak = serve_counted(
+        torch, pa, serve_mod, GRANITE_ARGV, "granite fp32 paged")
+    check(g_launches == granite["decode_steps"] * GRANITE_LAYERS,
+          f"granite: K8 launched {g_launches} times for "
+          f"{granite['decode_steps']} decode steps x {GRANITE_LAYERS}")
+    _, x_tokens, x_launches, _ = serve_counted(
+        torch, pa, serve_mod, with_flag(GRANITE_ARGV, "--attn-kernel",
+                                        "xla"), "granite fp32 xla")
+    check(x_launches == 0, "granite: the xla run launched K8")
+    check(g_tokens == x_tokens,
+          "granite: greedy tokens differ between the kernel and the gather")
+    print(f"phase M(a): granite-moe-3b-a800m kernel == gather tokens; K8 "
+          f"{g_launches} = {granite['decode_steps']} decode steps x "
+          f"{GRANITE_LAYERS}; tokens_per_s {granite['tokens_per_s']:.2f}, "
+          f"itl_p50_ms {granite['itl_p50_ms']:.2f}, itl_p99_ms "
+          f"{granite['itl_p99_ms']:.2f}, peak {g_peak:.2f} GB")
+    # where a granite decode step's time goes: 4 slots, under the profiler
+    arch = get_arch("granite-moe-3b-a800m")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ContinuousEngine(arch, params, max_batch=4, max_len=96,
+                           policy="fp32", prefill_bucket=8,
+                           attn_kernel="paged")
+    for r in synthetic_requests(4, arch.cfg.vocab, prompt_len=64,
+                                new_tokens=32, seed=3, min_new_frac=1.0):
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    check(len(eng.scheduler.active) == 4, "granite profile: not 4 slots")
+    busy, idle = print_profile("granite decode step, 4 slots",
+                               *device_profile(torch, eng.step))
+    routes = moe_route_timing(torch, eng)
+    eng.run()
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"phase M(a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) K8 and K7 at granite's heads, every q dtype, both arena dtypes
+    t0 = time.perf_counter()
+    max_err = {"paged_attention_fused": 0.0, "paged_attention": 0.0}
+    k7_vs_k8, n_cases = 0.0, 0
+    qs = (torch.float32, torch.bfloat16, torch.float16)
+    for q_dt, kv_dt in itertools.product(qs, (torch.bfloat16,
+                                              torch.float32)):
+        for S, null_write in ((1, False), (1, True), (4, False)):
+            args = granite_case(pa, S, q_dt, kv_dt, seed=n_cases,
+                                null_write=null_write)
+            err = paged_parity_at(
+                torch, pa, args, dict(scale=0.125),
+                f"(granite heads, q {q_dt}, arenas {kv_dt}, S={S}, "
+                f"null_write={null_write})")
+            k7_vs_k8 = max(k7_vs_k8, err.pop("k7_on_k8"))
+            for name, e in err.items():
+                max_err[name] = max(max_err[name], e)
+            n_cases += 1
+    print(f"phase M(b): K8 and K7 at granite's heads (h 24, n_kv 8, hd 64, "
+          f"block 16), {n_cases} cases (q fp32 / bf16 / fp16, bf16 and "
+          f"fp32 arenas, S = 1 with and without a null-entry write, S = 4 "
+          f"row-margined): max |out - plain| K8 "
+          f"{max_err['paged_attention_fused']:.3e}, K7 "
+          f"{max_err['paged_attention']:.3e}, K7 on K8's arenas "
+          f"{k7_vs_k8:.3e} (tolerance 1e-5 for every q dtype: both sides "
+          f"widen q exactly to fp32); arenas torch.equal; dead slots 0; "
+          f"second launches bit for bit")
+    # the serving shape: 4 slots, 96-row rings (6 blocks), bf16 arenas,
+    # fp32 q, no window, no softcap
+    args = granite_case(pa, 1, torch.float32, torch.bfloat16, seed=50)
+    t = kernel_timing(torch, pa, args, dict(scale=0.125), flush, 1,
+                      "granite serving shape: B=4 S=1 h=24 n_kv=8 hd=64 "
+                      "bs=16 nb=6, bf16 arenas, fp32 q")
+    for name, e in t.items():
+        e["max_abs_err"] = max_err[name]
+        entries[name]["granite"] = e
+    entries["paged_attention_fused"]["granite"].update(
+        launches=g_launches, moe_routes=routes,
+        decode_step_profile=dict(busy_ms=busy, idle_share=idle))
+    entries["paged_attention"]["granite"]["launches"] = k7_path(
+        torch, pa, torch.float32, "granite-moe-3b-a800m",
+        lambda layer: dict(scale=0.125))
+    print(f"phase M(b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) mamba2-130m at full width, fp32: four engines, equal tokens,
+    # no K8 launch (no attention: the paged pool holds no arena)
+    t0 = time.perf_counter()
+    m_argv = ["--arch", "mamba2-130m", "--full", "--precision", "fp32",
+              "--requests", "8", "--max-batch", "4", "--prompt-len", "64",
+              "--new-tokens", "32", "--seed", "0", "--device", "cuda"]
+    serve_mod.main(with_flag(with_flag(m_argv, "--requests", "2"),
+                             "--new-tokens", "4"))
+    print("serve: mamba2 warm-up stream done (2 requests, 4 new tokens)")
+    mamba = {}
+    for label, argv in (
+            ("static", m_argv + ["--engine", "static", "--cache", "dense"]),
+            ("dense", m_argv + ["--cache", "dense"]),
+            ("chunked", m_argv + ["--chunk-budget", "128"]),
+            ("paged", m_argv + ["--attn-kernel", "paged"])):
+        stats, mamba[label], n, _ = serve_counted(
+            torch, pa, serve_mod, argv, f"mamba2 {label}")
+        check(n == 0, f"mamba2 {label}: K8 launched {n} times")
+        if label == "chunked":
+            check(stats["chunk_steps"] > 0, "mamba2: no chunk ran")
+    check(all(t == mamba["static"] for t in mamba.values()),
+          "mamba2: greedy tokens differ between static, dense, chunked "
+          "and paged")
+    print(f"phase M(c): mamba2-130m static == dense == chunked (budget "
+          f"128, granularity 64) == paged tokens, K8 never launched; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (d) reduced jamba (reduced: full jamba does not fit one H100)
+    t0 = time.perf_counter()
+    j_argv = ["--arch", "jamba-1.5-large-398b", "--precision", "fp32",
+              "--attn-kernel", "paged", "--requests", "8", "--max-batch",
+              "4", "--prompt-len", "64", "--new-tokens", "32", "--seed",
+              "0", "--device", "cuda"]
+    jamba, j_tokens, j_launches, _ = serve_counted(
+        torch, pa, serve_mod, j_argv, "reduced jamba paged")
+    _, jx_tokens, jx_launches, _ = serve_counted(
+        torch, pa, serve_mod, with_flag(j_argv, "--attn-kernel", "xla"),
+        "reduced jamba xla")
+    check(j_tokens == jx_tokens and jx_launches == 0,
+          "reduced jamba: kernel and gather tokens differ")
+    check(j_launches == jamba["decode_steps"] * 1,
+          f"reduced jamba: K8 launched {j_launches} times for "
+          f"{jamba['decode_steps']} decode steps x 1 attention layer")
+    print(f"phase M(d): reduced jamba-1.5-large-398b (1 period: 1 attention "
+          f"+ 7 Mamba layers, 4 experts top-2; reduced: full jamba does "
+          f"not fit one H100) kernel == gather tokens, K8 {j_launches} = "
+          f"{jamba['decode_steps']} decode steps x 1; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (e) gemma2-2b at full width, fp16, with K8
+    t0 = time.perf_counter()
+    fp16, f_tokens, f_launches, _ = serve_counted(
+        torch, pa, serve_mod, with_flag(SERVE_ARGV, "--precision", "fp16")
+        + ["--device", "cuda"], "gemma2-2b fp16 paged")
+    check(f_launches == fp16["decode_steps"] * N_LAYERS,
+          f"fp16: K8 launched {f_launches} times for "
+          f"{fp16['decode_steps']} decode steps x {N_LAYERS}")
+    same = sum(a == b for rid in fp32_tokens
+               for a, b in zip(fp32_tokens[rid], f_tokens[rid]))
+    total = sum(len(t) for t in fp32_tokens.values())
+    print(f"phase M(e): gemma2-2b fp16: finite logits, K8 {f_launches} = "
+          f"{fp16['decode_steps']} decode steps x {N_LAYERS}; {same} of "
+          f"{total} greedy tokens ({same / total:.4f}) equal the fp32 run "
+          f"(not gated)")
+    args = pa.decode_case(B=4, S=1, nb=6, dtype=torch.bfloat16,
+                          q_dtype=torch.float16, device="cuda", seed=99,
+                          **GEMMA_HEADS)
+    kw = gemma_layer_kw(0)
+    errs = paged_parity_at(torch, pa, args, kw, "(fp16 q, serving shape)")
+    t = kernel_timing(torch, pa, args, kw, flush, 1,
+                      "gemma2-2b serving shape, fp16 q: B=4 S=1 h=8 n_kv=4 "
+                      "hd=256 bs=16 nb=6, bf16 arenas")
+    for name, e in t.items():
+        e["max_abs_err"] = errs[name]
+        entries[name]["fp16"] = e
+    entries["paged_attention_fused"]["fp16"]["launches"] = f_launches
+    entries["paged_attention"]["fp16"]["launches"] = k7_path(
+        torch, pa, torch.float16, "gemma2-2b", gemma_layer_kw)
+    entries["paged_attention_fused"]["fp16"]["equal_token_share"] = \
+        same / total
+    print(f"phase M(e): {time.perf_counter() - t0:.1f} s")
+    print(f"phase M: {time.perf_counter() - t_all:.1f} s")
+    return entries
 
 
 def close(torch, err, name, got, want, tol, where=""):
@@ -1902,6 +2235,10 @@ def run() -> int:
                                        paged_tokens, flush)
     torch.cuda.empty_cache()
     kernel["chunked_serving"] = phase_chunked(torch, pa, serve_mod, flush)
+    torch.cuda.empty_cache()
+    moe_mamba = phase_moe_mamba(torch, pa, serve_mod, flush, paged_tokens)
+    kernel.update(moe_mamba["paged_attention_fused"])
+    paged_entries["paged_attention"].update(moe_mamba["paged_attention"])
     del flush
     torch.cuda.empty_cache()
 

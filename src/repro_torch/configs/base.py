@@ -84,9 +84,10 @@ class Arch:
         decoding; models/decoder.paged_layout)."""
         self._serving()
         if n_blocks is None:
-            n_blocks = {si: batch * (ring // block_size) for si, ring
-                        in dec_lib.paged_layout(self.cfg, max_len,
-                                                block_size, row_margin)}
+            layout = dec_lib.paged_layout(self.cfg, max_len, block_size,
+                                          row_margin)
+            n_blocks = {si: batch * (ring // block_size)
+                        for si, ring in filter(None, layout)}
         return dec_lib.init_paged_decoder_cache(
             self.cfg, batch, max_len, block_size=block_size,
             n_blocks=n_blocks, device=device, row_margin=row_margin)
@@ -117,9 +118,11 @@ class Arch:
 
 
 def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):
-    """Smoke-test variant: one superblock period x2, d_model 256, vocab
-    1k, max_seq 256, fp32 params (the JAX package's reduced_decoder, for
-    the fields the port has)."""
+    """Smoke-test variant (the JAX package's reduced_decoder): two layers,
+    or one period of a longer superblock; d_model 256, 4 heads of 64,
+    vocab 1k, max_seq 256, fp32 params; d_ff 512, or 256 with experts (at
+    most 4 of them, top-k at most 2); Mamba slots with d_inner 512,
+    headdim 64, dstate 32 and chunk 16."""
     n_slots = len(cfg.superblock)
     small = dict(
         n_layers=max(2, n_slots) if n_slots > 1 else 2,
@@ -127,8 +130,14 @@ def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2),
         head_dim=64,
-        d_ff=512,
+        d_ff=512 if cfg.n_experts == 0 else 256,
         vocab=1024,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        mamba_d_inner=512 if cfg.mamba_d_inner else None,
+        mamba_headdim=64,
+        mamba_dstate=32,
+        mamba_chunk=16,
         sliding_window=16 if cfg.sliding_window else None,
         max_seq=256,
         param_dtype=torch.float32,  # smoke numerics even for bf16 configs

@@ -86,6 +86,7 @@
 // and passes both in.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -107,7 +108,7 @@ constexpr int kPairs = kRows * kKeys;   // four lanes per (row, key) pair
 constexpr int kBarBytes = (kStages * 8 + 15) / 16 * 16;
 
 struct Params {
-  const void* q;       // (B, S, h, hd) fp32 or bf16
+  const void* q;       // (B, S, h, hd) fp32, bf16 or fp16
   const void* k_new;   // (B, S, n_kv, hd) arena dtype
   const void* v_new;
   void* k_arena;       // (n_blocks, bs, n_kv, hd) fp32 or bf16
@@ -143,6 +144,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const __half* p, float (&x)[kVec]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h2[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -254,7 +265,8 @@ __device__ __forceinline__ void transpose_sum(float (&v)[kPairs], int lane) {
 //   barriers kStages mbarriers, to 16 bytes
 //   K ring   kStages * bs * hd    arena dtype
 //   V ring   kStages * bs * hd    arena dtype
-//   q ring   kStages * R * hd     4 bytes an element, q's dtype (fp32, bf16)
+//   q ring   kStages * R * hd     4 bytes an element, q's dtype (fp32, bf16,
+//                                 fp16: the 2-byte ones use half of it)
 //   q        R * hd               the same, of the slot being folded
 //   acc      kg * R * hd          fp32, unnormalised, per key group and row
 //   key pos  kStages * bs         int (bs % 4 == 0: 16-byte aligned rows)
@@ -869,16 +881,29 @@ cudaError_t launch_attention(const Params& p, size_t smem,
   return cudaLaunchKernelEx(&cfg, paged_combine_kernel<TKV, kNew>, p);
 }
 
+// q's dtype code, as paged_attention.py's Q_CODES gives it
+enum QType : int { kQF32 = 0, kQBF16 = 1, kQF16 = 2 };
+
+template <typename TQ, bool kNew>
+cudaError_t launch_for_q(const Params& p, int kv_bf16, size_t smem,
+                         cudaStream_t st) {
+  return kv_bf16 ? launch_attention<TQ, __nv_bfloat16, kNew>(p, smem, st)
+                 : launch_attention<TQ, float, kNew>(p, smem, st);
+}
+
 template <bool kNew>
-cudaError_t launch_attention(const Params& p, int q_bf16, int kv_bf16,
+cudaError_t launch_attention(const Params& p, int q_type, int kv_bf16,
                              size_t smem, cudaStream_t st) {
-  if (q_bf16)
-    return kv_bf16
-               ? launch_attention<__nv_bfloat16, __nv_bfloat16, kNew>(p, smem,
-                                                                      st)
-               : launch_attention<__nv_bfloat16, float, kNew>(p, smem, st);
-  return kv_bf16 ? launch_attention<float, __nv_bfloat16, kNew>(p, smem, st)
-                 : launch_attention<float, float, kNew>(p, smem, st);
+  switch (q_type) {
+    case kQF32:
+      return launch_for_q<float, kNew>(p, kv_bf16, smem, st);
+    case kQBF16:
+      return launch_for_q<__nv_bfloat16, kNew>(p, kv_bf16, smem, st);
+    case kQF16:
+      return launch_for_q<__half, kNew>(p, kv_bf16, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -889,7 +914,7 @@ cudaError_t launch_attention(const Params& p, int q_bf16, int kv_bf16,
 // in bytes (paged_attention.py:smem_bytes at that key_groups). Returns a
 // cudaError_t; 0 when both launches were accepted.
 extern "C" int paged_attention_fused_launch(
-    const void* q, int q_bf16, const void* k_new, const void* v_new,
+    const void* q, int q_type, const void* k_new, const void* v_new,
     void* k_arena, void* v_arena, int kv_bf16, int* pos_arena,
     const int* tables, const int* q_pos, const int* cursor, float* out,
     float* part, int B, int S, int h, int n_kv, int hd, int bs, int nb,
@@ -899,13 +924,13 @@ extern "C" int paged_attention_fused_launch(
            cursor, out, part, B, S, h, n_kv, hd, bs, nb, n_split, chunk,
            n_groups, key_groups, scale, causal, window, softcap};
   return static_cast<int>(launch_attention<true>(
-      p, q_bf16, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
+      p, q_type, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // K7: the attention of q against the arenas the tables name; nothing is
 // written. part and smem as above.
 extern "C" int paged_attention_launch(
-    const void* q, int q_bf16, const void* k_arena, const void* v_arena,
+    const void* q, int q_type, const void* k_arena, const void* v_arena,
     int kv_bf16, const int* pos_arena, const int* tables, const int* q_pos,
     float* out, float* part, int B, int S, int h, int n_kv, int hd, int bs,
     int nb, int n_split, int chunk, int n_groups, int key_groups,
@@ -916,5 +941,5 @@ extern "C" int paged_attention_launch(
            q_pos, nullptr, out, part, B, S, h, n_kv, hd, bs, nb, n_split,
            chunk, n_groups, key_groups, scale, causal, window, softcap};
   return static_cast<int>(launch_attention<false>(
-      p, q_bf16, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
+      p, q_type, kv_bf16, smem, static_cast<cudaStream_t>(stream)));
 }

@@ -34,7 +34,7 @@ scratch; `smem_bytes` is the first launch's shared-memory plan and
 `kernel_fit_problems` its limits.
 
 Contract (the same as the JAX kernel's):
-  q (B, [S,] h, hd) fp32 or bf16; k_new / v_new (B, [S,] n_kv, hd) in
+  q (B, [S,] h, hd) fp32, bf16 or fp16 (fp16 serving's queries); k_new / v_new (B, [S,] n_kv, hd) in
   the arena dtype; arenas (n_blocks, bs, n_kv, hd) fp32 or bf16; pos
   (n_blocks, bs) int32 with -1 marking an invalid row; tables (B, nb)
   int32 with 0 the null block; q_pos (B, [S]) int32; cursor (B,) int32.
@@ -68,7 +68,9 @@ WARPS = 4
 CTAS_PER_SM = 4
 # Table entries of one split at most: a split CTA keeps them one per lane.
 MAX_CHUNK = 32
-_FLOAT_TYPES = (torch.float32, torch.bfloat16)
+_FLOAT_TYPES = (torch.float32, torch.bfloat16)     # arena dtypes
+# q's dtype -> csrc/paged_attention.cu's QType code
+Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def split_plan(nb: int, B: int, n_kv: int, n_sm: int) -> tuple:
@@ -102,7 +104,7 @@ def smem_bytes(S: int, n_heads: int, n_kv: int, head_dim: int,
     in csrc/paged_attention.cu (STAGES mbarriers rounded up to 16 bytes; a
     ring of STAGES blocks of K and of V in the arena dtype; a ring of
     STAGES copies of the R = S * n_heads / n_kv query rows and the rows
-    being folded, 4 bytes an element (fp32 or bf16); an accumulator per
+    being folded, 4 bytes an element (whatever q's dtype); an accumulator per
     key group and row in fp32; the ring's key positions and STAGES
     records of 4 + S ints; a running max and sum per key group and row in
     fp32; the rows' query positions). `groups` is the number of key
@@ -403,7 +405,7 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
     dev = q.device
     kv_dt = k_arena.dtype
     i32 = (torch.int32,)
-    _check("q", q, dev, _FLOAT_TYPES, (B, S, h, hd))
+    _check("q", q, dev, tuple(Q_CODES), (B, S, h, hd))
     _check("k_arena", k_arena, dev, _FLOAT_TYPES, (n_blocks, bs, n_kv, hd))
     _check("v_arena", v_arena, dev, (kv_dt,), (n_blocks, bs, n_kv, hd))
     new_rows = k_new is not None
@@ -437,16 +439,15 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
               float(softcap or 0.0),
               smem_bytes(S, h, n_kv, hd, bs, kv_dt, groups),
               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    q_bf16, kv_bf16 = int(q.dtype == torch.bfloat16), int(
-        kv_dt == torch.bfloat16)
+    q_type, kv_bf16 = Q_CODES[q.dtype], int(kv_dt == torch.bfloat16)
     if new_rows:
         err = lib.paged_attention_fused_launch(
-            _ptr(q), q_bf16, _ptr(k_new), _ptr(v_new), _ptr(k_arena),
+            _ptr(q), q_type, _ptr(k_new), _ptr(v_new), _ptr(k_arena),
             _ptr(v_arena), kv_bf16, _ptr(pos_arena), _ptr(tables),
             _ptr(q_pos), _ptr(cursor), _ptr(out), _ptr(part), *common)
     else:
         err = lib.paged_attention_launch(
-            _ptr(q), q_bf16, _ptr(k_arena), _ptr(v_arena), kv_bf16,
+            _ptr(q), q_type, _ptr(k_arena), _ptr(v_arena), kv_bf16,
             _ptr(pos_arena), _ptr(tables), _ptr(q_pos), _ptr(out),
             _ptr(part), *common)
     if err != 0:

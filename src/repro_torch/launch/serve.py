@@ -27,8 +27,11 @@ N tokens per step (chunked prefill; continuous engine, paged pool).
 at R requests/s (arrivals seeded by --seed) instead of submitting it all
 up front, and adds goodput and SLO attainment against --ttft-slo-ms /
 --itl-slo-ms to the report. --sched-policy arrival-deadline admits by
-earliest deadline. Flags whose feature is not ported yet raise and say
-so.
+earliest deadline. Every decoder arch serves: the dense ones, the MoE
+granite-moe-3b-a800m and grok-1-314b (routed dropless), mamba2-130m and
+the hybrid jamba-1.5-large-398b (their SSM state slot-resident); and
+every precision, --precision fp16 feeding fp16 queries to the kernel.
+Flags whose feature is not ported yet raise and say so.
 """
 from __future__ import annotations
 
@@ -76,13 +79,10 @@ CONTINUOUS_ONLY_FLAGS = (
 # (flag, requested?) for features of repro.launch.serve the port does not
 # have yet and that no layer below the CLI sees: each raises "not yet
 # ported" instead of running something else. An unported arch or model
-# family, or the prefix-affinity policy, is rejected by the registry,
-# Arch or scheduler it reaches. The fp16 policy exists (training uses
-# it) but fp16 serving is not ported (the paged kernel takes fp32 and
-# bf16 queries only). --interpret is the Pallas kernel's, which the port
-# has no counterpart of.
+# family (whisper-large-v3; BERT serving), or the prefix-affinity policy,
+# is rejected by the registry, Arch or scheduler it reaches. --interpret
+# is the Pallas kernel's, which the port has no counterpart of.
 NOT_PORTED_FLAGS = (
-    ("--precision fp16", lambda a: a.precision == "fp16"),
     ("--task", lambda a: a.task != "generate"),
     ("--shared-inputs", lambda a: a.shared_inputs != 0),
     ("--mesh", lambda a: a.mesh is not None),

@@ -1,8 +1,11 @@
 """Training launcher of the port (port of repro/launch/train.py).
 
-Trains bert-large or a dense decoder (gemma2-2b, qwen2.5-14b/32b,
-mistral-nemo-12b, chameleon-34b; reduced by default, `--full` for the
-real widths and depth) with the paper's recipe: LANS + warmup-hold-decay
+Trains bert-large or a decoder (gemma2-2b, qwen2.5-14b/32b,
+mistral-nemo-12b, chameleon-34b; the MoE granite-moe-3b-a800m and
+grok-1-314b, whose aux load-balance loss is added with weight 0.01; the
+Mamba-2 mamba2-130m and the hybrid jamba-1.5-large-398b, whose --seq
+must be a multiple of the SSD chunk; reduced by default, `--full` for
+the real widths and depth) with the paper's recipe: LANS + warmup-hold-decay
 schedule + sharded-without-replacement data (masked-LM batches for BERT,
 next-token batches for the decoders, with random input embeddings for
 chameleon's stubbed image tokenizer). Same flags as the JAX launcher,
@@ -22,7 +25,7 @@ transform, as the JAX launcher does (only lans stores its moments in the
 policy's moment dtype; under bf16/fp16 every optimizer goes through the
 generic `mixed_precision` wrapper). The fused kernels are reached
 through the library: `build_train_step(..., fused_lans(...))` or
-`fused_lamb(...)`. Archs not ported yet (MoE, Mamba, whisper) raise.
+`fused_lamb(...)`. whisper-large-v3 (not ported yet) raises.
 """
 from __future__ import annotations
 

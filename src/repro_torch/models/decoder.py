@@ -1,22 +1,29 @@
-"""Decoder-only LM (port of repro/models/decoder.py), attention + MLP slots.
+"""Decoder-only LM (port of repro/models/decoder.py): the dense, MoE and
+hybrid (attention / Mamba-2) decoders.
 
 The layer stack is a repeating SUPERBLOCK of (mixer, ffn) slots, e.g.
-gemma2's (("attn_local", "mlp"), ("attn", "mlp")) x 13 periods. As in the
-JAX package, each slot's params are stacked over the periods
-(`params["slot{i}"]` leaves have a leading n_periods dim) and so are its
-caches; where JAX scans over periods, the port runs a Python loop and
-hands each layer the period's view of each stacked leaf: one unbind per
-leaf per forward, so the backward pass stacks a leaf's gradient once
-(indexing it period by period would build a zero gradient the size of
-the whole stack per period), and on the paged path a contiguous slice,
-which the kernel writes in place. In training (no cache, grad enabled)
-each period is recomputed in the backward pass (`cfg.remat`, as the
-JAX package's `jax.checkpoint(..., nothing_saveable)` over its scan).
+gemma2's (("attn_local", "mlp"), ("attn", "mlp")) x 13 periods, or
+jamba's eight slots with one attention mixer, seven Mamba mixers and an
+MoE ffn on every other slot. As in the JAX package, each slot's params
+are stacked over the periods (`params["slot{i}"]` leaves have a leading
+n_periods dim) and so are its caches; where JAX scans over periods, the
+port runs a Python loop and hands each layer the period's view of each
+stacked leaf: one unbind per leaf per forward, so the backward pass
+stacks a leaf's gradient once (indexing it period by period would build
+a zero gradient the size of the whole stack per period), and on the
+paged path a contiguous slice, which the kernel writes in place. In
+training (no cache, grad enabled) each period is recomputed in the
+backward pass (`cfg.remat`, as the JAX package's `jax.checkpoint(...,
+nothing_saveable)` over its scan).
 
-Ported: "attn" / "attn_local" mixers (with QK-norm) and "mlp" ffns, tied
-or untied (`lm_head`) readouts, token or embedding inputs, and the
-losses `lm_loss` and `chunked_lm_loss`. MoE and Mamba slots are not
-ported yet: their aux terms (moe_aux_loss, router_entropy) stay 0.
+Slots: mixers "attn" / "attn_local" (with QK-norm) and "mamba"; ffns
+"mlp", "moe" and "none" (mixer-only blocks, mamba2). Tied or untied
+(`lm_head`) readouts, token or embedding inputs, and the losses
+`lm_loss` and `chunked_lm_loss`. The MoE aux terms (moe_aux_loss,
+router_entropy) are summed over the periods; they stay 0 for archs
+without experts. Left padding is marked by negative positions: attention
+masks it by position, Mamba and MoE by the `valid` mask derived from
+(B, S) positions.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (dense_apply, dense_init, embed_apply,
                                        embed_attend, embed_init, mlp_apply,
@@ -57,6 +66,17 @@ class DecoderConfig:
     activation: str = "silu"
     gated_mlp: bool = True
 
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
+    mamba_d_inner: Optional[int] = None
+    mamba_headdim: int = 64
+    mamba_dstate: int = 128
+    mamba_chunk: int = 64
+
+    # (mixer, ffn) slots: mixer in {"attn", "attn_local", "mamba"}, ffn in
+    # {"mlp", "moe", "none"}
     superblock: Tuple[Tuple[str, str], ...] = (("attn", "mlp"),)
 
     tie_embeddings: bool = True
@@ -87,16 +107,21 @@ class DecoderConfig:
             logit_softcap=self.attn_softcap,
             decode_kernel=self.attn_kernel)
 
+    def moe_cfg(self) -> moe_lib.MoeConfig:
+        return moe_lib.MoeConfig(
+            d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+            top_k=self.top_k, capacity_factor=self.capacity_factor,
+            activation=self.activation, gated=self.gated_mlp)
 
-def _check_slot(mixer: str, ffn: str):
-    if mixer not in ("attn", "attn_local") or ffn != "mlp":
-        raise NotImplementedError(
-            f"slot ({mixer}, {ffn}) is not ported yet: the port has "
-            f"attention + MLP slots only")
+    def mamba_cfg(self) -> mamba_lib.MambaConfig:
+        return mamba_lib.MambaConfig(
+            d_model=self.d_model,
+            d_inner=self.mamba_d_inner or 2 * self.d_model,
+            headdim=self.mamba_headdim, dstate=self.mamba_dstate,
+            chunk=self.mamba_chunk)
 
 
 def _slot_init(gen, cfg: DecoderConfig, mixer: str, ffn: str):
-    _check_slot(mixer, ffn)
     lead = (cfg.n_periods,)
     dev, dt = (None if gen is None else gen.device), cfg.param_dtype
     p = {"pre_mixer_norm": rmsnorm_init(cfg.d_model, dt, dev, lead),
@@ -104,10 +129,23 @@ def _slot_init(gen, cfg: DecoderConfig, mixer: str, ffn: str):
     if cfg.post_block_norm:
         p["post_mixer_norm"] = rmsnorm_init(cfg.d_model, dt, dev, lead)
         p["post_ffn_norm"] = rmsnorm_init(cfg.d_model, dt, dev, lead)
-    p["mixer"] = attn_init(gen, cfg.attn_cfg(mixer == "attn_local"),
-                           dtype=dt, lead=lead)
-    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                        dtype=dt, lead=lead)
+    if mixer in ("attn", "attn_local"):
+        p["mixer"] = attn_init(gen, cfg.attn_cfg(mixer == "attn_local"),
+                               dtype=dt, lead=lead)
+    elif mixer == "mamba":
+        p["mixer"] = mamba_lib.mamba_init(gen, cfg.mamba_cfg(), dt, lead)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn == "mlp":
+        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                            dtype=dt, lead=lead)
+    elif ffn == "moe":
+        p["ffn"] = moe_lib.moe_init(gen, cfg.moe_cfg(), dt, lead)
+    elif ffn == "none":          # mixer-only blocks (mamba2)
+        p.pop("pre_ffn_norm")
+        p.pop("post_ffn_norm", None)
+    else:
+        raise ValueError(f"unknown ffn {ffn!r}")
     return p
 
 
@@ -141,28 +179,58 @@ def _period(tree, p: int):
             for k, v in tree.items()}
 
 
-def _run_slot(sp, cfg: DecoderConfig, mixer: str, x, positions, cache):
+def _run_slot(sp, cfg: DecoderConfig, mixer: str, ffn: str, x, positions,
+              cache, valid):
+    """One (mixer, ffn) slot -> (x, MoE aux terms or None). valid (B, S)
+    bool or None: False marks left padding, which Mamba and MoE must keep
+    out of their state and routing (attention masks it by position)."""
     h = rmsnorm_apply(sp["pre_mixer_norm"], x)
-    out, _ = attn_apply(sp["mixer"], cfg.attn_cfg(mixer == "attn_local"), h,
-                        positions=positions, cache=cache,
-                        compute_dtype=cfg.compute_dtype)
+    if mixer == "mamba":
+        out, _ = mamba_lib.mamba_apply(sp["mixer"], cfg.mamba_cfg(), h,
+                                       cache=cache, valid=valid,
+                                       compute_dtype=cfg.compute_dtype)
+    else:
+        out, _ = attn_apply(sp["mixer"], cfg.attn_cfg(mixer == "attn_local"),
+                            h, positions=positions, cache=cache,
+                            compute_dtype=cfg.compute_dtype)
     if cfg.post_block_norm:
         out = rmsnorm_apply(sp["post_mixer_norm"], out)
     x = x + out
+    if ffn == "none":
+        return x, None
     h = rmsnorm_apply(sp["pre_ffn_norm"], x)
-    out = mlp_apply(sp["ffn"], h, activation=cfg.activation,
-                    compute_dtype=cfg.compute_dtype)
+    aux = None
+    if ffn == "moe":
+        out, aux = moe_lib.moe_apply(sp["ffn"], cfg.moe_cfg(), h,
+                                     valid=valid,
+                                     compute_dtype=cfg.compute_dtype)
+    else:
+        out = mlp_apply(sp["ffn"], h, activation=cfg.activation,
+                        compute_dtype=cfg.compute_dtype)
     if cfg.post_block_norm:
         out = rmsnorm_apply(sp["post_ffn_norm"], out)
-    return x + out
+    return x + out, aux
 
 
-def _run_period(cfg: DecoderConfig, x, positions, slot_params, caches):
+def _run_period(cfg: DecoderConfig, x, positions, valid, slot_params,
+                caches):
     """One period: the superblock's slots in order. slot_params[si] is
-    slot si's params of this period, caches[si] its cache or None."""
-    for si, (mixer, _) in enumerate(cfg.superblock):
-        x = _run_slot(slot_params[si], cfg, mixer, x, positions, caches[si])
-    return x
+    slot si's params of this period, caches[si] its cache or None.
+    Returns (x, this period's summed moe_aux_loss, router_entropy), the
+    sums None when the superblock has no MoE slot."""
+    aux_loss = entropy = None
+    for si, (mixer, ffn) in enumerate(cfg.superblock):
+        x, aux = _run_slot(slot_params[si], cfg, mixer, ffn, x, positions,
+                           caches[si], valid)
+        if aux is not None:
+            aux_loss = _add(aux_loss, aux["moe_aux_loss"])
+            entropy = _add(entropy, aux["router_entropy"])
+    return x, aux_loss, entropy
+
+
+def _add(total, term):
+    """total + term, where a None total is no sum yet."""
+    return term if total is None else total + term
 
 
 def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
@@ -173,7 +241,8 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
     embeddings (the VLM stub). caches: from init_decoder_cache (per-slot
     dense) or init_paged_decoder_cache; they are written in place and
     returned with the advanced index (None without caches). aux holds the
-    MoE terms moe_aux_loss and router_entropy (0 until MoE is ported).
+    MoE terms moe_aux_loss and router_entropy, summed over the periods
+    (0 without experts).
     With return_hidden the first element is the final-norm hidden states
     (B, S, d_model) instead of the logits (see chunked_lm_loss)."""
     if (tokens is None) == (embeds is None):
@@ -190,29 +259,35 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
         ar = torch.arange(S, device=x.device)
         positions = (caches["index"][:, None] + ar if caches is not None
                      else ar)
+    # per-slot positions mark left padding negative: attention masks it
+    # by position, Mamba and MoE by this mask
+    valid = positions >= 0 if positions.ndim == 2 else None
     tables = caches.get("tables") if caches is not None else None
-    for mixer, ffn in cfg.superblock:
-        _check_slot(mixer, ffn)
     # unbound once, outside the recomputed regions (see the module doc)
     slots = [_unbind(params[f"slot{si}"])
              for si in range(len(cfg.superblock))]
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux_loss = entropy = None
 
     for p in range(cfg.n_periods):
         slot_params = [_period(sp, p) for sp in slots]
         slot_caches = [None] * len(cfg.superblock)
         if caches is not None:
             for si, stack in enumerate(caches["slots"]):
-                c = {k: stack[k][p] for k in ("k", "v", "pos")}
+                c = {k: v[p] for k, v in stack.items()}
                 c["index"] = caches["index"]
-                if tables is not None:
+                if tables is not None and tables[si] is not None:
                     c["table"] = tables[si]
                 slot_caches[si] = c
         if remat:
-            x = checkpoint(_run_period, cfg, x, positions, slot_params,
-                           slot_caches, use_reentrant=False)
+            x, al, en = checkpoint(_run_period, cfg, x, positions, valid,
+                                   slot_params, slot_caches,
+                                   use_reentrant=False)
         else:
-            x = _run_period(cfg, x, positions, slot_params, slot_caches)
+            x, al, en = _run_period(cfg, x, positions, valid, slot_params,
+                                    slot_caches)
+        if al is not None:
+            aux_loss, entropy = _add(aux_loss, al), _add(entropy, en)
 
     new_caches = None
     if caches is not None:
@@ -220,8 +295,10 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
                       "index": caches["index"] + S}
         if tables is not None:
             new_caches["tables"] = tables
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"moe_aux_loss": zero, "router_entropy": zero}
+    if aux_loss is None:                   # no experts: the terms are 0
+        aux_loss = entropy = torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+    aux = {"moe_aux_loss": aux_loss, "router_entropy": entropy}
     x = rmsnorm_apply(params["final_norm"], x)
     if return_hidden:
         return x, new_caches, aux
@@ -304,10 +381,16 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
     prompt chunk then takes attention's incremental write path, never
     the roll branch (which assumes a prefill from scratch), the window
     is enforced by the mask instead of the ring, and the paged pool's
-    insert picks the window's tail out of the full-length rows."""
+    insert picks the window's tail out of the full-length rows. Mamba
+    slots hold their fp32 SSM state and conv tail per batch slot
+    (models/mamba2.init_mamba_cache), stacked over the periods."""
     slots = []
-    for mixer, ffn in cfg.superblock:
-        _check_slot(mixer, ffn)
+    for mixer, _ in cfg.superblock:
+        if mixer == "mamba":
+            slots.append(mamba_lib.init_mamba_cache(
+                batch, cfg.mamba_cfg(), device=device,
+                lead=(cfg.n_periods,)))
+            continue
         L = max_len
         if clamp_window and mixer == "attn_local" and cfg.sliding_window:
             L = min(max_len, cfg.sliding_window)
@@ -320,8 +403,10 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
 
 def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int,
                  row_margin: int = 0):
-    """Per-superblock-slot paged layout: [(slot_idx, ring_len)]. The ring
-    is max_len rows, or the sliding window for "attn_local" slots.
+    """Per-superblock-slot paged layout: [(slot_idx, ring_len) | None].
+    An attention slot's ring is max_len rows, or the sliding window for
+    "attn_local" slots. Mamba slots give None: their state is O(1) per
+    batch slot, so paging buys nothing and it stays slot-resident.
 
     row_margin > 0 widens every ring by that many rows, rounded up to
     whole blocks: the speculative verify step writes its K rows before
@@ -331,8 +416,10 @@ def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int,
     still writes up to cursor + K - 1)."""
     margin = -(-row_margin // block_size) * block_size if row_margin else 0
     out = []
-    for si, (mixer, ffn) in enumerate(cfg.superblock):
-        _check_slot(mixer, ffn)
+    for si, (mixer, _) in enumerate(cfg.superblock):
+        if mixer == "mamba":
+            out.append(None)
+            continue
         L = max_len
         if mixer == "attn_local" and cfg.sliding_window:
             L = min(max_len, cfg.sliding_window)
@@ -351,11 +438,21 @@ def init_paged_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                              row_margin: int = 0):
     """Paged cache: per attention slot-type a (n_periods, n_blocks + 1,
     block_size, ...) arena (block 0 the null block) and a (batch,
-    ring_len // block_size) int32 table of zeros; per-slot LOCAL write
-    cursors under "index". n_blocks: data blocks per arena, an int or
-    {slot_idx: int}. row_margin widens the rings (paged_layout)."""
+    ring_len // block_size) int32 table of zeros; per Mamba slot-type the
+    slot-resident (n_periods, batch, ...) state of init_decoder_cache and
+    a None table; per-slot LOCAL write cursors under "index". n_blocks:
+    data blocks per arena, an int or {slot_idx: int}. row_margin widens
+    the rings (paged_layout)."""
     slots, tables = [], []
-    for si, ring_len in paged_layout(cfg, max_len, block_size, row_margin):
+    for si, layout in enumerate(paged_layout(cfg, max_len, block_size,
+                                             row_margin)):
+        if layout is None:
+            slots.append(mamba_lib.init_mamba_cache(
+                batch, cfg.mamba_cfg(), device=device,
+                lead=(cfg.n_periods,)))
+            tables.append(None)
+            continue
+        _, ring_len = layout
         nb = n_blocks[si] if isinstance(n_blocks, dict) else n_blocks
         slots.append(attn_lib.init_paged_kv_cache(
             nb + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim,

@@ -1,0 +1,171 @@
+"""Mixture-of-Experts FFN with top-k routing (port of repro/models/moe.py;
+grok-1, granite-moe, jamba).
+
+The same function as the JAX package's group-local capacity routing:
+
+  * tokens are split into G groups (the JAX package takes G from its
+    ambient data axes; the port runs on one device, so G = 1, and the
+    `while T % G` rule is kept so that the function is the same);
+  * the router runs in fp32 (the activations and the router kernel are
+    upcast explicitly: under a bf16/fp16 policy the kernel is cast,
+    since KEEP_FP32 does not match `router`, and JAX promotes the mixed
+    einsum to fp32 where torch would refuse it), then softmax and top-k;
+  * gates are the top-k probabilities over max(sum, 1e-9);
+  * each (token, k) pair gets its position in its expert's buffer from a
+    cumsum over the flattened (token, k) order, token-major, within a
+    group; a pair at position >= cap is dropped (weight 0), and padding
+    (`valid` False) routes nowhere and takes no capacity;
+  * the aux terms are the load-balance loss (mean dispatch fraction x
+    mean router probability x E / K) and the router entropy.
+
+Ties in top-k go to the lower expert index, as `lax.top_k` does: the
+port takes the first K of a stable descending sort (`torch.topk` does
+not promise an order among equal values).
+
+Expert compute. The reference scatters the kept pairs into a dense (G,
+E, cap, d) buffer and runs every expert over all cap rows. Serving routes
+dropless (cap = T * K), so a batched prefill would run E times the
+expert work actually needed; the port therefore keeps the dense buffer
+only while it is small (E * cap <= DENSE_ROWS rows: decode steps, one
+batched product per weight, no host sync) and otherwise gathers each
+expert's kept rows, sorted by expert, and runs that expert's MLP on
+them alone (one host sync for the per-expert counts). Both are the
+reference's function up to fp32 summation order, drops included.
+chip_smoke.py's phase M(a) times both on granite-moe-3b-a800m's decode
+step and on a batched prefill; each is faster where it is taken.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.common import ACTIVATIONS, dense_init
+
+# Largest E * cap for which the experts run over the dense (E, cap, d)
+# buffer; above it each expert runs on its gathered rows. Set between a
+# 4-slot granite decode step (1280) and a 4 x 64 prefill (81920), the
+# sizes the routes were timed at; not tuned in between.
+DENSE_ROWS = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    activation: str = "silu"
+    gated: bool = True
+
+
+def moe_init(gen: torch.Generator, cfg: MoeConfig, dtype=torch.float32,
+             lead: tuple = ()):
+    """Router (d, E) fp32 and (E, din, dout) expert stacks in `dtype`;
+    `lead` prepends stacking dims (the decoder's periods)."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    dev = None if gen is None else gen.device
+
+    def expert_stack(din, dout):
+        w = torch.randn((*lead, e, din, dout), generator=gen, device=dev)
+        return (w * (1.0 / math.sqrt(din))).to(dtype)
+
+    p = {"router": dense_init(gen, d, e, dtype=torch.float32, lead=lead),
+         "up": expert_stack(d, f),
+         "down": expert_stack(f, d)}
+    if cfg.gated:
+        p["gate"] = expert_stack(d, f)
+    return p
+
+
+def _top_k(probs, k: int):
+    """(values, indices) of the k largest along the last dim, the lower
+    index first among equal values (lax.top_k's order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_mlp(p, cfg: MoeConfig, x, e, compute_dtype):
+    """Expert e's MLP on rows x (n, d); e an int, or None for every
+    expert at once over x (E, n, d)."""
+    sl = slice(None) if e is None else e
+    act = ACTIVATIONS[cfg.activation]
+    up = torch.matmul(x, p["up"][sl].to(compute_dtype))
+    if cfg.gated:
+        up = act(torch.matmul(x, p["gate"][sl].to(compute_dtype))) * up
+    else:
+        up = act(up)
+    return torch.matmul(up, p["down"][sl].to(compute_dtype))
+
+
+def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
+              compute_dtype=torch.bfloat16):
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux {moe_aux_loss,
+    router_entropy}). valid: optional (B, S) bool; False tokens (left
+    padding) route nowhere, take no capacity and produce 0."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = 1                          # one device: no data axes to group over
+    while T % G:
+        G //= 2
+    G = max(G, 1)
+    Tl = T // G
+    cap = max(1, int(cfg.capacity_factor * Tl * K / E))
+
+    xg = x.reshape(G, Tl, d)
+    router_logits = torch.matmul(xg.float(), p["router"]["kernel"].float())
+    probs = torch.softmax(router_logits, dim=-1)             # (G, Tl, E)
+    gates_k, idx_k = _top_k(probs, K)                        # (G, Tl, K)
+    gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True), min=1e-9)
+
+    sel = torch.nn.functional.one_hot(idx_k, E)              # (G, Tl, K, E)
+    if valid is not None:
+        vg = valid.reshape(G, Tl)
+        sel = sel * vg[..., None, None].to(sel.dtype)        # pads: nowhere
+    position = torch.cumsum(sel.reshape(G, Tl * K, E), dim=1) - 1
+    flat_e = idx_k.reshape(G, Tl * K)
+    pos_k = torch.gather(position, -1, flat_e[..., None])[..., 0]
+    keep = pos_k < cap                                       # (G, TlK)
+    if valid is not None:
+        keep = keep & vg.repeat_interleave(K, dim=1)
+
+    x_rep = xg.to(compute_dtype).repeat_interleave(K, dim=1)  # (G, TlK, d)
+    if E * cap <= DENSE_ROWS:
+        # the reference's dense buffer: kept pairs at (expert, position),
+        # dropped ones in an overflow row that is cut off
+        pos_c = torch.where(keep, pos_k, cap)
+        buf = torch.zeros((G, E, cap + 1, d), dtype=compute_dtype,
+                          device=x.device)
+        g_idx = torch.arange(G, device=x.device)[:, None].expand_as(flat_e)
+        buf.index_put_((g_idx, flat_e, pos_c), x_rep, accumulate=True)
+        yout = _expert_mlp(p, cfg, buf[:, :, :cap], None, compute_dtype)
+        y_tk = yout[g_idx, flat_e, torch.clamp(pos_c, max=cap - 1)]
+    else:
+        # each expert on its own kept rows, sorted by expert (dropped
+        # pairs sort last, under key E, and are never computed)
+        key = torch.where(keep, flat_e, E).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=E + 1).tolist()
+        rows = x_rep.reshape(-1, d)[order]
+        y_sorted = torch.zeros_like(rows)
+        start = 0
+        for e, n in enumerate(counts[:E]):
+            if n:
+                y_sorted[start:start + n] = _expert_mlp(
+                    p, cfg, rows[start:start + n], e, compute_dtype)
+                start += n
+        y_tk = y_sorted[torch.argsort(order)].reshape(G, Tl * K, d)
+    w = (gates_k.reshape(G, Tl * K).to(compute_dtype)
+         * keep.to(compute_dtype))
+    out = (y_tk * w[..., None]).reshape(G, Tl, K, d).sum(dim=2)
+    out = out.reshape(B, S, d)
+
+    density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
+    density_proxy = probs.mean(dim=(0, 1))
+    aux_loss = torch.sum(density * density_proxy) * (E / K)
+    entropy = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
+    return out.to(x.dtype), {"moe_aux_loss": aux_loss,
+                             "router_entropy": entropy}

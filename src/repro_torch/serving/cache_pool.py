@@ -27,6 +27,15 @@ Where the JAX pool rebuilt donated arenas through jitted scatters, the
 port writes the arenas IN PLACE with indexed assignment; block 0 (the
 null block) is never written, so its positions stay -1. The
 encoder-decoder pool is not ported yet.
+
+Mamba slots (mamba2, jamba) keep their state SLOT-RESIDENT in both
+pools: one fp32 (H, N, P) SSM state and (W - 1, C) conv tail per decode
+slot, (n_periods, max_batch, ...), whatever the prompt's length, so
+paging would buy no memory (and a prefix cannot be shared: the state
+after it is folded into one tensor, not addressable rows). An insert
+copies the request's state rows into the slot, an eviction writes the
+blank (zero) state. A pool whose arch has no attention slot (mamba2)
+holds no arena, no block table and checks no kernel layout.
 """
 from __future__ import annotations
 
@@ -39,6 +48,26 @@ from repro_torch.models import decoder as dec_lib
 from repro_torch.serving.block_allocator import BlockTableMap, NoBlocksError
 
 PyTree = Any
+
+
+def _mamba_slots(cfg) -> tuple:
+    """The superblock's Mamba slot indices: their cache is slot-resident
+    state (ssm, conv), the others' attention K/V."""
+    return tuple(si for si, (mixer, _) in enumerate(cfg.superblock)
+                 if mixer == "mamba")
+
+
+def _state_insert(pool_leaf, req_leaf, slot: int):
+    """Copy a batch-1 request cache's Mamba state (ssm, conv) into batch
+    row `slot` of the pool's (n_periods, max_batch, ...) state."""
+    for name in ("ssm", "conv"):
+        pool_leaf[name][:, slot] = req_leaf[name][:, 0].to(
+            pool_leaf[name].dtype)
+
+
+def _state_blank(pool_leaf, slot: int):
+    for name in ("ssm", "conv"):
+        pool_leaf[name][:, slot] = 0
 
 
 def _min_rows(pos, index, rows):
@@ -59,23 +88,29 @@ class CachePool:
         self.max_len = max_len
         self.device = torch.device(device)
         self.cache = arch.init_cache(max_batch, max_len, device=device)
+        self._mamba_slots = _mamba_slots(arch.cfg)
 
     def _check_slot(self, slot: int):
         if not (0 <= slot < self.max_batch):
             raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
 
     def insert(self, request_cache: PyTree, slot: int):
-        """Copy a prefilled batch-1 cache (max_len rows) into `slot`."""
+        """Copy a prefilled batch-1 cache (max_len rows; Mamba state) into
+        `slot`."""
         self._check_slot(slot)
         for pool, req in zip(self.cache["slots"], request_cache["slots"]):
-            for name in ("k", "v", "pos"):
+            for name in pool:
                 pool[name][:, slot] = req[name][:, 0].to(pool[name].dtype)
         self.cache["index"][slot] = request_cache["index"][0]
 
     def evict(self, slot: int):
-        """Blank `slot`: zero K/V, positions -1, cursor 0."""
+        """Blank `slot`: zero K/V, positions -1, zero Mamba state, cursor
+        0."""
         self._check_slot(slot)
-        for pool in self.cache["slots"]:
+        for si, pool in enumerate(self.cache["slots"]):
+            if si in self._mamba_slots:
+                _state_blank(pool, slot)
+                continue
             pool["k"][:, slot] = 0
             pool["v"][:, slot] = 0
             pool["pos"][:, slot] = -1
@@ -97,7 +132,9 @@ class CachePool:
         pairs = [(slot, r) for slot, rws in rows.items() for r in rws]
         b = torch.as_tensor([p[0] for p in pairs], dtype=torch.long,
                             device=self.device)
-        for leaf in self.cache["slots"] if pairs else ():
+        for si, leaf in enumerate(self.cache["slots"] if pairs else ()):
+            if si in self._mamba_slots:
+                continue      # spec decoding serves attention-only archs
             L = leaf["pos"].shape[2]
             r = torch.as_tensor([p[1] % L for p in pairs], dtype=torch.long,
                                 device=self.device)
@@ -186,7 +223,10 @@ class PagedCachePool:
         base = dec_lib.paged_layout(arch.cfg, max_len, block_size)
         self.maps = {}
         n_blocks = {}
-        for (si, ring), (_, src_len) in zip(layout, base):
+        for entry, base_entry in zip(layout, base):
+            if entry is None:            # a Mamba slot: slot-resident
+                continue
+            (si, ring), (_, src_len) = entry, base_entry
             n_blocks[si] = budget * (ring // block_size)
             self.maps[si] = BlockTableMap(
                 max_batch, ring, block_size, n_blocks[si] + 1,
@@ -199,13 +239,17 @@ class PagedCachePool:
                                      row_margin=row_margin)
         full.pop("tables")               # host-owned: see device_tables()
         self.cache = full
+        self._mamba_slots = _mamba_slots(arch.cfg)
         self.tile_problems: list = []
-        if attn_kernel == "paged":
+        if attn_kernel == "paged" and self.maps:
+            # checked for the first attention slot-type (all share the
+            # heads and the arena dtype); an arch without one (mamba2)
+            # launches no kernel and has nothing to check
             from repro_torch.kernels.paged_attention import ensure_kernel_fit
             cfg = arch.cfg
             self.tile_problems = ensure_kernel_fit(
                 block_size, cfg.resolved_head_dim, cfg.n_heads,
-                cfg.n_kv_heads, full["slots"][0]["k"].dtype,
+                cfg.n_kv_heads, full["slots"][min(self.maps)]["k"].dtype,
                 S=row_margin + 1, device=self.device)
         self._pending_grown = {si: [] for si in self.maps}
         self.shared_hits = 0
@@ -214,12 +258,14 @@ class PagedCachePool:
     # ---------------- layout helpers ----------------
 
     def device_tables(self):
-        """Per-slot-type block tables on the pool's device, uploaded from
-        the host mirror only after a mutation changed them."""
+        """Per-slot-type block tables on the pool's device (None for Mamba
+        slots), uploaded from the host mirror only after a mutation
+        changed them."""
         if self._dev_tables is None:
             self._dev_tables = tuple(
                 torch.as_tensor(self.maps[si].table, device=self.device)
-                for si in sorted(self.maps))
+                if si in self.maps else None
+                for si in range(len(self.arch.cfg.superblock)))
         return self._dev_tables
 
     def _src_rows(self, ring: int, cache_len: int, plen: int,
@@ -294,16 +340,22 @@ class PagedCachePool:
                     dst[p.chain_pos] = p.block
             _arena_insert(self.cache["slots"][si],
                           request_cache["slots"][si], src, dst, backed)
+        for si in self._mamba_slots:
+            _state_insert(self.cache["slots"][si],
+                          request_cache["slots"][si], slot)
         self.cache["index"][slot] = plen
 
     def evict(self, slot: int):
-        """Return the slot's blocks to the allocator and zero its cursor.
-        Freed blocks keep their bytes; nothing references them."""
+        """Return the slot's blocks to the allocator, blank its Mamba
+        state and zero its cursor. Freed blocks keep their bytes; nothing
+        references them."""
         if not (0 <= slot < self.max_batch):
             raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
         self._dev_tables = None
         for m in self.maps.values():
             m.evict(slot)
+        for si in self._mamba_slots:
+            _state_blank(self.cache["slots"][si], slot)
         self.cache["index"][slot] = 0
 
     # ---------------- lazy growth ----------------

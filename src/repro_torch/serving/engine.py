@@ -51,8 +51,11 @@ per decoding slot on top of the pool's watermark, since the blocks are
 taken only at the insert; an insert that still finds the arena short
 requeues the request, and the continuation re-chunks identically.
 
-Not ported yet: meshes, the encoder-decoder and BERT families, the
-prefix-affinity policy and batch-1 `run_one`.
+Every decoder family serves: dense, MoE (routed dropless) and the
+Mamba-2 and hybrid ones, whose SSM state stays slot-resident in both
+pools (their prompts pad to a multiple of the SSD chunk,
+`prompt_granularity`). Not ported yet: meshes, the encoder-decoder and
+BERT families, the prefix-affinity policy and batch-1 `run_one`.
 """
 from __future__ import annotations
 
@@ -90,14 +93,25 @@ class Request:
 
 
 def apply_serving_policy(arch, params, policy=None):
-    """Cast the parameter copy per the precision policy (norms and biases
-    stay fp32) and run compute in its compute dtype."""
-    if policy is None:
-        return arch, params
-    from repro_torch.precision import get_policy
-    policy = get_policy(policy)
-    cfg = policy.apply_to_cfg(arch.cfg)
-    return dataclasses.replace(arch, cfg=cfg), policy.cast_params(params)
+    """Inference-side precision and MoE policy of an (arch, params) pair.
+
+    policy (optional name or Policy): cast the parameter copy per the
+    policy (its keep_fp32 leaves, norms and biases, stay fp32) and run
+    compute in its compute dtype. MoE archs are served dropless:
+    capacity_factor = n_experts makes cap = tokens * top_k, so no token
+    is dropped and routing does not depend on the batch's make-up
+    (continuous == static, padded == unpadded), as in the JAX package."""
+    cfg = arch.cfg
+    if policy is not None:
+        from repro_torch.precision import get_policy
+        policy = get_policy(policy)
+        cfg = policy.apply_to_cfg(cfg)
+        params = policy.cast_params(params)
+    if getattr(cfg, "n_experts", 0):
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    if cfg is not arch.cfg:
+        arch = dataclasses.replace(arch, cfg=cfg)
+    return arch, params
 
 
 def counting_decode(arch, nonfinite):

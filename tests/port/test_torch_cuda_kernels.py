@@ -24,6 +24,9 @@ from repro_torch.kernels import paged_attention as pa
     (dict(block_size=4, head_dim=64, n_heads=4, n_kv=2, S=8), False),
     (dict(block_size=64, head_dim=256, n_heads=32, n_kv=1, S=16), False),
     (dict(block_size=16, head_dim=64, n_heads=6, n_kv=4, S=1), False),
+    # granite-moe-3b-a800m's heads: 3 query heads per KV head, hd 64
+    (dict(block_size=16, head_dim=64, n_heads=24, n_kv=8, S=1), True),
+    (dict(block_size=16, head_dim=64, n_heads=24, n_kv=8, S=16), True),
 ])
 def test_kernel_fit_raises_on_cuda_only(layout, ok):
     layout = dict(layout)
@@ -604,3 +607,77 @@ def test_cuda_chunked_engine_matches_unchunked(attn_kernel):
         runs.append([r.generated.tolist() for r in reqs])
     assert rep["chunk_steps"] > 0
     assert runs[0] == runs[1]
+
+
+# --------------------------------------------------------------------------
+# granite-moe-3b-a800m's heads (h 24, n_kv 8: R = 3 S query rows per KV
+# head, odd at S = 1, so the last two-row fold tile is half empty; hd 64,
+# a quarter of a warp's 256-element span, so 8 of 32 lanes carry a dot
+# product) with every query dtype the serving policies give: fp32, bf16
+# and fp16 (fp16 serving). The tolerance stays 1e-5 for every q dtype:
+# the kernel and the plain version both widen q exactly to fp32.
+# --------------------------------------------------------------------------
+
+GRANITE = dict(n_heads=24, n_kv=8, head_dim=64, block_size=16)
+Q_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def granite_case(S, q_dtype, kv_dtype, device, seed, null_write=False):
+    """K8's operands at granite's heads: decode_case at S = 1 (a dead
+    slot, position -1 rows, optionally a new row on a null table entry),
+    verify_case at S > 1 (row-margined tables, padding rows at -1)."""
+    kw = dict(**GRANITE, dtype=kv_dtype, q_dtype=q_dtype, device=device,
+              seed=seed)
+    if S == 1:
+        return pa.decode_case(B=4, S=1, nb=6, null_write=null_write, **kw)
+    return pa.verify_case(S=S, nb=7, **kw)[0]
+
+
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
+def test_plain_versions_take_every_q_dtype_on_cpu(q_dtype):
+    """On the CPU the wrappers run the plain versions for fp16 queries
+    too, at granite's heads, and count no launch."""
+    args = granite_case(1, q_dtype, torch.bfloat16, "cpu", 0)
+    plain = [a.clone() for a in args]
+    counts = (pa.paged_attention_fused.launches, pa.paged_attention.launches)
+    out = pa.paged_attention_fused(*args, scale=0.125)
+    want = pa.paged_attention_fused_plain(*plain, scale=0.125)
+    k7 = pa.paged_attention(*_read_args(args), scale=0.125)
+    assert torch.equal(out, want) and torch.equal(k7, out)
+    assert out.dtype == torch.float32 and (out[-1] == 0).all()
+    assert counts == (pa.paged_attention_fused.launches,
+                      pa.paged_attention.launches)
+    assert set(pa.Q_CODES) == set(Q_DTYPES)
+
+
+@pytest.mark.parametrize("S,null_write", [(1, False), (1, True), (4, False)])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_dtype", Q_DTYPES)
+def test_cuda_kernels_at_granite_heads(q_dtype, kv_dtype, S, null_write):
+    """Needs the card: K8 and K7 (on the arenas before the write) against
+    their plain versions within 1e-5 at granite's heads, every q dtype,
+    bf16 and fp32 arenas, S = 1 (decode) and 4 (a verify block); arenas
+    torch.equal, the dead slot exactly 0, K7 on K8's post-write arenas
+    equal to K8, and a second launch of each equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = granite_case(S, q_dtype, kv_dtype, "cuda", seed=S,
+                        null_write=null_write)
+    kw = dict(scale=0.125)
+    read = _read_args(args)
+    fresh = [a.clone() for a in args]
+    out7, again7 = (pa.paged_attention(*read, **kw) for _ in range(2))
+    want7 = pa.paged_attention_plain(*read, **kw)
+    plain = [a.clone() for a in args]
+    out = pa.paged_attention_fused(*args, **kw)
+    want = pa.paged_attention_fused_plain(*plain, **kw)
+    again = pa.paged_attention_fused(*fresh, **kw)
+    after7 = pa.paged_attention(*_read_args(args), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out7, want7, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(after7, out, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out7, again7) and torch.equal(out, again)
+    for got, w, rep in zip(args[3:6], plain[3:6], fresh[3:6]):
+        assert torch.equal(got, w) and torch.equal(rep, w)
+    assert (out[-1] == 0).all() and (out7[-1] == 0).all()

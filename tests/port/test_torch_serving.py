@@ -226,8 +226,8 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
 @pytest.mark.parametrize("argv", [
     ["--shared-inputs", "2"], ["--mesh", "2x1"], ["--replicas", "2"],
     ["--attn-kernel", "paged", "--interpret"], ["--task", "score"],
-    ["--precision", "fp16"],
-    ["--sched-policy", "prefix-affinity"], ["--arch", "mamba2-130m"],
+    ["--arch", "whisper-large-v3"],
+    ["--sched-policy", "prefix-affinity"], ["--task", "embed"],
     ["--arch", "bert-large"]])
 def test_cli_unported_features_raise(argv):
     with pytest.raises(SystemExit, match="not (yet )?ported"):

@@ -456,7 +456,7 @@ def test_cli_optimizers_train_on_cpu(argv):
         assert summary["overflow_count"] == 0
 
 
-@pytest.mark.parametrize("argv", [["--arch", "granite-moe-3b-a800m"]])
+@pytest.mark.parametrize("argv", [["--arch", "whisper-large-v3"]])
 def test_cli_unported_options_raise(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(["--device", "cpu", *argv])
