@@ -101,7 +101,39 @@ Phases, in the order they run, each of which fails the run:
      with --precision fp16 and the kernel: finite logits, K8 launched
      decode steps x 26, the share of greedy tokens equal to phase 3's
      fp32 run printed (not gated), and K8 and K7 with fp16 q held and
-     timed at phase 2's serving shape, K7's path driven with fp16 q. Each sub-phase's time is printed;
+     timed at phase 2's serving shape, K7's path driven with fp16 q.
+     Each sub-phase's time is printed;
+  E. the encoder-decoder and BERT scoring (after phase M): (a)
+     whisper-large-v3 at full width and depth (32 + 32 layers, d 1280,
+     20 heads, 1500 frames), fp32, through the CLI after a 2-request
+     warm-up: 8 requests over 2 distinct inputs (--shared-inputs 2:
+     beams or retries of one utterance), prompts 4-8, 16-32 new tokens,
+     4 slots; every request ends with its budget, the shared cross
+     blocks are a positive multiple of 94 (one input's blocks); the
+     same stream on engines with and without prefix sharing gives the
+     CLI's tokens, and so does run_one for each request; after the
+     drains check_invariants passes and no cross block is live;
+     tokens/s, TTFT and ITL p50/p99, decode steps, peak memory and one
+     profiled 4-slot decode step printed; (b) bert-large at full width,
+     fp32, --task score and then --task embed: 32 requests of 64-128
+     tokens, 8 slots, one forward per step (4 steps); embeddings of the
+     two tasks within 1e-5, each request's run_one embedding within
+     1e-5 of the batched one, run_one masked-LM ids equal to the batched
+     ones on at least 99.9% of the positions (each differing position
+     printed: batch 1 and batch 8 may reduce in another order, and 4096
+     argmaxes over 30,522 logits can meet a near-tie); requests/s,
+     tokens/s and ms per forward printed; (c) whisper-large-v3 trained
+     at full width and depth with fp32 LANS (seq 128, batch 2, seed 0,
+     3 steps, warmup-hold-decay): one shared set of step-1 gradients at
+     8 layers per stack (every leaf; both routes fit the card) applied
+     by lans and fused_lans within 2e-5; the CLI (unfused) and
+     build_train_step + fused_lans from the same seed and batches:
+     losses finite and within 1e-2 relative, K1-K3 each launched 3 x 46
+     (the leaves) times, step times and peak memory printed, one fused
+     step profiled (idle share, the LANS kernels' share); then K1-K4 at
+     the largest leaf (209,715,200 fp32 elements) held to their plain
+     versions and timed beside their byte bounds and, for K1, a library
+     call. Each sub-phase's time is printed;
   5. hold the fused LANS kernels K1-K4 against their plain versions
      (1, 127, 32,773 and 1,048,579 elements; g/x fp32 and bf16; step 1
      and 4; lam 0 with trust off, a zero-gradient leaf, a NaN in g; K4
@@ -220,6 +252,22 @@ GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--full", "--precision",
 GRANITE_LAYERS = 32                  # granite-moe-3b-a800m
 GRANITE_HEADS = dict(n_heads=24, n_kv=8, head_dim=64, block_size=16)
 GEMMA_HEADS = dict(n_heads=8, n_kv=4, head_dim=256, block_size=16)
+WHISPER_SERVE_ARGV = ["--arch", "whisper-large-v3", "--full", "--precision",
+                      "fp32", "--requests", "8", "--max-batch", "4",
+                      "--prompt-len", "8", "--new-tokens", "32",
+                      "--shared-inputs", "2", "--seed", "0", "--device",
+                      "cuda"]
+WHISPER_BLOCKS = 94                  # 1500 frames in blocks of 16 rows
+BERT_SCORE_ARGV = ["--arch", "bert-large", "--full", "--precision", "fp32",
+                   "--task", "score", "--requests", "32", "--max-batch", "8",
+                   "--prompt-len", "128", "--seed", "0", "--device", "cuda"]
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-large-v3", "--full", "--optimizer",
+                      "lans", "--precision", "fp32", "--steps", "3",
+                      "--batch", "2", "--seq", "128", "--seed", "0",
+                      "--schedule", "hold", "--device", "cuda",
+                      "--log-every", "1"]
+WHISPER_LEAVES = 46
+WHISPER_LEAF = 32 * 5120 * 1280      # whisper's mlp up/down kernels
 
 
 class SmokeFailure(RuntimeError):
@@ -2164,6 +2212,219 @@ def decoder_routes(torch, kl, kops):
     return launches, bf16_launches, times, errs, update
 
 
+def whisper_serving(torch, serve_mod):
+    """Phase E(a): whisper-large-v3 served at full width and depth (see
+    the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import (ContinuousEngine,
+                                     synthetic_encdec_requests)
+    t0 = time.perf_counter()
+    serve_mod.main(with_flag(with_flag(WHISPER_SERVE_ARGV, "--requests",
+                                       "2"), "--new-tokens", "4"))
+    print("serve: whisper warm-up stream done (2 requests, 4 new tokens)")
+    torch.cuda.reset_peak_memory_stats()
+    stats, cli_tokens = serve(serve_mod, WHISPER_SERVE_ARGV,
+                              "whisper-large-v3 fp32")
+    peak = peak_gb(torch)
+    arch = get_arch("whisper-large-v3")
+    # the CLI's weights (the seed on the card) and its request stream
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def stream():
+        return synthetic_encdec_requests(
+            8, arch.cfg.vocab, n_frames=arch.cfg.n_frames,
+            d_model=arch.cfg.d_model, prompt_len=8, new_tokens=32,
+            n_inputs=2, seed=0)
+    want = {i: r.max_new_tokens for i, r in enumerate(stream())}
+    check(all(len(cli_tokens[i]) == n for i, n in want.items()),
+          "whisper: a request did not end with its budget")
+    hits = stats["shared_block_hits"]
+    check(hits > 0 and hits % WHISPER_BLOCKS == 0,
+          f"whisper: {hits} shared cross blocks, not a positive multiple "
+          f"of {WHISPER_BLOCKS} (one input's blocks)")
+    print(f"phase E(a): tokens_per_s {stats['tokens_per_s']:.2f}, ttft p50 "
+          f"{stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, "
+          f"itl p50 {stats['itl_p50_ms']:.2f} ms p99 "
+          f"{stats['itl_p99_ms']:.2f} ms, decode steps "
+          f"{stats['decode_steps']}, shared cross blocks {hits}, retained "
+          f"{stats['retained_block_hits']}, peak memory {peak:.2f} GB")
+    kw = dict(max_batch=4, max_len=40, policy="fp32", prefill_bucket=8)
+    eng = ContinuousEngine(arch, params, **kw)
+    # where a decode step's time goes: 4 slots, under the profiler
+    for r in stream()[:4]:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    check(len(eng.scheduler.active) == 4, "whisper profile: not 4 slots")
+    print_profile("whisper decode step, 4 slots",
+                  *device_profile(torch, eng.step))
+    eng.run()
+    shared = {i: r.generated.tolist()
+              for i, r in enumerate(eng.run_batch(stream()))}
+    check(shared == cli_tokens, "whisper: a library engine's tokens differ "
+          "from the CLI's")
+    solo = {i: eng.run_one(r).generated.tolist()
+            for i, r in enumerate(stream())}
+    check(solo == cli_tokens, "whisper: run_one tokens differ from the "
+          "pooled engine's")
+    eng.pool.check_invariants()
+    check(eng.pool.map.alloc.n_live == 0, "whisper: cross blocks stay live "
+          "after the drain")
+    del eng
+    torch.cuda.empty_cache()
+    eng = ContinuousEngine(arch, params, share_prefix=False, **kw)
+    unshared = {i: r.generated.tolist()
+                for i, r in enumerate(eng.run_batch(stream()))}
+    check(eng.pool.shared_hits == 0, "whisper: share_prefix=False shared")
+    check(unshared == cli_tokens, "whisper: tokens differ between "
+          "share_prefix True and False")
+    eng.pool.check_invariants()
+    check(eng.pool.map.alloc.n_live == 0, "whisper: cross blocks stay live "
+          "after the drain (unshared)")
+    print(f"phase E(a): tokens equal across the CLI, an engine with and "
+          f"without sharing, and run_one for {len(cli_tokens)} requests; "
+          f"no cross block live after the drains")
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"phase E(a): {time.perf_counter() - t0:.1f} s")
+
+
+def bert_scoring(torch, serve_mod):
+    """Phase E(b): bert-large scored and embedded at full width (see the
+    module docstring)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import (ContinuousEngine,
+                                     synthetic_scoring_requests)
+    t0 = time.perf_counter()
+    serve_mod.main(with_flag(BERT_SCORE_ARGV, "--requests", "8"))
+    print("serve: bert warm-up stream done (8 requests)")
+    out = {}
+    for task in ("score", "embed"):
+        stats, done = serve_mod.main(with_flag(BERT_SCORE_ARGV, "--task",
+                                               task))
+        out[task] = done
+        steps = stats["decode_steps"]
+        print(f"serve[bert-large {task}]: requests={stats['requests']} "
+              f"requests_per_s {stats['requests'] / stats['wall_s']:.2f} "
+              f"tokens_per_s {stats['tokens_per_s']:.2f} forwards {steps}, "
+              f"{stats['wall_s'] * 1e3 / steps:.2f} ms per forward")
+        check(stats["requests"] == 32 and steps == 4,
+              f"bert {task}: {stats['requests']} requests in {steps} "
+              f"forwards, expected 32 in 4")
+    for s, e in zip(out["score"], out["embed"]):
+        check(len(s.generated) == len(s.prompt) and len(e.generated) == 0,
+              "bert: score/embed outputs of the wrong length")
+        check(np.allclose(s.embedding, e.embedding, rtol=1e-5, atol=1e-5),
+              f"bert: request {s.rid}'s score and embed embeddings differ")
+    arch = get_arch("bert-large")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ContinuousEngine(arch, params, max_batch=8, max_len=128,
+                           policy="fp32", task="score")
+    solo = synthetic_scoring_requests(32, arch.cfg.vocab, prompt_len=128,
+                                      seed=0)
+    emb_err, n_pos, differ = 0.0, 0, []
+    for b, r in zip(out["score"], solo):
+        eng.run_one(r)
+        emb_err = max(emb_err, float(np.abs(r.embedding - b.embedding).max()))
+        check(np.allclose(r.embedding, b.embedding, rtol=1e-5, atol=1e-5),
+              f"bert: request {b.rid}'s run_one embedding differs from the "
+              f"batched one beyond 1e-5")
+        n_pos += len(r.generated)
+        differ += [(b.rid, int(i), int(b.generated[i]), int(r.generated[i]))
+                   for i in np.nonzero(r.generated != b.generated)[0]]
+    # cuBLAS may reduce in another order at batch 1 than at batch 8, and
+    # 4096 argmaxes over 30,522 logits can meet a near-tie: the masked-LM
+    # ids must agree on 99.9% of the positions, each differing one printed
+    for rid, i, batched, single in differ:
+        print(f"  bert ids differ: request {rid} position {i}: batched "
+              f"{batched}, run_one {single}")
+    agree = 1 - len(differ) / n_pos
+    print(f"phase E(b): run_one vs batched: embeddings max |diff| "
+          f"{emb_err:.3e} (tolerance 1e-5), masked-LM ids equal on "
+          f"{n_pos - len(differ)} of {n_pos} positions ({agree:.5f})")
+    check(agree >= 0.999, f"bert: run_one ids agree on {agree:.5f} < 0.999")
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"phase E(b): {time.perf_counter() - t0:.1f} s")
+
+
+def whisper_training(torch, kl, kops):
+    """Phase E(c): whisper-large-v3 trained at full width and depth
+    through K1-K3 (see the module docstring). Returns (the fused route's
+    launches, K1-K3 timings and errors at the largest leaf)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lans, lans
+    from repro_torch.core.optim.base import tree_items
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.launch import train as train_mod
+    t0 = time.perf_counter()
+    arch = get_arch("whisper-large-v3")
+    steps, batch_size, seq, seed = 3, 2, 128, 0
+    sched = train_mod.make_schedule("hold", 2e-3, steps, 0.2, 0.3)
+    batches = cli_batches(torch, train_mod, arch, batch_size, seq, seed)
+    with torch.device("meta"):
+        shapes = tree_items(arch.init(None))
+    n_params = sum(t.numel() for _, t in shapes)
+    check(len(shapes) == WHISPER_LEAVES and max(
+        t.numel() for _, t in shapes) == WHISPER_LEAF,
+        "whisper-large-v3's leaves are not 46 with 209,715,200 at most")
+    print(f"phase E(c): whisper-large-v3, {len(shapes)} leaves, {n_params} "
+          f"params, seq {seq}, batch {batch_size}, 1500 frames")
+    # shared step-1 gradients at full width, 8 layers per stack (every
+    # leaf; both routes' params, moments and updates fit the card)
+    arch8 = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=8))
+    shared_step1(torch, arch8, batches, lans(sched), fused_lans(sched),
+                 "whisper-large-v3 (8 layers per stack), lans vs "
+                 "fused_lans", leaves=WHISPER_LEAVES)
+    torch.cuda.reset_peak_memory_stats()
+    cli = train_mod.main(WHISPER_TRAIN_ARGV)
+    cli_peak = peak_gb(torch)
+    torch.cuda.empty_cache()
+    print(f"train[whisper-large-v3, cli, unfused lans, fp32 policy]: losses "
+          f"{[round(v, 6) for v in cli['losses']]} step_ms "
+          f"{[round(t * 1e3, 2) for t in cli['step_s']]} peak memory "
+          f"{cli_peak:.2f} GB")
+    step_fn, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
+                                        param_init_fn=arch.init,
+                                        policy="fp32")
+    torch.cuda.reset_peak_memory_stats()
+    for k in kl.KERNELS:
+        k.launches = 0
+    params, state, losses, step_ms, _ = run_steps(
+        torch, step_fn,
+        *init_fn(torch.Generator(device="cuda").manual_seed(seed)),
+        batches, steps)
+    launches = {k.__name__: k.launches for k in kl.KERNELS}
+    fused_peak = peak_gb(torch)
+    print(f"train[whisper-large-v3, build_train_step + fused_lans, fp32 "
+          f"policy]: losses {[round(v, 6) for v in losses]} step_ms "
+          f"{[round(t, 2) for t in step_ms]} peak memory {fused_peak:.2f} "
+          f"GB; launches {launches}")
+    check(all(math.isfinite(v) for v in losses + cli["losses"]),
+          "a whisper training loss is not finite")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cli["losses"]))
+    check(rel <= 1e-2, f"whisper fused and CLI loss trajectories differ by "
+          f"{rel:.3e} relative (> 1e-2)")
+    print(f"train: whisper fused vs CLI loss trajectory, max relative diff "
+          f"{rel:.3e} (tolerance 1e-2)")
+    for name in ("sq_norm", "lans_phase1", "lans_phase2"):
+        check(launches[name] == steps * WHISPER_LEAVES,
+              f"{name} launched {launches[name]} times, expected "
+              f"{steps} x {WHISPER_LEAVES}")
+    check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
+    profile_step(torch, step_fn, params, state, next(batches()), n_params)
+    del params, state, step_fn, init_fn
+    torch.cuda.empty_cache()
+    errs = {k.__name__: 0.0 for k in kl.KERNELS}
+    times = lans_timing(torch, kl, kops, errs, n=WHISPER_LEAF)
+    torch.cuda.empty_cache()
+    print(f"phase E(c): {time.perf_counter() - t0:.1f} s")
+    return launches, times, errs
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2241,6 +2502,11 @@ def run() -> int:
     paged_entries["paged_attention"].update(moe_mamba["paged_attention"])
     del flush
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whisper_serving(torch, serve_mod)
+    bert_scoring(torch, serve_mod)
+    enc_launches, enc_times, enc_errs = whisper_training(torch, kl, kops)
+    print(f"phase E: {time.perf_counter() - t0:.1f} s")
 
     errs = lans_parity(torch, kl, kops)
     times = lans_timing(torch, kl, kops, errs)
@@ -2280,6 +2546,11 @@ def run() -> int:
             entries[-1]["decoder"] = dict(
                 n=EMBED_LEAF, launches=decoder[name][name],
                 max_abs_err=dec_errs[name], **dec_times[name])
+        if name in ("sq_norm", "lans_phase1", "lans_phase2"):
+            # phase E(c): whisper-large-v3's largest leaf
+            entries[-1]["whisper"] = dict(
+                n=WHISPER_LEAF, launches=enc_launches[name],
+                max_abs_err=enc_errs[name], **enc_times[name])
     next(e for e in entries if e["name"] == "sq_norm")["decoder"][
         "whole_update"] = dec_update
 

@@ -2,11 +2,12 @@
 numpy.
 
 The port keeps the JAX package's param layout: nested dicts with the
-same keys, dense kernels (in, out), and every `slot{i}` leaf (decoder)
-or `layers` leaf (BERT) stacked over the periods or layers. So the
-conversion is leaf by leaf; what it adds is a check that the tree has
-exactly the shapes the port's `decoder_init` / `bert_init` would build
-for `cfg`, so that both frameworks compute the same function.
+same keys, dense kernels (in, out), and every `slot{i}` leaf (decoder),
+`enc_layers` / `dec_layers` leaf (encoder-decoder) or `layers` leaf
+(BERT) stacked over the periods or layers. So the conversion is leaf by
+leaf; what it adds is a check that the tree has exactly the shapes the
+port's `decoder_init` / `encdec_init` / `bert_init` would build for
+`cfg`, so that both frameworks compute the same function.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.models.bert import BertConfig, bert_init
 from repro_torch.models.decoder import decoder_init
+from repro_torch.models.encdec import EncDecConfig, encdec_init
 
 
 def _shapes(tree, prefix=""):
@@ -44,12 +46,14 @@ def _convert(tree, device):
 
 
 def params_from_jax(cfg, np_tree, device="cpu"):
-    """The JAX package's decoder or BERT params (nested dict of numpy
-    arrays, or of anything np.asarray takes) as the port's params for
-    `cfg` (a DecoderConfig or BertConfig), on `device`, dtypes kept.
-    Raises when keys or shapes differ from what the port builds for
-    `cfg`."""
-    init = bert_init if isinstance(cfg, BertConfig) else decoder_init
+    """The JAX package's decoder, encoder-decoder or BERT params (nested
+    dict of numpy arrays, or of anything np.asarray takes) as the port's
+    params for `cfg` (a DecoderConfig, EncDecConfig or BertConfig), on
+    `device`, dtypes kept. Raises when keys or shapes differ from what
+    the port builds for `cfg`."""
+    init = (bert_init if isinstance(cfg, BertConfig)
+            else encdec_init if isinstance(cfg, EncDecConfig)
+            else decoder_init)
     with torch.device("meta"):
         want = _shapes(init(None, cfg))
     got = _shapes(np_tree)

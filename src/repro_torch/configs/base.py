@@ -1,10 +1,12 @@
 """Arch: binds a model family to its config (port of repro/configs/base.py).
 
-Ported: the decoder family's training (the causal-LM loss, chunked over
-the sequence for big vocabularies) and serving (init, the paged serving
-cache, prefill into a pooled cache, one decode step), and the bert
-family's pretraining side (init, loss). BERT serving is not ported yet
-and raises.
+Every family of the JAX package: the decoders' training (the causal-LM
+loss, chunked over the sequence for big vocabularies) and serving (init,
+the paged serving cache, prefill into a pooled cache, one decode step);
+the encoder-decoder's training (lm_loss over encdec_apply) and serving
+(the pooled per-slot self cache, admission prefill that encodes and
+projects the cross K/V once, the pooled and single-stream decode
+steps); and BERT's pretraining and scoring forward (`score`).
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import torch
 
 from repro_torch.models import bert as bert_lib
 from repro_torch.models import decoder as dec_lib
+from repro_torch.models import encdec as ed_lib
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    kind: str                      # "decoder" | "bert"
+    kind: str                      # "decoder" | "encdec" | "bert"
     cfg: Any
     source: str                    # citation for the config
     embeds_input: bool = False     # VLM stub: the model takes embeddings
@@ -30,6 +33,8 @@ class Arch:
         """Random params drawn from `gen`, on `gen.device`."""
         if self.kind == "bert":
             return bert_lib.bert_init(gen, self.cfg)
+        if self.kind == "encdec":
+            return ed_lib.encdec_init(gen, self.cfg)
         return dec_lib.decoder_init(gen, self.cfg)
 
     def loss_fn(self, params, batch):
@@ -39,9 +44,14 @@ class Arch:
         embeds_input arch), chunked over the sequence (the (B, S, V)
         logits never live at once) when the vocab is >= 65536 and the
         sequence is >= 1024 and a multiple of 512, the JAX package's
-        rule."""
+        rule. Encdec: the same cross entropy of the decoder given
+        batch["frames"] and batch["tokens"], no aux."""
         if self.kind == "bert":
             return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
+        if self.kind == "encdec":
+            logits = ed_lib.encdec_apply(params, self.cfg, batch["frames"],
+                                         batch["tokens"])
+            return dec_lib.lm_loss(logits, batch["labels"]), {}
         seq = batch["labels"].shape[1]
         chunked = (self.cfg.vocab >= 65536 and seq >= 1024
                    and seq % 512 == 0)
@@ -60,17 +70,18 @@ class Arch:
                                    moe_aux=aux["moe_aux_loss"])
         return loss, {"router_entropy": aux["router_entropy"]}
 
-    def _serving(self):
-        if self.kind != "decoder":
-            raise NotImplementedError(f"serving the {self.kind} family is "
-                                      f"not ported yet")
-
     def init_cache(self, batch: int, max_len: int, *, device="cpu",
                    clamp_window: bool = True):
         """Pooled per-slot serving cache: `batch` slots of max_len rows
-        (window-sized rings on sliding-window layers unless
-        clamp_window=False, the chunked prefill's cache), cursors at 0."""
-        self._serving()
+        (decoders: window-sized rings on sliding-window layers unless
+        clamp_window=False, the chunked prefill's cache; encdec: the
+        self-attention cache in compute_dtype), cursors at 0."""
+        if self.kind == "encdec":
+            return ed_lib.init_encdec_cache(self.cfg, batch, max_len,
+                                            dtype=self.cfg.compute_dtype,
+                                            per_slot=True, device=device)
+        if self.kind != "decoder":
+            raise ValueError(f"{self.kind} has no decode cache")
         return dec_lib.init_decoder_cache(self.cfg, batch, max_len,
                                           device=device,
                                           clamp_window=clamp_window)
@@ -78,11 +89,12 @@ class Arch:
     def init_paged_cache(self, batch: int, max_len: int, *,
                          block_size: int = 16, n_blocks=None, device="cpu",
                          row_margin: int = 0):
-        """Paged (block-arena) serving cache. n_blocks defaults to the
-        dense-equivalent budget: `batch` slots' worth of blocks per
-        attention slot-type. row_margin widens the rings (speculative
-        decoding; models/decoder.paged_layout)."""
-        self._serving()
+        """Paged (block-arena) serving cache, decoder-only. n_blocks
+        defaults to the dense-equivalent budget: `batch` slots' worth of
+        blocks per attention slot-type. row_margin widens the rings
+        (speculative decoding; models/decoder.paged_layout)."""
+        if self.kind != "decoder":
+            raise NotImplementedError("paged serving is decoder-only")
         if n_blocks is None:
             layout = dec_lib.paged_layout(self.cfg, max_len, block_size,
                                           row_margin)
@@ -93,12 +105,34 @@ class Arch:
             n_blocks=n_blocks, device=device, row_margin=row_margin)
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,
-                positions=None):
-        """Full-sequence forward into a fresh pooled cache ->
-        (last-position logits (B, 1, V), cache). positions (B, S) gives
-        per-slot local timelines; left-pad rows carry positions < 0."""
-        self._serving()
+                positions=None, per_slot: bool = True):
+        """Full-sequence forward into a fresh cache -> (last-position
+        logits (B, 1, V), cache). positions (B, S) gives per-slot local
+        timelines; left-pad rows carry positions < 0.
+
+        Encdec also takes batch["frames"]: with per_slot (the pooled
+        serving admission) it encodes, projects the cross K/V once and
+        returns them dense under cache["cross"]; per_slot=False is the
+        single-stream form (a 0-d cursor; decode_step then takes the
+        encoder output as batch["memory"]). Decoders serve pooled only."""
         toks = batch["tokens"]
+        if self.kind == "encdec":
+            if per_slot:
+                return ed_lib.prefill_serve(
+                    params, self.cfg, toks, positions, batch["frames"],
+                    cache_len or toks.shape[1])
+            memory = ed_lib.encode(params, self.cfg, batch["frames"])
+            cache = ed_lib.init_encdec_cache(
+                self.cfg, toks.shape[0], cache_len or toks.shape[1],
+                device=toks.device)
+            logits, cache = ed_lib.decode(params, self.cfg, toks, memory,
+                                          caches=cache)
+            return logits[:, -1:], cache
+        if self.kind != "decoder":
+            raise ValueError(f"{self.kind} does not serve")
+        if not per_slot:
+            raise ValueError("decoders serve from the pooled (per-slot) "
+                             "cache only")
         cache = dec_lib.init_decoder_cache(
             self.cfg, toks.shape[0], cache_len or toks.shape[1],
             device=toks.device)
@@ -109,12 +143,31 @@ class Arch:
 
     def decode_step(self, params, batch, cache):
         """New tokens against the cache -> (logits, cache written in
-        place). batch may carry "positions" (B, S)."""
-        self._serving()
+        place). batch may carry "positions" (B, S). Encdec: a pooled
+        cache ("slots") carries its cross K/V; the single-stream one
+        takes batch["memory"], the encoder output."""
+        if self.kind == "encdec":
+            if "slots" in cache:
+                return ed_lib.decode_serve(params, self.cfg,
+                                           batch["tokens"],
+                                           batch["positions"], cache)
+            return ed_lib.decode(params, self.cfg, batch["tokens"],
+                                 batch["memory"], caches=cache)
+        if self.kind != "decoder":
+            raise ValueError(f"{self.kind} does not serve")
         logits, cache, _ = dec_lib.decoder_apply(
             params, self.cfg, batch["tokens"], caches=cache,
             positions=batch.get("positions"))
         return logits, cache
+
+    def score(self, params, tokens, positions):
+        """Batched scoring forward (BERT) -> (masked-LM argmax ids (B, S)
+        int32, fp32 tanh-pooled [CLS] embedding (B, d)). tokens /
+        positions (B, S) left-padded (pads < 0); no cache."""
+        if self.kind != "bert":
+            raise ValueError(f"{self.kind} has no scoring forward")
+        return bert_lib.bert_serve_outputs(params, self.cfg, tokens,
+                                           positions)
 
 
 def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):

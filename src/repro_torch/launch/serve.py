@@ -1,6 +1,7 @@
-"""Serving launcher of the port: decode of a decoder arch through the
-continuous engine (paged or dense pool) or the static baseline, on CUDA
-unless --device cpu.
+"""Serving launcher of the port: decode of a decoder or encoder-decoder
+arch through the continuous engine (paged or dense pool) or the static
+baseline, and scoring or embedding with a bert arch, on CUDA unless
+--device cpu.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --full --precision fp32 --attn-kernel paged --requests 8 \\
@@ -8,6 +9,10 @@ unless --device cpu.
       --spec-draft self --spec-k 4 --sampler temperature=0.8,top_k=50
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --chunk-budget 8 --arrival-rate 50 --requests 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch whisper-large-v3 --shared-inputs 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch bert-large --task score
 
 The flags and defaults are those of `repro.launch.serve`, plus
 --device, and so are the flag-compatibility errors (`flag_errors`). It
@@ -31,7 +36,11 @@ earliest deadline. Every decoder arch serves: the dense ones, the MoE
 granite-moe-3b-a800m and grok-1-314b (routed dropless), mamba2-130m and
 the hybrid jamba-1.5-large-398b (their SSM state slot-resident); and
 every precision, --precision fp16 feeding fp16 queries to the kernel.
-Flags whose feature is not ported yet raise and say so.
+--arch whisper-large-v3 serves the encoder-decoder (synthetic frame
+inputs; --shared-inputs N draws only N distinct inputs, whose cross
+blocks same-input requests share in the arena); --arch bert-large
+--task score|embed scores or embeds (--max-len defaults to
+--prompt-len). Flags whose feature is not ported yet raise and say so.
 """
 from __future__ import annotations
 
@@ -47,7 +56,9 @@ from repro_torch.metrics import MetricsLogger
 from repro_torch.serving import (SLO, ContinuousEngine, OpenLoopDriver,
                                  ServeEngine, aggregate, make_spec_pair,
                                  poisson_arrivals, slo_report,
-                                 synthetic_requests)
+                                 synthetic_encdec_requests,
+                                 synthetic_requests,
+                                 synthetic_scoring_requests)
 
 # Flags that configure the continuous engine's PAGED pool (or features
 # built on it), as in repro.launch.serve: each fails under --engine
@@ -78,13 +89,10 @@ CONTINUOUS_ONLY_FLAGS = (
 
 # (flag, requested?) for features of repro.launch.serve the port does not
 # have yet and that no layer below the CLI sees: each raises "not yet
-# ported" instead of running something else. An unported arch or model
-# family (whisper-large-v3; BERT serving), or the prefix-affinity policy,
-# is rejected by the registry, Arch or scheduler it reaches. --interpret
-# is the Pallas kernel's, which the port has no counterpart of.
+# ported" instead of running something else. The prefix-affinity policy
+# is rejected by the scheduler it reaches. --interpret is the Pallas
+# kernel's, which the port has no counterpart of.
 NOT_PORTED_FLAGS = (
-    ("--task", lambda a: a.task != "generate"),
-    ("--shared-inputs", lambda a: a.shared_inputs != 0),
     ("--mesh", lambda a: a.mesh is not None),
     ("--replicas", lambda a: a.replicas != 1),
     ("--route-policy", lambda a: a.route_policy is not None),
@@ -113,6 +121,24 @@ def flag_errors(args) -> list:
             "--interpret: only applies to the Pallas kernel path "
             "(--attn-kernel paged)")
     return errs
+
+
+def kind_error(args, kind: str):
+    """The JAX launcher's error for the first flag that does not fit the
+    arch's family, in its wording; None when all fit."""
+    if args.engine == "static" and kind != "decoder":
+        return f"--engine static is decoder-only, got {kind}"
+    if kind == "bert" and args.task == "generate":
+        return (f"{args.arch} is a bert arch: pass --task score or --task "
+                f"embed")
+    if kind != "bert" and args.task != "generate":
+        return f"--task {args.task} needs a bert arch, got {kind}"
+    for flag, wrong in (
+            ("--shared-prefix", args.shared_prefix and kind != "decoder"),
+            ("--shared-inputs", args.shared_inputs and kind != "encdec")):
+        if wrong:
+            return f"{flag} does not apply to {kind} archs"
+    return None
 
 
 def build_parser():
@@ -269,18 +295,35 @@ def main(argv=None, requests=None):
 def _build(args):
     """(engine, requests, metrics logger, device) for the parsed flags."""
     arch = reduced_arch(args.arch) if args.reduced else get_arch(args.arch)
-    if args.engine == "static" and arch.kind != "decoder":
-        raise SystemExit(f"--engine static is decoder-only, got {arch.kind}")
+    err = kind_error(args, arch.kind)
+    if err:
+        raise SystemExit(err)
     device = select_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = arch.init(gen)
-    max_len = args.max_len or (args.prompt_len + args.new_tokens)
-    reqs = synthetic_requests(args.requests, arch.cfg.vocab,
-                              prompt_len=args.prompt_len,
-                              new_tokens=args.new_tokens, seed=args.seed,
-                              shared_prefix=args.shared_prefix)
+    if arch.kind == "bert":          # scoring holds no decode budget
+        max_len = args.max_len or args.prompt_len
+    else:
+        max_len = args.max_len or (args.prompt_len + args.new_tokens)
+    if arch.kind == "encdec":
+        reqs = synthetic_encdec_requests(
+            args.requests, arch.cfg.vocab, n_frames=arch.cfg.n_frames,
+            d_model=arch.cfg.d_model, prompt_len=args.prompt_len,
+            new_tokens=args.new_tokens,
+            n_inputs=args.shared_inputs or None, seed=args.seed)
+    elif arch.kind == "bert":
+        reqs = synthetic_scoring_requests(
+            args.requests, arch.cfg.vocab, prompt_len=args.prompt_len,
+            seed=args.seed)
+    else:
+        reqs = synthetic_requests(args.requests, arch.cfg.vocab,
+                                  prompt_len=args.prompt_len,
+                                  new_tokens=args.new_tokens,
+                                  seed=args.seed,
+                                  shared_prefix=args.shared_prefix)
     max_len += args.shared_prefix
-    if args.cache == "paged":        # arena rows come in whole blocks
+    if args.cache == "paged" and arch.kind == "decoder":
+        # arena rows come in whole blocks
         max_len = -(-max_len // args.block_size) * args.block_size
     log = MetricsLogger(args.metrics)
     if args.engine == "static":
@@ -312,7 +355,8 @@ def _build(args):
         attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
         sched_policy=args.sched_policy, slo_ms=args.slo_ms,
         preempt=args.preempt, retain_blocks=args.retain_blocks,
-        watermark=args.watermark, chunk_budget=args.chunk_budget, **spec_kw)
+        watermark=args.watermark, chunk_budget=args.chunk_budget,
+        task=args.task, **spec_kw)
     return engine, reqs, log, device
 
 

@@ -1,20 +1,24 @@
 """Training launcher of the port (port of repro/launch/train.py).
 
-Trains bert-large or a decoder (gemma2-2b, qwen2.5-14b/32b,
+Trains bert-large, a decoder (gemma2-2b, qwen2.5-14b/32b,
 mistral-nemo-12b, chameleon-34b; the MoE granite-moe-3b-a800m and
 grok-1-314b, whose aux load-balance loss is added with weight 0.01; the
 Mamba-2 mamba2-130m and the hybrid jamba-1.5-large-398b, whose --seq
-must be a multiple of the SSD chunk; reduced by default, `--full` for
-the real widths and depth) with the paper's recipe: LANS + warmup-hold-decay
-schedule + sharded-without-replacement data (masked-LM batches for BERT,
-next-token batches for the decoders, with random input embeddings for
-chameleon's stubbed image tokenizer). Same flags as the JAX launcher,
+must be a multiple of the SSD chunk) or the encoder-decoder
+whisper-large-v3 (reduced by default, `--full` for the real widths and
+depth) with the paper's recipe: LANS + warmup-hold-decay schedule +
+sharded-without-replacement data (masked-LM batches for BERT, next-token
+batches for the decoders, with random input embeddings for chameleon's
+stubbed image tokenizer, and for whisper with random frame embeddings in
+place of its stubbed audio frontend). Same flags as the JAX launcher,
 plus `--device` (CUDA unless `--device cpu`; it raises without a GPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch bert-large --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen2.5-14b --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch whisper-large-v3 --steps 3
 
 Mixed precision (--precision {fp32,bf16,fp16}): bf16/fp16 hold the model
 copy in half precision with fp32 master weights in the optimizer state;
@@ -25,7 +29,7 @@ transform, as the JAX launcher does (only lans stores its moments in the
 policy's moment dtype; under bf16/fp16 every optimizer goes through the
 generic `mixed_precision` wrapper). The fused kernels are reached
 through the library: `build_train_step(..., fused_lans(...))` or
-`fused_lamb(...)`. whisper-large-v3 (not ported yet) raises.
+`fused_lamb(...)`.
 """
 from __future__ import annotations
 
@@ -62,12 +66,10 @@ def make_data(arch, *, batch: int, seq: int, num_workers: int = 1,
               seed: int = 0):
     """Sharded-without-replacement stream (paper §3.4), worker 0 view;
     numpy batches: masked-LM batches for bert, next-token batches for the
-    decoders, and for an embeds_input arch (fp32 N(0, 0.02^2) embeddings
-    from a numpy generator seeded `seed`, labels), as the JAX launcher
-    makes them."""
-    if arch.kind not in ("bert", "decoder"):
-        raise NotImplementedError(f"training data for the {arch.kind} "
-                                  f"family is not ported yet")
+    decoders, for an embeds_input arch (fp32 N(0, 0.02^2) embeddings
+    from a numpy generator seeded `seed`, labels), and for encdec
+    (N(0, 1) frames (batch, n_frames, d_model) from that generator, one
+    draw per batch, tokens, labels), as the JAX launcher makes them."""
     corpus = SyntheticCorpus(vocab=arch.cfg.vocab, num_docs=4096,
                              doc_len=max(2 * seq + 2, 256), seed=seed)
     spec = ShardSpec(num_samples=corpus.num_docs, num_workers=num_workers,
@@ -77,6 +79,12 @@ def make_data(arch, *, batch: int, seq: int, num_workers: int = 1,
                                   seq_len=seq, seed=seed)
     lm = lm_batch_iterator(corpus, spec, per_worker_batch=batch,
                            seq_len=seq)
+    if arch.kind == "encdec":
+        rng = np.random.default_rng(seed)
+        return ({"frames": rng.normal(
+                    size=(batch, arch.cfg.n_frames, arch.cfg.d_model)
+                 ).astype(np.float32),
+                 "tokens": b["tokens"], "labels": b["labels"]} for b in lm)
     if not arch.embeds_input:
         return lm
     rng = np.random.default_rng(seed)
@@ -131,20 +139,15 @@ def main(argv=None):
     step, and, for mixed precision, the final loss_scale and
     overflow_count."""
     args = build_parser().parse_args(argv)
-    try:
-        arch = (reduced_arch(args.arch) if args.reduced
-                else get_arch(args.arch))
-        if args.reduced:
-            args.seq = min(args.seq, arch.cfg.max_pos if arch.kind == "bert"
-                           else getattr(arch.cfg, "max_seq", args.seq))
-        sched = make_schedule(args.schedule, args.lr, args.steps,
-                              args.warmup_frac, args.hold_frac)
-        policy = prec.get_policy(args.precision)
-        tx = make_optimizer(args.optimizer, sched, policy=policy)
-        data = make_data(arch, batch=args.batch, seq=args.seq,
-                         seed=args.seed)
-    except NotImplementedError as e:       # a feature not ported yet
-        raise SystemExit(str(e)) from None
+    arch = reduced_arch(args.arch) if args.reduced else get_arch(args.arch)
+    if args.reduced:
+        args.seq = min(args.seq, arch.cfg.max_pos if arch.kind == "bert"
+                       else getattr(arch.cfg, "max_seq", args.seq))
+    sched = make_schedule(args.schedule, args.lr, args.steps,
+                          args.warmup_frac, args.hold_frac)
+    policy = prec.get_policy(args.precision)
+    tx = make_optimizer(args.optimizer, sched, policy=policy)
+    data = make_data(arch, batch=args.batch, seq=args.seq, seed=args.seed)
     if policy.wants_wrapper:
         arch = dataclasses.replace(arch, cfg=policy.apply_to_cfg(arch.cfg))
 

@@ -19,8 +19,16 @@ serving branch with both decode implementations:
 
 Caches are updated IN PLACE where the JAX code returned updated copies
 of donated buffers: the returned cache dict holds the same arena
-tensors, already written. Cross-attention and the read-only `kv_cache`
-form are not ported yet.
+tensors, already written. The single-stream cache (a scalar write
+cursor and one position row shared by the batch; the encoder-decoder's
+`decode`) is written in place too.
+
+Cross-attention (the whisper decoder): `kv_x=` projects K and V from the
+encoder memory (training), `kv_cache=` attends K/V precomputed once at
+admission, read-only (serving), either dense {"k","v"[,"pos"]} or
+gathered from the paged cross arena {"k","v","pos","table"}. Cross is
+never causal, never rotated, and keeps compute-dtype probabilities at
+any S (the fp32 "decode" rule is the self-attention cache's).
 
 Shapes: x (B, S, d_model); dense cache k/v (B, L, n_kv, head_dim);
 paged arenas (n_blocks, block_size, n_kv, head_dim).
@@ -64,8 +72,11 @@ class AttnConfig:
     decode_kernel: str = "xla"
 
 
-def attn_init(gen: torch.Generator, cfg: AttnConfig, *, dtype=torch.float32,
-              lead: tuple = ()):
+def attn_init(gen: torch.Generator, cfg: AttnConfig, *, cross: bool = False,
+              dtype=torch.float32, lead: tuple = ()):
+    """`cross` changes nothing (the JAX signature's flag): a
+    cross-attention block has the same four projections."""
+    del cross
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, lead=lead)
     p = {
@@ -101,7 +112,7 @@ def _mask_logits(logits, q_pos, k_pos, *, causal, window):
 
 
 def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, *, scale, decode,
-            compute_dtype):
+            causal, compute_dtype):
     """Masked softmax attention. Decode (a cached single-token step, or
     any paged step) contracts in fp32 and keeps fp32 probabilities; the
     output still rounds to compute_dtype, as in the JAX package."""
@@ -110,7 +121,7 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, *, scale, decode,
     else:
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     logits = softcap(logits, cfg.logit_softcap)
-    logits = _mask_logits(logits.float(), q_pos, k_pos, causal=cfg.causal,
+    logits = _mask_logits(logits.float(), q_pos, k_pos, causal=causal,
                           window=cfg.sliding_window)
     probs = torch.softmax(logits, dim=-1)
     if decode:
@@ -119,43 +130,70 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, *, scale, decode,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
 
 
-def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
-               compute_dtype=torch.bfloat16):
+def attn_apply(p, cfg: AttnConfig, x, *, kv_x=None, positions=None,
+               cache=None, kv_cache=None, compute_dtype=torch.bfloat16):
     """Returns (out, new_cache); new_cache is None unless cache is given.
 
     cache forms: a pooled dense cache {"k", "v" (B, L, n_kv, hd), "pos"
-    (B, L), "index" (B,)}, or a paged one {"k", "v" (n_blocks, bs, n_kv,
+    (B, L), "index" (B,)}; a single-stream one, the same with "pos" (L,)
+    and a 0-d "index"; or a paged one {"k", "v" (n_blocks, bs, n_kv,
     hd), "pos" (n_blocks, bs), "index" (B,), "table" (B, max_blocks)}.
-    Both are written in place."""
+    All are written in place.
+
+    kv_x (B, Sm, d_model): cross-attention memory, K/V projected from it
+    at key positions 0..Sm-1. kv_cache: read-only cross K/V, dense
+    {"k", "v" (B, Sm, n_kv, hd)[, "pos" (Sm,) or (B, Sm)]} or paged
+    {"k", "v" (n_blocks, bs, n_kv, hd), "pos" (n_blocks, bs), "table"
+    (B, max_blocks)}, gathered through the table; pad rows carry
+    position -1 and are masked. kv_cache excludes cache and kv_x."""
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = (cfg.query_scale if cfg.query_scale is not None
              else 1.0 / math.sqrt(hd))
 
     q = _split_heads(dense_apply(p["wq"], x, compute_dtype), h, hd)
-    k = _split_heads(dense_apply(p["wk"], x, compute_dtype), kv, hd)
-    v = _split_heads(dense_apply(p["wv"], x, compute_dtype), kv, hd)
+    if kv_cache is None:
+        src = x if kv_x is None else kv_x
+        k = _split_heads(dense_apply(p["wk"], src, compute_dtype), kv, hd)
+        v = _split_heads(dense_apply(p["wv"], src, compute_dtype), kv, hd)
     if cfg.qk_norm:
         # every branch below, the paged kernel's included, sees the
         # normed q and k
         q = rmsnorm_apply(p["q_norm"], q)
-        k = rmsnorm_apply(p["k_norm"], k)
+        if kv_cache is None:
+            k = rmsnorm_apply(p["k_norm"], k)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if positions.ndim <= 1:
         positions = positions.expand(S)
-    if cfg.rope:
+    if cfg.rope and kv_x is None and kv_cache is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     attend_cached = cache is not None
     paged = cache is not None and "table" in cache
-    if cache is not None and cache["index"].ndim != 1:
-        raise NotImplementedError(
-            "only the pooled (per-slot) and paged caches are ported")
-    if paged:
+    if kv_cache is not None:
+        if cache is not None or kv_x is not None:
+            raise ValueError("kv_cache is exclusive with cache/kv_x")
+        if "table" in kv_cache:
+            # the paged cross arena: the block-table gather of the paged
+            # self-attention read path
+            tl = kv_cache["table"].long()
+            mem_len = tl.shape[1] * kv_cache["k"].shape[1]
+            k = kv_cache["k"][tl].reshape(B, mem_len, kv, hd)
+            v = kv_cache["v"][tl].reshape(B, mem_len, kv, hd)
+            k_pos = kv_cache["pos"][tl].reshape(B, mem_len)
+        else:
+            k, v = kv_cache["k"], kv_cache["v"]
+            k_pos = kv_cache.get("pos")
+            if k_pos is None:
+                k_pos = torch.arange(k.shape[1], device=x.device)
+        k = k.to(compute_dtype)
+        v = v.to(compute_dtype)
+        q_pos = positions
+    elif paged:
         # Paged decode: cache k/v/pos are block ARENAS; logical row r of
         # slot b lives at arena[table[b, r // bs], r % bs] with r taken
         # modulo the ring, which gives sliding-window layers their ring.
@@ -199,22 +237,43 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         v = cache["v"][tl].reshape(B, ring_len, kv, hd).to(compute_dtype)
         k_pos = cache["pos"][tl].reshape(B, ring_len)
     elif cache is not None and S > 1 and S >= cache["k"].shape[1]:
-        # Prefill longer than a ring cache (sliding-window layer): attend
-        # the in-flight k/v and write only the LAST cache_len rows, rolled
-        # so that row == write cursor % cache_len. Assumes a prefill from
-        # scratch (index 0), the only way the engine uses it.
+        # Prefill longer than a ring cache (sliding-window layer), or as
+        # long as the cache: attend the in-flight k/v and write only the
+        # LAST cache_len rows, rolled so that row == write cursor %
+        # cache_len. Assumes a prefill from scratch (index 0), the only
+        # way the engine uses it.
         attend_cached = False
         W = cache["k"].shape[1]
         shift = (S - W) % W
         pos_src = (positions if positions.ndim == 2
                    else positions.expand(B, S)).to(torch.int32)
+        pos_tail = torch.roll(pos_src[:, S - W:], shift, dims=1)
         cache["k"].copy_(torch.roll(k[:, S - W:], shift, dims=1))
         cache["v"].copy_(torch.roll(v[:, S - W:], shift, dims=1))
-        cache["pos"].copy_(torch.roll(pos_src[:, S - W:], shift, dims=1))
+        # a single-stream cache keeps one position row for the batch
+        cache["pos"].copy_(pos_tail if cache["pos"].ndim == 2
+                           else pos_tail[0])
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
                      "index": cache["index"] + S}
         k_pos = positions
         q_pos = positions
+    elif cache is not None and cache["index"].ndim == 0:
+        # Single-stream cache: the batch shares one write cursor and one
+        # position row. The S rows land at cursor % cache_len, the start
+        # clamped so that they fit (the JAX dynamic_update_slice); rows
+        # at or past the cursor + S are not valid keys yet.
+        idx = cache["index"]
+        cache_len = cache["k"].shape[1]
+        start = min(int(idx) % cache_len, cache_len - S)
+        q_pos = idx + torch.arange(S, device=x.device)
+        cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+        cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+        cache["pos"][start:start + S] = q_pos.to(torch.int32)
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+                     "index": idx + S}
+        k = cache["k"].to(compute_dtype)
+        v = cache["v"].to(compute_dtype)
+        k_pos = torch.where(cache["pos"] < idx + S, cache["pos"], -1)
     elif cache is not None:
         # Prefill / decode into a pooled dense cache: slot b writes rows
         # index[b] .. index[b]+S-1 (mod cache_len).
@@ -234,7 +293,8 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
         v = cache["v"].to(compute_dtype)
         k_pos = cache["pos"]
     else:
-        k_pos = positions
+        k_pos = (torch.arange(k.shape[1], device=x.device)
+                 if kv_x is not None else positions)
         q_pos = positions
 
     if kv != h:
@@ -244,7 +304,9 @@ def attn_apply(p, cfg: AttnConfig, x, *, positions=None, cache=None,
     # decode False, the prefill's numerics: hence chunks of >= 2 rows
     # (serving/admission.chunk_granularity)
     decode = attend_cached and (S == 1 or paged)
-    kw = dict(scale=scale, decode=decode, compute_dtype=compute_dtype)
+    causal = cfg.causal and kv_x is None and kv_cache is None
+    kw = dict(scale=scale, decode=decode, causal=causal,
+              compute_dtype=compute_dtype)
     qb = cfg.q_block
     if not attend_cached and S >= cfg.q_chunk_threshold and S % qb == 0:
         # remat-chunked query blocks: the live logits are (B, H, qb, S),

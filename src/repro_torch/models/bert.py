@@ -13,8 +13,12 @@ remats its scanned layer). `compute_dtype` defaults to
 bf16 (`bert.py:41`), so an fp32-policy run still does its matmuls in bf16
 (ROADMAP Queue 3); parity tests set it to fp32.
 
+Serving (`bert_serve_outputs`, the engine's score/embed step): one
+cache-free forward over left-padded rows whose pad columns carry
+position < 0 and are masked as keys, returning greedy masked-LM ids and
+the tanh-pooled vector at each row's first valid column.
+
 bert_large: 24L / 1024d / 16H / ff 4096 / vocab 30522 / max_pos 512.
-Serving outputs (bert_serve_outputs) are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (_randn, dense_apply, dense_init,
                                        embed_apply, embed_init, gelu,
-                                       layernorm_apply, layernorm_init,
-                                       mlp_init)
+                                       layer_params, layernorm_apply,
+                                       layernorm_init, mlp_init,
+                                       unbind_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,62 +90,89 @@ def bert_init(gen: Optional[torch.Generator], cfg: BertConfig):
     }
 
 
-def _layer(cfg: BertConfig, x, lp):
+def _layer(cfg: BertConfig, x, lp, positions):
     cd = cfg.compute_dtype
-    h, _ = attn_apply(lp["attn"], cfg.attn_cfg(), x, compute_dtype=cd)
+    h, _ = attn_apply(lp["attn"], cfg.attn_cfg(), x, positions=positions,
+                      compute_dtype=cd)
     x = layernorm_apply(lp["attn_ln"], x + h)
     up = dense_apply(lp["mlp"]["up"], x, cd)
     h = dense_apply(lp["mlp"]["down"], gelu(up), cd)
     return layernorm_apply(lp["mlp_ln"], x + h)
 
 
-def _unbind(tree):
-    """Per-layer views of the stacked layer params: for each leaf, the
-    tuple of its n_layers slices. One unbind per leaf, so the backward
-    pass stacks the layers' gradients once (indexing layer by layer
-    would build and add a full-size gradient per layer instead)."""
-    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
-            for k, v in tree.items()}
-
-
-def _layer_params(tree, i):
-    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
-def bert_encode(params, cfg: BertConfig, tokens, token_types=None):
+def bert_encode(params, cfg: BertConfig, tokens, token_types=None,
+                positions=None):
     """tokens (B, S) -> hidden states (B, S, d) in compute_dtype. Post-LN
-    residual stack over positions 0..S-1; every layer is recomputed in
-    the backward pass instead of keeping its activations."""
+    residual stack; every layer is recomputed in the backward pass
+    instead of keeping its activations.
+
+    positions (B, S) gives each token its LOCAL position (left-padded
+    serving rows: pads carry pos < 0): the position embedding is looked
+    up per token (clipped into the table) and pad columns are masked out
+    of the bidirectional attention as keys. None keeps the training
+    path's 0..S-1."""
     cd = cfg.compute_dtype
     S = tokens.shape[1]
     x = embed_apply(params["tok_embed"], tokens, cd)
-    x = x + params["pos_embed"].to(cd)[None, :S]
+    if positions is None:
+        x = x + params["pos_embed"].to(cd)[None, :S]
+    else:
+        x = x + params["pos_embed"].to(cd)[
+            torch.clamp(positions, 0, cfg.max_pos - 1).long()]
     if token_types is None:
         token_types = torch.zeros_like(tokens)
     x = x + params["type_embed"].to(cd)[token_types.long()]
     x = layernorm_apply(params["embed_ln"], x)
-    layers = _unbind(params["layers"])
+    layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = _layer_params(layers, i)
+        lp = layer_params(layers, i)
         if torch.is_grad_enabled():
-            x = checkpoint(_layer, cfg, x, lp, use_reentrant=False)
+            x = checkpoint(_layer, cfg, x, lp, positions,
+                           use_reentrant=False)
         else:
-            x = _layer(cfg, x, lp)
+            x = _layer(cfg, x, lp, positions)
     return x
+
+
+def _mlm_logits(params, cfg: BertConfig, h):
+    """The MLM head: transform, tied decoder, fp32 output bias."""
+    cd = cfg.compute_dtype
+    t = dense_apply(params["mlm_transform"], h, cd)
+    t = layernorm_apply(params["mlm_ln"], gelu(t))
+    mlm = torch.matmul(t.to(cd), params["tok_embed"]["embedding"].to(cd).t())
+    return mlm.float() + params["mlm_bias"].float()
 
 
 def bert_pretrain_logits(params, cfg: BertConfig, tokens, token_types=None):
     """Returns (mlm_logits (B, S, V) fp32, nsp_logits (B, 2) fp32)."""
     cd = cfg.compute_dtype
     h = bert_encode(params, cfg, tokens, token_types)
-    t = dense_apply(params["mlm_transform"], h, cd)
-    t = layernorm_apply(params["mlm_ln"], gelu(t))
-    mlm = torch.matmul(t.to(cd), params["tok_embed"]["embedding"].to(cd).t())
-    mlm = mlm.float() + params["mlm_bias"].float()
+    mlm = _mlm_logits(params, cfg, h)
     cls = torch.tanh(dense_apply(params["pooler"], h[:, 0], cd))
     nsp = dense_apply(params["nsp_head"], cls, cd).float()
     return mlm, nsp
+
+
+def bert_serve_outputs(params, cfg: BertConfig, tokens, positions):
+    """Scoring/embedding forward of the serving engine.
+
+    tokens/positions (B, S) LEFT-padded (pads carry pos < 0, as in
+    decoder serving prefill). Returns
+      mlm_ids (B, S) int32: greedy masked-LM argmax per column (pad
+        columns give ids of no meaning; the engine keeps the valid tail),
+      pooled (B, d) fp32: the tanh-pooled vector at each row's FIRST
+        valid column (position 0, the [CLS] token).
+    One fixed-shape forward, no cache."""
+    B = tokens.shape[0]
+    h = bert_encode(params, cfg, tokens, positions=positions)
+    mlm_ids = torch.argmax(_mlm_logits(params, cfg, h),
+                           dim=-1).to(torch.int32)
+    # first valid column per row: the first maximum of the indicator
+    cls_col = torch.argmax((positions >= 0).to(torch.int32), dim=1)
+    cls_h = h[torch.arange(B, device=h.device), cls_col]
+    pooled = torch.tanh(dense_apply(params["pooler"], cls_h,
+                                    cfg.compute_dtype)).float()
+    return mlm_ids, pooled
 
 
 def bert_pretrain_loss(params, cfg: BertConfig, batch):

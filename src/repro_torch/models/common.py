@@ -114,6 +114,22 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def unbind_layers(tree):
+    """Per-layer views of a param subtree stacked on a leading layer (or
+    period) axis: for each leaf, the tuple of its slices. One unbind per
+    leaf, so the backward pass stacks the layers' gradients once
+    (indexing layer by layer would build and add a full-size gradient
+    per layer instead)."""
+    return {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
+def layer_params(tree, i: int):
+    """Layer (or period) i of a tree unbound by unbind_layers."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 

@@ -38,9 +38,10 @@ from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (dense_apply, dense_init, embed_apply,
-                                       embed_attend, embed_init, mlp_apply,
-                                       mlp_init, rmsnorm_apply, rmsnorm_init,
-                                       softcap)
+                                       embed_attend, embed_init,
+                                       layer_params, mlp_apply, mlp_init,
+                                       rmsnorm_apply, rmsnorm_init, softcap,
+                                       unbind_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,19 +167,6 @@ def decoder_init(gen: torch.Generator, cfg: DecoderConfig):
     return params
 
 
-def _unbind(tree):
-    """Each stacked leaf of a slot's param subtree as the tuple of its
-    per-period views (one unbind per leaf)."""
-    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
-            for k, v in tree.items()}
-
-
-def _period(tree, p: int):
-    """Period p of an unbound param subtree."""
-    return {k: _period(v, p) if isinstance(v, dict) else v[p]
-            for k, v in tree.items()}
-
-
 def _run_slot(sp, cfg: DecoderConfig, mixer: str, ffn: str, x, positions,
               cache, valid):
     """One (mixer, ffn) slot -> (x, MoE aux terms or None). valid (B, S)
@@ -264,13 +252,13 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
     valid = positions >= 0 if positions.ndim == 2 else None
     tables = caches.get("tables") if caches is not None else None
     # unbound once, outside the recomputed regions (see the module doc)
-    slots = [_unbind(params[f"slot{si}"])
+    slots = [unbind_layers(params[f"slot{si}"])
              for si in range(len(cfg.superblock))]
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     aux_loss = entropy = None
 
     for p in range(cfg.n_periods):
-        slot_params = [_period(sp, p) for sp in slots]
+        slot_params = [layer_params(sp, p) for sp in slots]
         slot_caches = [None] * len(cfg.superblock)
         if caches is not None:
             for si, stack in enumerate(caches["slots"]):

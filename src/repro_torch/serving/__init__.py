@@ -2,7 +2,10 @@
 
   ContinuousEngine   slot-pool continuous batching over PagedCachePool
                      (default) or CachePool; spec_draft=(arch, params)
-                     enables draft-verify speculative decoding
+                     enables draft-verify speculative decoding; encdec
+                     archs over EncDecCachePool, bert archs scored or
+                     embedded (task="score" | "embed"); run_one serves
+                     one request at batch 1
   ServeEngine        static-batch baseline (padded lockstep decode)
   make_spec_pair     acceptance-1.0 speculative fixture: inert upper
                      periods + a one-period draft sharing embed/head
@@ -17,6 +20,10 @@
   CachePool          dense per-slot KV pool (baseline, speculative draft)
   PagedCachePool     block-paged KV arena with shared prompt prefixes,
                      lazy chain growth and a retained-prefix LRU
+  EncDecCachePool    encdec pool: dense per-slot self-attention rows and
+                     a refcounted cross-attention block arena keyed by
+                     the raw encoder input (frames_key), shared by
+                     same-input requests
   BlockAllocator     refcounted free list over arena blocks
   BlockTableMap      per-slot-type tables + prefix registry (host side)
   AdmissionController  chunked-prefill admission: one resumable prompt
@@ -30,13 +37,18 @@ from repro_torch.serving.admission import (AdmissionController, PrefillTask,
                                            chunk_granularity, plan_chunk)
 from repro_torch.serving.block_allocator import (BlockAllocator,
                                                  BlockTableMap, NoBlocksError)
-from repro_torch.serving.cache_pool import CachePool, PagedCachePool
+from repro_torch.serving.cache_pool import (CachePool, EncDecCachePool,
+                                            PagedCachePool, frames_key)
 from repro_torch.serving.engine import (ContinuousEngine, Request,
                                         ServeEngine, apply_serving_policy,
+                                        build_encdec_prefill_fn,
                                         build_first_token_fn,
                                         build_prefill_fn, make_spec_pair,
                                         pad_prompts, prompt_granularity,
-                                        synthetic_requests, throughput_probe)
+                                        synthetic_encdec_requests,
+                                        synthetic_requests,
+                                        synthetic_scoring_requests,
+                                        throughput_probe)
 from repro_torch.serving.metrics import (DepthTracker, RequestTrace,
                                          aggregate, hit_rate, percentile)
 from repro_torch.serving.sampler import Sampler, fold_keys, stable_argmax
@@ -50,12 +62,15 @@ from repro_torch.serving.traffic import (SLO, OpenLoopDriver,
 __all__ = [
     "AdmissionController", "ArrivalDeadlinePolicy", "BlockAllocator",
     "BlockTableMap", "CachePool", "ContinuousEngine", "DepthTracker",
-    "NoBlocksError", "OpenLoopDriver", "PagedCachePool", "PolicyContext",
+    "EncDecCachePool", "NoBlocksError", "OpenLoopDriver", "PagedCachePool",
+    "PolicyContext",
     "PrefillTask", "Request", "RequestTrace", "SLO", "Sampler", "Scheduler",
     "SchedulerError", "SchedulingPolicy", "ServeEngine", "aggregate",
-    "apply_serving_policy", "bimodal_requests", "build_first_token_fn",
-    "build_prefill_fn", "chunk_granularity", "fold_keys", "hit_rate",
+    "apply_serving_policy", "bimodal_requests", "build_encdec_prefill_fn",
+    "build_first_token_fn", "build_prefill_fn", "chunk_granularity",
+    "fold_keys", "frames_key", "hit_rate",
     "make_spec_pair", "meets_slo", "pad_prompts", "percentile",
     "plan_chunk", "poisson_arrivals", "prompt_granularity", "slo_report",
-    "stable_argmax", "synthetic_requests", "throughput_probe",
+    "stable_argmax", "synthetic_encdec_requests", "synthetic_requests",
+    "synthetic_scoring_requests", "throughput_probe",
 ]

@@ -25,8 +25,14 @@ rewinding the cursors and lowering the stale rows' positions to -1
 
 Where the JAX pool rebuilt donated arenas through jitted scatters, the
 port writes the arenas IN PLACE with indexed assignment; block 0 (the
-null block) is never written, so its positions stay -1. The
-encoder-decoder pool is not ported yet.
+null block) is never written, so its positions stay -1.
+
+`EncDecCachePool` (the encoder-decoder family): self-attention KV dense
+per slot, as in CachePool; the cross-attention K/V of one encoder input,
+read-only for the request's life, in a refcounted block arena keyed by
+the digest of the raw input frames (`frames_key`), so that requests
+decoding the same input (beams, retries) share its blocks, and a
+drained input's blocks stay warm on the retained LRU.
 
 Mamba slots (mamba2, jamba) keep their state SLOT-RESIDENT in both
 pools: one fp32 (H, N, P) SSM state and (W - 1, C) conv tail per decode
@@ -39,6 +45,7 @@ holds no arena, no block table and checks no kernel layout.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Optional
 
 import numpy as np
@@ -449,3 +456,198 @@ class PagedCachePool:
         """Assert every slot-type's allocator/table/registry invariants."""
         for m in self.maps.values():
             m.check_invariants()
+
+
+def frames_key(frames, padded_frames: int):
+    """Content key of one encoder input in BlockTableMap token form: the
+    sha256 of the raw fp32 frame bytes, spread over `padded_frames` int64
+    pseudo-tokens. An input's cross K/V match another request's only
+    when the whole input is identical (every frame feeds every block
+    through the encoder's global attention), so every chain block of one
+    input hashes identically and two inputs differing anywhere share
+    nothing."""
+    d = hashlib.sha256(
+        np.ascontiguousarray(frames, np.float32).tobytes()).digest()
+    return np.resize(np.frombuffer(d, np.int64), padded_frames)
+
+
+def _cross_insert(arena, ck, cv, dst_blocks, n_frames: int):
+    """Write one request's FRESH cross-attention blocks into the arena,
+    in place.
+
+    arena: {"k", "v"} (n_layers, n_blocks, bs, H, hd) and "pos"
+      (n_blocks, bs), no layer dim (frame positions are the same in
+      every layer).
+    ck/cv: (n_layers, Sm, H, hd), the request's dense projections from
+      the admission prefill, zero-padded here to the blocked length.
+    dst_blocks (max_blocks,) np: arena block per chain position, 0 for
+      positions that are not written (shared or revived blocks); those
+      are skipped, so the null block is never written.
+    Rows past n_frames get position -1 and never attend."""
+    chain = np.nonzero(dst_blocks)[0]
+    if chain.size == 0:
+        return
+    nbk = dst_blocks.shape[0]
+    bs = arena["k"].shape[2]
+    dev = arena["k"].device
+    sel = torch.as_tensor(chain, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst_blocks[chain], dtype=torch.long, device=dev)
+
+    def blocks_of(x, dtype):
+        x = torch.nn.functional.pad(
+            x, (0, 0, 0, 0, 0, nbk * bs - x.shape[1]))
+        return x.reshape(x.shape[0], nbk, bs, *x.shape[2:])[:, sel].to(dtype)
+
+    rows = torch.arange(nbk * bs, dtype=torch.int32,
+                        device=dev).reshape(nbk, bs)[sel]
+    arena["k"][:, dst] = blocks_of(ck, arena["k"].dtype)
+    arena["v"][:, dst] = blocks_of(cv, arena["v"].dtype)
+    arena["pos"][dst] = torch.where(rows < n_frames, rows, -1)
+
+
+class EncDecCachePool:
+    """Pooled serving cache of the encoder-decoder family.
+
+    The cache is one dict the decode step reads (and writes the self
+    part of, in place):
+      {"slots": {"self": (L, B, rows, ...) KV}, "index": (B,),
+       "cross": {"k"/"v": (L, n_blocks + 1, bs, H, hd),
+                 "pos": (n_blocks + 1, bs), "table": (B, max_blocks)}}
+    The table is uploaded from the host map after each insert and
+    eviction, the only mutations that change it."""
+
+    def __init__(self, arch, max_batch: int, max_len: int, *,
+                 block_size: int = 16, slots_budget: Optional[int] = None,
+                 share_prefix: bool = True, retain_blocks: int = 0,
+                 device="cpu"):
+        """slots_budget sizes the cross arena in inputs (default
+        max_batch): slots_budget * padded_frames // block_size blocks,
+        plus the null block."""
+        if arch.kind != "encdec":
+            raise ValueError(
+                f"EncDecCachePool needs an encdec arch, got {arch.kind}")
+        cfg = arch.cfg
+        self.arch = arch
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.block_size = block_size
+        self.share_prefix = share_prefix
+        self.device = torch.device(device)
+        self.n_frames = cfg.n_frames
+        self.padded_frames = -(-cfg.n_frames // block_size) * block_size
+        budget = slots_budget if slots_budget is not None else max_batch
+        n_blocks = budget * (self.padded_frames // block_size)
+        # budget 1, plen = padded_len = ring_len = padded_frames: decode
+        # rows never overwrite the chain and the layout is never rolled,
+        # so every block is content-keyed and shareable
+        self.map = BlockTableMap(
+            max_batch, self.padded_frames, block_size, n_blocks + 1,
+            retain_limit=min(retain_blocks, max(n_blocks - 1, 0)),
+            src_len=self.padded_frames)
+        cache = arch.init_cache(max_batch, max_len, device=device)
+        L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
+        shape = (L, n_blocks + 1, block_size, H, hd)
+        dt = cfg.compute_dtype
+        cache["cross"] = {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full((n_blocks + 1, block_size), -1,
+                              dtype=torch.int32, device=device),
+        }
+        self.cache = cache
+        self._upload_table()
+        self.shared_hits = 0   # cross blocks reused instead of re-written
+
+    def _check_slot(self, slot: int):
+        if not (0 <= slot < self.max_batch):
+            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+
+    def _upload_table(self):
+        self.cache["cross"]["table"] = torch.as_tensor(self.map.table,
+                                                       device=self.device)
+
+    # ---------------- admission ----------------
+
+    def admission_plan(self, frames) -> dict:
+        """{"cross": fresh blocks + retained revivals} an insert of this
+        input would consume, for the engine's gate against
+        admissible_blocks()."""
+        key = frames_key(frames, self.padded_frames)
+        return {"cross": sum(self.map.admission_plan(
+            key, self.padded_frames, self.padded_frames, 1,
+            self.share_prefix))}
+
+    def admissible_blocks(self) -> dict:
+        return {"cross": self.map.admissible()}
+
+    def free_blocks(self) -> dict:
+        return {"cross": self.map.alloc.n_free}
+
+    def insert(self, request_cache: PyTree, slot: int, *, frames,
+               cross_k, cross_v):
+        """Admit one prefilled request: reserve (or share, or revive) its
+        cross block chain, write the fresh blocks (a shared placement
+        skips the write: the arena holds the content already), copy its
+        self-attention rows into the slot and set its cursor. Atomic: on
+        NoBlocksError nothing is left allocated and the cache is
+        untouched.
+
+        request_cache: {"slots", "index"}, the batch-1 slice of the
+        admission prefill cache. cross_k / cross_v: (L, Sm, H, hd), the
+        request's dense cross projections. frames: the raw (n_frames, d)
+        input, used only for content keying."""
+        self._check_slot(slot)
+        key = frames_key(frames, self.padded_frames)
+        placed = self.map.insert(slot, key, self.padded_frames,
+                                 self.padded_frames, 1, self.share_prefix)
+        self.shared_hits += sum(p.shared for p in placed)
+        dst = np.zeros(self.map.max_blocks, np.int32)
+        for p in placed:
+            if not p.shared:
+                dst[p.chain_pos] = p.block
+        for name, leaf in self.cache["slots"]["self"].items():
+            leaf[:, slot] = request_cache["slots"]["self"][name][:, 0].to(
+                leaf.dtype)
+        self.cache["index"][slot] = request_cache["index"][0]
+        _cross_insert(self.cache["cross"], cross_k, cross_v, dst,
+                      self.n_frames)
+        self._upload_table()
+
+    def evict(self, slot: int):
+        """Release the slot's cross blocks (the last holder parks them
+        warm when retention is on) and blank its self-attention rows:
+        zero K/V, positions -1, cursor 0."""
+        self._check_slot(slot)
+        self.map.evict(slot)
+        leaf = self.cache["slots"]["self"]
+        leaf["k"][:, slot] = 0
+        leaf["v"][:, slot] = 0
+        leaf["pos"][:, slot] = -1
+        self.cache["index"][slot] = 0
+        self._upload_table()
+
+    # ---------------- introspection ----------------
+
+    def lengths(self):
+        """Per-slot write cursors (host array) — diagnostic only."""
+        return self.cache["index"].cpu().numpy()
+
+    @property
+    def retained_hits(self) -> int:
+        return self.map.retained_hits
+
+    @property
+    def prefix_misses(self) -> int:
+        return self.map.prefix_misses
+
+    @property
+    def retained_hit_rate(self) -> float:
+        from repro_torch.serving.metrics import hit_rate
+        return hit_rate(self.retained_hits, self.prefix_misses)
+
+    def retained_blocks(self) -> dict:
+        return {"cross": self.map.n_retained}
+
+    def check_invariants(self):
+        """Assert the cross map's allocator/table/registry invariants."""
+        self.map.check_invariants()

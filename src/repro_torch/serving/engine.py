@@ -1,6 +1,7 @@
-"""Serving engines (port of repro/serving/engine.py, the decoder
-`generate` path): continuous batching over a paged or dense pool, the
-static baseline, sampled and speculative decoding.
+"""Serving engines (port of repro/serving/engine.py): continuous
+batching over a paged or dense pool, the static baseline, sampled and
+speculative decoding, the encoder-decoder and BERT families, and the
+batch-1 latency mode `run_one`.
 
 `ContinuousEngine` keeps a fixed pool of `max_batch` decode slots. With
 the default `cache="paged"` it is backed by a PagedCachePool: attention
@@ -54,8 +55,28 @@ requeues the request, and the continuation re-chunks identically.
 Every decoder family serves: dense, MoE (routed dropless) and the
 Mamba-2 and hybrid ones, whose SSM state stays slot-resident in both
 pools (their prompts pad to a multiple of the SSD chunk,
-`prompt_granularity`). Not ported yet: meshes, the encoder-decoder and
-BERT families, the prefix-affinity policy and batch-1 `run_one`.
+`prompt_granularity`).
+
+Encoder-decoder (`task="generate"` on an encdec arch, paged cache only):
+each request carries its encoder input (`Request.frames`). Admission
+prefills a group in one call that runs the encoder, projects the cross
+K/V once and prefills the decoder prompt; each request's cross K/V then
+land in (or share, or revive) refcounted blocks of the
+EncDecCachePool's cross arena, keyed by the input's bytes, and every
+decode step reads them through the block-table gather.
+
+BERT (`task="score"` or `"embed"`): no cache and no decode loop. A step
+admits up to max_batch queued requests, runs one (max_batch, max_len)
+forward (short batches replicate their last row) and completes them
+all: `Request.embedding` gets the tanh-pooled [CLS] vector and, scoring,
+`generated` the masked-LM argmax of each prompt position.
+
+`run_one` serves one request at batch 1, outside the scheduler and the
+pool: the same prefill, sampler keys and left-pad masking, and for
+encdec the dense cross K/V padded to the arena's blocked length, so
+that its output is the pooled engine's.
+
+Not ported yet: meshes and the prefix-affinity policy.
 """
 from __future__ import annotations
 
@@ -66,13 +87,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.optim.base import tree_map
+from repro_torch.core.optim.base import tree_leaves, tree_map
 from repro_torch.distributed.steps import (build_serve_step,
                                            build_verify_step, greedy_next)
 from repro_torch.serving.admission import (AdmissionController,
                                            chunk_granularity)
 from repro_torch.serving.block_allocator import NoBlocksError
-from repro_torch.serving.cache_pool import CachePool, PagedCachePool
+from repro_torch.serving.cache_pool import (CachePool, EncDecCachePool,
+                                            PagedCachePool)
 from repro_torch.serving.metrics import DepthTracker, RequestTrace, aggregate
 from repro_torch.serving.sampler import Sampler, fold_keys
 from repro_torch.serving.scheduler import (PolicyContext, Scheduler,
@@ -84,12 +106,19 @@ class Request:
     """One serving request: a prompt and a generation budget. The engine
     fills `generated` ((n,) int32, n <= max_new_tokens) on completion,
     `rid` at submit (it seeds the sampler's request key), and `trace`
-    with submit/admit/token timestamps."""
+    with submit/admit/token timestamps.
+
+    Family extras: `frames` is the encoder input of an encdec request
+    ((n_frames, d_model) float32, required there); a bert engine fills
+    `embedding` with the fp32 tanh-pooled [CLS] vector (task "score"
+    also fills `generated` with the masked-LM argmax per position)."""
     prompt: np.ndarray          # (prompt_len,) int32
     max_new_tokens: int = 16
     generated: Optional[np.ndarray] = None
     rid: Optional[int] = None
     trace: RequestTrace = dataclasses.field(default_factory=RequestTrace)
+    frames: Optional[np.ndarray] = None      # encdec encoder input
+    embedding: Optional[np.ndarray] = None   # bert pooled [CLS] output
 
 
 def apply_serving_policy(arch, params, policy=None):
@@ -144,6 +173,21 @@ def build_prefill_fn(arch, max_len: int):
     return prefill
 
 
+def build_encdec_prefill_fn(arch, max_len: int):
+    """(params, tokens, positions, frames) -> (fp32 last-position logits,
+    cache): one pass runs the encoder over the frames and the masked
+    decoder prefill over the prompt; the cache holds the per-slot self
+    rows and, under "cross", the dense per-layer cross K/V that the pool
+    registers as arena blocks."""
+    @torch.no_grad()
+    def prefill(params, tokens, positions, frames):
+        logits, cache = arch.prefill(
+            params, {"tokens": tokens, "frames": frames},
+            cache_len=max_len, positions=positions)
+        return logits.float(), cache
+    return prefill
+
+
 def build_first_token_fn(sampler: Optional[Sampler]):
     """(first-token fn, wants_keys). Greedy unless a non-greedy sampler
     is given; the sampled variant takes (logits, keys (B, 2)). A greedy
@@ -190,6 +234,45 @@ def synthetic_requests(n: int, vocab: int, *, prompt_len: int,
         tail = rng.integers(5, vocab, size=plen).astype(np.int32)
         reqs.append(Request(prompt=np.concatenate([prefix, tail]),
                             max_new_tokens=new))
+    return reqs
+
+
+def synthetic_scoring_requests(n: int, vocab: int, *, prompt_len: int,
+                               seed: int = 0):
+    """Scoring/embedding workload: prompt lengths in [prompt_len/2,
+    prompt_len]; max_new_tokens=1 is inert (scoring completes at
+    admission). Drawn exactly as the JAX package draws it."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        plen = int(rng.integers(max(1, prompt_len // 2), prompt_len + 1))
+        reqs.append(Request(
+            prompt=rng.integers(5, vocab, size=plen).astype(np.int32),
+            max_new_tokens=1))
+    return reqs
+
+
+def synthetic_encdec_requests(n: int, vocab: int, *, n_frames: int,
+                              d_model: int, prompt_len: int,
+                              new_tokens: int,
+                              n_inputs: Optional[int] = None,
+                              seed: int = 0):
+    """Encoder-decoder workload: each request carries an encoder input
+    (`frames`), a decoder prompt and a budget. n_inputs < n reuses the
+    inputs round-robin: beams or retries of one utterance, whose encoder
+    blocks the cross arena stores once. Drawn exactly as the JAX package
+    draws it."""
+    rng = np.random.default_rng(seed)
+    n_inputs = n if n_inputs is None else n_inputs
+    frames = [rng.standard_normal((n_frames, d_model)).astype(np.float32)
+              for _ in range(n_inputs)]
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(max(1, prompt_len // 2), prompt_len + 1))
+        new = int(rng.integers(max(1, new_tokens // 2), new_tokens + 1))
+        reqs.append(Request(
+            prompt=rng.integers(5, vocab, size=plen).astype(np.int32),
+            max_new_tokens=new, frames=frames[i % n_inputs]))
     return reqs
 
 
@@ -252,9 +335,14 @@ def pad_prompts(prompts: List[np.ndarray], granularity: int = 1,
 
 
 def _slice_request(cache, g: int):
-    """Batch row g of a batched-prefill cache as a batch-1 cache."""
-    return {"slots": tuple({k: v[:, g:g + 1] for k, v in s.items()}
-                           for s in cache["slots"]),
+    """Batch row g of a batched-prefill cache as a batch-1 cache (the
+    decoder's tuple of slot caches or the encdec's {"self": ...})."""
+    def rows(s):
+        return {k: v[:, g:g + 1] for k, v in s.items()}
+    slots = cache["slots"]
+    return {"slots": ({n: rows(s) for n, s in slots.items()}
+                      if isinstance(slots, dict)
+                      else tuple(rows(s) for s in slots)),
             "index": cache["index"][g:g + 1]}
 
 
@@ -271,26 +359,62 @@ class ContinuousEngine:
                  sched_policy="fifo", slo_ms: Optional[float] = None,
                  preempt: bool = True, retain_blocks: Optional[int] = None,
                  watermark: int = 0, spec_draft=None, spec_k: int = 4,
-                 chunk_budget: Optional[int] = None):
-        """Args as the JAX engine's for the decoder path (mesh and the
-        other families excepted). Caches live on the device of the
-        params. cache "paged" or "dense"; attn_kernel "paged" runs the
-        hand-written kernel, "xla" the plain-torch gather (paged pool
-        only), None adopts arch.cfg.attn_kernel. spec_draft=(draft_arch,
-        draft_params) enables speculative decoding with spec_k (>= 2)
-        tokens per round; it needs the paged pool and attention-only
-        superblocks on both models. chunk_budget=N admits prompts chunk
-        by chunk within N tokens per step (paged pool only; prefill_bucket
-        rounds up to the chunk granularity)."""
+                 chunk_budget: Optional[int] = None,
+                 task: str = "generate"):
+        """Args as the JAX engine's (mesh excepted). Caches live on the
+        device of the params. cache "paged" or "dense"; attn_kernel
+        "paged" runs the hand-written kernel, "xla" the plain-torch
+        gather (paged pool only), None adopts arch.cfg.attn_kernel.
+        spec_draft=(draft_arch, draft_params) enables speculative
+        decoding with spec_k (>= 2) tokens per round; it needs the paged
+        pool and attention-only superblocks on both models.
+        chunk_budget=N admits prompts chunk by chunk within N tokens per
+        step (paged pool only; prefill_bucket rounds up to the chunk
+        granularity). task: "generate" (decoder and encdec archs; encdec
+        needs cache="paged", its cross arena, and takes none of
+        attn_kernel="paged", chunk_budget and spec_draft), or "score" /
+        "embed" (bert archs: one fixed-shape forward per step, max_len
+        at most the position table)."""
+        if task not in ("generate", "score", "embed"):
+            raise ValueError(
+                f"task must be 'generate', 'score' or 'embed', got {task!r}")
+        if arch.kind == "bert":
+            if task == "generate":
+                raise ValueError(
+                    "bert archs serve scoring/embedding, not generation: "
+                    "pass task='score' or task='embed'")
+        elif arch.kind in ("decoder", "encdec"):
+            if task != "generate":
+                raise ValueError(
+                    f"task={task!r} needs a bert arch, got {arch.kind!r}")
+        else:
+            raise ValueError(f"cannot serve arch kind {arch.kind!r}")
+        self.task = task
+        self.encdec = arch.kind == "encdec"
+        self.bert = arch.kind == "bert"
         if arch.kind != "decoder":
-            raise NotImplementedError(
-                f"serving {arch.kind} archs is not ported yet")
+            if chunk_budget is not None:
+                raise ValueError(
+                    f"chunk_budget is decoder-only, got arch kind "
+                    f"{arch.kind!r}")
+            if spec_draft is not None:
+                raise ValueError(
+                    f"spec_draft is decoder-only, got arch kind "
+                    f"{arch.kind!r}")
+            if attn_kernel == "paged":
+                raise ValueError(
+                    "attn_kernel='paged' is decoder-only: the encdec "
+                    "cross arena reads through the dense XLA gather")
+        if self.encdec and cache != "paged":
+            raise ValueError(
+                "encdec serving requires cache='paged': the encoder "
+                "output lives in the shared cross-attention block arena")
         if cache not in ("paged", "dense"):
             raise ValueError(f"cache must be 'paged' or 'dense', got {cache}")
         if growth not in ("lazy", "eager"):
             raise ValueError(f"growth must be 'lazy' or 'eager', got {growth}")
         if attn_kernel is None:
-            attn_kernel = arch.cfg.attn_kernel
+            attn_kernel = getattr(arch.cfg, "attn_kernel", "xla")
         if attn_kernel not in ("xla", "paged"):
             raise ValueError(
                 f"attn_kernel must be 'xla' or 'paged', got {attn_kernel}")
@@ -321,13 +445,13 @@ class ContinuousEngine:
                     f"vocab {arch.cfg.vocab}")
         self.spec_k = spec_k if self.spec else 1
         self.arch, self.params = apply_serving_policy(arch, params, policy)
-        if attn_kernel != self.arch.cfg.attn_kernel:
+        if arch.kind == "decoder" and attn_kernel != self.arch.cfg.attn_kernel:
             self.arch = dataclasses.replace(self.arch, cfg=dataclasses.replace(
                 self.arch.cfg, attn_kernel=attn_kernel))
-        self.device = self.params["embed"]["embedding"].device
+        self.device = tree_leaves(self.params)[0].device
         self.max_batch = max_batch
         self.max_len = max_len
-        self.paged = cache == "paged"
+        self.paged = cache == "paged" and arch.kind == "decoder"
         self.sampler = Sampler.parse(sampler)
         self.prefill_bucket = max(prefill_bucket,
                                   prompt_granularity(self.arch.cfg))
@@ -343,11 +467,27 @@ class ContinuousEngine:
             # multiples or the final chunk could be unreachable
             g = chunk_granularity(self.arch.cfg)
             self.prefill_bucket = -(-self.prefill_bucket // g) * g
-        if self.paged:
-            if retain_blocks is None:
-                # one BATCH's worth of blocks: a multi-tenant set of hot
-                # prefixes thrashes an LRU of one request's worth
-                retain_blocks = max(1, max_batch * (max_len // block_size))
+        if retain_blocks is None:
+            # one BATCH's worth of blocks: a multi-tenant set of hot
+            # prefixes thrashes an LRU of one request's worth (the
+            # encdec pool caps it at its cross arena's size)
+            retain_blocks = max(1, max_batch * (max_len // block_size))
+        if self.bert:
+            # no cache: a scoring slot's only state is its output, and one
+            # (max_batch, max_len) forward is the whole step
+            if max_len > self.arch.cfg.max_pos:
+                raise ValueError(
+                    f"max_len {max_len} exceeds the bert position table "
+                    f"({self.arch.cfg.max_pos})")
+            self.pool = None
+            self.score_len = max_len
+        elif self.encdec:
+            self.pool = EncDecCachePool(
+                self.arch, max_batch, max_len, block_size=block_size,
+                slots_budget=slots_budget, share_prefix=share_prefix,
+                retain_blocks=retain_blocks, device=self.device)
+            self._prefill_len = max_len
+        elif self.paged:
             self.pool = PagedCachePool(
                 self.arch, max_batch, max_len, block_size=block_size,
                 slots_budget=slots_budget, share_prefix=share_prefix,
@@ -374,9 +514,16 @@ class ContinuousEngine:
         # the steps close over the arch and the counter, never over the
         # engine: a dropped engine then holds no reference cycle, and its
         # pools are freed at once, without the collector
-        decode = counting_decode(self.arch, self._nonfinite)
-        self._step = build_serve_step(decode, sampler=self.sampler)
-        self._prefill = build_prefill_fn(self.arch, self._prefill_len)
+        if self.bert:
+            self._score = torch.no_grad()(self.arch.score)
+            self._step = self._prefill = None
+        else:
+            decode = counting_decode(self.arch, self._nonfinite)
+            self._step = build_serve_step(decode, sampler=self.sampler)
+            self._prefill = (
+                build_encdec_prefill_fn(self.arch, self._prefill_len)
+                if self.encdec
+                else build_prefill_fn(self.arch, self._prefill_len))
         self._first, self._wants_keys = build_first_token_fn(self.sampler)
         self._admission = None
         if chunk_budget is not None:
@@ -416,18 +563,43 @@ class ContinuousEngine:
     # ---------------- request lifecycle ----------------
 
     def submit(self, request: Request):
-        """Queue a request; it must fit max_len (prompt + budget)."""
+        """Queue a request; it must fit max_len (prompt + budget; a
+        scoring prompt alone), and an encdec request must carry frames of
+        n_frames rows."""
+        if self.bert:
+            if not 1 <= len(request.prompt) <= self.score_len:
+                raise ValueError(
+                    f"scoring prompt length {len(request.prompt)} must "
+                    f"be in [1, {self.score_len}]")
+            self._stamp(request)
+            return
+        if self.encdec:
+            if request.frames is None:
+                raise ValueError(
+                    "encdec requests need `frames` (the encoder input)")
+            nf = self.arch.cfg.n_frames
+            if np.asarray(request.frames).shape[0] != nf:
+                raise ValueError(
+                    f"frames must carry {nf} rows, got "
+                    f"{np.asarray(request.frames).shape[0]}")
         if len(request.prompt) + request.max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt {len(request.prompt)} + max_new_tokens "
                 f"{request.max_new_tokens} exceeds max_len {self.max_len}")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        self._stamp(request)
+
+    def _stamp(self, request: Request):
+        """Give the request its id and submit time, and queue it."""
+        self._assign_rid(request)
+        request.trace.mark_submit()
+        self.scheduler.submit(request)
+
+    def _assign_rid(self, request: Request):
         if request.rid is None:
             request.rid = self._next_rid
             self._next_rid += 1
-        request.trace.mark_submit()
-        self.scheduler.submit(request)
 
     def _release(self, slot: int):
         """Free the slot's cache rows (both pools) and mark it inactive:
@@ -501,7 +673,14 @@ class ContinuousEngine:
 
     def _fits(self, req: Request, pending: dict):
         """Would this request's block plan fit beside the admissions
-        already planned in this pass? (The dense pool always fits.)"""
+        already planned in this pass? (The dense pool always fits; an
+        encdec request plans its cross blocks.)"""
+        if self.encdec:
+            need = self.pool.admission_plan(
+                np.asarray(req.frames, np.float32))
+            avail = self.pool.admissible_blocks()
+            return need["cross"] + pending.get("cross", 0) \
+                <= avail["cross"], need
         if not self.paged:
             return True, None
         budget = req.max_new_tokens - len(self._resume_of(req))
@@ -548,8 +727,15 @@ class ContinuousEngine:
                     self.prefill_bucket, pad_len=padded)
                 tokens = torch.as_tensor(tokens, device=self.device)
                 positions = torch.as_tensor(positions, device=self.device)
-                logits, batch_cache = self._prefill(self.params, tokens,
-                                                    positions)
+                if self.encdec:
+                    frames = torch.as_tensor(np.stack(
+                        [np.asarray(r.frames, np.float32)
+                         for r in pad_reqs]), device=self.device)
+                    logits, batch_cache = self._prefill(
+                        self.params, tokens, positions, frames)
+                else:
+                    logits, batch_cache = self._prefill(self.params, tokens,
+                                                        positions)
                 self._count_nonfinite(logits)
                 draft_cache = None
                 if self.spec:
@@ -565,7 +751,16 @@ class ContinuousEngine:
                 for g, (slot, req) in enumerate(grp):
                     resume = self._resume_of(req)
                     try:
-                        if self.paged:
+                        if self.encdec:
+                            # the request's dense cross K/V (batch row g)
+                            # land in, or share, arena blocks keyed by
+                            # its input's bytes
+                            self.pool.insert(
+                                _slice_request(batch_cache, g), slot,
+                                frames=np.asarray(req.frames, np.float32),
+                                cross_k=batch_cache["cross"]["k"][:, g],
+                                cross_v=batch_cache["cross"]["v"][:, g])
+                        elif self.paged:
                             self.pool.insert(
                                 _slice_request(batch_cache, g), slot,
                                 prompt=prompts[g], plen=len(prompts[g]),
@@ -762,8 +957,11 @@ class ContinuousEngine:
 
     def step(self) -> bool:
         """One iteration: SLO evictions, admissions, lazy growth, then
-        one decode step (or speculative round) over the active slots.
-        False when idle."""
+        one decode step (or speculative round) over the active slots
+        (bert engines: admit, one batched forward, complete). False when
+        idle."""
+        if self.bert:
+            return self._step_scoring()
         self._evict_overdue()
         if self._admission is not None:
             self._admit_chunked()
@@ -822,6 +1020,55 @@ class ContinuousEngine:
                             accepted_tokens=self.accepted_tokens)
             self.on_step(info)
         return self.scheduler.has_work
+
+    def _step_scoring(self) -> bool:
+        """One scoring/embedding iteration: admit up to max_batch queued
+        requests in policy order, run ONE batched forward at (max_batch,
+        score_len), the short batch padded by replicating its last row
+        (outputs discarded), and complete every admitted request: no
+        cache holds a slot past its step."""
+        sched = self.scheduler
+        self._depth.sample(sched.queued)
+        pairs = []
+        while sched.free_slots and sched.queued:
+            i = self.sched_policy.pick(sched.queue_items(),
+                                       self._policy_ctx())
+            pairs.append(sched.assign_at(i))
+        if not pairs:
+            return sched.has_work
+        prompts = [np.asarray(r.prompt, np.int32) for _, r in pairs]
+        n = len(pairs)
+        tokens, positions, lens = pad_prompts(
+            prompts + [prompts[-1]] * (self.max_batch - n), 1,
+            pad_len=self.score_len)
+        ids, pooled = self._score(
+            self.params, torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(positions, device=self.device))
+        ids, pooled = ids.cpu().numpy(), pooled.cpu().numpy()
+        now = time.perf_counter()
+        self.steps_run += 1
+        self.slot_steps += n
+        self.max_concurrent = max(self.max_concurrent, n)
+        for g, (slot, req) in enumerate(pairs):
+            req.trace.admit_t = now
+            self._admit_counter += 1
+            self._fill_scores(req, ids[g], pooled[g], int(lens[g]), now)
+            sched.complete(slot)
+        return sched.has_work
+
+    def _fill_scores(self, req: Request, ids, pooled, plen: int, now):
+        """A scored row's outputs onto its request: the embedding, and
+        for task "score" the masked-LM ids of the valid (right-aligned)
+        tail, one token mark each."""
+        req.embedding = pooled.copy()
+        if self.task == "score":
+            req.generated = ids[self.score_len - plen:].copy()
+            for _ in range(plen):
+                req.trace.mark_token(now)
+        else:
+            req.generated = np.zeros(0, np.int32)
+            req.trace.mark_token(now)
+        req.trace.done_t = now
 
     def _spec_round(self, active):
         """One draft-verify round over the active slots.
@@ -943,13 +1190,113 @@ class ContinuousEngine:
         self.run(requests)
         return requests
 
+    # ---------------- batch-1 latency mode ----------------
+
+    def run_one(self, request: Request) -> Request:
+        """Serve ONE request end to end at batch 1, outside the
+        scheduler, the admission and the pool: the interactive latency
+        path. Its output is the pooled engine's for the same request:
+        the same prefill and decode step (and non-finite count), left-pad
+        masking and sampler keys, and for encdec the same cross
+        contraction length (the dense cross K/V padded to the arena's
+        blocked frame count, pads masked as the arena's filler)."""
+        self._assign_rid(request)
+        if request.trace.submit_t == 0.0:
+            request.trace.mark_submit()
+        if self.bert:
+            return self._run_one_scoring(request)
+        if self.encdec and request.frames is None:
+            raise ValueError(
+                "encdec requests need `frames` (the encoder input)")
+        if len(request.prompt) + request.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {len(request.prompt)} + max_new_tokens "
+                f"{request.max_new_tokens} exceeds max_len {self.max_len}")
+        return self._run_one_decode(request)
+
+    def _pad_cross(self, cache):
+        """Pad a batch-1 dense cross K/V to the arena's blocked frame
+        count, pad rows at position -1: the decode contraction then has
+        the length of the pooled engine's block gather."""
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        sm, pf = ck.shape[2], self.pool.padded_frames
+        if pf == sm:
+            return cache
+        pos = torch.full((pf,), -1, dtype=torch.int32, device=ck.device)
+        pos[:sm] = torch.arange(sm, dtype=torch.int32, device=ck.device)
+        pad = (0, 0, 0, 0, 0, pf - sm)
+        return {**cache, "cross": {
+            "k": torch.nn.functional.pad(ck, pad),
+            "v": torch.nn.functional.pad(cv, pad), "pos": pos}}
+
+    def _run_one_decode(self, request: Request) -> Request:
+        prompt = np.asarray(request.prompt, np.int32)
+        tokens, positions, lens = pad_prompts([prompt], self.prefill_bucket)
+        if tokens.shape[1] + request.max_new_tokens - 1 > self._prefill_len:
+            raise ValueError(
+                f"padded prompt {tokens.shape[1]} + budget "
+                f"{request.max_new_tokens} exceeds the prefill cache "
+                f"({self._prefill_len} rows)")
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        positions = torch.as_tensor(positions, device=dev)
+        if self.encdec:
+            frames = torch.as_tensor(
+                np.asarray(request.frames, np.float32)[None], device=dev)
+            logits, cache = self._prefill(self.params, tokens, positions,
+                                          frames)
+            cache = self._pad_cross(cache)
+        else:
+            logits, cache = self._prefill(self.params, tokens, positions)
+        self._count_nonfinite(logits)
+        first, rkeys = first_tokens(self._first, self.sampler,
+                                    self._wants_keys, logits, [request])
+        now = time.perf_counter()
+        request.trace.admit_t = now
+        request.trace.mark_token(now)
+        emitted = [int(first[0])]
+        tok = np.array([[emitted[0]]], np.int32)
+        pos = np.array([[int(lens[0])]], np.int32)
+        while len(emitted) < request.max_new_tokens:
+            args = (self.params, torch.as_tensor(tok, device=dev),
+                    torch.as_tensor(pos, device=dev), cache)
+            if self._wants_keys:
+                args += (fold_keys(rkeys, np.array([len(emitted)],
+                                                   np.int32)),)
+            nxt, cache = self._step(*args)
+            t = int(nxt.cpu().numpy()[0])
+            request.trace.mark_token(time.perf_counter())
+            emitted.append(t)
+            tok[0, 0] = t
+            pos[0, 0] += 1
+        request.generated = np.array(emitted, np.int32)
+        request.trace.done_t = request.trace.token_ts[-1]
+        return request
+
+    def _run_one_scoring(self, request: Request) -> Request:
+        prompt = np.asarray(request.prompt, np.int32)
+        if not 1 <= len(prompt) <= self.score_len:
+            raise ValueError(
+                f"scoring prompt length {len(prompt)} must be in "
+                f"[1, {self.score_len}]")
+        tokens, positions, lens = pad_prompts([prompt], 1,
+                                              pad_len=self.score_len)
+        ids, pooled = self._score(
+            self.params, torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(positions, device=self.device))
+        now = time.perf_counter()
+        request.trace.admit_t = now
+        self._fill_scores(request, ids.cpu().numpy()[0],
+                          pooled.cpu().numpy()[0], int(lens[0]), now)
+        return request
+
     def report(self, wall_s: float) -> dict:
         """Throughput/latency stats of the completed requests plus slot
-        utilization, decode steps, peak concurrency, queue depth,
-        preemptions, the number of steps whose logits were not all
-        finite, (paged) prefix-block hits, (chunked) chunk forwards,
-        rows and forwards per chunk size, and (speculative) rounds and
-        acceptance."""
+        utilization, decode steps (scoring: forwards), peak concurrency,
+        queue depth, preemptions, the task, the number of steps whose
+        logits were not all finite, (paged, encdec) prefix or cross
+        block hits, (chunked) chunk forwards, rows and forwards per chunk
+        size, and (speculative) rounds and acceptance."""
         done = self.scheduler.completed
         stats = aggregate([r.trace for r in done], wall_s,
                           sum(len(r.generated) for r in done))
@@ -960,9 +1307,10 @@ class ContinuousEngine:
         stats["preemptions"] = self.preemptions
         stats["sched_policy"] = self.sched_policy.name
         stats.update(self._depth.stats())
-        stats["task"] = "generate"
-        if self.paged:
-            stats["growth"] = self.pool.growth
+        stats["task"] = self.task
+        if self.paged or self.encdec:
+            if self.paged:
+                stats["growth"] = self.pool.growth
             stats["shared_block_hits"] = self.pool.shared_hits
             stats["retained_block_hits"] = self.pool.retained_hits
             stats["prefix_misses"] = self.pool.prefix_misses
@@ -1068,7 +1416,7 @@ def throughput_probe(engine, requests: List[Request], *,
     clock ends with the device's work."""
     if warmup:
         clones = [Request(prompt=r.prompt.copy(),
-                          max_new_tokens=r.max_new_tokens)
+                          max_new_tokens=r.max_new_tokens, frames=r.frames)
                   for r in requests]
         engine.run_batch(clones)
     t0 = time.perf_counter()

@@ -243,7 +243,11 @@ def test_bridge_rejects_a_wrong_tree(bert_pair):
         params_from_jax(ta.cfg, bad)
 
 
-def test_bert_serving_is_not_ported():
-    arch = tconfigs.reduced_arch("bert-large")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        arch.init_paged_cache(2, 16)
+def test_bert_paged_serving_is_decoder_only():
+    """BERT scores without a cache: asking it for a paged cache raises
+    the JAX package's error, in its wording, and so does encdec."""
+    for name in ("bert-large", "whisper-large-v3"):
+        for arch in (tconfigs.reduced_arch(name), jreduced(name)):
+            with pytest.raises(NotImplementedError,
+                               match="paged serving is decoder-only"):
+                arch.init_paged_cache(2, 16)

@@ -681,3 +681,62 @@ def test_cuda_kernels_at_granite_heads(q_dtype, kv_dtype, S, null_write):
     for got, w, rep in zip(args[3:6], plain[3:6], fresh[3:6]):
         assert torch.equal(got, w) and torch.equal(rep, w)
     assert (out[-1] == 0).all() and (out7[-1] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder and BERT serving families on the card (no kernel of
+# their own: the paths around K1-K8 that the engine drives)
+# --------------------------------------------------------------------------
+
+def test_cuda_encdec_run_one_matches_pooled():
+    """Needs the card: reduced whisper-large-v3 served on CUDA over two
+    distinct inputs (shared cross blocks): greedy fp32 tokens of the
+    pooled engine equal run_one's for each request, and the drained
+    arena holds no live block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import reduced_arch
+    from repro_torch.serving import (ContinuousEngine,
+                                     synthetic_encdec_requests)
+    arch = reduced_arch("whisper-large-v3")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ContinuousEngine(arch, params, max_batch=3, max_len=32,
+                           prefill_bucket=8, block_size=8, policy="fp32")
+
+    def requests():
+        return synthetic_encdec_requests(
+            6, arch.cfg.vocab, n_frames=arch.cfg.n_frames,
+            d_model=arch.cfg.d_model, prompt_len=8, new_tokens=10,
+            n_inputs=2, seed=1)
+    pooled = eng.run_batch(requests())
+    assert eng.report(1.0)["shared_block_hits"] > 0
+    for p, s in zip(pooled, requests()):
+        assert eng.run_one(s).generated.tolist() == p.generated.tolist()
+    assert eng.pool.map.alloc.n_live == 0
+    eng.pool.check_invariants()
+
+
+@pytest.mark.parametrize("task", ["score", "embed"])
+def test_cuda_scoring_run_one_matches_batched(task):
+    """Needs the card: reduced bert-large scored on CUDA (fp32 policy):
+    each request's run_one embedding within 1e-5 of the batched one, and
+    the masked-LM ids equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import reduced_arch
+    from repro_torch.serving import (ContinuousEngine,
+                                     synthetic_scoring_requests)
+    arch = reduced_arch("bert-large")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ContinuousEngine(arch, params, max_batch=4, max_len=32,
+                           policy="fp32", task=task)
+
+    def requests():
+        return synthetic_scoring_requests(7, arch.cfg.vocab, prompt_len=32,
+                                          seed=2)
+    batched = eng.run_batch(requests())
+    for b, s in zip(batched, requests()):
+        eng.run_one(s)
+        np.testing.assert_allclose(s.embedding, b.embedding, rtol=1e-5,
+                                   atol=1e-5)
+        assert s.generated.tolist() == b.generated.tolist()

@@ -68,7 +68,7 @@ def test_configs_equal_the_jax_configs():
                 elif k != "attn_kernel":
                     assert v == jc[k], (name, k)
             assert tarch.source == jarch.source
-    assert tconfigs.NOT_PORTED == ("whisper-large-v3",)
+    assert tconfigs.NOT_PORTED == ()
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -3,6 +3,7 @@ pool invariants, precision casting, the whole engine (reduced gemma2-2b,
 fp32, the port's kernel path vs the JAX engine's XLA path: greedy tokens
 must be equal) and the port's CLI on the CPU."""
 import json
+import re
 
 import numpy as np
 import pytest
@@ -224,13 +225,32 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--shared-inputs", "2"], ["--mesh", "2x1"], ["--replicas", "2"],
-    ["--attn-kernel", "paged", "--interpret"], ["--task", "score"],
-    ["--arch", "whisper-large-v3"],
-    ["--sched-policy", "prefix-affinity"], ["--task", "embed"],
-    ["--arch", "bert-large"]])
+    ["--mesh", "2x1"], ["--replicas", "2"],
+    ["--attn-kernel", "paged", "--interpret"],
+    ["--sched-policy", "prefix-affinity"]])
 def test_cli_unported_features_raise(argv):
     with pytest.raises(SystemExit, match="not (yet )?ported"):
+        tserve.main(["--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "bert-large"],
+     "bert-large is a bert arch: pass --task score or --task embed"),
+    (["--task", "score"], "--task score needs a bert arch, got decoder"),
+    (["--arch", "whisper-large-v3", "--task", "embed"],
+     "--task embed needs a bert arch, got encdec"),
+    (["--shared-inputs", "2"],
+     "--shared-inputs does not apply to decoder archs"),
+    (["--arch", "whisper-large-v3", "--shared-prefix", "4"],
+     "--shared-prefix does not apply to encdec archs"),
+    (["--arch", "bert-large", "--task", "score", "--shared-inputs", "2"],
+     "--shared-inputs does not apply to bert archs"),
+    (["--arch", "whisper-large-v3", "--engine", "static"],
+     "--engine static is decoder-only, got encdec")])
+def test_cli_family_flag_errors(argv, match):
+    """Flags that do not fit the arch's family raise the JAX launcher's
+    errors, in its wording."""
+    with pytest.raises(SystemExit, match=re.escape(match)):
         tserve.main(["--device", "cpu", *argv])
 
 
@@ -475,3 +495,34 @@ def test_serve_decode_example_matches_jax_example(gemma_pair):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.main([])
+
+
+@pytest.mark.parametrize("cache,sampler", [
+    ("paged", None), ("dense", None),
+    ("paged", "temperature=0.8,top_k=50,top_p=0.9,seed=3")])
+def test_run_one_matches_pooled_decoder(gemma_pair, cache, sampler):
+    """run_one serves a decoder request at batch 1 outside the pool:
+    greedy and sampled tokens equal the pooled engine's (the same
+    left-pad masking and per-token keys) and the JAX engine's run_one;
+    a request longer than max_len is refused."""
+    jarch, jparams, tarch, tparams = gemma_pair
+    kw = dict(max_batch=3, max_len=48, policy="fp32", prefill_bucket=8,
+              block_size=8, cache=cache, sampler=sampler)
+    eng = ContinuousEngine(tarch, tparams, **kw)
+    jeng = JaxEngine(jarch, jparams, **kw)
+    pooled = eng.run_batch(synthetic_requests(5, tarch.cfg.vocab,
+                                              prompt_len=14, new_tokens=9,
+                                              seed=4))
+    solo = synthetic_requests(5, tarch.cfg.vocab, prompt_len=14,
+                              new_tokens=9, seed=4)
+    jsolo = jax_requests(5, jarch.cfg.vocab, prompt_len=14, new_tokens=9,
+                         seed=4)
+    for p, s, j in zip(pooled, solo, jsolo):
+        s.rid, j.rid = p.rid, p.rid          # the sampler keys on the rid
+        assert eng.run_one(s).generated.tolist() == p.generated.tolist()
+        assert np.asarray(jeng.run_one(j).generated).tolist() == \
+            s.generated.tolist()
+        assert len(s.trace.token_ts) == s.max_new_tokens
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        eng.run_one(Request(prompt=np.arange(5, 45, dtype=np.int32),
+                            max_new_tokens=9))

@@ -456,12 +456,6 @@ def test_cli_optimizers_train_on_cpu(argv):
         assert summary["overflow_count"] == 0
 
 
-@pytest.mark.parametrize("argv", [["--arch", "whisper-large-v3"]])
-def test_cli_unported_options_raise(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        ttrain.main(["--device", "cpu", *argv])
-
-
 def test_cli_defaults_to_cuda_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
