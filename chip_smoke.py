@@ -195,7 +195,39 @@ Phases, in the order they run, each of which fails the run:
      their plain versions (K1 bitwise repeatable with its capped
      partials) and timed beside their byte bounds, and the kernels of one
      whole fused LANS update over gemma2-2b's 2,614,341,888 parameters
-     beside 48 bytes per parameter. Each sub-phase's time is printed.
+     beside 48 bytes per parameter. Each sub-phase's time is printed;
+  D. the mesh and the router (after phase T, its memory freed): (a)
+     gemma2-2b at full width, fp32, K8, block 16, 4 slots per engine: a
+     chat service's stream of 3 tenants x 4 requests (a 64-token system
+     prompt each, user turns of 16-48 tokens) and 2 prompts shorter than
+     a block, 32 new tokens each, after a warm-up, on one engine, on
+     ReplicaRouter over 2 replicas sharing one params tree with each of
+     prefix, depth and rr, and on one engine with --sched-policy
+     prefix-affinity: greedy tokens equal across the runs, K8 launched
+     decode steps x 26 summed over the replicas in each, under prefix
+     routed_fallback 2 and routed_affinity_hits >= 9; tokens/s,
+     retained_hit_rate, prefix blocks written per replica and peak
+     memory printed (not gated); then the CLI with --replicas 2
+     --route-policy prefix --shared-prefix 64 against --replicas 1:
+     tokens equal, K8 launched decode steps x 26; (b) BERT-large at full
+     width (fp32 compute, seq 128, global batch 16, seed 0, 3 fused_lans
+     steps, hold schedule) on a 2 x 1 mesh whose two ranks are two
+     processes on the one card under gloo (said why on a line): losses
+     within 1e-4 relative of a one-process fused run on the same global
+     batch, its gradient summed in the mesh's order (the two blocks of 8
+     on their own, the means over the 16, the blocks' gradients added),
+     step-1 params within 2e-5, every element; K1-K3 launched 3 x 29
+     times on each rank, no partial
+     all-reduce, both ranks exit 0 within the join timeout; step ms,
+     the gloo all-reduce of the gradients' size and peak memory per
+     rank printed; (c) the sharded-leaf contract in one process: the
+     100,663,296-element leaf cut into 2 and 4 shards, K1-K3, K1/K2/K4
+     (bf16 copy) and K1/K5/K6 run on each shard with their partial sums
+     added, equal to the whole leaf's run within 2e-5 (the bf16 copy
+     2e-2), each output held under the kernel that computes it (K1's
+     summed sums; K2's and K5's summed norms, m and v; K3's, K4's and
+     K6's x) and for each shard count; each kernel timed on one shard
+     beside its byte bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -210,6 +242,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2425,6 +2458,453 @@ def whisper_training(torch, kl, kops):
     return launches, times, errs
 
 
+# ---------------------------------------------------------------------------
+# phase D: the router, the 2 x 1 mesh, leaves cut into shards
+# ---------------------------------------------------------------------------
+
+ROUTER_KW = dict(max_batch=4, max_len=144, policy="fp32", prefill_bucket=16,
+                 cache="paged", block_size=16, attn_kernel="paged")
+ROUTER_CLI_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
+                   "--attn-kernel", "paged", "--requests", "8",
+                   "--max-batch", "4", "--prompt-len", "32", "--new-tokens",
+                   "32", "--shared-prefix", "64", "--seed", "0", "--device",
+                   "cuda"]
+MESH_STEPS = 3
+MESH_JOIN_S = 300
+
+
+def tenant_prompts(vocab, seed=20):
+    """A chat service's stream: 3 tenants, each with its own 64-token
+    system prompt (4 blocks), 4 requests each with a user turn of 16-48
+    tokens, interleaved; then 2 prompts shorter than one block."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = [rng.integers(5, vocab, 64) for _ in range(3)]
+    prompts = [np.concatenate([system[i % 3], rng.integers(
+        5, vocab, int(rng.integers(16, 49)))]).astype(np.int32)
+        for i in range(12)]
+    return prompts + [rng.integers(5, vocab, int(rng.integers(4, 16))
+                                   ).astype(np.int32) for _ in range(2)]
+
+
+def replica_steps(report):
+    """Decode steps summed over a fleet's replicas (or one engine's)."""
+    if "per_replica" in report:
+        return sum(r["decode_steps"] for r in report["per_replica"])
+    return report["decode_steps"]
+
+
+def router_run(torch, pa, label, make, prompts):
+    """Serve `prompts` (32 new tokens each) on the engine or fleet make()
+    builds: K8 launched decode steps x 26 (summed over the replicas).
+    Returns (report, tokens in request order)."""
+    from repro_torch.serving import Request
+    eng = make()
+    reqs = [Request(prompt=p.copy(), max_new_tokens=32) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention_fused.launches = 0
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    rep = eng.report(time.perf_counter() - t0)
+    launches = pa.paged_attention_fused.launches
+    steps = replica_steps(rep)
+    check(launches == steps * N_LAYERS,
+          f"router[{label}]: K8 launched {launches} times for {steps} "
+          f"decode steps x {N_LAYERS}")
+    per = rep.get("per_replica", [rep])
+    print(f"router[{label}]: tokens_per_s={rep['tokens_per_s']:.2f} "
+          f"retained_hit_rate={rep['retained_hit_rate']:.3f} decode_steps="
+          f"{[r['decode_steps'] for r in per]} prefix_blocks_written="
+          f"{[r['prefix_misses'] for r in per]} shared_block_hits="
+          f"{[r['shared_block_hits'] for r in per]} K8 launches={launches} "
+          f"peak_gb={peak_gb(torch):.2f}")
+    tokens = [r.generated.tolist() for r in reqs]
+    check(all(len(t) == 32 for t in tokens),
+          f"router[{label}]: a request stopped short of its budget")
+    del eng
+    return rep, tokens, launches
+
+
+def phase_router(torch, pa, serve_mod):
+    """Phase D(a): gemma2-2b at full width behind ReplicaRouter (K8 on
+    every replica's decode steps)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousEngine, ReplicaRouter
+    arch = get_arch("gemma2-2b")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = tenant_prompts(arch.cfg.vocab)
+    engine = lambda **kw: ContinuousEngine(arch, params, **ROUTER_KW, **kw)
+    router_run(torch, pa, "warm-up", engine, prompts[:2])
+    runs = {"one engine": lambda: engine()}
+    for policy in ("prefix", "depth", "rr"):
+        runs[policy] = (lambda p: lambda: ReplicaRouter(
+            [engine(), engine()], policy=p))(policy)
+    runs["prefix-affinity"] = lambda: engine(sched_policy="prefix-affinity")
+    out, launches = {}, 0
+    for label, make in runs.items():
+        rep, tokens, n = router_run(torch, pa, label, make, prompts)
+        launches += n
+        out[label] = (rep, tokens)
+    want = out["one engine"][1]
+    for label, (rep, tokens) in out.items():
+        check(tokens == want, f"router[{label}]: tokens differ from one "
+                              f"engine's")
+    rep = out["prefix"][0]
+    check(rep["routed_fallback"] == 2 and rep["routed_affinity_hits"] >= 9,
+          f"router[prefix]: fallback {rep['routed_fallback']}, affinity "
+          f"hits {rep['routed_affinity_hits']}")
+    print(f"router: tokens equal across {', '.join(out)} (14 requests); "
+          f"prefix: routed_affinity_hits {rep['routed_affinity_hits']}, "
+          f"routed_fallback {rep['routed_fallback']}")
+    del params
+    torch.cuda.empty_cache()
+    # the CLI: --replicas 2 --route-policy prefix against --replicas 1
+    cli = {}
+    for n in ("1", "2"):
+        argv = ROUTER_CLI_ARGV + (["--replicas", n, "--route-policy",
+                                   "prefix"] if n == "2" else [])
+        pa.paged_attention_fused.launches = 0
+        stats, done = serve_mod.main(argv)
+        steps = replica_steps(stats)
+        check(pa.paged_attention_fused.launches == steps * N_LAYERS,
+              f"router CLI --replicas {n}: K8 launched "
+              f"{pa.paged_attention_fused.launches} times for {steps} "
+              f"decode steps x {N_LAYERS}")
+        launches += pa.paged_attention_fused.launches
+        cli[n] = {r.prompt.tobytes(): r.generated.tolist() for r in done}
+        print(f"router CLI --replicas {n}: tokens_per_s="
+              f"{stats['tokens_per_s']:.2f} decode_steps={steps} "
+              f"routed_affinity_hits="
+              f"{stats.get('routed_affinity_hits', 'n/a')}")
+        torch.cuda.empty_cache()
+    check(cli["1"] == cli["2"] and len(cli["2"]) == 8,
+          "router CLI: --replicas 2 tokens differ from --replicas 1")
+    print("router CLI: --replicas 2 --route-policy prefix == --replicas 1 "
+          "greedy tokens (8 requests, one 64-token shared prefix)")
+    return launches
+
+
+def mesh_rank(rank, world, init_method, out_path, ref_rank):
+    """One rank of phase D(b), in a process of its own: BERT-large at full
+    width on a 2 x 1 mesh (gloo), 3 fused_lans steps on the global batch
+    of 16. The reference rank first runs the same steps in one process
+    (no mesh) for the gates. Writes its numbers as JSON to out_path."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import select_device
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lans
+    from repro_torch.core.optim.base import tree_items, tree_leaves
+    from repro_torch.distributed.partial import reduce_partials, whole
+    from repro_torch.distributed.steps import (build_train_step,
+                                               place_train_step)
+    from repro_torch.kernels import lans as kl
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_local_mesh
+
+    select_device("cuda")
+    torch.cuda.set_device(0)
+    out = {"rank": rank}
+    arch = get_arch("bert-large")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, compute_dtype=torch.float32))
+    sched = train_mod.make_schedule("hold", 2e-3, MESH_STEPS, 0.2, 0.3)
+    batches = list(zip(range(MESH_STEPS), cli_batches(
+        torch, train_mod, arch, 16, 128, 0)()))
+    init = lambda: arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def steps(step, params, state):
+        losses, ms, first = [], [], None
+        for i, b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = {p: whole(v).detach().clone()
+                         for p, v in tree_items(params)}
+        return losses, ms, first
+
+    if rank == ref_rank:
+        # the one-process run, its gradient summed in the mesh's order
+        # (each rank's block of 8 on its own, its means over the whole
+        # batch of 16, the two blocks' gradients added, as the all-reduce
+        # adds them): the maths of one device, the mesh's order of sums,
+        # so that every element of the params can be held
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from port.mesh_worker import mesh_order
+        step, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
+                                         param_init_fn=lambda _: init())
+        with mesh_order(2, 1):
+            ref_losses, _, ref_first = steps(step, *init_fn(None))
+        torch.cuda.empty_cache()
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_local_mesh(data=2, model=1, device="cuda")
+        step, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
+                                         mesh, param_init_fn=lambda _: init())
+        params, state = init_fn(None)
+        pspec, ospec = step.specs_for(params, state)
+        step = place_train_step(step, mesh, pspec, ospec, batches[0][1])
+        torch.cuda.reset_peak_memory_stats()
+        for k in kl.KERNELS:
+            k.launches = 0
+        reduce_partials.calls = 0
+        losses, ms, first = steps(step, params, state)
+        out.update(losses=losses, step_ms=ms,
+                   launches={k.__name__: k.launches for k in kl.KERNELS},
+                   partial_allreduces=reduce_partials.calls,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   n_params=sum(p.numel() for p in tree_leaves(params)))
+        flat = torch.zeros(out["n_params"], dtype=torch.float32,
+                           device="cuda")
+        dist.all_reduce(flat)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == ref_rank:
+            out["ref_losses"] = ref_losses
+            diffs = [(first[p] - a).abs() for p, a in ref_first.items()]
+            out["step1_param_err"] = max(d.max().item() for d in diffs)
+            out["step1_n"] = sum(d.numel() for d in diffs)
+            out["step1_unequal"] = sum(int((d > 0).sum()) for d in diffs)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(torch):
+    """Phase D(b): BERT-large data parallel on a 2 x 1 mesh, two ranks as
+    two processes on the one card under gloo."""
+    import multiprocessing
+    import socket
+    import tempfile
+    print("mesh: one card, so the 2 x 1 mesh's two ranks are two processes "
+          "on it under gloo: NCCL refuses two ranks on one device, and "
+          "gloo takes CUDA tensors for all_reduce, which is all a 2 x 1 "
+          "mesh needs (no leaf is cut); the model axis and ZeRO need "
+          "all_gather / reduce_scatter, and run on four cards over NCCL "
+          "in tests/port/test_torch_cuda_kernels.py")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "src", "repro_torch",
+                                            "kernels", "_build"))
+    ctx = multiprocessing.get_context("spawn")
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, 2, f"tcp://localhost:{port}", paths[r], 0)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MESH_JOIN_S)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"mesh: rank exit codes {codes} (join "
+                               f"timeout {MESH_JOIN_S} s)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp)
+    r0 = ranks[0]
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "mesh: the ranks report different losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                  r0["ref_losses"]))
+    check(rel <= 1e-4, f"mesh: losses {r0['losses']} vs one process "
+                       f"{r0['ref_losses']} ({rel:.3e} relative)")
+    check(r0["step1_param_err"] <= 2e-5,
+          f"mesh: step-1 params {r0['step1_param_err']:.3e} from the one "
+          f"process's (gate 2e-5, every element)")
+    for r in ranks:
+        for name in ("sq_norm", "lans_phase1", "lans_phase2"):
+            check(r["launches"][name] == BERT_LEAVES * MESH_STEPS,
+                  f"mesh rank {r['rank']}: {name} launched "
+                  f"{r['launches'][name]} times")
+        check(r["launches"]["lans_phase2_cast"] == 0, "mesh: K4 launched")
+        check(r["partial_allreduces"] == 0,
+              f"mesh rank {r['rank']}: {r['partial_allreduces']} partial "
+              f"all-reduces on a 2 x 1 mesh")
+    for r in ranks:
+        print(f"mesh rank {r['rank']}: step_ms "
+              f"{[round(x, 2) for x in r['step_ms']]}, all-reduce of "
+              f"{r['n_params']} fp32 gradients {r['allreduce_ms']:.2f} ms "
+              f"(gloo, staged through the host: no measure of NVLink), "
+              f"peak_gb {r['peak_gb']:.2f}, K1-K3 launches "
+              f"{r['launches']['sq_norm']} = {MESH_STEPS} x {BERT_LEAVES}")
+    print(f"mesh: losses {r0['losses']} vs one process {r0['ref_losses']} "
+          f"(its gradient summed in the mesh's order; {rel:.3e} relative, "
+          f"gate 1e-4); step-1 params: every one of {r0['step1_n']} "
+          f"elements within {r0['step1_param_err']:.3e} (gate 2e-5), "
+          f"{r0['step1_unequal']} not bit-equal; no partial all-reduce; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: r0["launches"][k] for k in ("sq_norm", "lans_phase1",
+                                          "lans_phase2")}
+
+
+def shard_rows(kops, n_shards, lamb_clip=None, step=4):
+    rows = []
+    for _ in range(n_shards):
+        rows.append(kops.lans_scalars(0.02, step, beta1=0.9, beta2=0.999,
+                                      lam=0.01, apply_trust=True,
+                                      device="cuda") if lamb_clip is None
+                    else kops.lamb_scalars(0.02, step, lamb_clip, beta1=0.9,
+                                           beta2=0.999, lam=0.01,
+                                           apply_trust=True, device="cuda"))
+    return rows
+
+
+def sharded_lans(torch, kl, kops, g, m, v, x, n_shards, lp=None):
+    """K1, K2 and K3 (K4 with lp) on n_shards contiguous shards of one
+    leaf, the partial sums added between the phases as the ranks of a
+    mesh add them. Returns (K1's summed g_sq, K2's summed norms, [x, m,
+    v(, x_lp)] concatenated)."""
+    kw = dict(beta1=0.9, eps=1e-6)
+    cuts = [t.chunk(n_shards) for t in (g, m, v, x)]
+    rows = shard_rows(kops, n_shards)
+    g_sq = sum(kl.sq_norm(gs) for gs in cuts[0])
+    for row in rows:
+        row[5] = g_sq
+    p1 = [kl.lans_phase1(row, gs, ms, vs, xs, beta2=0.999, **kw)
+          for row, gs, ms, vs, xs in zip(rows, *cuts)]
+    norms = sum(p[2] for p in p1)
+    outs = []
+    for row, gs, xs, (m1, v1, _) in zip(rows, cuts[0], cuts[3], p1):
+        if lp is None:
+            outs.append((kl.lans_phase2(row, norms, gs, m1, v1, xs, **kw),
+                         m1, v1))
+        else:
+            xm, xlp = kl.lans_phase2_cast(row, norms, gs, m1, v1, xs,
+                                          lp_dtype=lp, **kw)
+            outs.append((xm, m1, v1, xlp))
+    return g_sq, norms, [torch.cat(parts) for parts in zip(*outs)]
+
+
+def sharded_lamb(torch, kl, kb, kops, g, m, v, x, n_shards):
+    """K1 on the shards for the clip's sum of squares, K5 on each shard,
+    its norms added, K6 on each shard. Returns (K1's summed sum of
+    squares, K5's summed norms, [x, m, v] concatenated)."""
+    from repro_torch.core.optim.lamb import clip_factor
+    cuts = [t.chunk(n_shards) for t in (g, m, v, x)]
+    g_sq = sum(kl.sq_norm(gs) for gs in cuts[0])
+    rows = shard_rows(kops, n_shards, lamb_clip=clip_factor(g_sq, 1.0))
+    p1 = [kb.lamb_phase1(row, gs, ms, vs, xs, beta1=0.9, beta2=0.999,
+                         eps=1e-6) for row, gs, ms, vs, xs in zip(rows, *cuts)]
+    norms = sum(p[2] for p in p1)
+    outs = [(kb.lamb_phase2(row, norms, m1, v1, xs, eps=1e-6), m1, v1)
+            for row, xs, (m1, v1, _) in zip(rows, cuts[3], p1)]
+    return g_sq, norms, [torch.cat(parts) for parts in zip(*outs)]
+
+
+def phase_shards(torch, kl, kb, kops):
+    """Phase D(c): the sharded-leaf contract on the card. BERT-large's
+    largest leaf cut into 2 and 4 shards: K1-K3, K1/K2/K4 (bf16 copy)
+    and K1/K5/K6 on the shards, their partial sums added, equal to the
+    whole leaf's run within 2e-5; each shard's kernels timed beside their
+    byte bounds. Returns {kernel: {shards: entry}}."""
+    t0 = time.perf_counter()
+    n = LARGEST_LEAF
+    g, m, v, x = kl.lans_case(n, torch.float32, seed=11, device="cuda")
+    runs = {
+        "lans": lambda k: sharded_lans(torch, kl, kops, g, m, v, x, k),
+        "cast": lambda k: sharded_lans(torch, kl, kops, g, m, v, x, k,
+                                       torch.bfloat16),
+        "lamb": lambda k: sharded_lamb(torch, kl, kb, kops, g, m, v, x, k)}
+    # each output under the kernel that computes it: K1's sums, K2's
+    # (K5's) summed norms and m, v, K3's (K4's, K6's) x
+    owners = {"lans": ("sq_norm", "lans_phase1", "lans_phase2"),
+              "cast": ("sq_norm", "lans_phase1", "lans_phase2_cast"),
+              "lamb": ("sq_norm", "lamb_phase1", "lamb_phase2")}
+    tol = LANS_TOL["fp32"]
+    err = {}                               # {kernel: {shards: max |diff|}}
+    for kind, run in runs.items():
+        whole_sq, whole_norms, whole_out = run(1)
+        k1, k2, k3 = owners[kind]
+        for k in (2, 4):
+            e = dict.fromkeys(owners[kind], 0.0)
+            g_sq, norms, out = run(k)
+            where = f"{kind}, {k} shards"
+            close(torch, e, k1, g_sq, whole_sq, tol, where)
+            close(torch, e, k2, norms, whole_norms, tol, where)
+            for a, b in zip(out[1:3], whole_out[1:3]):     # m, v
+                close(torch, e, k2, a, b, tol, where)
+            close(torch, e, k3, out[0], whole_out[0], tol, where)
+            if kind == "cast":
+                close(torch, e, k3, out[3], whole_out[3], LANS_TOL["bf16"],
+                      f"{where}, bf16 copy")
+            for name, x_err in e.items():
+                cell = err.setdefault(name, {})
+                cell[str(k)] = max(cell.get(str(k), 0.0), x_err)
+            del out
+        del whole_out
+    torch.cuda.synchronize()
+    print("shards: K1-K3, K1/K2/K4 and K1/K5/K6 on 2 and 4 shards of the "
+          f"{n}-element leaf, partial sums added, vs the whole leaf: max "
+          "|diff| " + "; ".join(
+              f"{name} " + ", ".join(f"{k} shards {e:.3e}"
+                                     for k, e in cells.items())
+              for name, cells in err.items())
+          + " (gate 2e-5 + 2e-5 |whole|, so relative for K1's sums and "
+          "K2's / K5's norms, sums over 1e8 squares; K4's bf16 copy 2e-2)")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kw = dict(beta1=0.9, eps=1e-6)
+    out = {}
+    for k in (2, 4):
+        s = n // k
+        gs, ms, vs, xs = (t[:s] for t in (g, m, v, x))
+        row = shard_rows(kops, 1)[0]
+        row[5] = kl.sq_norm(gs)
+        m1, v1, norms = kl.lans_phase1(row, gs, ms, vs, xs, beta2=0.999,
+                                       **kw)
+        lrow = shard_rows(kops, 1, lamb_clip=0.3)[0]
+        bm, bv, bnorms = kb.lamb_phase1(lrow, gs, ms, vs, xs, beta1=0.9,
+                                        beta2=0.999, eps=1e-6)
+        calls = {
+            "sq_norm": (lambda: kl.sq_norm(gs), 4),
+            "lans_phase1": (lambda: kl.lans_phase1(
+                row, gs, ms, vs, xs, beta2=0.999, **kw), 24),
+            "lans_phase2": (lambda: kl.lans_phase2(
+                row, norms, gs, m1, v1, xs, **kw), 20),
+            "lans_phase2_cast": (lambda: kl.lans_phase2_cast(
+                row, norms, gs, m1, v1, xs, lp_dtype=torch.bfloat16, **kw),
+                22),
+            "lamb_phase1": (lambda: kb.lamb_phase1(
+                lrow, gs, ms, vs, xs, beta1=0.9, beta2=0.999, eps=1e-6), 24),
+            "lamb_phase2": (lambda: kb.lamb_phase2(
+                lrow, bnorms, bm, bv, xs, eps=1e-6), 16),
+        }
+        for name, (fn, bytes_per) in calls.items():
+            ms_ = time_ms(fn, flush, n=10)
+            bound = bytes_per * s / H100_BYTES_PER_S * 1e3
+            out.setdefault(name, {})[str(k)] = dict(
+                n=s, ms=ms_, bound_ms=bound, bound_by="bytes",
+                max_abs_err=err[name][str(k)])
+            print(f"shards: {name} on 1 of {k} shards ({s} fp32 elements, "
+                  f"L2 evicted): {ms_:.4f} ms, bound {bound:.4f} ms "
+                  f"({bytes_per} B/element at 3.35 TB/s), bound / time "
+                  f"{bound / ms_:.2f}")
+    del flush, g, m, v, x
+    torch.cuda.empty_cache()
+    print(f"phase D(c): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2522,6 +3002,15 @@ def run() -> int:
     dec_fp32, dec_bf16, dec_times, dec_errs, dec_update = decoder_routes(
         torch, kl, kops)
     print(f"phase T: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    router_launches = phase_router(torch, pa, serve_mod)
+    print(f"phase D(a): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch)
+    shards = phase_shards(torch, kl, kb, kops)
+    print(f"phase D: {time.perf_counter() - t0:.1f} s")
+    kernel["router"] = dict(launches=router_launches)
     decoder = {"sq_norm": dec_fp32, "lans_phase1": dec_fp32,
                "lans_phase2": dec_fp32, "lans_phase2_cast": dec_bf16}
     # name: (TPU source, launches of its main path)
@@ -2546,6 +3035,9 @@ def run() -> int:
             entries[-1]["decoder"] = dict(
                 n=EMBED_LEAF, launches=decoder[name][name],
                 max_abs_err=dec_errs[name], **dec_times[name])
+        entries[-1]["shards"] = shards[name]     # phase D(c)
+        if name in mesh_launches:                  # phase D(b), per rank
+            entries[-1]["mesh_2x1"] = dict(launches=mesh_launches[name])
         if name in ("sq_norm", "lans_phase1", "lans_phase2"):
             # phase E(c): whisper-large-v3's largest leaf
             entries[-1]["whisper"] = dict(

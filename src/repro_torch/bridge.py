@@ -100,3 +100,22 @@ def opt_state_from_jax(state, device="cpu"):
         return _convert(v, device)
 
     return cls(**{f: field(f, getattr(state, f)) for f in cls._fields})
+
+
+def place_from_jax(cfg, np_params, mesh, *, opt_state=None, zero3=False,
+                   moments_spec=None, device="cpu"):
+    """The JAX package's params (and, given, its optimizer state) bridged
+    as params_from_jax and opt_state_from_jax do, then placed on `mesh`
+    by the sharding rules (distributed/sharding.py: params_pspec with
+    `zero3`, opt_state_pspec with `moments_spec` for ZeRO-1), so that a
+    step on the mesh starts from the JAX parameters. Returns (params,
+    opt_state or None)."""
+    from repro_torch.distributed import sharding as shd
+    params = params_from_jax(cfg, np_params, device)
+    pspec = shd.params_pspec(params, mesh, zero3=zero3)
+    state = None
+    if opt_state is not None:
+        state = opt_state_from_jax(opt_state, device)
+        state = shd.distribute(state, mesh, shd.opt_state_pspec(
+            state, pspec, moments_spec))
+    return shd.distribute(params, mesh, pspec), state

@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import bert as bert_lib
 from repro_torch.models import decoder as dec_lib
 from repro_torch.models import encdec as ed_lib
+from repro_torch.models.common import WHOLE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,13 +46,22 @@ class Arch:
         logits never live at once) when the vocab is >= 65536 and the
         sequence is >= 1024 and a multiple of 512, the JAX package's
         rule. Encdec: the same cross entropy of the decoder given
-        batch["frames"] and batch["tokens"], no aux."""
+        batch["frames"] and batch["tokens"], no aux. A batch that is a
+        block of a larger one carries that one under WHOLE, and the mean
+        is taken over its valid labels (models/common.py)."""
         if self.kind == "bert":
             return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
+        whole = batch.get(WHOLE)
+        count = None if whole is None else (whole["labels"] != -100).sum()
         if self.kind == "encdec":
             logits = ed_lib.encdec_apply(params, self.cfg, batch["frames"],
                                          batch["tokens"])
-            return dec_lib.lm_loss(logits, batch["labels"]), {}
+            return dec_lib.lm_loss(logits, batch["labels"], count=count), {}
+        if whole is not None and self.cfg.n_experts:
+            # the load-balance terms are products of batch means, not sums
+            raise NotImplementedError(
+                "the MoE aux terms over a batch cut across data-parallel "
+                "ranks are not ported")
         seq = batch["labels"].shape[1]
         chunked = (self.cfg.vocab >= 65536 and seq >= 1024
                    and seq % 512 == 0)
@@ -63,11 +73,12 @@ class Arch:
                 params, self.cfg, return_hidden=True, **kw)
             loss = dec_lib.chunked_lm_loss(params, self.cfg, hidden,
                                            batch["labels"],
-                                           moe_aux=aux["moe_aux_loss"])
+                                           moe_aux=aux["moe_aux_loss"],
+                                           count=count)
         else:
             logits, _, aux = dec_lib.decoder_apply(params, self.cfg, **kw)
             loss = dec_lib.lm_loss(logits, batch["labels"],
-                                   moe_aux=aux["moe_aux_loss"])
+                                   moe_aux=aux["moe_aux_loss"], count=count)
         return loss, {"router_entropy": aux["router_entropy"]}
 
     def init_cache(self, batch: int, max_len: int, *, device="cpu",

@@ -1,1 +1,2 @@
-"""Step builders of the port (single device so far)."""
+"""Step builders of the port (one device or a mesh), the mesh rules and
+the sums that span ranks."""

@@ -1,0 +1,372 @@
+"""Partition-spec rules for the production mesh (port of
+repro/distributed/sharding.py), and their DTensor placements.
+
+Mesh axes: ("data", "model") single-pod; ("pod", "data", "model") multi-pod.
+"pod" is an outer pure-data-parallel axis (the paper's scale-out pattern);
+batch dims shard over ("pod", "data") jointly.
+
+Parameter rules (path-keyword driven, rank-aware, with stacked-layer leading
+dims skipped automatically):
+
+  embeddings   (V, d)          -> vocab over model
+  wq/wk/wv     (d, heads*hd)   -> columns over model
+  wo           (heads*hd, d)   -> rows over model
+  mlp up/gate  (d, f)          -> columns over model;  down: rows over model
+  moe experts  (E, din, dout)  -> experts over model (fallback: ff dim when
+                                  E % model_size != 0 — granite's 40, grok's 8)
+  mamba in/out projections     -> inner dim over model
+  1-D params (biases, norms, A_log, ...) -> replicated
+
+FSDP (zero3=True): additionally shard the largest remaining eligible dim
+over "data".
+
+KV caches: (layers, B, L, kv, hd) -> batch over data, head_dim over model.
+SSM states: dstate over model.
+
+The rules are pure functions of paths, shapes and the mesh's axis sizes,
+so a mesh is anything with a `shape` dict ({axis name: size}): a
+DeviceMesh through `mesh_shape`, or a shape-only stand-in. A spec is a
+`PSpec`, a tuple with one entry per tensor dim: None, an axis name, or a
+tuple of axis names (`tuple(jax P) == tuple(PSpec)` for the same rule).
+`placements` turns a spec into DTensor placements on a DeviceMesh, and
+`distribute` places a tree by a spec tree.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.optim.base import tree_map, tree_paths
+
+Tree = Any
+
+
+class PSpec(tuple):
+    """A partition spec: one entry per tensor dim (None, an axis name or a
+    tuple of axis names); PSpec() is fully replicated. A one-name tuple
+    is kept as the name, as JAX's P keeps it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return f"PSpec{tuple.__repr__(self)}"
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh, or a stand-in's `shape` dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _axis_size(mesh, name: str) -> int:
+    shape = mesh_shape(mesh)
+    return shape[name] if name in shape else 1
+
+
+def batch_axes(mesh):
+    return ("pod", "data") if "pod" in mesh_shape(mesh) else ("data",)
+
+
+def _divisible(dim: int, size: int) -> bool:
+    return size > 1 and dim % size == 0
+
+
+def param_spec(path: str, shape: tuple, mesh, *, zero3: bool = False,
+               n_stack_dims: int = 0) -> PSpec:
+    """PartitionSpec for one parameter tensor.
+
+    n_stack_dims: leading stacked-layer dims (periods, layers) left
+    unsharded."""
+    dsize = _axis_size(mesh, "data")
+    low = path.lower()
+    core_shape = tuple(shape[n_stack_dims:])
+    rank = len(core_shape)
+    spec = [None] * rank
+
+    def put(axis_idx: int, name: str) -> bool:
+        if spec[axis_idx] is None and _divisible(core_shape[axis_idx],
+                                                 _axis_size(mesh, name)):
+            spec[axis_idx] = name
+            return True
+        return False
+
+    if rank >= 2:
+        is_expert_stack = rank == 3 and ("up" in low or "down" in low or
+                                         "gate" in low)
+        if is_expert_stack:
+            # (E, din, dout): experts over model, else the ff dim.
+            if not put(0, "model"):
+                ff_axis = 2 if "up" in low or "gate" in low else 1
+                put(ff_axis, "model")
+        elif "embed" in low or "lm_head" in low or "mlm" in low:
+            # (V, d) embedding tables / (d, V) heads: shard the vocab dim.
+            put(int(np.argmax(core_shape)), "model")
+        elif any(k in low for k in ("wq", "wk", "wv", "up", "gate", "in_proj",
+                                    "router", "pooler", "nsp", "transform")):
+            put(rank - 1, "model")            # column parallel
+        elif any(k in low for k in ("wo", "down", "out_proj")):
+            put(rank - 2, "model")            # row parallel
+        else:
+            put(int(np.argmax(core_shape)), "model")
+
+        if zero3:
+            # FSDP/ZeRO: shard the largest remaining dim over the full
+            # data-parallel extent (pod x data when a pod axis exists)
+            psize = _axis_size(mesh, "pod")
+            candidates = ([("pod", "data"), "data"] if psize > 1
+                          else ["data"])
+            # stable descending order of sizes, as np.argsort()[::-1]
+            order = list(np.argsort(core_shape))[::-1]
+            done = False
+            for axes in candidates:
+                if done:
+                    break
+                size = psize * dsize if isinstance(axes, tuple) else dsize
+                for ax in order:
+                    if spec[ax] is None and _divisible(core_shape[ax], size):
+                        spec[ax] = axes
+                        done = True
+                        break
+    # rank 0/1: replicated.
+    return PSpec(*([None] * n_stack_dims + spec))
+
+
+def _stack_dims_for(path: str) -> int:
+    low = path.lower()
+    if low.startswith(("slot", "enc_layers", "dec_layers", "layers")):
+        return 1
+    return 0
+
+
+def params_pspec(params: Tree, mesh, *, zero3: bool = False) -> Tree:
+    return tree_map(
+        lambda pth, v: param_spec(pth, tuple(v.shape), mesh, zero3=zero3,
+                                  n_stack_dims=_stack_dims_for(pth)),
+        tree_paths(params), params)
+
+
+def params_sharding(params: Tree, mesh, *, zero3: bool = False) -> Tree:
+    """params_pspec as DTensor placements on `mesh` (a DeviceMesh)."""
+    return tree_map(lambda s: placements(s, mesh),
+                    params_pspec(params, mesh, zero3=zero3))
+
+
+def _master_pspec(params_spec: Tree, master_like: Tree) -> Tree:
+    """Master weights mirror their parameter's spec; the zero-size
+    placeholders the mixed-precision wrappers store for fp32-kept leaves
+    (LN/bias) replicate."""
+    return tree_map(lambda s, m: s if m.numel() else PSpec(), params_spec,
+                    master_like)
+
+
+def _replicated(tree: Tree) -> Tree:
+    """PSpec() for every leaf of a state field (a tensor, a NamedTuple of
+    them or a dict tree)."""
+    if isinstance(tree, dict):
+        return tree_map(lambda _: PSpec(), tree)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_replicated(t) for t in tree)) \
+            if hasattr(tree, "_fields") else tuple(_replicated(t)
+                                                   for t in tree)
+    return PSpec()
+
+
+def opt_state_pspec(opt_state, params_spec: Tree,
+                    moments_spec: Tree = None):
+    """Optimizer moments inherit their parameter's spec; counters
+    replicate.
+
+    moments_spec overrides the moment sharding: pass a zero3-style spec
+    for ZeRO-1 (optimizer-state sharding over "data" while the weights
+    stay only model-sharded).
+
+    Covers the chain states (LansState | LambState | AdamWState |
+    FusedState | MomentumState, schedule and scale states), FusedState,
+    MixedPrecisionState wrapping a chain state and FusedMixedState. fp32
+    masters are optimizer state: they follow the (ZeRO-1 aware) moments
+    spec, and loss-scale scalars replicate."""
+    from repro_torch.precision.fused import FusedMixedState
+    from repro_torch.precision.mixed import MixedPrecisionState
+
+    mspec = moments_spec if moments_spec is not None else params_spec
+    if isinstance(opt_state, MixedPrecisionState):
+        return MixedPrecisionState(
+            loss_scale=_replicated(opt_state.loss_scale),
+            master=_master_pspec(mspec, opt_state.master),
+            inner=opt_state_pspec(opt_state.inner, params_spec,
+                                  moments_spec))
+    if isinstance(opt_state, FusedMixedState):
+        return FusedMixedState(
+            loss_scale=_replicated(opt_state.loss_scale), count=PSpec(),
+            master=_master_pspec(mspec, opt_state.master), mu=mspec,
+            nu=mspec)
+    comps = opt_state if type(opt_state) is tuple else (opt_state,)
+    out = []
+    for comp in comps:
+        if hasattr(comp, "_fields") and set(comp._fields) >= {"mu", "nu"}:
+            out.append(comp._replace(count=PSpec(), mu=mspec, nu=mspec))
+        elif hasattr(comp, "_fields") and "momentum" in comp._fields:
+            out.append(comp._replace(momentum=mspec))
+        else:
+            out.append(_replicated(comp))
+    return tuple(out) if type(opt_state) is tuple else out[0]
+
+
+def batch_pspec(batch: Tree, mesh) -> Tree:
+    """Shard the leading (batch) dim of every input over (pod, data)."""
+    baxes = batch_axes(mesh)
+    bsize = int(np.prod([_axis_size(mesh, a) for a in baxes]))
+
+    def spec(v):
+        if v.ndim == 0:
+            return PSpec()
+        if v.shape[0] % bsize == 0:
+            return PSpec(baxes, *([None] * (v.ndim - 1)))
+        return PSpec(*([None] * v.ndim))
+
+    return tree_map(spec, batch)
+
+
+def _is_integer(dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
+def _map_cache(fn, cache):
+    """fn over the leaves of a tree of dicts and tuples (a PSpec and None
+    are leaves; None stays None, as JAX's tree map skips it)."""
+    if cache is None:
+        return None
+    if isinstance(cache, dict):
+        return {k: _map_cache(fn, v) for k, v in cache.items()}
+    if isinstance(cache, (tuple, list)) and not isinstance(cache, PSpec):
+        return type(cache)([_map_cache(fn, v) for v in cache])
+    return fn(cache)
+
+
+def cache_pspec(cache: Tree, mesh) -> Tree:
+    """KV / SSM cache sharding for serving, dense and paged layouts.
+
+    kv caches (layers, B, L, kv, hd): B over data (if divisible), hd over
+    model. ssm states (layers, B, H, N, P): B over data, N over model.
+    conv states (layers, B, W-1, C): B over data, C over model. paged
+    arenas (layers, n_blocks, bsz, kv, hd): blocks over data, hd over
+    model; encdec cross arenas (layers, n_blocks+1, bsz, H, hd) the same.
+    Integer bookkeeping (positions, block tables, cursors) never shards
+    over model: only its leading batch/blocks dim goes over data. The
+    cache is a tree of dicts and tuples (a decoder's "slots") of
+    tensors, or of anything with `ndim`, `shape` and `dtype`."""
+    dsize = _axis_size(mesh, "data")
+    msize = _axis_size(mesh, "model")
+
+    def spec(v):
+        if v.ndim <= 1:
+            return PSpec(*([None] * v.ndim))
+        s = [None] * v.ndim
+        # batch/blocks dim is axis 1 for stacked caches (axis 0 = layers)
+        b_ax = 1 if v.ndim >= 3 else 0
+        if _divisible(v.shape[b_ax], dsize):
+            s[b_ax] = "data"
+        if not _is_integer(v.dtype) and _divisible(v.shape[-1], msize):
+            s[-1] = "model"
+        return PSpec(*s)
+
+    return _map_cache(spec, cache)
+
+
+def cache_shardings(cache: Tree, mesh) -> Tree:
+    """cache_pspec as DTensor placements on `mesh`: the layout a pool on
+    a mesh pins its arenas to."""
+    return _map_cache(lambda s: placements(s, mesh), cache_pspec(cache, mesh))
+
+
+# --------------------------------------------------------------------------
+# DTensor placements
+# --------------------------------------------------------------------------
+
+def placements(spec: PSpec, mesh) -> tuple:
+    """DTensor placements of `spec` on `mesh` (a DeviceMesh with
+    mesh_dim_names): Shard(d) on each mesh dim that names tensor dim d (a
+    tuple such as ("pod", "data") on one dim gives Shard(d) on both mesh
+    dims, the first named the outer split, as in JAX), Replicate() on
+    every other mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple)
+                     else () if entry is None else (entry,)):
+            if name not in names:
+                raise ValueError(f"spec {spec} names axis {name!r}, not on "
+                                 f"the mesh {names}")
+            out[names.index(name)] = Shard(d)
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, mesh, places) -> torch.Tensor:
+    """This rank's block of the whole tensor `t` under `places`: for each
+    mesh dim in order, the coordinate's chunk along its Shard dim (even
+    chunks: the rules only shard dims the axis size divides)."""
+    coord = mesh.get_coordinate()
+    for md, p in enumerate(places):
+        if p.is_shard():
+            n = mesh.size(md)
+            if t.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
+                                 f"split evenly over {n} ranks")
+            t = t.chunk(n, dim=p.dim)[coord[md]]
+    return t.contiguous()
+
+
+def distribute_leaf(t, mesh, spec: PSpec):
+    """One tensor placed on `mesh` by `spec`: a DTensor built from this
+    rank's block of `t` (every rank holds the whole `t`, as every rank
+    builds the same params from one seed, so nothing is sent). 0-d and
+    empty tensors (counters, loss-scale scalars, the masters' zero-size
+    placeholders) stay plain: every rank computes the same value. A
+    DTensor is redistributed to the spec's placements."""
+    from torch.distributed.tensor import DTensor
+    if t is None:
+        return None
+    places = placements(spec, mesh)
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, places)
+    if t.ndim == 0 or t.numel() == 0:
+        return t
+    return DTensor.from_local(local_shard(t, mesh, places), mesh, places,
+                              run_check=False)
+
+
+def _map_spec(fn, tree, spec):
+    """fn(leaf, spec) over a tree of dicts, tuples and NamedTuples whose
+    spec tree has the same structure (a PSpec is a leaf of the spec
+    tree)."""
+    if isinstance(spec, PSpec):
+        return fn(tree, spec)
+    if isinstance(tree, dict):
+        return {k: _map_spec(fn, tree[k], spec[k]) for k in tree}
+    if isinstance(tree, tuple):
+        vals = [_map_spec(fn, t, s) for t, s in zip(tree, spec)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    raise TypeError(f"no spec for {type(tree).__name__}")
+
+
+def distribute(tree: Tree, mesh, spec_tree: Tree) -> Tree:
+    """Every leaf of `tree` placed on `mesh` by the matching PSpec of
+    `spec_tree` (distribute_leaf): params by params_pspec, an optimizer
+    state by opt_state_pspec, a cache by cache_pspec."""
+    return _map_spec(lambda t, s: distribute_leaf(t, mesh, s), tree,
+                     spec_tree)
+
+
+def constrain(tree: Tree, mesh, spec_tree: Tree) -> Tree:
+    """Each DTensor leaf redistributed to its spec's placements (the
+    counterpart of with_sharding_constraint); plain leaves are placed."""
+    return distribute(tree, mesh, spec_tree)

@@ -1,6 +1,7 @@
-"""Train and serve step builders (port of repro/distributed/steps.py,
-build_train_step, build_serve_step, build_verify_step and greedy_next,
-on one device).
+"""Train and serve step builders (port of repro/distributed/steps.py:
+build_train_step, on one device or on a mesh, with place_train_step in
+the place of jit_train_step; build_serve_step, build_verify_step and
+greedy_next on one device).
 
 PyTorch runs eagerly, so where the JAX package jitted a step the port
 returns a plain function. The serving cache (arenas, tables, cursors) is
@@ -20,6 +21,27 @@ a loss scale (precision.fused_mixed_lans) is used as it is: the JAX
 builder wraps it again, and that outer wrapper then adds
 `cast(new master) - master` to its own master, which leaves the master
 rounded to the low-precision copy on every step (ROADMAP Queue 3).
+
+On a mesh (`mesh=` a DeviceMesh with axes ("data", "model") or ("pod",
+"data", "model"), launch/mesh.py) params and optimizer state are
+DTensors placed by the sharding rules (distributed/sharding.py), and
+every rank is handed the same global batch, as JAX feeds one. A step
+gathers each leaf whole for the forward pass (an all-gather for a leaf
+cut over model, or over data under zero3), runs the loss on its block
+of each microbatch as cut by batch_pspec, with the losses' means
+taken over the whole microbatch (models/common.py: WHOLE), and turns the
+gradients (partial sums over the data ranks) into DTensors at the
+params' placements: an all-reduce, or a reduce-scatter for a zero3 leaf. The
+optimizer then updates the placed leaves; the fused ones run their
+kernels on each rank's shards (core/optim/fused.py). The model's
+matmuls are not split over "model": that axis cuts the storage and the
+optimizer's work of the weights, not their use, so the maths is that of
+one device, as GSPMD's is on any mesh. It also means that the model axis
+and zero3 do not cut a step's peak memory or the model's compute yet:
+during the forward and backward passes every rank holds every leaf
+whole (its fp32 params beside its shards), and the ranks of one data
+block repeat the same passes (ROADMAP Queue 1: gathering a layer at a
+time).
 """
 from __future__ import annotations
 
@@ -28,6 +50,9 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.optim.base import apply_updates, tree_leaves, tree_map
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.partial import sum_over, whole
+from repro_torch.models.common import WHOLE
 
 
 def greedy_next(logits):
@@ -113,10 +138,11 @@ def loss_and_grads(loss_fn, params, batch, scale):
     return loss.detach(), aux, tree_map(lambda t: by_leaf[id(t)], live)
 
 
-def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
+def build_train_step(loss_fn: Callable, tx, mesh=None, *,
+                     microbatches: int = 1, zero3: bool = False,
                      param_init_fn: Optional[Callable] = None, policy=None,
                      loss_scale=None):
-    """Returns (step_fn, init_fn) on one device.
+    """Returns (step_fn, init_fn), on one device or, with `mesh`, on it.
 
     step_fn: (params, opt_state, batch) -> (params, opt_state, metrics)
     init_fn: torch.Generator -> (params, opt_state)
@@ -126,6 +152,12 @@ def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
     master weights or loss scaling, `tx` is wrapped in mixed_precision
     unless it is a mixed-precision transform already
     (precision.fused_mixed_lans).
+
+    With a mesh, step_fn takes placed params and state (DTensors) and
+    the whole global batch, and `step_fn.specs_for(params_like,
+    opt_like) -> (params_pspec, opt_pspec)` gives the specs to place
+    them by (zero3 adds the data axis to the weights' specs);
+    place_train_step does the placing.
     """
     from repro_torch import precision
     if policy is not None:
@@ -134,36 +166,37 @@ def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
     if mixed and not isinstance(tx, precision.MixedTransformation):
         tx = precision.mixed_precision(tx, policy, loss_scale)
 
-    def step_fn(params, opt_state, batch):
-        scale = precision.loss_scale_value(opt_state) if mixed else None
+    def accumulate(params, batch, scale, local):
+        """(loss, aux, fp32 grads) over the microbatches of `batch`, each
+        cut to this rank's block by `local` before the loss sees it."""
         if microbatches == 1:
-            loss, aux, grads = loss_and_grads(loss_fn, params, batch, scale)
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % microbatches:
-                raise ValueError(f"batch {n} does not split into "
-                                 f"{microbatches} microbatches")
-            size = n // microbatches
-            grads, losses, auxs = None, [], []
-            for i in range(microbatches):
-                mb = {k: v[i * size:(i + 1) * size] if v.ndim >= 1 else v
-                      for k, v in batch.items()}
-                loss_i, aux_i, g_i = loss_and_grads(loss_fn, params, mb,
-                                                    scale)
-                grads = g_i if grads is None else tree_map(torch.add,
-                                                           grads, g_i)
-                losses.append(loss_i)
-                auxs.append(aux_i)
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = torch.stack(losses).sum() / microbatches
-            # float aux averaged over the whole batch, other aux from the
-            # last microbatch (as the JAX package does)
-            aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
-                   if torch.is_tensor(v) and v.is_floating_point()
-                   else v for k, v in auxs[-1].items()}
+            return loss_and_grads(loss_fn, params, local(batch), scale)
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches:
+            raise ValueError(f"batch {n} does not split into "
+                             f"{microbatches} microbatches")
+        size = n // microbatches
+        grads, losses, auxs = None, [], []
+        for i in range(microbatches):
+            mb = {k: v[i * size:(i + 1) * size] if v.ndim >= 1 else v
+                  for k, v in batch.items()}
+            loss_i, aux_i, g_i = loss_and_grads(loss_fn, params, local(mb),
+                                                scale)
+            grads = g_i if grads is None else tree_map(torch.add, grads, g_i)
+            losses.append(loss_i)
+            auxs.append(aux_i)
+        grads = tree_map(lambda g: g / microbatches, grads)
+        loss = torch.stack(losses).sum() / microbatches
+        # float aux averaged over the whole batch, other aux from the
+        # last microbatch (as the JAX package does)
+        aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
+               if torch.is_tensor(v) and v.is_floating_point()
+               else v for k, v in auxs[-1].items()}
+        return loss, aux, grads
 
+    def update(params, opt_state, loss, aux, grads, scale):
         with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(g * g)
+            gnorm = torch.sqrt(sum(whole(torch.sum(g * g))
                                    for g in tree_leaves(grads)))
             metrics = {"loss": loss, "grad_norm": gnorm, **aux}
             if mixed:
@@ -186,6 +219,36 @@ def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
                 metrics["overflow_count"] = precision.overflow_count(new_opt)
         return new_params, new_opt, metrics
 
+    def step_fn(params, opt_state, batch):
+        scale = precision.loss_scale_value(opt_state) if mixed else None
+        loss, aux, grads = accumulate(params, batch, scale, lambda b: b)
+        box = [grads]
+        del grads
+        return update(params, opt_state, loss, aux, box.pop(), scale)
+
+    def mesh_step_fn(params, opt_state, batch, bspec=None):
+        scale = precision.loss_scale_value(opt_state) if mixed else None
+        bspec = bspec if bspec is not None else shd.batch_pspec(batch, mesh)
+        cut = _batch_cut_dims(bspec)
+        groups = [mesh.get_group(name) for name in cut]
+        # this rank's block of b, which carries b whole for the losses'
+        # means (models/common.py: WHOLE)
+        local = lambda b: {**{k: shd.local_shard(
+            v, mesh, shd.placements(bspec[k], mesh)) if v.ndim else v
+            for k, v in b.items()}, WHOLE: b}
+        loss, aux, grads = accumulate(tree_map(whole, params), batch, scale,
+                                      local)
+        # each rank's loss, float aux and gradients are its parts of the
+        # global batch's: sum them over the ranks the batch is cut over
+        loss = sum_over(loss, groups)
+        aux = {k: sum_over(v, groups) if torch.is_tensor(v)
+               and v.is_floating_point() else v for k, v in aux.items()}
+        grads = tree_map(lambda g, p: _placed_grad(g, p, mesh, cut), grads,
+                         params)
+        box = [grads]
+        del grads
+        return update(params, opt_state, loss, aux, box.pop(), scale)
+
     def init_fn(gen: torch.Generator):
         if param_init_fn is None:
             raise ValueError("build_train_step needs param_init_fn for "
@@ -195,4 +258,55 @@ def build_train_step(loss_fn: Callable, tx, *, microbatches: int = 1,
             params = policy.cast_params(params)
         return params, tx.init(params)
 
-    return step_fn, init_fn
+    if mesh is None:
+        return step_fn, init_fn
+
+    def specs_for(params_like, opt_like):
+        pspec = shd.params_pspec(params_like, mesh, zero3=zero3)
+        return pspec, shd.opt_state_pspec(opt_like, pspec)
+
+    mesh_step_fn.specs_for = specs_for
+    return mesh_step_fn, init_fn
+
+
+def _batch_cut_dims(bspec) -> tuple:
+    """The mesh dims the batch's leading dim is cut over (every input
+    must be cut alike)."""
+    firsts = {tuple(s[0]) if isinstance(s[0], tuple) else
+              () if s[0] is None else (s[0],)
+              for s in bspec.values() if len(s)}
+    if len(firsts) > 1:
+        raise ValueError(f"batch inputs are cut differently: {bspec}")
+    return firsts.pop() if firsts else ()
+
+
+def _placed_grad(g, p, mesh, cut):
+    """A rank's gradient of the whole leaf (a partial sum over the data
+    ranks in `cut`, the same on the others) as a DTensor at p's
+    placements: the sum over `cut`, each rank keeping its shard."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(p, DTensor):
+        return sum_over(g, [mesh.get_group(name) for name in cut])
+    places = [Partial() if name in cut else Replicate()
+              for name in mesh.mesh_dim_names]
+    return DTensor.from_local(g, mesh, places, run_check=False).redistribute(
+        mesh, p.placements)
+
+
+def place_train_step(step_fn, mesh, pspec, ospec, batch_like):
+    """The counterpart of the JAX package's jit_train_step, without a
+    jit: the returned step places params and optimizer state on `mesh`
+    by `pspec` and `ospec` (shd.distribute: plain tensors are cut, placed
+    ones redistributed if they differ), cuts the global batch by
+    batch_pspec(batch_like), runs `step_fn` (built with this mesh) and
+    returns its outputs at those placements."""
+    bspec = shd.batch_pspec(batch_like, mesh)
+
+    def step(params, opt_state, batch):
+        params, opt_state, metrics = step_fn(
+            shd.distribute(params, mesh, pspec),
+            shd.distribute(opt_state, mesh, ospec), batch, bspec=bspec)
+        return (shd.distribute(params, mesh, pspec),
+                shd.distribute(opt_state, mesh, ospec), metrics)
+
+    return step

@@ -186,3 +186,88 @@ def fused_lamb_step(g, m, v, x, *, eta=None, step=None, clip=1.0,
 def block_sq_norm(x) -> torch.Tensor:
     """Kernel-backed sum of squares (K1) of a tensor of any shape."""
     return K.sq_norm(_flat(x))
+
+
+# --------------------------------------------------------------------------
+# leaves cut over ranks
+# --------------------------------------------------------------------------
+#
+# On a mesh a rank holds one shard of a leaf, and each kernel runs on that
+# shard alone. K1's g_sq and K2's / K5's norms are then partial sums of
+# squares of the whole leaf: `reduce(stacked, key)` adds them over the
+# ranks that share the leaf (key names its cut; () is a whole leaf, which
+# needs nothing), for all the leaves with one key in one stacked call.
+# So a step takes three passes over the leaves (K1, then K2 or K5, then
+# K3, K4 or K6) and two small reductions per key, where the one-device
+# step runs K1-K3 leaf by leaf.
+
+def _reduce_grouped(values, keys, reduce):
+    """values[i] (tensors of one shape) summed over the ranks of keys[i]:
+    one reduce call per distinct non-empty key, on the stacked values of
+    its leaves. Returns the list of summed values."""
+    out = list(values)
+    for key in dict.fromkeys(k for k in keys if k):
+        idx = [i for i, k in enumerate(keys) if k == key]
+        summed = reduce(torch.stack([values[i] for i in idx]), key)
+        for j, i in enumerate(idx):
+            out[i] = summed[j]
+    return out
+
+
+def sharded_sq_norms(gs, keys, reduce) -> list:
+    """K1 on each local shard in `gs`, summed over its key's ranks: the
+    whole leaves' sums of squares (0-d tensors)."""
+    return _reduce_grouped([K.sq_norm(_flat(g)) for g in gs], keys, reduce)
+
+
+def sharded_lans_steps(items, keys, reduce, *, beta1: float = 0.9,
+                       beta2: float = 0.999, eps: float = 1e-6,
+                       lp_dtypes=None) -> list:
+    """fused_lans_step (or, with lp_dtypes, fused_lans_mixed_step with
+    lp_dtypes[i]) on local shards: items[i] = (g, m, v, x, scalars row).
+    K1 on every shard, g_sq summed per key into each row's slot 5; K2 on
+    every shard, its norms summed per key; then K3 (K4) on every shard.
+    Returns StepOut (MixedStepOut) per item, of the local shapes."""
+    flat = [tuple(map(_flat, it[:4])) for it in items]
+    rows = [it[4] for it in items]
+    g_sq = sharded_sq_norms([f[0] for f in flat], keys, reduce)
+    for row, s in zip(rows, g_sq):
+        row[5] = s
+    p1 = [K.lans_phase1(row, gf, mf, vf, xf, beta1=beta1, beta2=beta2,
+                        eps=eps) for row, (gf, mf, vf, xf) in zip(rows, flat)]
+    norms = _reduce_grouped([p[2] for p in p1], keys, reduce)
+    out = []
+    for i, ((gf, _, _, xf), row, (m_new, v_new, _)) in enumerate(
+            zip(flat, rows, p1)):
+        shape = items[i][3].shape
+        if lp_dtypes is None:
+            x_new = K.lans_phase2(row, norms[i], gf, m_new, v_new, xf,
+                                  beta1=beta1, eps=eps)
+            out.append(StepOut(x_new.view(shape), m_new.view(shape),
+                               v_new.view(shape)))
+        else:
+            x_new, x_lp = K.lans_phase2_cast(row, norms[i], gf, m_new, v_new,
+                                             xf, lp_dtype=lp_dtypes[i],
+                                             beta1=beta1, eps=eps)
+            out.append(MixedStepOut(x_new.view(shape), m_new.view(shape),
+                                    v_new.view(shape), x_lp.view(shape)))
+    return out
+
+
+def sharded_lamb_steps(items, keys, reduce, *, beta1: float = 0.9,
+                       beta2: float = 0.999, eps: float = 1e-6) -> list:
+    """fused_lamb_step on local shards: items[i] = (g, m, v, x, row), the
+    rows carrying the global clip factor. K5 on every shard, its norms
+    summed per key, then K6 on every shard. Returns StepOut per item."""
+    flat = [tuple(map(_flat, it[:4])) for it in items]
+    p1 = [KB.lamb_phase1(it[4], gf, mf, vf, xf, beta1=beta1, beta2=beta2,
+                         eps=eps) for it, (gf, mf, vf, xf) in zip(items, flat)]
+    norms = _reduce_grouped([p[2] for p in p1], keys, reduce)
+    out = []
+    for i, (it, (_, _, _, xf), (m_new, v_new, _)) in enumerate(
+            zip(items, flat, p1)):
+        x_new = KB.lamb_phase2(it[4], norms[i], m_new, v_new, xf, eps=eps)
+        shape = it[3].shape
+        out.append(StepOut(x_new.view(shape), m_new.view(shape),
+                           v_new.view(shape)))
+    return out

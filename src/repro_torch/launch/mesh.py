@@ -1,0 +1,55 @@
+"""Mesh builders (port of repro/launch/mesh.py): DeviceMeshes with the JAX
+package's axis names and shapes.
+
+Single pod:  (data=16, model=16)
+Multi-pod:   (pod=2, data=16, model=16); "pod" is a pure data-parallel
+axis, the paper's scale-out pattern (192 instances x 8 GPUs ~ an outer
+data-parallel axis).
+
+A mesh spans the ranks of the initialised default process group, which
+the caller sets up (`torch.distributed.init_process_group` with its own
+address, world size and rank, and the backend it names). A mesh never
+has fewer ranks than asked: a world of another size raises. Functions,
+not module-level constants: importing this module touches no device or
+process group.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _mk(shape, axes, device: str):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized():
+        if n > 1:
+            raise RuntimeError(
+                f"a {'x'.join(map(str, shape))} mesh needs {n} ranks: "
+                f"initialise the default process group first")
+        # one rank: a process group of its own, over an in-memory store
+        dist.init_process_group("gloo" if device == "cpu" else "nccl",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    world = dist.get_world_size()
+    if world != n:
+        raise RuntimeError(
+            f"a {'x'.join(map(str, shape))} mesh needs {n} ranks, the "
+            f"process group has {world}")
+    return DeviceMesh(device, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mk(shape, axes, device)
+
+
+def make_local_mesh(*, data: int = 1, model: int = 1, device: str = "cuda"):
+    """A (data, model) mesh over the ranks of the default process group
+    (tests, examples, one host). A 1 x 1 mesh without a process group
+    starts a one-rank group of its own."""
+    return _mk((data, model), ("data", "model"), device)

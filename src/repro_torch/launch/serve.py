@@ -32,10 +32,15 @@ N tokens per step (chunked prefill; continuous engine, paged pool).
 at R requests/s (arrivals seeded by --seed) instead of submitting it all
 up front, and adds goodput and SLO attainment against --ttft-slo-ms /
 --itl-slo-ms to the report. --sched-policy arrival-deadline admits by
-earliest deadline. Every decoder arch serves: the dense ones, the MoE
-granite-moe-3b-a800m and grok-1-314b (routed dropless), mamba2-130m and
-the hybrid jamba-1.5-large-398b (their SSM state slot-resident); and
-every precision, --precision fp16 feeding fp16 queries to the kernel.
+earliest deadline, prefix-affinity the first request whose leading
+prompt block is warm in the pool. --replicas N (> 1) serves through a
+ReplicaRouter over N engines that share one params tree on the device,
+routed by --route-policy prefix (default) | depth | rr; the report then
+has the fleet's counters and a per_replica list. Every decoder arch
+serves: the dense ones, the MoE granite-moe-3b-a800m and grok-1-314b
+(routed dropless), mamba2-130m and the hybrid jamba-1.5-large-398b
+(their SSM state slot-resident); and every precision, --precision fp16
+feeding fp16 queries to the kernel.
 --arch whisper-large-v3 serves the encoder-decoder (synthetic frame
 inputs; --shared-inputs N draws only N distinct inputs, whose cross
 blocks same-input requests share in the arena); --arch bert-large
@@ -54,7 +59,8 @@ from repro_torch import select_device
 from repro_torch.configs import get_arch, reduced_arch
 from repro_torch.metrics import MetricsLogger
 from repro_torch.serving import (SLO, ContinuousEngine, OpenLoopDriver,
-                                 ServeEngine, aggregate, make_spec_pair,
+                                 ReplicaRouter, ServeEngine, aggregate,
+                                 make_spec_pair,
                                  poisson_arrivals, slo_report,
                                  synthetic_encdec_requests,
                                  synthetic_requests,
@@ -89,13 +95,11 @@ CONTINUOUS_ONLY_FLAGS = (
 
 # (flag, requested?) for features of repro.launch.serve the port does not
 # have yet and that no layer below the CLI sees: each raises "not yet
-# ported" instead of running something else. The prefix-affinity policy
-# is rejected by the scheduler it reaches. --interpret is the Pallas
-# kernel's, which the port has no counterpart of.
+# ported" instead of running something else. --mesh waits for the serving
+# engine on a mesh; --interpret is the Pallas kernel's, which the port
+# has no counterpart of.
 NOT_PORTED_FLAGS = (
     ("--mesh", lambda a: a.mesh is not None),
-    ("--replicas", lambda a: a.replicas != 1),
-    ("--route-policy", lambda a: a.route_policy is not None),
     ("--interpret", lambda a: a.interpret),
 )
 
@@ -270,7 +274,8 @@ def main(argv=None, requests=None):
             engine.run(reqs)
             stats = engine.report(time.perf_counter() - t0)
         done = engine.scheduler.completed
-        attn_kernel = engine.pool.attn_kernel if engine.paged else "xla"
+        first = engine.replicas[0] if args.replicas > 1 else engine
+        attn_kernel = first.pool.attn_kernel if first.paged else "xla"
     else:
         for r in reqs:          # TTFT includes the inter-wave queue wait
             r.trace.mark_submit()
@@ -283,7 +288,7 @@ def main(argv=None, requests=None):
                  precision=args.precision,
                  cache=args.cache if args.engine == "continuous"
                  else "static", attn_kernel=attn_kernel,
-                 sampler=args.sampler, device=str(device))
+                 sampler=args.sampler, device=str(device), mesh="1x1")
     log.log(-1, **{k: v for k, v in stats.items()
                    if isinstance(v, (int, float))})
     log.close()
@@ -340,23 +345,35 @@ def _build(args):
         spec_kw = dict(spec_draft=(draft_arch, draft_params), spec_k=spec_k)
     last = {"t": time.perf_counter()}
 
-    def on_step(rec):
-        now = time.perf_counter()
-        log.log(rec["step"], active=rec["active"], queued=rec["queued"],
-                preemptions=rec["preemptions"],
-                step_latency_ms=(now - last["t"]) * 1e3)
-        last["t"] = now
+    def make_on_step(replica):
+        def on_step(rec):
+            now = time.perf_counter()
+            log.log(rec["step"], active=rec["active"], queued=rec["queued"],
+                    preemptions=rec["preemptions"],
+                    step_latency_ms=(now - last["t"]) * 1e3,
+                    replica=replica)
+            last["t"] = now
+        return on_step
 
-    engine = ContinuousEngine(
-        arch, params, max_batch=args.max_batch, max_len=max_len,
-        policy=args.precision, prefill_bucket=args.prefill_bucket,
-        on_step=on_step, cache=args.cache, block_size=args.block_size,
-        slots_budget=args.slots_budget or None, sampler=args.sampler,
-        attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
-        sched_policy=args.sched_policy, slo_ms=args.slo_ms,
-        preempt=args.preempt, retain_blocks=args.retain_blocks,
-        watermark=args.watermark, chunk_budget=args.chunk_budget,
-        task=args.task, **spec_kw)
+    def make_engine(replica):
+        return ContinuousEngine(
+            arch, params, max_batch=args.max_batch, max_len=max_len,
+            policy=args.precision, prefill_bucket=args.prefill_bucket,
+            on_step=make_on_step(replica), cache=args.cache,
+            block_size=args.block_size,
+            slots_budget=args.slots_budget or None, sampler=args.sampler,
+            attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
+            sched_policy=args.sched_policy, slo_ms=args.slo_ms,
+            preempt=args.preempt, retain_blocks=args.retain_blocks,
+            watermark=args.watermark, chunk_budget=args.chunk_budget,
+            task=args.task, **spec_kw)
+
+    if args.replicas > 1:
+        # the replicas share one params tree on the device
+        engine = ReplicaRouter([make_engine(i) for i in range(args.replicas)],
+                               policy=args.route_policy or "prefix")
+    else:
+        engine = make_engine(0)
     return engine, reqs, log, device
 
 

@@ -34,7 +34,7 @@ from repro_torch.models.common import (_randn, dense_apply, dense_init,
                                        embed_apply, embed_init, gelu,
                                        layer_params, layernorm_apply,
                                        layernorm_init, mlp_init,
-                                       unbind_layers)
+                                       unbind_layers, WHOLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,7 +177,9 @@ def bert_serve_outputs(params, cfg: BertConfig, tokens, positions):
 
 def bert_pretrain_loss(params, cfg: BertConfig, batch):
     """batch: tokens, token_types, mlm_labels (-100 = unmasked),
-    nsp_labels. Returns (loss, {"mlm_loss", "nsp_loss"})."""
+    nsp_labels. Returns (loss, {"mlm_loss", "nsp_loss"}). A batch that is
+    a block of a larger one carries that one under WHOLE, and the means
+    are taken over its masked tokens and rows (models/common.py)."""
     mlm_logits, nsp_logits = bert_pretrain_logits(
         params, cfg, batch["tokens"], batch.get("token_types"))
     labels = batch["mlm_labels"].long()
@@ -185,8 +187,12 @@ def bert_pretrain_loss(params, cfg: BertConfig, batch):
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = F.log_softmax(mlm_logits, dim=-1)
     ll = torch.gather(logp, -1, safe[..., None])[..., 0]
-    mlm_loss = -torch.sum(ll * valid) / torch.clamp(valid.sum(), min=1)
+    whole = batch.get(WHOLE)
+    count = (valid.sum() if whole is None
+             else (whole["mlm_labels"] != -100).sum())
+    mlm_loss = -torch.sum(ll * valid) / torch.clamp(count, min=1)
     nsp_logp = F.log_softmax(nsp_logits, dim=-1)
-    nsp_loss = -torch.mean(torch.gather(
-        nsp_logp, -1, batch["nsp_labels"].long()[:, None]))
+    nsp_ll = torch.gather(nsp_logp, -1, batch["nsp_labels"].long()[:, None])
+    nsp_loss = -(torch.mean(nsp_ll) if whole is None
+                 else nsp_ll.sum() / whole["nsp_labels"].shape[0])
     return mlm_loss + nsp_loss, {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss}

@@ -15,6 +15,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+# The batch key under which a block of a larger batch (one rank's, in a
+# train step on a mesh: distributed/steps.py) carries that whole batch.
+# A loss that is a mean takes it over the whole batch's count, so that
+# the blocks' losses, and their gradients, add up to the whole batch's.
+WHOLE = "whole"
 
 def _randn(gen: Optional[torch.Generator], shape):
     """Standard normal draw from `gen` on its device; gen=None draws on

@@ -312,12 +312,14 @@ def _token_nll(logits, labels, ignore_id: int):
 
 
 def lm_loss(logits, labels, *, ignore_id: int = -100, moe_aux=None,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, count=None):
     """Next-token cross entropy in fp32 over the labels that are not
     ignore_id (labels already shifted by the data pipeline), plus
-    aux_weight * moe_aux when given."""
-    total, count = _token_nll(logits, labels, ignore_id)
-    loss = total / torch.clamp(count, min=1)
+    aux_weight * moe_aux when given. `count`, when given, is the number
+    of valid labels the mean is taken over in place of these labels'
+    (a block of a larger batch: that batch's count)."""
+    total, n_valid = _token_nll(logits, labels, ignore_id)
+    loss = total / torch.clamp(n_valid if count is None else count, min=1)
     if moe_aux is not None:
         loss = loss + aux_weight * moe_aux
     return loss
@@ -330,17 +332,18 @@ def _chunk_nll(params, cfg: DecoderConfig, hidden, labels, ignore_id: int):
 
 def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
                     ignore_id: int = -100, chunk: int = 512, moe_aux=None,
-                    aux_weight: float = 0.01):
+                    aux_weight: float = 0.01, count=None):
     """lm_loss of the head's logits of `hidden` (B, S, d_model) without
     materialising the (B, S, V) logits: `chunk` positions at a time, each
     chunk's head, softcap and log-softmax recomputed in the backward
     pass, so only (B, chunk, V) logits are ever live. An fp32 total and
-    an integer count of valid labels, then total / max(count, 1)."""
+    an integer count of valid labels (or `count`, as lm_loss takes it),
+    then total / max(count, 1)."""
     B, S, _ = hidden.shape
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    n_valid = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for i in range(0, S, chunk):
         h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
         if torch.is_grad_enabled():
@@ -349,8 +352,8 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
         else:
             s = _chunk_nll(params, cfg, h, lab, ignore_id)
         total = total + s
-        count = count + (lab != ignore_id).sum()
-    loss = total / torch.clamp(count, min=1)
+        n_valid = n_valid + (lab != ignore_id).sum()
+    loss = total / torch.clamp(n_valid if count is None else count, min=1)
     if moe_aux is not None:
         loss = loss + aux_weight * moe_aux
     return loss

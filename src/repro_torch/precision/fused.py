@@ -9,7 +9,9 @@ fp32 master update AND its low-precision cast in one pass: K1, K2 and K4
 once per parameter tensor per step.
 
 State layout matches mixed_precision's sparse-master convention; moments
-are fp32 because the kernels accumulate into them directly.
+are fp32 because the kernels accumulate into them directly. On a mesh
+the kernels run on each rank's shards, as fused_lans does there
+(core/optim/fused.py).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import torch
 
 from repro_torch.core.optim.base import (WeightDecayMask, as_schedule,
                                          tree_consume, tree_device,
-                                         tree_map, tree_paths)
-from repro_torch.core.optim.fused import step_scalars
+                                         tree_items, tree_map, tree_paths)
+from repro_torch.core.optim.fused import (mesh_update, on_mesh,
+                                          step_scalars)
 from repro_torch.kernels import ops
 from repro_torch.precision.loss_scale import LossScaleState, all_finite
 from repro_torch.precision.mixed import (MixedTransformation,
@@ -79,7 +82,10 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
 
         # One host read of the finite flag per step, in place of the JAX
         # package's lax.cond: an overflow step launches nothing.
-        if bool(finite):
+        if bool(finite) and on_mesh(params):
+            new_master, new_mu, new_nu, updates_out = _mesh_update(
+                box.pop(), state, master, params)
+        elif bool(finite):
             rows = step_scalars(sched(state.count), state.count + 1, params,
                                 mask_fn, beta1=beta1, beta2=beta2,
                                 lam=weight_decay)
@@ -99,5 +105,29 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
             # updates, and a skipped step takes no schedule tick
             count=state.count + finite.to(torch.int32),
             master=_stash_master(new_master, params), mu=new_mu, nu=new_nu)
+
+    def _mesh_update(grads, state, master, params):
+        """The finite step on a mesh: K1, K2 and K4 on every leaf's
+        local shards (core/optim/fused.py: mesh_update). Returns the new
+        master, moments and model-copy updates."""
+        for pth, p in tree_items(params):
+            if not _is_float(p):
+                raise TypeError(f"fused_mixed_lans on a mesh takes float "
+                                f"leaves only, {pth} is {p.dtype}")
+
+        def run(cuts, reduce, paths):
+            rows = ops.lans_scalar_rows(
+                sched(state.count), state.count + 1,
+                [bool(mask_fn(pth)) for pth in paths], beta1=beta1,
+                beta2=beta2, lam=weight_decay,
+                device=cuts[0].g.device).unbind(0)
+            return ops.sharded_lans_steps(
+                [(c.g, c.m, c.v, c.x, row) for c, row in zip(cuts, rows)],
+                [c.key for c in cuts], reduce, beta1=beta1, beta2=beta2,
+                eps=eps, lp_dtypes=[policy.leaf_dtype(pth) for pth in paths])
+
+        x, m, v, x_lp = mesh_update(grads, state.mu, state.nu, master, run,
+                                    lp_like=params)
+        return x, m, v, tree_map(torch.sub, x_lp, params)
 
     return MixedTransformation(init_fn, update_fn)

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.optim.base import tree_leaves, tree_map
+from repro_torch.distributed.partial import whole
 
 
 class LossScaleState(NamedTuple):
@@ -28,11 +29,13 @@ class LossScaleState(NamedTuple):
 
 
 def all_finite(tree) -> torch.Tensor:
-    """0-d bool tensor: every element of every floating leaf is finite."""
+    """0-d bool tensor: every element of every floating leaf is finite (a
+    plain tensor, the same on every rank, for DTensor leaves too)."""
     leaves = [l for l in tree_leaves(tree) if l.is_floating_point()]
     if not leaves:
         return torch.ones((), dtype=torch.bool)
-    return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
+    return torch.stack([whole(torch.isfinite(l).all())
+                        for l in leaves]).all()
 
 
 def unscale_grads(grads, state: LossScaleState):

@@ -16,7 +16,11 @@
   throughput_probe   warm-up-aware timed run -> tokens/s + percentiles
   Scheduler          ticketed slot admission (host side)
   SchedulingPolicy   admission / victim / SLO policy (fifo |
-                     arrival-deadline; see serving/scheduler.py)
+                     arrival-deadline | prefix-affinity; see
+                     serving/scheduler.py)
+  ReplicaRouter      prefix-affinity routing over N engine replicas
+                     (ROUTE_POLICIES prefix | depth | rr;
+                     prefix_route_key is its content key)
   CachePool          dense per-slot KV pool (baseline, speculative draft)
   PagedCachePool     block-paged KV arena with shared prompt prefixes,
                      lazy chain growth and a retained-prefix LRU
@@ -52,8 +56,11 @@ from repro_torch.serving.engine import (ContinuousEngine, Request,
 from repro_torch.serving.metrics import (DepthTracker, RequestTrace,
                                          aggregate, hit_rate, percentile)
 from repro_torch.serving.sampler import Sampler, fold_keys, stable_argmax
+from repro_torch.serving.router import (ROUTE_POLICIES, ReplicaRouter,
+                                        prefix_route_key)
 from repro_torch.serving.scheduler import (ArrivalDeadlinePolicy,
-                                           PolicyContext, Scheduler,
+                                           PolicyContext,
+                                           PrefixAffinityPolicy, Scheduler,
                                            SchedulerError, SchedulingPolicy)
 from repro_torch.serving.traffic import (SLO, OpenLoopDriver,
                                          bimodal_requests, meets_slo,
@@ -63,14 +70,16 @@ __all__ = [
     "AdmissionController", "ArrivalDeadlinePolicy", "BlockAllocator",
     "BlockTableMap", "CachePool", "ContinuousEngine", "DepthTracker",
     "EncDecCachePool", "NoBlocksError", "OpenLoopDriver", "PagedCachePool",
-    "PolicyContext",
-    "PrefillTask", "Request", "RequestTrace", "SLO", "Sampler", "Scheduler",
+    "PolicyContext", "PrefixAffinityPolicy", "ROUTE_POLICIES",
+    "PrefillTask", "ReplicaRouter", "Request", "RequestTrace", "SLO",
+    "Sampler", "Scheduler",
     "SchedulerError", "SchedulingPolicy", "ServeEngine", "aggregate",
     "apply_serving_policy", "bimodal_requests", "build_encdec_prefill_fn",
     "build_first_token_fn", "build_prefill_fn", "chunk_granularity",
     "fold_keys", "frames_key", "hit_rate",
     "make_spec_pair", "meets_slo", "pad_prompts", "percentile",
-    "plan_chunk", "poisson_arrivals", "prompt_granularity", "slo_report",
+    "plan_chunk", "poisson_arrivals", "prefix_route_key",
+    "prompt_granularity", "slo_report",
     "stable_argmax", "synthetic_encdec_requests", "synthetic_requests",
     "synthetic_scoring_requests", "throughput_probe",
 ]

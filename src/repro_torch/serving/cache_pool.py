@@ -309,6 +309,13 @@ class PagedCachePool:
         free + reclaimable retained, minus the growth watermark."""
         return {si: m.admissible() for si, m in self.maps.items()}
 
+    def prefix_warm(self, prompt, plen: int, padded_len: int) -> bool:
+        """Is the request's leading prompt block already resident (live
+        shared or retained) in any attention slot-type's registry? The
+        prefix-affinity scheduling policy's admission signal."""
+        return any(m.prefix_warm(prompt, plen, padded_len)
+                   for m in self.maps.values())
+
     def insert(self, request_cache: PyTree, slot: int, *, prompt,
                plen: int, padded_len: int, budget: int,
                share: Optional[bool] = None):

@@ -76,7 +76,8 @@ pool: the same prefill, sampler keys and left-pad masking, and for
 encdec the dense cross K/V padded to the arena's blocked length, so
 that its output is the pooled engine's.
 
-Not ported yet: meshes and the prefix-affinity policy.
+Not ported yet: meshes (an engine on one device; several engines behind
+serving/router.py's ReplicaRouter share a card).
 """
 from __future__ import annotations
 
@@ -653,10 +654,29 @@ class ContinuousEngine:
             skip = self._admission.task.slot
         return sorted(s for s in self.scheduler.active if s != skip)
 
-    def _policy_ctx(self) -> PolicyContext:
+    def _policy_ctx(self, warm_cache: Optional[dict] = None
+                    ) -> PolicyContext:
         """Snapshot for the scheduling policy. Under chunked admission a
         preemption's continuation is metered chunk work, so the policy
-        gets its exact size (resume_cost) for the base victim rule."""
+        gets its exact size (resume_cost) for the base victim rule.
+
+        On a paged pool with attention the snapshot carries the pool's
+        warm-prefix probe (prefix_warm; None otherwise). warm_cache
+        (rid -> bool) memoizes its sha256 probes over the iterations of
+        one admission pass: an answer holds within a pass (admissions
+        only add warmth, and a stale False falls back to arrival order),
+        so a pass probes each queued request once."""
+        warm = None
+        if self.paged and self.pool.maps:
+            def warm(req):
+                if warm_cache is not None and req.rid in warm_cache:
+                    return warm_cache[req.rid]
+                w = self.pool.prefix_warm(self._full_prompt(req),
+                                          self._plen(req),
+                                          self._padded_len(req))
+                if warm_cache is not None:
+                    warm_cache[req.rid] = w
+                return w
         resume_cost = None
         if self._admission is not None:
             def resume_cost(slot):
@@ -669,7 +689,7 @@ class ContinuousEngine:
                              admit_t=self._admit_time,
                              active=self.scheduler.active,
                              submit_t=lambda r: r.trace.submit_t,
-                             resume_cost=resume_cost)
+                             prefix_warm=warm, resume_cost=resume_cost)
 
     def _fits(self, req: Request, pending: dict):
         """Would this request's block plan fit beside the admissions
@@ -697,10 +717,11 @@ class ContinuousEngine:
         prefill per padded-length bucket (the draft prefills the same
         group), then each cache row is inserted into its slot."""
         while True:
-            pairs, pending = [], {}
+            pairs, pending, warm_cache = [], {}, {}
             while self.scheduler.free_slots and self.scheduler.queued:
-                i = self.sched_policy.pick(self.scheduler.queue_items(),
-                                           self._policy_ctx())
+                i = self.sched_policy.pick(
+                    self.scheduler.queue_items(),
+                    self._policy_ctx(warm_cache=warm_cache))
                 req = self.scheduler.peek(i)
                 ok, need = self._fits(req, pending)
                 if not ok:
@@ -821,7 +842,7 @@ class ContinuousEngine:
         if self._admission is None:
             return False
         i = self.sched_policy.pick(self.scheduler.queue_items(),
-                                   self._policy_ctx())
+                                   self._policy_ctx(warm_cache={}))
         return self._fits_chunked(self.scheduler.peek(i))
 
     def _admit_chunked(self):
@@ -833,7 +854,7 @@ class ContinuousEngine:
         if ctrl.task is None and self.scheduler.free_slots \
                 and self.scheduler.queued:
             i = self.sched_policy.pick(self.scheduler.queue_items(),
-                                       self._policy_ctx())
+                                       self._policy_ctx(warm_cache={}))
             req = self.scheduler.peek(i)
             if self._fits_chunked(req):
                 slot, req = self.scheduler.assign_at(i)
@@ -1032,7 +1053,7 @@ class ContinuousEngine:
         pairs = []
         while sched.free_slots and sched.queued:
             i = self.sched_policy.pick(sched.queue_items(),
-                                       self._policy_ctx())
+                                       self._policy_ctx(warm_cache={}))
             pairs.append(sched.assign_at(i))
         if not pairs:
             return sched.has_work

@@ -1,6 +1,6 @@
-"""Slot scheduler + the fifo and arrival-deadline policies for the
-continuous-batching engine (port of repro/serving/scheduler.py; pure
-host code). The prefix-affinity policy is not ported yet.
+"""Slot scheduler + the fifo, arrival-deadline and prefix-affinity
+policies for the continuous-batching engine (port of
+repro/serving/scheduler.py; pure host code).
 
 Host-side admission control over a fixed pool of decode slots, split in
 two layers:
@@ -21,7 +21,7 @@ easy to state:
 which active slot to preempt when lazy growth exhausts the arena, and
 when an active slot has blown its SLO and should be evicted early.
 Policies see an immutable snapshot (the queue, plus a `PolicyContext` of
-admission times/order) and return indices — they
+admission times/order and a warm-prefix probe) and return indices — they
 never mutate scheduler state, so any policy composes with the same
 engine invariants:
 
@@ -33,6 +33,11 @@ engine invariants:
                    the slot with the latest deadline. With a uniform SLO
                    this is arrival-time-aware FIFO that also ranks
                    preemption victims by arrival.
+  prefix-affinity  admit the first queued request whose leading prompt
+                   block is already resident (live or retained) in the
+                   paged pool, turning warm prefixes into copy-free
+                   admissions while they are warm; arrival order when
+                   nothing is warm or the pool cannot answer.
 
 SLO eviction (`slo_s`) is orthogonal to the admission order: any policy
 evicts a slot whose request has been running longer than the SLO since
@@ -49,8 +54,6 @@ import itertools
 from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
                     Tuple)
 
-
-NOT_PORTED = ("prefix-affinity",)
 
 
 class SchedulerError(RuntimeError):
@@ -193,8 +196,10 @@ class PolicyContext:
         arrival/deadline ranking, which a continuation keeps).
     active: slot -> in-flight request (victim selection ranks these).
     submit_t: callable(request) -> submission wall-clock time.
-    prefix_warm: always None in the port (the prefix-affinity policy and
-        the pool's warm-prefix probe are not ported yet).
+    prefix_warm: callable(request) -> bool, True when the request's
+        leading prompt block is resident in the paged pool (live shared
+        or retained); None when the pool cannot answer (dense pool,
+        encdec, scoring).
     resume_cost: callable(slot) -> tokens a preemption of that slot
         would re-prefill (prompt + generated so far). Set only under
         chunked admission, where re-prefilling is metered chunk work;
@@ -253,7 +258,8 @@ class SchedulingPolicy:
         """Policy instance from a spec: an existing policy passes
         through — COPIED if an slo_s must be attached, so one policy
         object shared across engines never inherits another engine's
-        SLO; a name in {fifo, arrival-deadline} constructs one."""
+        SLO; a name in {fifo, arrival-deadline, prefix-affinity}
+        constructs one."""
         if isinstance(spec, SchedulingPolicy):
             if slo_s is not None and spec.slo_s is None:
                 spec = copy.copy(spec)
@@ -262,11 +268,8 @@ class SchedulingPolicy:
         if spec is None:
             spec = "fifo"
         policies = {p.name: p for p in (SchedulingPolicy,
-                                        ArrivalDeadlinePolicy)}
-        if spec in NOT_PORTED:
-            raise NotImplementedError(
-                f"scheduling policy {spec!r} is not ported yet; "
-                f"ported: {', '.join(sorted(policies))}")
+                                        ArrivalDeadlinePolicy,
+                                        PrefixAffinityPolicy)}
         if spec not in policies:
             raise ValueError(
                 f"unknown scheduling policy {spec!r}: "
@@ -297,3 +300,20 @@ class ArrivalDeadlinePolicy(SchedulingPolicy):
             return (ctx.submit_t(req) if req is not None else 0.0,
                     ctx.admit_seq.get(s, -1))
         return max(slots, key=deadline)
+
+
+class PrefixAffinityPolicy(SchedulingPolicy):
+    """Admit the first queued request whose leading prompt block is
+    already resident in the paged pool (live shared or retained),
+    turning warm prefixes into copy-free admissions while they are still
+    warm; arrival order when nothing is warm or the pool cannot
+    answer."""
+
+    name = "prefix-affinity"
+
+    def pick(self, queue, ctx):
+        if ctx.prefix_warm is not None:
+            for i, (_, req) in enumerate(queue):
+                if ctx.prefix_warm(req):
+                    return i
+        return 0

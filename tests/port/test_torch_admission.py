@@ -317,7 +317,8 @@ def test_resume_cost_victim_matches_jax():
 def test_engine_hands_the_policy_a_resume_cost():
     """Under chunked admission the engine's context carries resume_cost
     = prompt + generated tokens of the slot (0 for a free slot), and the
-    submit time of each request; without a controller it has none."""
+    submit time of each request; without a controller it has none. The
+    paged pool's warm-prefix probe rides along (none on a dense pool)."""
     _, _, arch, params = arch_pair("gemma2-2b")
     eng = chunked_engine(ContinuousEngine, arch, params)
     reqs = make_requests(Request, arch.cfg.vocab, [(7, 20), (11, 20)])
@@ -333,9 +334,16 @@ def test_engine_hands_the_policy_a_resume_cost():
         assert ctx.resume_cost(slot) == (len(req.prompt)
                                          + len(eng._emitted[slot]))
         assert ctx.submit_t(req) == req.trace.submit_t
-    assert ctx.resume_cost(2) == 0 and ctx.prefix_warm is None
+    assert ctx.resume_cost(2) == 0
+    # the paged pool answers the warm-prefix probe; a dense pool has none
+    for req in reqs:
+        assert ctx.prefix_warm(req) == eng.pool.prefix_warm(
+            eng._full_prompt(req), eng._plen(req), eng._padded_len(req))
     plain = ContinuousEngine(arch, params, max_batch=2, max_len=MAX_LEN)
     assert plain._policy_ctx().resume_cost is None
+    dense = ContinuousEngine(arch, params, max_batch=2, max_len=MAX_LEN,
+                             cache="dense")
+    assert dense._policy_ctx().prefix_warm is None
 
 
 def _traced(cls, trace_cls, submit_t):
@@ -380,8 +388,9 @@ def test_arrival_deadline_matches_jax():
                         submit_t=lambda r: r.trace.submit_t)
     assert pol.victim([0, 1], ctx) == 1
     assert SchedulingPolicy().victim([0, 1], ctx) == 0
-    with pytest.raises(NotImplementedError, match="prefix-affinity"):
-        SchedulingPolicy.parse("prefix-affinity")
+    from repro_torch.serving import PrefixAffinityPolicy
+    assert isinstance(SchedulingPolicy.parse("prefix-affinity"),
+                      PrefixAffinityPolicy)
 
 
 def test_chunked_engine_goes_on_after_a_one_token_finalize():

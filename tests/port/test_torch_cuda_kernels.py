@@ -740,3 +740,208 @@ def test_cuda_scoring_run_one_matches_batched(task):
         np.testing.assert_allclose(s.embedding, b.embedding, rtol=1e-5,
                                    atol=1e-5)
         assert s.generated.tolist() == b.generated.tolist()
+
+
+# --------------------------------------------------------------------------
+# leaves cut into shards (a leaf cut over the ranks of a mesh): each kernel
+# runs on a shard, K1's g_sq and K2's / K5's norms are partial sums that
+# the ranks add up, and the concatenated result is the whole leaf's. Runs
+# on the CPU with the plain versions and, where the card is, with the
+# kernels.
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import lamb as KB  # noqa: E402
+from repro_torch.kernels import lans as KL  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+def _sharded_steps(g, m, v, x, n_shards, kind):
+    """The fused step of `kind` ("lans", "mixed": K4 with a bf16 copy,
+    "lamb") on n_shards shards of a flat leaf (torch.tensor_split: uneven
+    when the length does not divide), the partial sums added between the
+    phases. Returns the concatenated outputs."""
+    cuts = [torch.tensor_split(t, n_shards) for t in (g, m, v, x)]
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
+    g_sq = sum(KL.sq_norm(s) for s in cuts[0])
+    if kind == "lamb":
+        from repro_torch.core.optim.lamb import clip_factor
+        row = lambda: ops.lamb_scalars(0.02, 4, clip_factor(g_sq, 1.0),
+                                       lam=0.01, apply_trust=True,
+                                       beta1=0.9, beta2=0.999,
+                                       device=g.device)
+    else:
+        def row():
+            r = ops.lans_scalars(0.02, 4, beta1=0.9, beta2=0.999, lam=0.01,
+                                 apply_trust=True, device=g.device)
+            r[5] = g_sq
+            return r
+    rows = [row() for _ in range(n_shards)]
+    phase1 = KB.lamb_phase1 if kind == "lamb" else KL.lans_phase1
+    p1 = [phase1(r, gs, ms, vs, xs, **kw)
+          for r, gs, ms, vs, xs in zip(rows, *cuts)]
+    norms = sum(p[2] for p in p1)
+    outs = []
+    for r, gs, xs, (m1, v1, _) in zip(rows, cuts[0], cuts[3], p1):
+        if kind == "lamb":
+            outs.append((KB.lamb_phase2(r, norms, m1, v1, xs, eps=1e-6),
+                         m1, v1))
+        elif kind == "mixed":
+            outs.append((*KL.lans_phase2_cast(
+                r, norms, gs, m1, v1, xs, lp_dtype=torch.bfloat16,
+                beta1=0.9, eps=1e-6)[::-1], m1, v1))
+        else:
+            outs.append((KL.lans_phase2(r, norms, gs, m1, v1, xs, beta1=0.9,
+                                        eps=1e-6), m1, v1))
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+@pytest.mark.parametrize("n", [1_048_576, 1_048_579])
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("kind", ["lans", "mixed", "lamb"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_sharded_leaf_matches_whole_leaf(device, kind, n_shards, n):
+    """K1-K3 (K1, K2, K4 with a bf16 copy; K1, K5, K6) on 2 and 4 shards,
+    even and uneven (an odd length), equal to the whole leaf's run within
+    2e-5 (fp32; the bf16 copy within one bf16 ulp)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, m, v, x = KL.lans_case(n, torch.float32, seed=n_shards,
+                              device=device)
+    whole = _sharded_steps(g, m, v, x, 1, kind)
+    cut = _sharded_steps(g, m, v, x, n_shards, kind)
+    for a, b in zip(cut, whole):
+        tol = (dict(rtol=2 ** -7, atol=1e-6) if a.dtype == torch.bfloat16
+               else dict(rtol=2e-5, atol=2e-5))
+        torch.testing.assert_close(a, b, **tol)
+
+
+def test_sharded_lans_steps_without_a_cut_is_the_fused_step():
+    """ops.sharded_lans_steps over whole leaves (key (), no reduction) is
+    ops.fused_lans_step leaf by leaf, bit for bit, on the CPU."""
+    leaves = [KL.lans_case(n, torch.float32, seed=n) for n in (7, 130, 4097)]
+    rows = ops.lans_scalar_rows(0.02, 3, [True, False, True], beta1=0.9,
+                                beta2=0.999, lam=0.01, device="cpu")
+    never = lambda t, key: pytest.fail("a whole leaf was reduced")
+    got = ops.sharded_lans_steps(
+        [(*leaf, row) for leaf, row in zip(leaves, rows.clone().unbind(0))],
+        [()] * 3, never)
+    for leaf, row, out in zip(leaves, rows.unbind(0), got):
+        want = ops.fused_lans_step(*leaf, scalars=row.clone())
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_cuda_router_over_two_replicas_with_k8():
+    """Needs the card: reduced gemma2-2b behind ReplicaRouter over two
+    replicas sharing one params tree, each policy: the one engine's greedy
+    tokens, and K8 launched decode steps x layers summed over the
+    replicas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import reduced_arch
+    from repro_torch.serving import (ContinuousEngine, ReplicaRouter,
+                                     Request)
+    arch = reduced_arch("gemma2-2b")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    system = rng.integers(5, arch.cfg.vocab, size=16)
+    prompts = [np.concatenate([system, rng.integers(
+        5, arch.cfg.vocab, size=4 + i)]).astype(np.int32) for i in range(5)]
+    prompts.append(rng.integers(5, arch.cfg.vocab, size=5).astype(np.int32))
+    engine = lambda: ContinuousEngine(arch, params, max_batch=2, max_len=48,
+                                      policy="fp32", block_size=8,
+                                      prefill_bucket=8, attn_kernel="paged")
+    runs = {}
+    for policy in (None, "prefix", "depth", "rr"):
+        eng = (engine() if policy is None
+               else ReplicaRouter([engine(), engine()], policy=policy))
+        reqs = [Request(prompt=p.copy(), max_new_tokens=6) for p in prompts]
+        pa.paged_attention_fused.launches = 0
+        eng.run(reqs)
+        rep = eng.report(1.0)
+        steps = sum(r["decode_steps"] for r in rep.get("per_replica", [rep]))
+        assert pa.paged_attention_fused.launches == \
+            steps * arch.cfg.n_layers > 0
+        runs[policy] = [r.generated.tolist() for r in reqs]
+        if policy == "prefix":
+            # five prompts share a two-block system prompt, one is
+            # shorter than a block
+            assert rep["routed_fallback"] == 1
+            assert rep["routed_affinity_hits"] == 4
+    assert all(t == runs[None] for t in runs.values())
+
+
+# --------------------------------------------------------------------------
+# the mesh on four cards: NCCL, one rank per card, the model axis and zero3
+# with K1-K6 on each rank's shards (tests/port/mesh_worker.py; on the CPU
+# the same path runs under gloo in test_torch_mesh_train.py)
+# --------------------------------------------------------------------------
+
+from port import mesh_worker  # noqa: E402
+
+FOUR_CARDS = {
+    "2x2": dict(data=2, model=2, zero3=False, zero1=False),
+    "2x2-zero3": dict(data=2, model=2, zero3=True, zero1=False),
+    "1x4": dict(data=1, model=4, zero3=False, zero1=False),
+}
+
+
+@pytest.fixture(scope="module")
+def four_card_runs(tmp_path_factory):
+    """{layout: rank 0's results, 1 and 2: the one-card runs, their
+    gradients summed in the order of 1 or 2 data ranks}: each layout's
+    four ranks in turn, then the one-card references on card 0."""
+    import multiprocessing
+    from repro_torch import select_device
+    from repro_torch.kernels import build
+    select_device("cuda")
+    build.build_all(["lans", "lamb"])      # once, before the ranks load it
+    tmp = tmp_path_factory.mktemp("cards")
+    params, cases = mesh_worker.port_inputs()
+    inputs = tmp / "inputs.pt"
+    torch.save({"params": params, "cases": cases}, inputs)
+    ctx = multiprocessing.get_context("spawn")
+    out = {}
+    for name, layout in FOUR_CARDS.items():
+        procs = mesh_worker.start_ranks(ctx, layout, tmp, inputs, name,
+                                        device="cuda")
+        out[name] = mesh_worker.join_ranks(procs, tmp, name, 300)
+    dev = mesh_worker.to_device({"params": params, "cases": cases}, "cuda:0")
+    for data in (1, 2):
+        out[data] = {}
+        for name, case in dev["cases"].items():
+            losses, got, *_ = mesh_worker.run_steps(
+                case, dev["params"][case["arch"]], case["batches"],
+                data=data)
+            out[data][name] = {"losses": losses,
+                               "params": mesh_worker.to_device(got, "cpu")}
+    return out
+
+
+@pytest.mark.parametrize("case", list(mesh_worker.CASES))
+@pytest.mark.parametrize("layout", list(FOUR_CARDS))
+def test_cuda_mesh_on_four_cards(request, layout, case):
+    """Needs four cards: reduced bert-large (fused_lans, fused_mixed_lans,
+    fused_lamb, lans) and qwen2.5-14b (fused_lans, 2 microbatches) on 2 x
+    2, 2 x 2 with zero3 and 1 x 4 meshes over NCCL, 3 steps, against the
+    one-card step with mesh_worker's tolerances; the fused optimizers'
+    kernels launched on every step and leaf, their sums of squares added
+    in one all-reduce per group of cut leaves and reduction."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    runs = request.getfixturevalue("four_card_runs")
+    got = runs[layout][case]
+    mesh_worker.check_against_one_device(
+        got, runs[FOUR_CARDS[layout]["data"]][case], FOUR_CARDS[layout], case)
+    arch, optimizer, _ = mesh_worker.CASES[case]
+    n_leaves = len(runs[1][case]["params"])
+    first = {"fused_lans": "lans_phase1", "fused_mixed_lans": "lans_phase1",
+             "fused_lamb": "lamb_phase1"}.get(optimizer)
+    if first is None:       # the unfused lans: no kernel, no partial sum
+        assert got["calls"] == [0] * mesh_worker.STEPS
+        assert not any(got["launches"].values())
+        return
+    assert got["launches"][first] == n_leaves * mesh_worker.STEPS
+    # two reductions a step, over model (and data under zero3) groups
+    groups = 2 if FOUR_CARDS[layout]["zero3"] else 1
+    assert got["calls"][-1] >= 2 and got["calls"][-1] <= 2 * 2 * groups

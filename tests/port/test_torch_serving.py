@@ -225,9 +225,9 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2x1"], ["--replicas", "2"],
+    ["--mesh", "2x1"], ["--mesh", "1x2"],
     ["--attn-kernel", "paged", "--interpret"],
-    ["--sched-policy", "prefix-affinity"]])
+    ["--replicas", "2", "--mesh", "2x1"]])
 def test_cli_unported_features_raise(argv):
     with pytest.raises(SystemExit, match="not (yet )?ported"):
         tserve.main(["--device", "cpu", *argv])
@@ -274,6 +274,30 @@ def test_cli_serves_static_engine(capsys):
     assert report["attn_kernel"] == "xla"
     _, paged = _cli(capsys, "--attn-kernel", "paged")
     assert static == paged
+
+
+@pytest.mark.parametrize("policy", ["prefix", "depth", "rr"])
+def test_cli_replicas_route_like_one_engine(capsys, policy):
+    """--replicas 2 --route-policy P serves through a ReplicaRouter over
+    two engines sharing one params tree: the same greedy tokens as
+    --replicas 1, and the fleet's report (JAX's fields)."""
+    argv = [*CLI_ARGV, "--shared-prefix", "16", "--attn-kernel", "paged"]
+    by_prompt = lambda done: {r.prompt.tobytes(): r.generated.tolist()
+                              for r in done}
+    _, done1 = tserve.main(argv)
+    capsys.readouterr()
+    _, done2 = tserve.main([*argv, "--replicas", "2", "--route-policy",
+                                policy])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert by_prompt(done2) == by_prompt(done1) and len(done2) == 4
+    assert report["replicas"] == 2 and report["route_policy"] == policy
+    assert report["completed"] == 4 and report["routed_submits"] == 4
+    assert report["attn_kernel"] == "paged" and report["mesh"] == "1x1"
+    assert len(report["per_replica"]) == 2
+    if policy == "prefix":   # one shared system prompt: one home replica
+        assert report["routed_affinity_hits"] == 3
+        assert [r["requests"] for r in report["per_replica"]] in (
+            [4, 0], [0, 4])
 
 
 def test_cli_serves_dense_cache(capsys):
