@@ -210,17 +210,30 @@ Phases, in the order they run, each of which fails the run:
      memory printed (not gated); then the CLI with --replicas 2
      --route-policy prefix --shared-prefix 64 against --replicas 1:
      tokens equal, K8 launched decode steps x 26; (b) BERT-large at full
-     width (fp32 compute, seq 128, global batch 16, seed 0, 3 fused_lans
-     steps, hold schedule) on a 2 x 1 mesh whose two ranks are two
-     processes on the one card under gloo (said why on a line): losses
-     within 1e-4 relative of a one-process fused run on the same global
-     batch, its gradient summed in the mesh's order (the two blocks of 8
-     on their own, the means over the 16, the blocks' gradients added),
-     step-1 params within 2e-5, every element; K1-K3 launched 3 x 29
-     times on each rank, no partial
-     all-reduce, both ranks exit 0 within the join timeout; step ms,
-     the gloo all-reduce of the gradients' size and peak memory per
-     rank printed; (c) the sharded-leaf contract in one process: the
+     width and depth (fp32 compute, seq 128, global batch 16, seed 0, 3
+     fused_lans steps, hold schedule) on meshes whose two ranks are two
+     processes on the one card under gloo (said why on a line): on 2 x 1,
+     losses within 1e-4 relative of a one-process fused run on the same
+     global batch, its gradient summed in the mesh's order (the two
+     blocks of 8 on their own, the means over the 16, the blocks'
+     gradients added), step-1 params within 2e-5, every element, no
+     partial all-reduce; on 2 x 1 with zero3 (each layer gathered at its
+     use, gradients reduce-scattered) the same gates; on 1 x 2 (attention
+     and MLP split over "model" on whole heads) the same gates against
+     the one-process run with its matmuls split as the two model ranks
+     split them (mesh_worker.mesh_order), and the step-1 gradient within
+     rtol 1e-5 / atol 1e-6 of the one process's, every element, and the
+     fused update on the mesh's own step-1 gradient within 2e-5 of the
+     one-device optimizer's on that gradient; K1-K3
+     launched 3 x 29 times on each rank in every run; rank 1's peak
+     under zero3 and under 1 x 2 at most 0.70 x its 2 x 1 peak; step
+     ms, collective ms per step and peak memory per rank printed;
+     (d) granite-moe-3b-a800m at full width (d 1536, 40 experts) and 1
+     layer on 2 x 1, each rank's block routed as its group: the gates
+     of (b)'s 2 x 1 against the mesh-order one-process run, K1-K3 3 x
+     12 per rank, router_entropy printed beside the one process's. Both
+     ranks exit 0 within the join timeout; (c) the sharded-leaf contract
+     in one process: the
      100,663,296-element leaf cut into 2 and 4 shards, K1-K3, K1/K2/K4
      (bf16 copy) and K1/K5/K6 run on each shard with their partial sums
      added, equal to the whole leaf's run within 2e-5 (the bf16 copy
@@ -2470,7 +2483,7 @@ ROUTER_CLI_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
                    "32", "--shared-prefix", "64", "--seed", "0", "--device",
                    "cuda"]
 MESH_STEPS = 3
-MESH_JOIN_S = 300
+MESH_JOIN_S = 900
 
 
 def tenant_prompts(vocab, seed=20):
@@ -2585,97 +2598,226 @@ def phase_router(torch, pa, serve_mod):
     return launches
 
 
-def mesh_rank(rank, world, init_method, out_path, ref_rank):
-    """One rank of phase D(b), in a process of its own: BERT-large at full
-    width on a 2 x 1 mesh (gloo), 3 fused_lans steps on the global batch
-    of 16. The reference rank first runs the same steps in one process
-    (no mesh) for the gates. Writes its numbers as JSON to out_path."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+# name: (arch, data, model, zero3, depth or None for the arch's own)
+MESH_RUNS = {
+    "2x1": ("bert-large", 2, 1, False, None),
+    "2x1-zero3": ("bert-large", 2, 1, True, None),
+    "1x2": ("bert-large", 1, 2, False, None),
+    # D(d): granite-moe-3b-a800m at full width; two ranks of fp32 params
+    # and moments at its full depth would not fit the one card, and one
+    # layer keeps phase D nearer 150 s
+    "granite-2x1": ("granite-moe-3b-a800m", 2, 1, False, 1),
+}
+MESH_MEMORY_CUT = 0.70       # rank 1's peak under zero3 / 1 x 2 vs 2 x 1
+
+
+def host_whole(torch, partial, t):
+    """A placed leaf's whole value on the CPU, gathered through
+    partial.all_gather_dim; a plain tensor copied to the CPU."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t.detach().cpu()
+    x, mesh = t.to_local(), t.device_mesh
+    for md in reversed(range(mesh.ndim)):
+        p = t.placements[md]
+        if p.is_shard():
+            x = partial.all_gather_dim(x, p.dim, mesh.get_group(md))
+    return x.detach().cpu()
+
+
+def collective_timer(torch, dist, partial, steps):
+    """Wraps the step's collectives (dist.all_reduce, the gathers and
+    reduce-scatters of distributed/partial.py, and the gradient sums
+    after the backward pass, steps._placed_grad) with a host clock,
+    synchronised around each outermost call. Returns {"ms": total}."""
+    acc = {"ms": 0.0, "depth": 0}
+
+    def timed(fn):
+        def run(*a, **k):
+            if acc["depth"]:
+                return fn(*a, **k)
+            acc["depth"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc["ms"] += (time.perf_counter() - t0) * 1e3
+                acc["depth"] -= 1
+        return run
+
+    dist.all_reduce = timed(dist.all_reduce)
+    for mod, name in ((partial, "all_gather_dim"),
+                      (partial, "reduce_scatter_dim"),
+                      (steps, "_placed_grad")):
+        setattr(mod, name, timed(getattr(mod, name)))
+    return acc
+
+
+def mesh_run(torch, name, rank, ref_rank, timer):
+    """One run of phase D(b) / D(d) on this rank; returns its numbers."""
     import dataclasses
-    import torch
+    import gc
+    import contextlib
     import torch.distributed as dist
-    from repro_torch import select_device
+    from port.mesh_worker import mesh_order
     from repro_torch.configs import get_arch
     from repro_torch.core.optim import fused_lans
-    from repro_torch.core.optim.base import tree_items, tree_leaves
-    from repro_torch.distributed.partial import reduce_partials, whole
+    from repro_torch.core.optim.base import (apply_updates, tree_items,
+                                             tree_leaves, tree_map)
+    from repro_torch.distributed import partial
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.partial import reduce_partials
     from repro_torch.distributed.steps import (build_train_step,
                                                place_train_step)
     from repro_torch.kernels import lans as kl
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_local_mesh
-
-    select_device("cuda")
-    torch.cuda.set_device(0)
-    out = {"rank": rank}
-    arch = get_arch("bert-large")
+    arch_name, data, model, zero3, depth = MESH_RUNS[name]
+    arch = get_arch(arch_name)
     arch = dataclasses.replace(arch, cfg=dataclasses.replace(
-        arch.cfg, compute_dtype=torch.float32))
+        arch.cfg, compute_dtype=torch.float32,
+        **({} if depth is None else {"n_layers": depth})))
     sched = train_mod.make_schedule("hold", 2e-3, MESH_STEPS, 0.2, 0.3)
     batches = list(zip(range(MESH_STEPS), cli_batches(
         torch, train_mod, arch, 16, 128, 0)()))
     init = lambda: arch.init(torch.Generator(device="cuda").manual_seed(0))
+    split = model > 1
+    whole = lambda tree: {p: host_whole(torch, partial, v)
+                          for p, v in tree_items(tree)}
+
+    def recording(tx, seen):
+        # the step-1 gradient, whole on the CPU (every rank gathers)
+        def update(grads, state, params=None):
+            if split and not seen:
+                seen.append(whole(grads))
+            return tx.update(grads, state, params)
+        return tx._replace(update=update)
 
     def steps(step, params, state):
-        losses, ms, first = [], [], None
+        losses, ms, first, entropy = [], [], None, []
         for i, b in batches:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
+            entropy.append(float(m.get("router_entropy", 0.0)))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             if i == 0:
-                first = {p: whole(v).detach().clone()
-                         for p, v in tree_items(params)}
-        return losses, ms, first
+                first = whole(params)
+        return losses, ms, first, entropy
 
+    out = {}
     if rank == ref_rank:
         # the one-process run, its gradient summed in the mesh's order
         # (each rank's block of 8 on its own, its means over the whole
         # batch of 16, the two blocks' gradients added, as the all-reduce
-        # adds them): the maths of one device, the mesh's order of sums,
-        # so that every element of the params can be held
-        sys.path.insert(0, os.path.join(ROOT, "tests"))
-        from port.mesh_worker import mesh_order
-        step, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
-                                         param_init_fn=lambda _: init())
-        with mesh_order(2, 1):
-            ref_losses, _, ref_first = steps(step, *init_fn(None))
+        # adds them; MoE routes each block as its group; the matmuls
+        # split as the two model ranks split them): the maths of one
+        # device, the mesh's order of sums
+        ref_seen = []
+        step, init_fn = build_train_step(
+            arch.loss_fn, recording(fused_lans(sched), ref_seen),
+            param_init_fn=lambda _: init())
+        with (mesh_order(data, 1, model=model, heads=arch.heads)
+              if data > 1 or split else contextlib.nullcontext()):
+            out["ref_losses"], _, ref_first, out["ref_entropy"] = steps(
+                step, *init_fn(None))
+        del step, init_fn
+        gc.collect()
         torch.cuda.empty_cache()
+    mesh = make_local_mesh(data=data, model=model, device="cuda")
+    seen = []
+    step, init_fn = build_train_step(
+        arch.loss_fn, recording(fused_lans(sched), seen), mesh, zero3=zero3,
+        param_init_fn=lambda _: init(), heads=arch.heads)
+    params, state = init_fn(None)
+    pspec, ospec = step.specs_for(params, state)
+    # placed (cut) before the run, the whole init freed: the peak is the
+    # step's
+    params = shd.distribute(params, mesh, pspec)
+    state = shd.distribute(state, mesh, ospec)
+    step = place_train_step(step, mesh, pspec, ospec, batches[0][1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kl.KERNELS:
+        k.launches = 0
+    reduce_partials.calls = 0
+    timer["ms"] = 0.0
+    losses, ms, first, entropy = steps(step, params, state)
+    out.update(losses=losses, step_ms=ms, entropy=entropy,
+               collective_ms=timer["ms"] / MESH_STEPS,
+               launches={k.__name__: k.launches for k in kl.KERNELS},
+               partial_allreduces=reduce_partials.calls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               n_leaves=len(tree_leaves(params)),
+               n_params=sum(p.numel() for p in tree_leaves(params)))
+    del step, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == ref_rank:
+        diffs = [(first[p] - a).abs() for p, a in ref_first.items()]
+        out["step1_param_err"] = max(d.max().item() for d in diffs)
+        out["step1_n"] = sum(d.numel() for d in diffs)
+        out["step1_unequal"] = sum(int((d > 0).sum()) for d in diffs)
+        if split:
+            # the update gate: the one-device optimizer's step on the
+            # mesh's own step-1 gradient, against the mesh's step-1 params
+            p0 = init()
+            tx = fused_lans(sched)
+            g = {p: v.cuda() for p, v in seen[0].items()}
+            g = tree_map(lambda pth: g[pth], _paths(p0))
+            upd, _ = tx.update(g, tx.init(p0), p0)
+            p1 = dict(tree_items(apply_updates(p0, upd)))
+            out["update_err"] = max((first[p] - v.cpu()).abs().max().item()
+                                    for p, v in p1.items())
+            del p0, g, upd, p1
+            # the gradient gate: every element of the step-1 gradient
+            # against the one process's
+            over, worst = 0, 0.0
+            for p, v in ref_seen[0].items():
+                d = (seen[0][p] - v).abs()
+                over += int((d > 1e-6 + 1e-5 * v.abs()).sum())
+                worst = max(worst, d.max().item())
+            out["grad_over"], out["grad_err"] = over, worst
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _paths(tree):
+    from repro_torch.core.optim.base import tree_paths
+    return tree_paths(tree)
+
+
+def mesh_rank(rank, world, init_method, out_path, ref_rank):
+    """One rank of phase D(b) and D(d), in a process of its own: every run
+    of MESH_RUNS on two gloo ranks sharing the one card, 3 fused_lans
+    steps each on the global batch of 16. The reference rank also runs
+    each one-process reference (no mesh) for the gates. Writes its
+    numbers as JSON to out_path."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import select_device
+    from repro_torch.distributed import partial, steps
+    select_device("cuda")
+    torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=init_method, rank=rank,
                             world_size=world)
     try:
-        mesh = make_local_mesh(data=2, model=1, device="cuda")
-        step, init_fn = build_train_step(arch.loss_fn, fused_lans(sched),
-                                         mesh, param_init_fn=lambda _: init())
-        params, state = init_fn(None)
-        pspec, ospec = step.specs_for(params, state)
-        step = place_train_step(step, mesh, pspec, ospec, batches[0][1])
-        torch.cuda.reset_peak_memory_stats()
-        for k in kl.KERNELS:
-            k.launches = 0
-        reduce_partials.calls = 0
-        losses, ms, first = steps(step, params, state)
-        out.update(losses=losses, step_ms=ms,
-                   launches={k.__name__: k.launches for k in kl.KERNELS},
-                   partial_allreduces=reduce_partials.calls,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   n_params=sum(p.numel() for p in tree_leaves(params)))
-        flat = torch.zeros(out["n_params"], dtype=torch.float32,
-                           device="cuda")
-        dist.all_reduce(flat)                       # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dist.all_reduce(flat)
-        torch.cuda.synchronize()
-        out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
-        if rank == ref_rank:
-            out["ref_losses"] = ref_losses
-            diffs = [(first[p] - a).abs() for p, a in ref_first.items()]
-            out["step1_param_err"] = max(d.max().item() for d in diffs)
-            out["step1_n"] = sum(d.numel() for d in diffs)
-            out["step1_unequal"] = sum(int((d > 0).sum()) for d in diffs)
+        out = {"rank": rank, "runs": {}}
+        timer = collective_timer(torch, dist, partial, steps)
+        for name in MESH_RUNS:
+            out["runs"][name] = mesh_run(torch, name, rank, ref_rank, timer)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     with open(out_path, "w") as f:
@@ -2683,17 +2825,18 @@ def mesh_rank(rank, world, init_method, out_path, ref_rank):
 
 
 def phase_mesh(torch):
-    """Phase D(b): BERT-large data parallel on a 2 x 1 mesh, two ranks as
-    two processes on the one card under gloo."""
+    """Phase D(b) and D(d): BERT-large on 2 x 1, 2 x 1 with zero3 and 1 x
+    2 meshes, and granite-moe-3b-a800m (full width, 2 layers) on 2 x 1,
+    two ranks as two processes on the one card under gloo."""
     import multiprocessing
     import socket
     import tempfile
-    print("mesh: one card, so the 2 x 1 mesh's two ranks are two processes "
-          "on it under gloo: NCCL refuses two ranks on one device, and "
-          "gloo takes CUDA tensors for all_reduce, which is all a 2 x 1 "
-          "mesh needs (no leaf is cut); the model axis and ZeRO need "
-          "all_gather / reduce_scatter, and run on four cards over NCCL "
-          "in tests/port/test_torch_cuda_kernels.py")
+    print("mesh: one card, so each mesh's two ranks are two processes on "
+          "it under gloo (NCCL refuses two ranks on one device; gloo takes "
+          "CUDA tensors for all_reduce, all_gather_into_tensor and "
+          "reduce_scatter_tensor, staging them through the host itself); "
+          "the model axis and zero3 also run on four cards over NCCL in "
+          "tests/port/test_torch_cuda_kernels.py")
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -2722,40 +2865,76 @@ def phase_mesh(torch):
         with open(path) as f:
             ranks.append(json.load(f))
     shutil.rmtree(tmp)
-    r0 = ranks[0]
-    check(ranks[0]["losses"] == ranks[1]["losses"],
-          "mesh: the ranks report different losses")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
-                                                  r0["ref_losses"]))
-    check(rel <= 1e-4, f"mesh: losses {r0['losses']} vs one process "
-                       f"{r0['ref_losses']} ({rel:.3e} relative)")
-    check(r0["step1_param_err"] <= 2e-5,
-          f"mesh: step-1 params {r0['step1_param_err']:.3e} from the one "
-          f"process's (gate 2e-5, every element)")
-    for r in ranks:
-        for name in ("sq_norm", "lans_phase1", "lans_phase2"):
-            check(r["launches"][name] == BERT_LEAVES * MESH_STEPS,
-                  f"mesh rank {r['rank']}: {name} launched "
-                  f"{r['launches'][name]} times")
-        check(r["launches"]["lans_phase2_cast"] == 0, "mesh: K4 launched")
-        check(r["partial_allreduces"] == 0,
-              f"mesh rank {r['rank']}: {r['partial_allreduces']} partial "
-              f"all-reduces on a 2 x 1 mesh")
-    for r in ranks:
-        print(f"mesh rank {r['rank']}: step_ms "
-              f"{[round(x, 2) for x in r['step_ms']]}, all-reduce of "
-              f"{r['n_params']} fp32 gradients {r['allreduce_ms']:.2f} ms "
-              f"(gloo, staged through the host: no measure of NVLink), "
-              f"peak_gb {r['peak_gb']:.2f}, K1-K3 launches "
-              f"{r['launches']['sq_norm']} = {MESH_STEPS} x {BERT_LEAVES}")
-    print(f"mesh: losses {r0['losses']} vs one process {r0['ref_losses']} "
-          f"(its gradient summed in the mesh's order; {rel:.3e} relative, "
-          f"gate 1e-4); step-1 params: every one of {r0['step1_n']} "
-          f"elements within {r0['step1_param_err']:.3e} (gate 2e-5), "
-          f"{r0['step1_unequal']} not bit-equal; no partial all-reduce; "
-          f"{time.perf_counter() - t0:.1f} s")
-    return {k: r0["launches"][k] for k in ("sq_norm", "lans_phase1",
-                                          "lans_phase2")}
+    for name, (arch, data, model, zero3, depth) in MESH_RUNS.items():
+        r0, r1 = (r["runs"][name] for r in ranks)
+        where = f"mesh {name} ({arch})"
+        check(r0["losses"] == r1["losses"],
+              f"{where}: the ranks report different losses")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                      r0["ref_losses"]))
+        check(rel <= 1e-4, f"{where}: losses {r0['losses']} vs one process "
+                           f"{r0['ref_losses']} ({rel:.3e} relative)")
+        for i, r in enumerate((r0, r1)):
+            for k in ("sq_norm", "lans_phase1", "lans_phase2"):
+                check(r["launches"][k] == r0["n_leaves"] * MESH_STEPS,
+                      f"{where} rank {i}: {k} launched "
+                      f"{r['launches'][k]} times")
+            check(r["launches"]["lans_phase2_cast"] == 0,
+                  f"{where}: K4 launched")
+            cut = model > 1 or zero3
+            check((r["partial_allreduces"] > 0) == cut,
+                  f"{where}: {r['partial_allreduces']} partial all-reduces")
+        check(r0["step1_param_err"] <= 2e-5,
+              f"{where}: step-1 params {r0['step1_param_err']:.3e} "
+              f"from the one process's (gate 2e-5, every element)")
+        held = (f"step-1 params: every one of {r0['step1_n']} elements "
+                f"within {r0['step1_param_err']:.3e} (gate 2e-5), "
+                f"{r0['step1_unequal']} not bit-equal")
+        if model > 1:
+            check(r0["grad_over"] == 0,
+                  f"{where}: {r0['grad_over']} step-1 gradient elements "
+                  f"off the one process's (gate rtol 1e-5, atol 1e-6; "
+                  f"worst {r0['grad_err']:.3e})")
+            check(r0["update_err"] <= 2e-5,
+                  f"{where}: the update on the mesh's own gradient "
+                  f"{r0['update_err']:.3e} from the one-device "
+                  f"optimizer's (gate 2e-5)")
+            held += (f"; the step-1 gradient within {r0['grad_err']:.3e} "
+                     f"of the one process's (gate rtol 1e-5, atol 1e-6, "
+                     f"every element); the update on its own step-1 "
+                     f"gradient within {r0['update_err']:.3e} of the "
+                     f"one-device optimizer's (gate 2e-5)")
+        for r in ranks:
+            x = r["runs"][name]
+            print(f"{where} rank {r['rank']}: step_ms "
+                  f"{[round(v, 2) for v in x['step_ms']]}, collective_ms "
+                  f"per step {x['collective_ms']:.2f} (gloo, host-timed, "
+                  f"through the host: no measure of NVLink), "
+                  f"peak_gb {x['peak_gb']:.2f}, K1-K3 launches "
+                  f"{x['launches']['sq_norm']} = {MESH_STEPS} x "
+                  f"{x['n_leaves']}, partial all-reduces "
+                  f"{x['partial_allreduces']}, {x['n_params']} local "
+                  f"elements")
+        print(f"{where}: losses {r0['losses']} vs one process "
+              f"{r0['ref_losses']} ({rel:.3e} relative, gate 1e-4); {held}")
+        if arch.startswith("granite"):
+            print(f"{where}: router_entropy {r0['entropy']} vs one process "
+                  f"{r0['ref_entropy']} (the aux metric; moe_aux_loss is "
+                  f"inside the loss)")
+    peaks = {name: ranks[1]["runs"][name]["peak_gb"] for name in MESH_RUNS}
+    for name in ("2x1-zero3", "1x2"):
+        ratio = peaks[name] / peaks["2x1"]
+        check(ratio <= MESH_MEMORY_CUT,
+              f"mesh {name}: rank 1 peak {peaks[name]:.2f} GB is "
+              f"{ratio:.3f} x the 2 x 1 run's {peaks['2x1']:.2f} GB (gate "
+              f"{MESH_MEMORY_CUT})")
+        print(f"mesh {name}: rank 1 peak {peaks[name]:.2f} GB = "
+              f"{ratio:.3f} x 2 x 1's {peaks['2x1']:.2f} GB (gate "
+              f"{MESH_MEMORY_CUT})")
+    print(f"mesh: {time.perf_counter() - t0:.1f} s")
+    return {name: {k: ranks[0]["runs"][name]["launches"][k]
+                   for k in ("sq_norm", "lans_phase1", "lans_phase2")}
+            for name in MESH_RUNS}
 
 
 def shard_rows(kops, n_shards, lamb_clip=None, step=4):
@@ -3036,8 +3215,9 @@ def run() -> int:
                 n=EMBED_LEAF, launches=decoder[name][name],
                 max_abs_err=dec_errs[name], **dec_times[name])
         entries[-1]["shards"] = shards[name]     # phase D(c)
-        if name in mesh_launches:                  # phase D(b), per rank
-            entries[-1]["mesh_2x1"] = dict(launches=mesh_launches[name])
+        if name in mesh_launches["2x1"]:    # phases D(b), D(d), per rank
+            entries[-1]["mesh"] = {run: dict(launches=counts[name])
+                                   for run, counts in mesh_launches.items()}
         if name in ("sq_norm", "lans_phase1", "lans_phase2"):
             # phase E(c): whisper-large-v3's largest leaf
             entries[-1]["whisper"] = dict(

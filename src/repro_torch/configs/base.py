@@ -18,7 +18,7 @@ import torch
 from repro_torch.models import bert as bert_lib
 from repro_torch.models import decoder as dec_lib
 from repro_torch.models import encdec as ed_lib
-from repro_torch.models.common import WHOLE
+from repro_torch.models.common import WHOLE, fetch_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +29,14 @@ class Arch:
     source: str                    # citation for the config
     embeds_input: bool = False     # VLM stub: the model takes embeddings
     train_microbatches: int = 4    # grad-accum splits of the global batch
+
+    @property
+    def heads(self) -> tuple:
+        """(n_heads, n_kv) of the attention: what a mesh's use plan needs
+        to split it over "model" on whole heads
+        (distributed/sharding.py: use_plan)."""
+        n_kv = getattr(self.cfg, "n_kv_heads", self.cfg.n_heads)
+        return self.cfg.n_heads, n_kv
 
     def init(self, gen: torch.Generator):
         """Random params drawn from `gen`, on `gen.device`."""
@@ -48,7 +56,9 @@ class Arch:
         rule. Encdec: the same cross entropy of the decoder given
         batch["frames"] and batch["tokens"], no aux. A batch that is a
         block of a larger one carries that one under WHOLE, and the mean
-        is taken over its valid labels (models/common.py)."""
+        is taken over its valid labels (models/common.py); the MoE aux
+        terms are then the block's parts of the whole batch's
+        (models/moe.py)."""
         if self.kind == "bert":
             return bert_lib.bert_pretrain_loss(params, self.cfg, batch)
         whole = batch.get(WHOLE)
@@ -57,11 +67,12 @@ class Arch:
             logits = ed_lib.encdec_apply(params, self.cfg, batch["frames"],
                                          batch["tokens"])
             return dec_lib.lm_loss(logits, batch["labels"], count=count), {}
-        if whole is not None and self.cfg.n_experts:
-            # the load-balance terms are products of batch means, not sums
-            raise NotImplementedError(
-                "the MoE aux terms over a batch cut across data-parallel "
-                "ranks are not ported")
+        # the embedding and the readout fetched once (models/common.py:
+        # fetch): a tied embedding serves the lookup and every chunk of
+        # the head with one gather
+        if isinstance(params, dict):
+            params = {**params, **{k: fetch_tree(params[k]) for k in
+                                   ("embed", "lm_head") if k in params}}
         seq = batch["labels"].shape[1]
         chunked = (self.cfg.vocab >= 65536 and seq >= 1024
                    and seq % 512 == 0)

@@ -11,6 +11,25 @@ kernels on each rank's shard of a leaf. K1's sum of squares and K2's /
 K5's norms are then partial sums, which `reduce_partials` adds over the
 mesh dims the leaf is cut over, one all-reduce of a stacked batch per
 group of leaves and mesh dim (counted in `reduce_partials.calls`).
+
+The models' use of a cut leaf inside the step (models/common.py: fetch)
+goes through the autograd functions below:
+
+  gather_leaf     all-gather a leaf over the mesh dims it is cut on; the
+                  backward pass hands the rank the gradient of its own
+                  shard: reduce-scattered over a data dim (zero3: the sum
+                  over the data ranks), sliced on a model dim (the model
+                  ranks of one data block compute the same gradient);
+  copy_to_model   Megatron's f, at a column-parallel input: identity
+                  forward, a sum over "model" backward (each model rank
+                  holds a part of the input's gradient);
+  reduce_from_model  Megatron's g, at a row-parallel output: a sum over
+                  "model" forward, identity backward (both sum in fp32
+                  at least, whatever the compute dtype, and in rank
+                  order: _sum32);
+  model_slice     the rank's slice of a replicated leaf used with
+                  column-parallel outputs (a bias), its gradient
+                  all-gathered back over "model" to the whole leaf's.
 """
 from __future__ import annotations
 
@@ -44,3 +63,125 @@ def reduce_partials(t: torch.Tensor, groups) -> torch.Tensor:
 
 
 reduce_partials.calls = 0
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' `t` (equal shapes) concatenated on `dim`, in rank order
+    of `group`."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    # contiguous, as the leaf it rebuilds: a matmul's sums then run in
+    # the same order as on the whole leaf
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of the ranks' `t` over `group`, cut into equal chunks on
+    `dim`: this rank's chunk."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _chunk(t, dim, group):
+    """This rank's chunk of `t` on `dim`, cut evenly over `group`."""
+    return t.chunk(dist.get_world_size(group), dim=dim)[
+        dist.get_rank(group)].contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """cuts: ((group, dim, summed), ...) in the mesh's dim order, the
+    order a shard is cut in (sharding.local_shard); `summed`: the
+    backward pass sums that dim's ranks (a data dim) rather than slicing
+    (the model dim)."""
+
+    @staticmethod
+    def forward(ctx, t, cuts):
+        ctx.cuts = cuts
+        for group, dim, _ in reversed(cuts):
+            t = all_gather_dim(t, dim, group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        for group, dim, summed in ctx.cuts:
+            g = (reduce_scatter_dim(g, dim, group) if summed
+                 else _chunk(g, dim, group))
+        return g, None
+
+
+def gather_leaf(t, cuts):
+    """A leaf's shard gathered over `cuts` (see _Gather)."""
+    if not cuts:
+        return t
+    return _Gather.apply(t, tuple(cuts))
+
+
+def _sum32(t, group):
+    """t summed over `group` in fp32 at least (a bf16 / fp16 part is
+    added in fp32 and rounded once, after the sum; fp32 and float64 stay
+    as they are), returned in t's dtype. The ranks' parts are gathered
+    and added in rank order, so that every rank gets the same bits
+    whatever order the backend's all-reduce would take (for two ranks
+    the two are the same; for more it moves (n - 1) parts per rank, not
+    2 (n - 1) / n)."""
+    acc = torch.promote_types(t.dtype, torch.float32)
+    parts = all_gather_dim(t.to(acc).unsqueeze(0), 0, group)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        return _sum32(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _chunk(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+def copy_to_model(x, group):
+    """Megatron's f: x as it is, its gradient summed over `group`."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(y, group):
+    """Megatron's g: y summed over `group`, its gradient as it is."""
+    return _ReduceFromModel.apply(y, group)
+
+
+def model_slice(t, dim, group):
+    """This rank's chunk of `t` on `dim` over `group`, its gradient
+    assembled over `group` into the whole tensor's."""
+    return _ModelSlice.apply(t, dim, group)

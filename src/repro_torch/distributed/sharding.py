@@ -30,10 +30,26 @@ DeviceMesh through `mesh_shape`, or a shape-only stand-in. A spec is a
 tuple of axis names (`tuple(jax P) == tuple(PSpec)` for the same rule).
 `placements` turns a spec into DTensor placements on a DeviceMesh, and
 `distribute` places a tree by a spec tree.
+
+Use plans (the train step on a mesh, distributed/steps.py): `use_plan`
+reads from a leaf's spec how the models use it during the step
+(models/common.py: fetch). A leaf with no cut is used as it is. A
+column-parallel leaf (an attention wq / wk / wv or an MLP up / gate
+kernel cut over "model" on its columns) keeps its model shard, and the
+rank computes its own heads or ff columns; a row-parallel one (wo, down,
+cut on its rows) keeps it too, and the rank's partial product is summed
+over "model". The split is only taken where the cut falls on whole
+heads: both n_heads and n_kv divisible by the model size, so that every
+rank's columns are whole heads of q and of k / v. The JAX rules cut
+wherever the dim divides, which can split a head (n_kv 1 over two ranks:
+half a head each); such an attention block, and every other cut leaf, is
+gathered whole at its use, one layer at a time. A leaf also cut over a
+data axis (zero3) is gathered over that axis in either case.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -285,6 +301,83 @@ def cache_shardings(cache: Tree, mesh) -> Tree:
     """cache_pspec as DTensor placements on `mesh`: the layout a pool on
     a mesh pins its arenas to."""
     return _map_cache(lambda s: placements(s, mesh), cache_pspec(cache, mesh))
+
+
+# --------------------------------------------------------------------------
+# use plans
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Use:
+    """How the models use one cut leaf in a step on a mesh: `kind`
+    "col" or "row" (tensor parallel: the model shard is used as it is)
+    or "gather" (gathered whole at its use); `cuts` the (axis name,
+    tensor dim) pairs the leaf is cut on, in the mesh's dim order."""
+    kind: str
+    cuts: tuple
+
+    @property
+    def gathered(self) -> tuple:
+        """The cuts the fetch all-gathers: all of them, or all but the
+        model cut of a tensor-parallel leaf."""
+        return tuple(c for c in self.cuts
+                     if self.kind == "gather" or c[0] != "model")
+
+    def unstacked(self) -> "Use":
+        """The plan of one layer's slice of a stacked leaf."""
+        return Use(self.kind, tuple((a, d - 1) for a, d in self.cuts))
+
+
+_COLUMN = ("wq", "wk", "wv", "up", "gate")
+_ROW = ("wo", "down")
+
+
+def use_plan(path: str, spec: PSpec, mesh, heads=None) -> Optional[Use]:
+    """The use plan of the leaf at `path` placed by `spec` on `mesh`
+    (None: not cut, used as it is). heads: (n_heads, n_kv) of the
+    model's attention, without which attention is never split."""
+    order = list(mesh_shape(mesh))
+    cuts = sorted(((name, d) for d, entry in enumerate(spec)
+                   for name in (entry if isinstance(entry, tuple) else
+                                () if entry is None else (entry,))),
+                  key=lambda c: order.index(c[0]))
+    if not cuts:
+        return None
+    model = dict(cuts).get("model")
+    parts = path.lower().split("/")
+    owner = parts[-2] if len(parts) >= 2 and parts[-1] == "kernel" else None
+    msize = _axis_size(mesh, "model")
+    whole_heads = heads is not None and all(n % msize == 0 for n in heads)
+    ok = owner in ("up", "gate", "down") or (
+        owner in ("wq", "wk", "wv", "wo") and whole_heads)
+    kind = "gather"
+    if model is not None and ok:
+        if owner in _COLUMN and model == len(spec) - 1:
+            kind = "col"
+        elif owner in _ROW and model == len(spec) - 2:
+            kind = "row"
+    return Use(kind, tuple(cuts))
+
+
+def spec_of(t, mesh) -> PSpec:
+    """The PSpec a DTensor is placed by (the inverse of `placements`);
+    PSpec() for a plain tensor."""
+    places = getattr(t, "placements", None)
+    if places is None:
+        return PSpec()
+    entries = [[] for _ in range(t.ndim)]
+    for name, p in zip(mesh.mesh_dim_names, places):
+        if p.is_shard():
+            entries[p.dim].append(name)
+    return PSpec(*(tuple(e) if e else None for e in entries))
+
+
+def params_uses(params: Tree, mesh, heads=None) -> Tree:
+    """use_plan of every leaf of `params` (placed on `mesh`), by its
+    placements."""
+    return tree_map(lambda pth, v: use_plan(pth, spec_of(v, mesh), mesh,
+                                            heads),
+                    tree_paths(params), params)
 
 
 # --------------------------------------------------------------------------

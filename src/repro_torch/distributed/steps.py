@@ -26,33 +26,45 @@ On a mesh (`mesh=` a DeviceMesh with axes ("data", "model") or ("pod",
 "data", "model"), launch/mesh.py) params and optimizer state are
 DTensors placed by the sharding rules (distributed/sharding.py), and
 every rank is handed the same global batch, as JAX feeds one. A step
-gathers each leaf whole for the forward pass (an all-gather for a leaf
-cut over model, or over data under zero3), runs the loss on its block
-of each microbatch as cut by batch_pspec, with the losses' means
-taken over the whole microbatch (models/common.py: WHOLE), and turns the
-gradients (partial sums over the data ranks) into DTensors at the
-params' placements: an all-reduce, or a reduce-scatter for a zero3 leaf. The
-optimizer then updates the placed leaves; the fused ones run their
-kernels on each rank's shards (core/optim/fused.py). The model's
-matmuls are not split over "model": that axis cuts the storage and the
-optimizer's work of the weights, not their use, so the maths is that of
-one device, as GSPMD's is on any mesh. It also means that the model axis
-and zero3 do not cut a step's peak memory or the model's compute yet:
-during the forward and backward passes every rank holds every leaf
-whole (its fp32 params beside its shards), and the ranks of one data
-block repeat the same passes (ROADMAP Queue 1: gathering a layer at a
-time).
+runs the loss on the rank's block of each microbatch as cut by
+batch_pspec, with the losses' means taken over the whole microbatch
+(models/common.py: WHOLE), and hands the models the rank's shards, each
+cut leaf marked with its use plan (sharding.use_plan), under the ambient
+mesh (models/common.py: ambient_mesh). A rank holds only its shards
+between uses:
+- a leaf cut over "model" on whole heads or ff columns is used as its
+  shard in a column- or row-parallel matmul, so that the model axis
+  cuts the compute too (one all-reduce of the activations per block);
+- every other cut leaf is gathered at its use, one layer at a time,
+  inside the layer's recomputed region, so that the backward pass
+  gathers it again rather than keeping it whole;
+- the gradient of a leaf cut over a data axis (zero3) is reduce-scattered
+  in the backward pass of its gather, once per microbatch;
+- the gradient of any other leaf (replicated, or cut over "model" only)
+  is the rank's part, summed over the data ranks after the backward
+  pass: an all-reduce, of the whole leaf for a replicated one, as
+  before the model axis was split, of the shard for the others.
+The gradients then come back as shards and are wrapped as DTensors at
+the params' placements. The optimizer updates the placed leaves; the
+fused ones run their kernels on each rank's shards
+(core/optim/fused.py). MoE routes each rank's block as one group
+(models/moe.py). Splitting a matmul over "model" changes the order of
+its sums: the model ranks' parts are added in fp32 at least and in rank
+order (distributed/partial.py), so that a run gives the same bits
+whatever the backend, and one device that splits its matmuls alike
+(the tests' mesh-order reference) gives them too.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.optim.base import apply_updates, tree_leaves, tree_map
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.partial import sum_over, whole
-from repro_torch.models.common import WHOLE
+from repro_torch.models.common import WHOLE, Ambient, ambient_mesh
 
 
 def greedy_next(logits):
@@ -141,7 +153,7 @@ def loss_and_grads(loss_fn, params, batch, scale):
 def build_train_step(loss_fn: Callable, tx, mesh=None, *,
                      microbatches: int = 1, zero3: bool = False,
                      param_init_fn: Optional[Callable] = None, policy=None,
-                     loss_scale=None):
+                     loss_scale=None, heads: Optional[tuple] = None):
     """Returns (step_fn, init_fn), on one device or, with `mesh`, on it.
 
     step_fn: (params, opt_state, batch) -> (params, opt_state, metrics)
@@ -157,8 +169,14 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
     the whole global batch, and `step_fn.specs_for(params_like,
     opt_like) -> (params_pspec, opt_pspec)` gives the specs to place
     them by (zero3 adds the data axis to the weights' specs);
-    place_train_step does the placing.
+    place_train_step does the placing. `heads`, the (n_heads, n_kv) of
+    the model's attention (Arch.heads), is required with a mesh: the
+    step splits attention over "model" where both divide over it, on
+    whole heads.
     """
+    if mesh is not None and heads is None:
+        raise ValueError("build_train_step on a mesh needs heads= "
+                         "(Arch.heads)")
     from repro_torch import precision
     if policy is not None:
         policy = precision.get_policy(policy)
@@ -166,11 +184,12 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
     if mixed and not isinstance(tx, precision.MixedTransformation):
         tx = precision.mixed_precision(tx, policy, loss_scale)
 
-    def accumulate(params, batch, scale, local):
-        """(loss, aux, fp32 grads) over the microbatches of `batch`, each
-        cut to this rank's block by `local` before the loss sees it."""
+    def accumulate(params, batch, scale, local, fn=loss_fn):
+        """(loss, aux, fp32 grads) of `fn` over the microbatches of
+        `batch`, each cut to this rank's block by `local` before the loss
+        sees it."""
         if microbatches == 1:
-            return loss_and_grads(loss_fn, params, local(batch), scale)
+            return loss_and_grads(fn, params, local(batch), scale)
         n = next(iter(batch.values())).shape[0]
         if n % microbatches:
             raise ValueError(f"batch {n} does not split into "
@@ -180,7 +199,7 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         for i in range(microbatches):
             mb = {k: v[i * size:(i + 1) * size] if v.ndim >= 1 else v
                   for k, v in batch.items()}
-            loss_i, aux_i, g_i = loss_and_grads(loss_fn, params, local(mb),
+            loss_i, aux_i, g_i = loss_and_grads(fn, params, local(mb),
                                                 scale)
             grads = g_i if grads is None else tree_map(torch.add, grads, g_i)
             losses.append(loss_i)
@@ -236,15 +255,24 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         local = lambda b: {**{k: shd.local_shard(
             v, mesh, shd.placements(bspec[k], mesh)) if v.ndim else v
             for k, v in b.items()}, WHOLE: b}
-        loss, aux, grads = accumulate(tree_map(whole, params), batch, scale,
-                                      local)
+        uses = shd.params_uses(params, mesh, heads)
+
+        def on_shards(live, b):
+            # the live leaves carry their use plans to the models' fetch
+            tree_map(_mark, live, uses)
+            return loss_fn(live, b)
+
+        ctx = Ambient(mesh, cut)
+        with ambient_mesh(ctx):
+            loss, aux, grads = accumulate(tree_map(_shard, params), batch,
+                                          scale, local, on_shards)
         # each rank's loss, float aux and gradients are its parts of the
         # global batch's: sum them over the ranks the batch is cut over
         loss = sum_over(loss, groups)
         aux = {k: sum_over(v, groups) if torch.is_tensor(v)
                and v.is_floating_point() else v for k, v in aux.items()}
-        grads = tree_map(lambda g, p: _placed_grad(g, p, mesh, cut), grads,
-                         params)
+        grads = tree_map(lambda g, p, u: _placed_grad(g, p, u, mesh, cut),
+                         grads, params, uses)
         box = [grads]
         del grads
         return update(params, opt_state, loss, aux, box.pop(), scale)
@@ -280,17 +308,38 @@ def _batch_cut_dims(bspec) -> tuple:
     return firsts.pop() if firsts else ()
 
 
-def _placed_grad(g, p, mesh, cut):
-    """A rank's gradient of the whole leaf (a partial sum over the data
-    ranks in `cut`, the same on the others) as a DTensor at p's
-    placements: the sum over `cut`, each rank keeping its shard."""
+def _shard(p):
+    """The rank's shard of a placed leaf (a plain leaf as it is)."""
+    from torch.distributed.tensor import DTensor
+    return p.to_local() if isinstance(p, DTensor) else p
+
+
+def _mark(t, use):
+    if use is not None:
+        t._use = use
+
+
+def _placed_grad(g, p, use, mesh, cut):
+    """A rank's gradient of its shard of p as a DTensor at p's
+    placements. The data dims of `cut` (the batch's) that the backward
+    pass has not summed it over (all but the leaf's own data cuts, which
+    its gather reduce-scattered) are summed here: for a leaf with no cut
+    (use None), the whole leaf's gradient, by the all-reduce of a
+    Partial DTensor."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     if not isinstance(p, DTensor):
         return sum_over(g, [mesh.get_group(name) for name in cut])
-    places = [Partial() if name in cut else Replicate()
-              for name in mesh.mesh_dim_names]
-    return DTensor.from_local(g, mesh, places, run_check=False).redistribute(
-        mesh, p.placements)
+    if use is None:
+        places = [Partial() if name in cut else Replicate()
+                  for name in mesh.mesh_dim_names]
+        return DTensor.from_local(g, mesh, places,
+                                  run_check=False).redistribute(
+            mesh, p.placements)
+    summed = {a for a, _ in use.cuts}
+    for name in cut:
+        if name not in summed:
+            dist.all_reduce(g, group=mesh.get_group(name))
+    return DTensor.from_local(g, mesh, p.placements, run_check=False)
 
 
 def place_train_step(step_fn, mesh, pspec, ospec, batch_like):

@@ -44,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import NEG_INF
 from repro_torch.models.common import (apply_rope, dense_apply, dense_init,
-                                       rmsnorm_apply, rmsnorm_init, softcap)
+                                       rmsnorm_apply, rmsnorm_init, softcap,
+                                       tp_enter)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +146,17 @@ def attn_apply(p, cfg: AttnConfig, x, *, kv_x=None, positions=None,
     {"k", "v" (B, Sm, n_kv, hd)[, "pos" (Sm,) or (B, Sm)]} or paged
     {"k", "v" (n_blocks, bs, n_kv, hd), "pos" (n_blocks, bs), "table"
     (B, max_blocks)}, gathered through the table; pad rows carry
-    position -1 and are masked. kv_cache excludes cache and kv_x."""
+    position -1 and are masked. kv_cache excludes cache and kv_x.
+
+    In a train step on a mesh whose fetch hands over column-parallel
+    wq / wk / wv (models/common.py), the block runs on this rank's
+    heads: h and n_kv are read off the kernels' columns, QK-norm, GQA,
+    the masks and the query blocks work on them unchanged, and the
+    row-parallel wo sums the ranks' outputs."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    wq = p["wq"]["kernel"]
+    h, kv = wq.shape[-1] // hd, p["wk"]["kernel"].shape[-1] // hd
     scale = (cfg.query_scale if cfg.query_scale is not None
              else 1.0 / math.sqrt(hd))
 
@@ -158,10 +167,12 @@ def attn_apply(p, cfg: AttnConfig, x, *, kv_x=None, positions=None,
         v = _split_heads(dense_apply(p["wv"], src, compute_dtype), kv, hd)
     if cfg.qk_norm:
         # every branch below, the paged kernel's included, sees the
-        # normed q and k
-        q = rmsnorm_apply(p["q_norm"], q)
+        # normed q and k; on local heads each norm's gradient is a part
+        # of its sum over all heads
+        qn, kn = p["q_norm"], p["k_norm"]
+        q = rmsnorm_apply({"scale": tp_enter(qn["scale"], wq)}, q)
         if kv_cache is None:
-            k = rmsnorm_apply(p["k_norm"], k)
+            k = rmsnorm_apply({"scale": tp_enter(kn["scale"], wq)}, k)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)

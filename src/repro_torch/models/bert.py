@@ -9,7 +9,10 @@ NSP cross-entropy, what LANS optimizes.
 As in the JAX package, the layer params are stacked on a leading
 n_layers axis (one LANS block spans all layers) and each layer is
 rematerialized in the backward pass (torch.utils.checkpoint, where JAX
-remats its scanned layer). `compute_dtype` defaults to
+remats its scanned layer). On a mesh a layer's leaves are fetched
+inside its recomputed region (models/common.py: layer_params), the
+other leaves at their use, the tied token embedding once for both of
+its uses. `compute_dtype` defaults to
 bf16 (`bert.py:41`), so an fp32-policy run still does its matmuls in bf16
 (ROADMAP Queue 3); parity tests set it to fp32.
 
@@ -31,10 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (_randn, dense_apply, dense_init,
-                                       embed_apply, embed_init, gelu,
-                                       layer_params, layernorm_apply,
-                                       layernorm_init, mlp_init,
-                                       unbind_layers, WHOLE)
+                                       embed_apply, embed_init, fetch,
+                                       fetch_tree, gelu, layer_params,
+                                       layernorm_apply, layernorm_init,
+                                       mlp_apply, mlp_init, unbind_layers,
+                                       WHOLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +94,13 @@ def bert_init(gen: Optional[torch.Generator], cfg: BertConfig):
     }
 
 
-def _layer(cfg: BertConfig, x, lp, positions):
+def _layer(cfg: BertConfig, x, layers, i, positions):
     cd = cfg.compute_dtype
+    lp = layer_params(layers, i)
     h, _ = attn_apply(lp["attn"], cfg.attn_cfg(), x, positions=positions,
                       compute_dtype=cd)
     x = layernorm_apply(lp["attn_ln"], x + h)
-    up = dense_apply(lp["mlp"]["up"], x, cd)
-    h = dense_apply(lp["mlp"]["down"], gelu(up), cd)
+    h = mlp_apply(lp["mlp"], x, activation="gelu", compute_dtype=cd)
     return layernorm_apply(lp["mlp_ln"], x + h)
 
 
@@ -113,43 +117,52 @@ def bert_encode(params, cfg: BertConfig, tokens, token_types=None,
     path's 0..S-1."""
     cd = cfg.compute_dtype
     S = tokens.shape[1]
-    x = embed_apply(params["tok_embed"], tokens, cd)
+    x = embed_apply(fetch_tree(params["tok_embed"]), tokens, cd)
+    pos_embed = fetch(params["pos_embed"])
     if positions is None:
-        x = x + params["pos_embed"].to(cd)[None, :S]
+        x = x + pos_embed.to(cd)[None, :S]
     else:
-        x = x + params["pos_embed"].to(cd)[
+        x = x + pos_embed.to(cd)[
             torch.clamp(positions, 0, cfg.max_pos - 1).long()]
+    del pos_embed
     if token_types is None:
         token_types = torch.zeros_like(tokens)
-    x = x + params["type_embed"].to(cd)[token_types.long()]
-    x = layernorm_apply(params["embed_ln"], x)
+    x = x + fetch(params["type_embed"]).to(cd)[token_types.long()]
+    x = layernorm_apply(fetch_tree(params["embed_ln"]), x)
     layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
         if torch.is_grad_enabled():
-            x = checkpoint(_layer, cfg, x, lp, positions,
+            x = checkpoint(_layer, cfg, x, layers, i, positions,
                            use_reentrant=False)
         else:
-            x = _layer(cfg, x, lp, positions)
+            x = _layer(cfg, x, layers, i, positions)
     return x
 
 
 def _mlm_logits(params, cfg: BertConfig, h):
     """The MLM head: transform, tied decoder, fp32 output bias."""
     cd = cfg.compute_dtype
-    t = dense_apply(params["mlm_transform"], h, cd)
-    t = layernorm_apply(params["mlm_ln"], gelu(t))
-    mlm = torch.matmul(t.to(cd), params["tok_embed"]["embedding"].to(cd).t())
-    return mlm.float() + params["mlm_bias"].float()
+    t = dense_apply(fetch_tree(params["mlm_transform"]), h, cd)
+    t = layernorm_apply(fetch_tree(params["mlm_ln"]), gelu(t))
+    emb = fetch(params["tok_embed"]["embedding"])
+    mlm = torch.matmul(t.to(cd), emb.to(cd).t())
+    return mlm.float() + fetch(params["mlm_bias"]).float()
+
+
+def _tied(params):
+    """params with the token embedding fetched once, for the lookup and
+    the MLM head both (one gather, and one sum of its gradient)."""
+    return {**params, "tok_embed": fetch_tree(params["tok_embed"])}
 
 
 def bert_pretrain_logits(params, cfg: BertConfig, tokens, token_types=None):
     """Returns (mlm_logits (B, S, V) fp32, nsp_logits (B, 2) fp32)."""
     cd = cfg.compute_dtype
+    params = _tied(params)
     h = bert_encode(params, cfg, tokens, token_types)
     mlm = _mlm_logits(params, cfg, h)
-    cls = torch.tanh(dense_apply(params["pooler"], h[:, 0], cd))
-    nsp = dense_apply(params["nsp_head"], cls, cd).float()
+    cls = torch.tanh(dense_apply(fetch_tree(params["pooler"]), h[:, 0], cd))
+    nsp = dense_apply(fetch_tree(params["nsp_head"]), cls, cd).float()
     return mlm, nsp
 
 

@@ -6,11 +6,29 @@ layouts: dense kernels are stored (in, out), embeddings (vocab, dim),
 RMSNorm scales in the gemma (1 + scale) form, LayerNorm as scale and
 bias. Models keep params in
 `param_dtype` and cast to `compute_dtype` at use.
+
+On a mesh (a train step of distributed/steps.py) the models run on each
+rank's shards. The step sets the ambient mesh (`ambient_mesh`, the JAX
+package's ambient_axis_size reads it) and marks every cut leaf with its
+use plan (distributed/sharding.py: use_plan). Each leaf goes through
+`fetch` at its use: `layer_params` fetches one layer's leaves, which the
+models call inside the layer's recomputed region, so that only the
+shards are kept for the backward pass; the other leaves are fetched
+where they are used. Off a mesh `fetch` is the identity. A
+tensor-parallel leaf comes back as its model shard, and `dense_apply`
+then does its part of the split matmul: a column-parallel kernel's bias
+is taken as the rank's slice and its input's gradient is summed over
+"model", a row-parallel product is summed over "model" before its bias
+is added; `tp_enter` marks a replicated leaf used on a column-parallel
+block's local heads (a QK-norm scale), whose gradient the model ranks
+sum.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +38,103 @@ import torch.nn.functional as F
 # A loss that is a mean takes it over the whole batch's count, so that
 # the blocks' losses, and their gradients, add up to the whole batch's.
 WHOLE = "whole"
+
+
+@dataclasses.dataclass
+class Ambient:
+    """What the models read of the mesh a step runs on: the mesh (a
+    DeviceMesh, whose groups the fetch and the tensor-parallel ops use,
+    or a stand-in with a `shape` dict) and the axes this call's batch is
+    cut over (`cut`; empty when the call holds the whole batch)."""
+    mesh: Any
+    cut: tuple = ()
+
+    @property
+    def sizes(self) -> dict:
+        from repro_torch.distributed.sharding import mesh_shape
+        return mesh_shape(self.mesh)
+
+    @property
+    def blocks(self) -> int:
+        """The number of blocks the batch is cut into."""
+        return math.prod(self.sizes[a] for a in self.cut)
+
+    def group(self, name):
+        return self.mesh.get_group(name)
+
+    def data_sum(self, t):
+        """t (no gradient) summed over the ranks of the axes the batch is
+        cut over."""
+        from repro_torch.distributed.partial import sum_over
+        return sum_over(t, [self.group(a) for a in self.cut])
+
+
+# a stack, not thread-local: the backward pass (and the recompute of a
+# checkpointed layer in it) runs on the autograd engine's device thread
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def ambient_mesh(ctx: Ambient):
+    """Make `ctx` the ambient mesh while the block runs (the forward and
+    the backward pass of a step on a mesh)."""
+    _AMBIENT.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _AMBIENT.pop()
+
+
+def ambient() -> Optional[Ambient]:
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def ambient_axis_size(name: str) -> int:
+    """Size of a named axis of the ambient mesh (1 if absent or
+    unmeshed)."""
+    amb = ambient()
+    return 1 if amb is None else amb.sizes.get(name, 1)
+
+
+def fetch(t):
+    """A leaf ready for its use: off a mesh, or not cut, `t` itself; a
+    tensor-parallel leaf its model shard (gathered over a data axis it is
+    also cut on), marked with its kind (`tp_kind`); any other cut leaf
+    gathered whole (distributed/partial.py: gather_leaf), its gradient
+    the rank's shard's."""
+    use = getattr(t, "_use", None)
+    if use is None:
+        return t
+    from repro_torch.distributed.partial import gather_leaf
+    amb = ambient()
+    out = gather_leaf(t, [(amb.group(a), d, a in amb.cut)
+                          for a, d in use.gathered])
+    if use.kind != "gather":
+        out._tp = use.kind
+    return out
+
+
+def fetch_tree(tree):
+    """fetch over the leaves of a dict tree."""
+    return {k: fetch_tree(v) if isinstance(v, dict) else fetch(v)
+            for k, v in tree.items()}
+
+
+def tp_kind(w) -> Optional[str]:
+    """"col" or "row" for a fetched tensor-parallel kernel, else None."""
+    return getattr(w, "_tp", None)
+
+
+def tp_enter(t, w):
+    """t used on the local heads or columns of a block whose kernel `w` is
+    column parallel (a QK-norm scale): the same t, its gradient summed
+    over "model" in the backward pass (each rank's part comes from its
+    own heads); t itself otherwise."""
+    if tp_kind(w) != "col":
+        return t
+    from repro_torch.distributed.partial import copy_to_model
+    return copy_to_model(t, ambient().group("model"))
+
 
 def _randn(gen: Optional[torch.Generator], shape):
     """Standard normal draw from `gen` on its device; gen=None draws on
@@ -44,9 +159,34 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
 
 
 def dense_apply(p, x, compute_dtype=torch.bfloat16):
-    y = torch.matmul(x.to(compute_dtype), p["kernel"].to(compute_dtype))
+    """x @ kernel + bias; with a tensor-parallel kernel (fetch) the rank's
+    part: its columns and its slice of the bias, x's gradient summed over
+    "model" (Megatron's f), or its rows' product summed over "model" and
+    then the bias added once (Megatron's g). A split product is taken at
+    fp32 at least, from operands rounded to compute_dtype, and so is x's
+    gradient under f: each is rounded to compute_dtype once, after its
+    sum over "model", as one device's matmul rounds its fp32 accumulator
+    once."""
+    w = p["kernel"]
+    kind = tp_kind(w)
+    if kind is None:
+        y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+    else:
+        from repro_torch.distributed import partial
+        group = ambient().group("model")
+        acc = torch.promote_types(compute_dtype, torch.float32)
+        x = x.to(compute_dtype).to(acc)
+        if kind == "col":
+            x = partial.copy_to_model(x, group)
+        y = torch.matmul(x, w.to(compute_dtype).to(acc))
+        if kind == "row":
+            y = partial.reduce_from_model(y, group)
+        y = y.to(compute_dtype)
     if "bias" in p:
-        y = y + p["bias"].to(compute_dtype)
+        b = p["bias"]
+        if kind == "col":
+            b = partial.model_slice(b, b.ndim - 1, group)
+        y = y + b.to(compute_dtype)
     return y
 
 
@@ -124,14 +264,26 @@ def unbind_layers(tree):
     period) axis: for each leaf, the tuple of its slices. One unbind per
     leaf, so the backward pass stacks the layers' gradients once
     (indexing layer by layer would build and add a full-size gradient
-    per layer instead)."""
-    return {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
-            for k, v in tree.items()}
+    per layer instead). A leaf's use plan passes to its slices."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = unbind_layers(v)
+            continue
+        out[k] = v.unbind(0)
+        use = getattr(v, "_use", None)
+        if use is not None:
+            for t in out[k]:
+                t._use = use.unstacked()
+    return out
 
 
 def layer_params(tree, i: int):
-    """Layer (or period) i of a tree unbound by unbind_layers."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+    """Layer (or period) i of a tree unbound by unbind_layers, each leaf
+    fetched for its use. A model calls it inside the layer's recomputed
+    region: a gathered layer is then gathered again in the backward
+    pass rather than kept."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else fetch(v[i])
             for k, v in tree.items()}
 
 

@@ -14,7 +14,8 @@ a zero gradient the size of the whole stack per period), and on the
 paged path a contiguous slice, which the kernel writes in place. In
 training (no cache, grad enabled) each period is recomputed in the
 backward pass (`cfg.remat`, as the JAX package's `jax.checkpoint(...,
-nothing_saveable)` over its scan).
+nothing_saveable)` over its scan). On a mesh a period's leaves are
+fetched inside that recomputed region (models/common.py: layer_params).
 
 Slots: mixers "attn" / "attn_local" (with QK-norm) and "mamba"; ffns
 "mlp", "moe" and "none" (mixer-only blocks, mamba2). Tied or untied
@@ -38,7 +39,7 @@ from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (dense_apply, dense_init, embed_apply,
-                                       embed_attend, embed_init,
+                                       embed_attend, embed_init, fetch_tree,
                                        layer_params, mlp_apply, mlp_init,
                                        rmsnorm_apply, rmsnorm_init, softcap,
                                        unbind_layers)
@@ -200,12 +201,13 @@ def _run_slot(sp, cfg: DecoderConfig, mixer: str, ffn: str, x, positions,
     return x + out, aux
 
 
-def _run_period(cfg: DecoderConfig, x, positions, valid, slot_params,
+def _run_period(cfg: DecoderConfig, x, positions, valid, slots, p,
                 caches):
-    """One period: the superblock's slots in order. slot_params[si] is
-    slot si's params of this period, caches[si] its cache or None.
+    """Period p: the superblock's slots in order. slots[si] is slot si's
+    params unbound over the periods, caches[si] its cache or None.
     Returns (x, this period's summed moe_aux_loss, router_entropy), the
     sums None when the superblock has no MoE slot."""
+    slot_params = [layer_params(sp, p) for sp in slots]
     aux_loss = entropy = None
     for si, (mixer, ffn) in enumerate(cfg.superblock):
         x, aux = _run_slot(slot_params[si], cfg, mixer, ffn, x, positions,
@@ -236,7 +238,8 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
     if (tokens is None) == (embeds is None):
         raise ValueError("pass exactly one of tokens and embeds")
     if embeds is None:
-        x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
+        x = embed_apply(fetch_tree(params["embed"]), tokens,
+                        cfg.compute_dtype)
         if cfg.scale_embeds:
             x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
                 cfg.compute_dtype)
@@ -258,7 +261,6 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
     aux_loss = entropy = None
 
     for p in range(cfg.n_periods):
-        slot_params = [layer_params(sp, p) for sp in slots]
         slot_caches = [None] * len(cfg.superblock)
         if caches is not None:
             for si, stack in enumerate(caches["slots"]):
@@ -269,10 +271,10 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
                 slot_caches[si] = c
         if remat:
             x, al, en = checkpoint(_run_period, cfg, x, positions, valid,
-                                   slot_params, slot_caches,
+                                   slots, p, slot_caches,
                                    use_reentrant=False)
         else:
-            x, al, en = _run_period(cfg, x, positions, valid, slot_params,
+            x, al, en = _run_period(cfg, x, positions, valid, slots, p,
                                     slot_caches)
         if al is not None:
             aux_loss, entropy = _add(aux_loss, al), _add(entropy, en)
@@ -287,7 +289,7 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
         aux_loss = entropy = torch.zeros((), dtype=torch.float32,
                                          device=x.device)
     aux = {"moe_aux_loss": aux_loss, "router_entropy": entropy}
-    x = rmsnorm_apply(params["final_norm"], x)
+    x = rmsnorm_apply(fetch_tree(params["final_norm"]), x)
     if return_hidden:
         return x, new_caches, aux
     return _head_logits(params, cfg, x), new_caches, aux
@@ -295,9 +297,11 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
 
 def _head_logits(params, cfg: DecoderConfig, x):
     if cfg.tie_embeddings:
-        logits = embed_attend(params["embed"], x, cfg.compute_dtype)
+        logits = embed_attend(fetch_tree(params["embed"]), x,
+                              cfg.compute_dtype)
     else:
-        logits = dense_apply(params["lm_head"], x, cfg.compute_dtype)
+        logits = dense_apply(fetch_tree(params["lm_head"]), x,
+                             cfg.compute_dtype)
     return softcap(logits.float(), cfg.final_softcap)
 
 

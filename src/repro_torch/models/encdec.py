@@ -10,7 +10,10 @@ As in models/bert.py, each stack's layer params are stacked on a leading
 n_layers axis, and every layer is recomputed in the backward pass
 (torch.utils.checkpoint where the JAX package remats its scanned layer):
 the encoder's always, the decoder's on the training path (no cache).
-Nothing is recomputed where autograd records nothing.
+Nothing is recomputed where autograd records nothing. On a mesh a
+layer's leaves are fetched inside its recomputed region
+(models/common.py: layer_params), the others at their use, the tied
+decoder embedding once for the lookup and the readout.
 
 Serving (`prefill_serve`, `decode_serve`): the encoder runs once per
 request at admission, the cross-attention K/V are projected once
@@ -30,10 +33,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache)
 from repro_torch.models.common import (_randn, dense_apply, embed_apply,
-                                       embed_attend, embed_init,
-                                       layer_params, layernorm_apply,
-                                       layernorm_init, mlp_apply, mlp_init,
-                                       unbind_layers)
+                                       embed_attend, embed_init, fetch,
+                                       fetch_tree, layer_params,
+                                       layernorm_apply, layernorm_init,
+                                       mlp_apply, mlp_init, unbind_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +113,9 @@ def encdec_init(gen: Optional[torch.Generator], cfg: EncDecConfig):
     }
 
 
-def _enc_layer(cfg: EncDecConfig, x, lp):
+def _enc_layer(cfg: EncDecConfig, x, layers, i):
     cd = cfg.compute_dtype
+    lp = layer_params(layers, i)
     h, _ = attn_apply(lp["attn"], cfg.attn_cfg(False),
                       layernorm_apply(lp["ln1"], x), compute_dtype=cd)
     x = x + h
@@ -125,22 +129,24 @@ def encode(params, cfg: EncDecConfig, frame_embeds):
     encoder output (B, n_frames, d_model) in compute_dtype."""
     cd = cfg.compute_dtype
     x = frame_embeds.to(cd)
-    x = x + params["enc_pos"].to(cd)[None, :x.shape[1]]
+    x = x + fetch(params["enc_pos"]).to(cd)[None, :x.shape[1]]
     layers = unbind_layers(params["enc_layers"])
     for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
         if torch.is_grad_enabled():
-            x = checkpoint(_enc_layer, cfg, x, lp, use_reentrant=False)
+            x = checkpoint(_enc_layer, cfg, x, layers, i,
+                           use_reentrant=False)
         else:
-            x = _enc_layer(cfg, x, lp)
-    return layernorm_apply(params["enc_ln_post"], x)
+            x = _enc_layer(cfg, x, layers, i)
+    return layernorm_apply(fetch_tree(params["enc_ln_post"]), x)
 
 
-def _dec_layer(cfg: EncDecConfig, x, lp, positions, self_cache, cross):
-    """One decoder layer: causal self-attention (against `self_cache`
-    when given), cross-attention (`cross` is {"kv_x": memory} or
-    {"kv_cache": read-only K/V}), GELU MLP."""
+def _dec_layer(cfg: EncDecConfig, x, layers, i, positions, self_cache,
+               cross):
+    """Decoder layer i of the unbound `layers`: causal self-attention
+    (against `self_cache` when given), cross-attention (`cross` is
+    {"kv_x": memory} or {"kv_cache": read-only K/V}), GELU MLP."""
     cd = cfg.compute_dtype
+    lp = layer_params(layers, i)
     h, _ = attn_apply(lp["self_attn"], cfg.attn_cfg(True),
                       layernorm_apply(lp["ln1"], x), positions=positions,
                       cache=self_cache, compute_dtype=cd)
@@ -163,8 +169,9 @@ def _layer_cache(stacked, i, index):
 
 
 def _readout(params, cfg: EncDecConfig, x):
-    x = layernorm_apply(params["dec_ln_post"], x)
-    return embed_attend(params["dec_embed"], x, cfg.compute_dtype).float()
+    x = layernorm_apply(fetch_tree(params["dec_ln_post"]), x)
+    return embed_attend(fetch_tree(params["dec_embed"]), x,
+                        cfg.compute_dtype).float()
 
 
 def decode(params, cfg: EncDecConfig, tokens, memory, *, caches=None,
@@ -180,18 +187,17 @@ def decode(params, cfg: EncDecConfig, tokens, memory, *, caches=None,
         base = caches["index"] if caches is not None else 0
         positions = base + torch.arange(S, device=tokens.device)
     cd = cfg.compute_dtype
-    x = embed_apply(params["dec_embed"], tokens, cd)
-    pos_table = params["dec_pos"].to(cd)
+    x = embed_apply(fetch_tree(params["dec_embed"]), tokens, cd)
+    pos_table = fetch(params["dec_pos"]).to(cd)
     # decode positions past max_target read the table's last row
     x = x + pos_table[torch.clamp(positions, max=pos_table.shape[0] - 1)
                       .long()]
     layers = unbind_layers(params["dec_layers"])
     remat = caches is None and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
         self_cache = (None if caches is None else
                       _layer_cache(caches["self"], i, caches["index"]))
-        args = (cfg, x, lp, positions, self_cache, {"kv_x": memory})
+        args = (cfg, x, layers, i, positions, self_cache, {"kv_x": memory})
         x = (checkpoint(_dec_layer, *args, use_reentrant=False) if remat
              else _dec_layer(*args))
     new_caches = None
@@ -203,6 +209,7 @@ def decode(params, cfg: EncDecConfig, tokens, memory, *, caches=None,
 def encdec_apply(params, cfg: EncDecConfig, frame_embeds, tokens):
     """Training forward: encode, then teacher-forced decode -> fp32
     logits (B, S, vocab)."""
+    params = {**params, "dec_embed": fetch_tree(params["dec_embed"])}
     memory = encode(params, cfg, frame_embeds)
     return decode(params, cfg, tokens, memory)[0]
 
@@ -271,7 +278,7 @@ def decode_serve(params, cfg: EncDecConfig, tokens, positions, cache):
     layers = unbind_layers(params["dec_layers"])
     for i in range(cfg.n_layers):
         kv_cache = {"k": cross["k"][i], "v": cross["v"][i], **cross_ro}
-        x = _dec_layer(cfg, x, layer_params(layers, i), positions,
+        x = _dec_layer(cfg, x, layers, i, positions,
                        _layer_cache(cache["slots"]["self"], i,
                                     cache["index"]),
                        {"kv_cache": kv_cache})

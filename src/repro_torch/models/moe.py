@@ -3,9 +3,15 @@ grok-1, granite-moe, jamba).
 
 The same function as the JAX package's group-local capacity routing:
 
-  * tokens are split into G groups (the JAX package takes G from its
-    ambient data axes; the port runs on one device, so G = 1, and the
-    `while T % G` rule is kept so that the function is the same);
+  * tokens are split into G groups: `groups`, or the ambient mesh's
+    pod x data size (models/common.py: ambient_axis_size), halved while
+    it does not divide the tokens, as the JAX package takes it; each
+    group has its own capacity and cumsum. In a train step on a mesh a
+    rank's block of the batch is its group, and the aux terms below are
+    its parts of the whole batch's: the dispatch fraction (no gradient)
+    summed over the data ranks, the router probabilities' and the
+    entropy's means taken over the whole batch's tokens, so that the
+    step's sum over the ranks gives the global terms;
   * the router runs in fp32 (the activations and the router kernel are
     upcast explicitly: under a bf16/fp16 policy the kernel is cast,
     since KEEP_FP32 does not match `router`, and JAX promotes the mixed
@@ -41,7 +47,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import ACTIVATIONS, dense_init
+from repro_torch.models.common import (ACTIVATIONS, ambient,
+                                       ambient_axis_size, dense_init)
 
 # Largest E * cap for which the experts run over the dense (E, cap, d)
 # buffer; above it each expert runs on its gathered rows. Set between a
@@ -101,14 +108,19 @@ def _expert_mlp(p, cfg: MoeConfig, x, e, compute_dtype):
 
 
 def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, groups=None):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux {moe_aux_loss,
     router_entropy}). valid: optional (B, S) bool; False tokens (left
-    padding) route nowhere, take no capacity and produce 0."""
+    padding) route nowhere, take no capacity and produce 0. groups: the
+    routing groups of x (default: the ambient pod x data size over the
+    blocks the batch is cut into, 1 off a mesh)."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    G = 1                          # one device: no data axes to group over
+    amb = ambient()
+    blocks = 1 if amb is None else amb.blocks
+    G = groups if groups is not None else max(
+        1, ambient_axis_size("pod") * ambient_axis_size("data") // blocks)
     while T % G:
         G //= 2
     G = max(G, 1)
@@ -165,7 +177,13 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
 
     density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
     density_proxy = probs.mean(dim=(0, 1))
-    aux_loss = torch.sum(density * density_proxy) * (E / K)
     entropy = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
+    if blocks > 1:
+        # a block of the batch (equal blocks): the global dispatch
+        # fraction, and this block's shares of the global means
+        density = amb.data_sum(density) / blocks
+        density_proxy = density_proxy / blocks
+        entropy = entropy / blocks
+    aux_loss = torch.sum(density * density_proxy) * (E / K)
     return out.to(x.dtype), {"moe_aux_loss": aux_loss,
                              "router_entropy": entropy}

@@ -28,44 +28,224 @@ CASES = {
     "bert-fused_lamb": ("bert-large", "fused_lamb", 1),
     "bert-lans": ("bert-large", "lans", 1),
     "qwen-fused_lans": ("qwen2.5-14b", "fused_lans", 2),
+    "granite-fused_lans": ("granite-moe-3b-a800m", "fused_lans", 1),
+    "whisper-fused_lans": ("whisper-large-v3", "fused_lans", 1),
+    "mamba2-fused_lans": ("mamba2-130m", "fused_lans", 1),
+    "bert-adamw": ("bert-large", "adamw", 1),
+    "qwen_kv1-fused_lans": ("qwen2.5-14b:kv1", "fused_lans", 1),
 }
+# reduced archs with a config changed: name -> (arch, cfg fields). kv1:
+# one KV head, so that n_kv * head_dim divides over two model ranks but
+# n_kv does not, and the use plan gathers attention rather than split a
+# head (the MLP is still split)
+VARIANTS = {"qwen2.5-14b:kv1": ("qwen2.5-14b", {"n_kv_heads": 1})}
+# seq of the batches: a multiple of the reduced Mamba-2 chunk (16),
+# within whisper's reduced max_target (64)
+SEQ = 32
 
 
 def make_tx(name):
     """(transform, policy name) of a case's optimizer."""
-    from repro_torch.core.optim import fused_lamb, fused_lans, lans
+    from repro_torch.core.optim import adamw, fused_lamb, fused_lans, lans
     from repro_torch.precision import fused_mixed_lans, get_policy
     if name == "fused_mixed_lans":
         return fused_mixed_lans(LR, get_policy("bf16")), "bf16"
     return {"fused_lans": fused_lans, "fused_lamb": fused_lamb,
-            "lans": lans}[name](LR), "fp32"
+            "lans": lans, "adamw": adamw}[name](LR), "fp32"
+
+
+def reduced(arch_name):
+    """The port's reduced arch of a case (VARIANTS applied)."""
+    from repro_torch.configs import reduced_arch
+    base, over = VARIANTS.get(arch_name, (arch_name, {}))
+    arch = reduced_arch(base)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             **over))
 
 
 def case_arch(arch_name, policy):
     """The reduced arch, computing in fp32 (bf16 under the bf16 policy)."""
-    from repro_torch.configs import reduced_arch
     from repro_torch.precision import get_policy
-    arch = reduced_arch(arch_name)
+    arch = reduced(arch_name)
     cfg = (dataclasses.replace(arch.cfg, compute_dtype=torch.float32)
            if policy == "fp32" else get_policy(policy).apply_to_cfg(arch.cfg))
     return dataclasses.replace(arch, cfg=cfg)
 
 
+def is_moe(case_name):
+    return "granite" in CASES[case_name][0]
+
+
+def splits_matmuls(layout):
+    """A layout with a model axis: the use plan splits the matmuls of
+    the leaves cut over it, which changes the order of their sums."""
+    return layout["model"] > 1
+
+
+def early_paths(params, data, model=1):
+    """The paths of the leaves a zero3 mesh of `data` x `model` cuts over
+    "data": their gradients are summed over the data ranks in the
+    backward pass, once per microbatch (distributed/steps.py)."""
+    import types
+    from repro_torch.core.optim.base import tree_items
+    from repro_torch.distributed import sharding as shd
+    mesh = types.SimpleNamespace(shape={"data": data, "model": model})
+    spec = shd.params_pspec(params, mesh, zero3=True)
+    return frozenset(p for p, s in tree_items(spec)
+                     if any("data" in (e if isinstance(e, tuple) else (e,))
+                            for e in s))
+
+
+class _SimUse:
+    """A tensor-parallel use plan on one device (mesh_order): the fetch
+    hands the whole leaf on, marked with `kind` for split_dense."""
+    gathered = ()
+
+    def __init__(self, kind):
+        self.kind = kind
+
+    def unstacked(self):
+        return self
+
+
+def sim_uses(params, data, model, heads, zero3=False):
+    """{path: _SimUse or None} of `params`: the leaves a mesh of `data` x
+    `model` uses tensor parallel (distributed/sharding.py: use_plan)."""
+    import types
+    from repro_torch.core.optim.base import tree_map, tree_paths
+    from repro_torch.distributed import sharding as shd
+    mesh = types.SimpleNamespace(shape={"data": data, "model": model})
+    spec = shd.params_pspec(params, mesh, zero3=zero3)
+
+    def sim(path, s):
+        use = shd.use_plan(path, s, mesh, heads)
+        return _SimUse(use.kind) if use and use.kind != "gather" else None
+
+    return tree_map(sim, tree_paths(params), spec)
+
+
+class _RankCopies(torch.autograd.Function):
+    """n copies of x; the backward pass adds their gradients in rank
+    order."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.clone() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g
+        return total, None
+
+
+def split_dense(plain, model):
+    """dense_apply (models/common.py) as `model` ranks compute a
+    tensor-parallel kernel's product on one device: each rank's columns
+    (and bias slice) on their own, or each rank's rows' product, summed
+    in rank order in fp32 at least before the one rounding; x's gradient
+    the ranks' parts added in rank order too. Any other kernel as `plain`
+    has it."""
+    from repro_torch.models.common import tp_kind
+
+    def dense(p, x, compute_dtype=torch.bfloat16):
+        kind = tp_kind(p["kernel"])
+        if kind is None:
+            return plain(p, x, compute_dtype)
+        acc = torch.promote_types(compute_dtype, torch.float32)
+        x = x.to(compute_dtype).to(acc)
+        w = p["kernel"].to(compute_dtype).to(acc)
+        b = p.get("bias")
+        if kind == "col":
+            # one copy of x per rank, whose gradients are added in rank
+            # order before the other layers' uses of x add theirs, as
+            # copy_to_model adds them on the mesh
+            ys = [torch.matmul(x_r, w_r).to(compute_dtype) for x_r, w_r in
+                  zip(_RankCopies.apply(x, model), w.chunk(model, -1))]
+            if b is not None:
+                ys = [y + b_r.to(compute_dtype)
+                      for y, b_r in zip(ys, b.chunk(model, -1))]
+            return torch.cat(ys, -1)
+        parts = [torch.matmul(x_r, w_r) for x_r, w_r in
+                 zip(x.chunk(model, -1), w.chunk(model, -2))]
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part
+        y = y.to(compute_dtype)
+        return y if b is None else y + b.to(compute_dtype)
+
+    return dense
+
+
 @contextlib.contextmanager
-def mesh_order(data, microbatches):
-    """While active, a one-device step built with microbatches=1 takes
-    its gradient in the order of a mesh whose batch is cut over `data`
-    ranks (distributed/steps.py): each rank's block of each microbatch
-    on its own, its losses' means over the whole microbatch (WHOLE); a
-    rank's microbatches summed and divided by their number, as the step
-    sums them; then the ranks' sums added, as the all-reduce adds them
-    (exactly: a sum of two is the same in either order). The maths is
-    one device's; only the order of the gradient's sums is the mesh's,
-    so that a mesh run can be held to it element by element."""
-    from repro_torch.core.optim.base import tree_map
+def dense_split(model):
+    """While active, the models' dense layers run split_dense for `model`
+    ranks."""
+    import sys
+    from repro_torch.models import common
+    plain = common.dense_apply
+    mods = [m for name, m in sys.modules.items()
+            if name.startswith("repro_torch.models")
+            and getattr(m, "dense_apply", None) is plain]
+    for m in mods:
+        m.dense_apply = split_dense(plain, model)
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.dense_apply = plain
+
+
+@contextlib.contextmanager
+def mesh_order(data, microbatches, early=frozenset(), model=1, heads=None,
+               zero3=False):
+    """While active, a one-device step built with microbatches=1 takes its
+    gradient in the order of a mesh of `data` x `model` ranks whose batch
+    is cut over the data ranks (distributed/steps.py): each rank's block
+    of each microbatch on its own, its losses' means over the whole
+    microbatch (WHOLE); a rank's microbatches summed and divided by their
+    number, as the step sums them; then the ranks' sums added, as the
+    all-reduce adds them (exactly: a sum of two is the same in either
+    order). The leaves at the paths in `early` (cut over data:
+    early_paths) are summed as a zero3 mesh sums them, over the ranks in
+    each microbatch's backward pass in the leaf's dtype, then over the
+    microbatches in fp32. The leaves a mesh with a model axis splits
+    (sim_uses, from `heads`) are split as its ranks split them
+    (split_dense), the ranks' parts added in rank order, as the mesh adds
+    them (distributed/partial.py). The models see the
+    mesh's data axis (models/common.py: Ambient), so that MoE routes each
+    block as its group; the dispatch fractions the mesh sums over the
+    ranks are taken from a forward pass of every block first. The maths is
+    one device's; only the order of the gradient's sums is the mesh's, so
+    that a mesh run can be held to it element by element."""
+    import types
+    from repro_torch.core.optim.base import tree_items, tree_map
     from repro_torch.distributed import steps
-    from repro_torch.models.common import WHOLE
+    from repro_torch.models.common import WHOLE, Ambient, ambient_mesh
     plain = steps.loss_and_grads
+    mesh = types.SimpleNamespace(shape={"data": data, "model": model})
+    cut = ("data",)
+
+    @dataclasses.dataclass
+    class Block(Ambient):
+        """The ambient mesh of one rank's block: the stand-in mesh, whose
+        sum over the data ranks `look` gives."""
+        look: object = None
+
+        def data_sum(self, t):
+            return self.look(t)
+
+    def marked(loss_fn, params):
+        """loss_fn, its live leaves marked as the mesh uses them."""
+        if model == 1:
+            return loss_fn
+        uses = sim_uses(params, data, model, heads, zero3)
+
+        def fn(live, b):
+            tree_map(steps._mark, live, uses)
+            return loss_fn(live, b)
+        return fn
 
     def blocks(batch, n):
         size = next(iter(batch.values())).shape[0] // n
@@ -75,54 +255,154 @@ def mesh_order(data, microbatches):
     def add(a, b):
         return tree_map(torch.add, a, b) if isinstance(a, dict) else a + b
 
-    def one_rank(loss_fn, params, batch, scale, r):
-        runs = [plain(loss_fn, params, {**blocks(mb, data)[r], WHOLE: mb},
-                      scale) for mb in blocks(batch, microbatches)]
-        if microbatches == 1:
-            return runs[0]
-        grads = runs[0][2]
-        for _, _, g in runs[1:]:
-            grads = add(grads, g)
-        auxs = [a for _, a, _ in runs]
-        aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
-               if torch.is_tensor(v) and v.is_floating_point() else v
-               for k, v in auxs[-1].items()}
-        return (torch.stack([l for l, _, _ in runs]).sum() / microbatches,
-                aux, tree_map(lambda g: g / microbatches, grads))
+    def densities(loss_fn, params, mbs):
+        """{(microbatch, rank): (local, global) dispatch fractions of each
+        MoE call in forward order}, from a forward pass of every block
+        (no MoE: empty lists)."""
+        local = {}
+        for i, mb in enumerate(mbs):
+            for r, blk in enumerate(blocks(mb, data)):
+                seen = local[i, r] = []
+                record = lambda d, seen=seen: seen.append(d.clone()) or d
+                with torch.no_grad(), ambient_mesh(
+                        Block(mesh, cut, record)):
+                    # detached leaves: marked() marks the leaves it is
+                    # handed, and the params are the caller's
+                    loss_fn(tree_map(torch.Tensor.detach, params),
+                            {**blk, WHOLE: mb})
+                if not seen:
+                    return {}
+        out = {}
+        for (i, r), seen in local.items():
+            total = []
+            for k in range(len(seen)):
+                t = local[i, 0][k]
+                for q in range(1, data):
+                    t = t + local[i, q][k]
+                total.append(t)
+            out[i, r] = list(zip(seen, total))
+        return out
+
+    def summed(table):
+        """data_sum for a block: the global fraction of the MoE call whose
+        local fraction is `d` (equal local fractions of two calls must
+        agree on it)."""
+        def look(d):
+            hits = {id(g): g for l, g in table if torch.equal(l, d)}
+            assert len(hits) == 1, "ambiguous or unseen dispatch fractions"
+            return next(iter(hits.values())).clone()
+        return look
 
     def in_mesh_order(loss_fn, params, batch, scale):
-        loss, aux, grads = one_rank(loss_fn, params, batch, scale, 0)
-        for r in range(1, data):
-            loss_r, aux_r, grads_r = one_rank(loss_fn, params, batch, scale,
-                                              r)
+        loss_fn = marked(loss_fn, params)
+        mbs = blocks(batch, microbatches)
+        table = densities(loss_fn, params, mbs)
+        runs = []                  # runs[i][r]: microbatch i, rank r
+        for i, mb in enumerate(mbs):
+            runs.append([])
+            for r, blk in enumerate(blocks(mb, data)):
+                look = summed(table[i, r]) if table else None
+                with ambient_mesh(Block(mesh, cut, look)):
+                    runs[i].append(plain(loss_fn, params, {**blk, WHOLE: mb},
+                                         scale))
+        loss = aux = grads = None
+        for r in range(data):
+            rr = [run[r] for run in runs]
+            if microbatches == 1:
+                loss_r, aux_r, grads_r = rr[0]
+            else:
+                grads_r = rr[0][2]
+                for _, _, g in rr[1:]:
+                    grads_r = add(grads_r, g)
+                auxs = [a for _, a, _ in rr]
+                aux_r = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
+                         if torch.is_tensor(v) and v.is_floating_point()
+                         else v for k, v in auxs[-1].items()}
+                loss_r = (torch.stack([l for l, _, _ in rr]).sum()
+                          / microbatches)
+                grads_r = tree_map(lambda g: g / microbatches, grads_r)
+            if grads is None:
+                loss, aux, grads = loss_r, aux_r, grads_r
+                continue
             loss, grads = loss + loss_r, add(grads, grads_r)
             aux = {k: v + aux_r[k] if torch.is_tensor(v)
                    and v.is_floating_point() else v for k, v in aux.items()}
+        if early:
+            dtypes = {p: t.dtype for p, t in tree_items(params)}
+            flat = [[dict(tree_items(g)) for _, _, g in run] for run in runs]
+            fixed = {}
+            for path in early:
+                total, dt = None, dtypes[path]
+                for run in flat:
+                    # the reduce-scatter sums the ranks' gradients in the
+                    # leaf's dtype, before the step takes them to fp32
+                    s = run[0][path].to(dt)
+                    for r in range(1, data):
+                        s = s + run[r][path].to(dt)
+                    total = s.float() if total is None else total + s.float()
+                fixed[path] = (total / microbatches if microbatches > 1
+                               else total)
+            grads = tree_map(lambda pth, g: fixed.get(pth, g),
+                             _paths(grads), grads)
         return loss, aux, grads
 
     steps.loss_and_grads = in_mesh_order
     try:
-        yield
+        with dense_split(model) if model > 1 else contextlib.nullcontext():
+            yield
     finally:
         steps.loss_and_grads = plain
 
 
-def one_device_step(case, data=1):
+def _paths(tree):
+    from repro_torch.core.optim.base import tree_paths
+    return tree_paths(tree)
+
+
+@contextlib.contextmanager
+def groups_of(data):
+    """While active, MoE routes a whole batch in `data` groups, as a mesh
+    of `data` ranks does (the one-device step at the mesh's maths)."""
+    import types
+    from repro_torch.models.common import Ambient, ambient_mesh
+    with ambient_mesh(Ambient(types.SimpleNamespace(shape={"data": data}))):
+        yield
+
+
+def recording(tx, seen):
+    """tx, with every gradient its update is handed appended to `seen`,
+    gathered whole (a collective on a mesh: every rank records)."""
+    def update(grads, state, params=None):
+        seen.append(whole_tree(grads))
+        return tx.update(grads, state, params)
+    return tx._replace(update=update)
+
+
+def one_device_step(case, data=1, *, order=True, early=frozenset(),
+                    seen=None, model=1, zero3=False):
     """The case's one-device step, (params, state, batch) -> (params,
-    state, metrics), its gradient summed in the order of a mesh whose
-    batch is cut over `data` ranks (mesh_order) when data > 1."""
+    state, metrics). On a `data` x `model` mesh's behalf (either > 1): its
+    gradient summed in that mesh's order (mesh_order, `early` its leaves
+    summed per microbatch, the matmuls split as the mesh with or without
+    zero3 splits them), or with order=False (model 1) in the plain order,
+    MoE routing in the mesh's `data` groups (groups_of). With `seen`,
+    each gradient its optimizer is handed is appended to it."""
     from repro_torch.distributed.steps import build_train_step
     tx, policy = make_tx(case["optimizer"])
+    if seen is not None:
+        tx = recording(tx, seen)
     arch = case_arch(case["arch"], policy)
     mb = case["microbatches"]
+    meshed = data > 1 or model > 1
     step, _ = build_train_step(arch.loss_fn, tx,
-                               microbatches=1 if data > 1 else mb,
+                               microbatches=1 if meshed and order else mb,
                                policy=policy)
-    if data == 1:
+    if not meshed:
         return step
 
     def in_mesh_order(params, state, batch):
-        with mesh_order(data, mb):
+        with (mesh_order(data, mb, early, model, arch.heads, zero3) if order
+              else groups_of(data)):
             return step(params, state, batch)
 
     return in_mesh_order
@@ -141,37 +421,48 @@ def whole_tree(tree):
 
 
 def run_steps(case, params, batches, mesh=None, *, zero3=False, zero1=False,
-              data=1):
+              data=1, model=1, order=True, early=frozenset()):
     """(losses, whole params, partial all-reduces per step, checks,
     kernel launches of the case's steps) of the case's train step on
-    `mesh`, or with no mesh of one_device_step (in the order of `data`
-    ranks). On a mesh, rank 0's `checks` holds for each step the mesh
-    step's params beside those of the one-device step in the mesh's
-    order taken from the same params, state and batch as the mesh step
-    (so its gradient is the mesh's, bit for bit); [] off a mesh and on
-    the other ranks."""
-    from repro_torch.core.optim.base import tree_items
+    `mesh`, or with no mesh of one_device_step (with `data`, `model`,
+    `zero3`, `order` and `early`).
+    On a mesh, rank 0's `checks` holds for each step, all from the mesh
+    step's own start (params, state and batch): the mesh step's params
+    and loss, the one-device step's in the mesh's order (so that its
+    gradient is the mesh's, bit for bit, where the order is exact:
+    mesh_order), and the params the one-device optimizer makes of the
+    mesh step's own gradient; on a mesh with a model axis also the
+    gradients of the mesh step and of the one-device step; [] off a mesh
+    and on the other ranks."""
+    from repro_torch.core.optim.base import apply_updates, tree_items
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.partial import reduce_partials
     from repro_torch.distributed.steps import (build_train_step,
                                                place_train_step)
     tx, policy = make_tx(case["optimizer"])
     arch = case_arch(case["arch"], policy)
+    seen, ref_seen = [], []
     step, init = build_train_step(
-        arch.loss_fn, tx, mesh, zero3=zero3,
+        arch.loss_fn, recording(tx, seen), mesh, zero3=zero3,
         microbatches=case["microbatches"], param_init_fn=lambda _: params,
-        policy=policy)
+        policy=policy, heads=arch.heads)
     p, o = init(None)
     ref = None
     if mesh is None:
-        step = one_device_step(case, data)
+        step = one_device_step(case, data, order=order, early=early,
+                               model=model, zero3=zero3)
     else:
         pspec, ospec = step.specs_for(p, o)
         if zero1:
             ospec = shd.opt_state_pspec(
                 o, pspec, moments_spec=shd.params_pspec(p, mesh, zero3=True))
         step = place_train_step(step, mesh, pspec, ospec, batches[0])
-        ref = one_device_step(case, shd.mesh_shape(mesh)["data"])
+        shape = shd.mesh_shape(mesh)
+        early = (early_paths(params, shape["data"], shape["model"])
+                 if zero3 else frozenset())
+        ref = one_device_step(case, shape["data"], early=early,
+                              seen=ref_seen, model=shape["model"],
+                              zero3=zero3)
     flat = lambda tree: dict(tree_items(whole_tree(tree)))
     losses, calls, checks = [], [], []
     launched = dict.fromkeys(launches(), 0)
@@ -187,7 +478,19 @@ def run_steps(case, params, batches, mesh=None, *, zero3=False, zero1=False,
         if ref is not None:
             got = flat(p)
             if dist.get_rank() == 0:
-                checks.append((got, flat(ref(*start, b)[0])))
+                want, _, ref_m = ref(*start, b)
+                upd, _ = tx.update(seen[-1], start[1], start[0])
+                checks.append({
+                    "params": got, "ref": flat(want),
+                    "loss": losses[-1], "ref_loss": float(ref_m["loss"]),
+                    "on_mesh_grads": dict(tree_items(
+                        apply_updates(start[0], upd)))})
+                if splits_matmuls(shape):
+                    checks[-1].update(
+                        grads=dict(tree_items(seen[-1])),
+                        one_grads=dict(tree_items(ref_seen[-1])))
+            seen.clear()
+            ref_seen.clear()
     return losses, flat(p), calls, checks, launched
 
 
@@ -270,29 +573,35 @@ def join_ranks(procs, tmp, tag, timeout):
     return ranks[0]
 
 
+def lm_batch(rng, cfg, rows=4):
+    """A seeded batch of a decoder or whisper case: random tokens, their
+    next tokens as labels (-100 at the end), and for whisper frames
+    N(0, 1) from the same generator."""
+    tok = rng.integers(0, cfg.vocab, size=(rows, SEQ)).astype(np.int32)
+    lab = np.concatenate([tok[:, 1:], np.full((rows, 1), -100, np.int32)],
+                         axis=1)
+    b = {"tokens": tok, "labels": lab}
+    if hasattr(cfg, "n_frames"):
+        b["frames"] = rng.standard_normal(
+            (rows, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return b
+
+
 def port_inputs(seed=0):
-    """Inputs made by the port alone (no JAX): params of the reduced
-    archs from a CPU torch.Generator, and seeded numpy batches (MLM with
-    -100 on unmasked positions for BERT, shifted next tokens for qwen)."""
-    from repro_torch.configs import reduced_arch
+    """Inputs made by the port alone (no JAX): params of every case's
+    reduced arch from a CPU torch.Generator, and seeded numpy batches
+    (MLM with -100 on unmasked positions for BERT, lm_batch for the
+    others)."""
     params, batches = {}, {}
     rng = np.random.default_rng(seed)
-    for name in ("bert-large", "qwen2.5-14b"):
-        arch = reduced_arch(name)
+    for name in dict.fromkeys(a for a, _, _ in CASES.values()):
+        arch = reduced(name)
         params[name] = arch.init(torch.Generator().manual_seed(seed))
         out = []
         for _ in range(STEPS):
-            tok = rng.integers(0, arch.cfg.vocab, size=(4, 32))
-            if name == "bert-large":
-                lab = np.where(rng.random((4, 32)) < 0.15, tok, -100)
-                b = {"tokens": tok, "mlm_labels": lab,
-                     "nsp_labels": rng.integers(0, 2, size=(4,)),
-                     "token_types": np.zeros_like(tok)}
-            else:
-                lab = np.concatenate([tok[:, 1:], np.full((4, 1), -100)], 1)
-                b = {"tokens": tok, "labels": lab}
-            out.append({k: torch.from_numpy(v.astype(np.int32))
-                        for k, v in b.items()})
+            b = (_bert_batch(rng, arch.cfg) if name == "bert-large"
+                 else lm_batch(rng, arch.cfg))
+            out.append({k: torch.from_numpy(v) for k, v in b.items()})
         batches[name] = out
     cases = {name: dict(arch=a, optimizer=o, microbatches=mb,
                         batches=batches[a])
@@ -318,12 +627,40 @@ def assert_params_close(got, want, *, skip=()):
                                    rtol=rtol, atol=1e-6, err_msg=path)
 
 
+def assert_update_close(got, want):
+    """Every element of every leaf: fp32 within 2e-5 (absolute), bf16
+    within one bf16 ulp (as assert_params_close)."""
+    for path, a in want.items():
+        bf16 = a.dtype == torch.bfloat16
+        np.testing.assert_allclose(got[path].float().numpy(),
+                                   a.float().numpy(),
+                                   rtol=2 ** -7 if bf16 else 0,
+                                   atol=0 if bf16 else 2e-5, err_msg=path)
+
+
+def check_step(check, layout):
+    """One step of a mesh run (run_steps' checks), against the one-device
+    step in the mesh's order from the same start: its params
+    (assert_params_close). On a layout with a model axis also the
+    gradient, every element of every leaf within rtol 1e-5 and atol 1e-6
+    of the one-device gradient (bf16 compute: its fp32 gradients too),
+    and the params the mesh makes of its own gradient against those the
+    one-device optimizer makes of the same gradient
+    (assert_update_close)."""
+    if splits_matmuls(layout):
+        for path, g in check["one_grads"].items():
+            np.testing.assert_allclose(check["grads"][path].numpy(),
+                                       g.numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"gradient of {path}")
+        assert_update_close(check["params"], check["on_mesh_grads"])
+    assert_params_close(check["params"], check["ref"])
+
+
 def check_against_one_device(got, want, layout, case):
     """A mesh run against the one-device step whose gradient is summed in
-    the mesh's order (run_steps with the layout's data):
-    - each step's params, every element of every leaf, against the
-      one-device step's from the same params, state and batch
-      (got["checks"]);
+    the mesh's order (run_steps with the layout's data and model):
+    - each step, from the mesh step's own params, state and batch
+      (check_step);
     - the losses over the steps, fp32 within 1e-5 relative, under
       fused_mixed_lans (bf16) within 1e-4, as test_torch_train.py holds
       that transform against the generic wrapper;
@@ -336,11 +673,144 @@ def check_against_one_device(got, want, layout, case):
     cut leaf's norms, summed over the ranks in another order, have moved
     any param by its last bit, the next step's noise, and so the key
     bias's direction, is another. The per-step check holds it."""
-    for mesh_params, ref_params in got["checks"]:
-        assert_params_close(mesh_params, ref_params)
+    for check in got["checks"]:
+        check_step(check, layout)
     bf16 = CASES[case][1] == "fused_mixed_lans"
     np.testing.assert_allclose(got["losses"], want["losses"],
                                rtol=1e-4 if bf16 else 1e-5)
     cuts = layout["model"] > 1 or layout["zero3"] or layout["zero1"]
     assert_params_close(got["params"], want["params"], skip={
         p for p in want["params"] if cuts and key_bias(p)})
+
+
+CUT_ARCHS = ("bert-large", "qwen2.5-14b")
+
+
+def _one_step(arch, mesh, zero3, batch, count_flops):
+    """One fused_lans step of `arch` from a seeded init, on `mesh` or on
+    one device; its matmul FLOPs on this rank when `count_flops`."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core.optim import fused_lans
+    from repro_torch.distributed.steps import (build_train_step,
+                                               place_train_step)
+    step, init = build_train_step(
+        arch.loss_fn, fused_lans(LR), mesh, zero3=zero3,
+        param_init_fn=arch.init, heads=arch.heads)
+    p, o = init(torch.Generator().manual_seed(0))
+    if mesh is not None:
+        pspec, ospec = step.specs_for(p, o)
+        step = place_train_step(step, mesh, pspec, ospec, batch)
+    counter = FlopCounterMode(display=False)
+    with counter if count_flops else contextlib.nullcontext():
+        step(p, o, batch)
+    return counter.get_total_flops() if count_flops else None
+
+
+def run_cut_rank(rank, world, store_path, layout, out_path):
+    """One rank of test_torch_mesh_cut.py: for each of CUT_ARCHS, one step
+    on the layout's mesh with every shape the fetch gathers recorded
+    (partial.gather_leaf wrapped); on a mesh with a model axis, also the
+    matmul FLOPs of a step at one and at two layers, on the mesh and on
+    one device."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.distributed import partial
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(data=layout["data"], model=layout["model"],
+                               device="cpu")
+        seen = []
+        plain = partial.gather_leaf
+
+        def recorded(t, cuts):
+            out = plain(t, cuts)
+            if cuts:
+                seen.append(tuple(out.shape))
+            return out
+
+        partial.gather_leaf = recorded
+        out = {}
+        rng = np.random.default_rng(0)
+        for name in CUT_ARCHS:
+            arch = case_arch(name, "fp32")
+            batch = {k: torch.from_numpy(v) for k, v in (
+                lm_batch(rng, arch.cfg).items() if name != "bert-large"
+                else _bert_batch(rng, arch.cfg).items())}
+            seen.clear()
+            _one_step(arch, mesh, layout["zero3"], batch, False)
+            res = {"gathered": list(seen)}
+            if layout["model"] > 1:
+                for n in (1, 2):
+                    a = dataclasses.replace(arch, cfg=dataclasses.replace(
+                        arch.cfg, n_layers=n))
+                    res[f"mesh{n}"] = _one_step(a, mesh, layout["zero3"],
+                                                batch, True)
+                    res[f"one{n}"] = _one_step(a, None, False, batch, True)
+            out[name] = res
+        torch.save(out, f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _bert_batch(rng, cfg, rows=4):
+    tok = rng.integers(0, cfg.vocab, size=(rows, SEQ))
+    lab = np.where(rng.random((rows, SEQ)) < 0.15, tok, -100)
+    b = {"tokens": tok, "mlm_labels": lab,
+         "nsp_labels": rng.integers(0, 2, size=(rows,)),
+         "token_types": np.zeros_like(tok)}
+    return {k: v.astype(np.int32) for k, v in b.items()}
+
+
+def memory_step(mesh=None, *, zero3=False, device="cuda", steps=2):
+    """Peak card memory (bytes) over `steps` fused_lans steps of
+    BERT-large at full width (fp32, seq 128, global batch 16, seed 0) on
+    `mesh`, or on one device; the params placed (cut) before the peak is
+    reset, so that it is the step's."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.core.optim import fused_lans
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.steps import (build_train_step,
+                                               place_train_step)
+    from repro_torch.launch import train as train_mod
+    arch = get_arch("bert-large")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, compute_dtype=torch.float32))
+    data = train_mod.make_data(arch, batch=16, seq=128, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b, _ in zip(data, range(steps))]
+    step, init = build_train_step(
+        arch.loss_fn, fused_lans(LR), mesh, zero3=zero3,
+        param_init_fn=arch.init, heads=arch.heads)
+    p, o = init(torch.Generator(device=device).manual_seed(0))
+    if mesh is not None:
+        pspec, ospec = step.specs_for(p, o)
+        p, o = shd.distribute(p, mesh, pspec), shd.distribute(o, mesh, ospec)
+        step = place_train_step(step, mesh, pspec, ospec, batches[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        p, o, _ = step(p, o, b)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def run_memory_rank(rank, world, store_path, layout, out_path):
+    """One rank (card `rank`, NCCL) of the full-width memory run on four
+    cards: memory_step on the layout's mesh; writes the peak."""
+    from repro_torch import select_device
+    select_device("cuda")
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(data=layout["data"], model=layout["model"],
+                               device="cuda")
+        peak = memory_step(mesh, zero3=layout["zero3"],
+                           device=f"cuda:{rank}")
+        torch.save({"peak": peak}, f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()

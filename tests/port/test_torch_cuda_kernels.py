@@ -888,9 +888,11 @@ FOUR_CARDS = {
 
 @pytest.fixture(scope="module")
 def four_card_runs(tmp_path_factory):
-    """{layout: rank 0's results, 1 and 2: the one-card runs, their
-    gradients summed in the order of 1 or 2 data ranks}: each layout's
-    four ranks in turn, then the one-card references on card 0."""
+    """{layout: rank 0's results, ("ref", layout): the one-card runs,
+    their gradients summed in the layout's order (mesh_worker.mesh_order:
+    its data blocks, zero3's per-microbatch sums, its matmuls split)}:
+    each layout's four ranks in turn, then the one-card references on
+    card 0."""
     import multiprocessing
     from repro_torch import select_device
     from repro_torch.kernels import build
@@ -907,34 +909,40 @@ def four_card_runs(tmp_path_factory):
                                         device="cuda")
         out[name] = mesh_worker.join_ranks(procs, tmp, name, 300)
     dev = mesh_worker.to_device({"params": params, "cases": cases}, "cuda:0")
-    for data in (1, 2):
-        out[data] = {}
-        for name, case in dev["cases"].items():
+    for name, lay in FOUR_CARDS.items():
+        out["ref", name] = {}
+        for cname, case in dev["cases"].items():
+            p = dev["params"][case["arch"]]
+            early = (mesh_worker.early_paths(p, lay["data"], lay["model"])
+                     if lay["zero3"] else frozenset())
             losses, got, *_ = mesh_worker.run_steps(
-                case, dev["params"][case["arch"]], case["batches"],
-                data=data)
-            out[data][name] = {"losses": losses,
-                               "params": mesh_worker.to_device(got, "cpu")}
+                case, p, case["batches"], data=lay["data"],
+                model=lay["model"], zero3=lay["zero3"], early=early)
+            out["ref", name][cname] = {
+                "losses": losses, "params": mesh_worker.to_device(got, "cpu")}
     return out
 
 
 @pytest.mark.parametrize("case", list(mesh_worker.CASES))
 @pytest.mark.parametrize("layout", list(FOUR_CARDS))
 def test_cuda_mesh_on_four_cards(request, layout, case):
-    """Needs four cards: reduced bert-large (fused_lans, fused_mixed_lans,
-    fused_lamb, lans) and qwen2.5-14b (fused_lans, 2 microbatches) on 2 x
-    2, 2 x 2 with zero3 and 1 x 4 meshes over NCCL, 3 steps, against the
-    one-card step with mesh_worker's tolerances; the fused optimizers'
-    kernels launched on every step and leaf, their sums of squares added
-    in one all-reduce per group of cut leaves and reduction."""
+    """Needs four cards: the cases of mesh_worker.CASES (reduced
+    bert-large with fused_lans, fused_mixed_lans, fused_lamb, lans and
+    adamw, qwen2.5-14b with 2 microbatches and with one KV head,
+    granite-moe, whisper and mamba2) on 2 x 2, 2 x 2 with zero3 and 1 x 4
+    meshes over NCCL, 3 steps, against the one-card step in the layout's
+    order with mesh_worker's tolerances; the fused optimizers' kernels
+    launched on every step and leaf, their sums of squares added in one
+    all-reduce per group of cut leaves and reduction."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices")
     runs = request.getfixturevalue("four_card_runs")
     got = runs[layout][case]
-    mesh_worker.check_against_one_device(
-        got, runs[FOUR_CARDS[layout]["data"]][case], FOUR_CARDS[layout], case)
+    want = runs["ref", layout][case]
+    mesh_worker.check_against_one_device(got, want, FOUR_CARDS[layout],
+                                         case)
     arch, optimizer, _ = mesh_worker.CASES[case]
-    n_leaves = len(runs[1][case]["params"])
+    n_leaves = len(want["params"])
     first = {"fused_lans": "lans_phase1", "fused_mixed_lans": "lans_phase1",
              "fused_lamb": "lamb_phase1"}.get(optimizer)
     if first is None:       # the unfused lans: no kernel, no partial sum
@@ -945,3 +953,48 @@ def test_cuda_mesh_on_four_cards(request, layout, case):
     # two reductions a step, over model (and data under zero3) groups
     groups = 2 if FOUR_CARDS[layout]["zero3"] else 1
     assert got["calls"][-1] >= 2 and got["calls"][-1] <= 2 * 2 * groups
+
+
+# full width: BERT-large (fp32, seq 128, global batch 16, 2 fused_lans
+# steps) on 2 x 2 and 1 x 4 with zero3, each rank's peak card memory
+# against the one-card (1 x 1) step's
+FULL_WIDTH = {
+    "2x2-zero3": dict(data=2, model=2, zero3=True, zero1=False),
+    "1x4-zero3": dict(data=1, model=4, zero3=True, zero1=False),
+}
+
+
+def test_cuda_mesh_full_width_memory_on_four_cards(tmp_path):
+    """Needs four cards: every rank's peak under 2 x 2 and 1 x 4 with zero3
+    is below the 1 x 1 step's (printed, per rank, for PERF.md)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import multiprocessing
+    from repro_torch import select_device
+    from repro_torch.kernels import build
+    select_device("cuda")
+    build.build_all(["lans"])
+    one = mesh_worker.memory_step()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    for name, layout in FULL_WIDTH.items():
+        procs = [ctx.Process(target=mesh_worker.run_memory_rank, args=(
+            r, 4, str(tmp_path / f"store-{name}"), layout,
+            str(tmp_path / f"out-{name}"))) for r in range(4)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(600)
+            assert [p.exitcode for p in procs] == [0] * 4, name
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        peaks = [torch.load(tmp_path / f"out-{name}.{r}")["peak"]
+                 for r in range(4)]
+        print(f"full width BERT-large {name}: peak GB per rank "
+              f"{[round(x / 1e9, 2) for x in peaks]} vs 1 x 1 "
+              f"{one / 1e9:.2f} ({[round(x / one, 3) for x in peaks]})")
+        assert max(peaks) < one, (name, peaks, one)
