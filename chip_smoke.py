@@ -8,7 +8,8 @@ Phases, in the order they run, each of which fails the run:
   1. build every kernel under src/repro_torch/kernels/csrc (one nvcc per
      source, all started together) and print the build time;
   2. hold the paged-attention kernels against their plain PyTorch
-     versions on the card at gemma2-2b's attention shapes (fp32 and bf16
+     versions on the card at gemma2-2b's attention shapes, and at a 1 x 2
+     mesh rank's (h 4, n_kv 2, hd 256; phase D(e)) (fp32 and bf16
      arenas, S = 1 and 4, a dead slot, position -1 rows, window on and
      off, softcap on, with and without a new row routed to a null table
      entry): K8 (paged_attention_fused) and K7 (paged_attention, on the
@@ -21,13 +22,15 @@ Phases, in the order they run, each of which fails the run:
      times from torch.profiler, at two shapes: the serving run's (6 blocks of 16
      rows) and a long context (256 blocks, a 4096-row ring); and drive
      K7's path, its library entry as a read of one decode step (26
-     layers), which must launch it 26 times;
+     layers), which must launch it 26 times; K8 at the 1 x 2 rank's heads
+     is timed at the serving shape beside its bound too;
   3. serve gemma2-2b at full width and depth through the port's CLI
      (`repro_torch.launch.serve.main`): first a short warm-up stream (2
      requests, 4 new tokens) so that first-use costs land on neither
      timed run, then fp32 with the kernel, then the same stream with the
      plain-torch gather: greedy tokens must be equal and the kernel must
-     have launched decode steps x 26 times;
+     have launched decode steps x 26 times; then with --interpret (K8's
+     plain version on the card): tokens equal, no K8 launch;
   4. serve once in bf16 with the kernel: it must finish with finite
      logits;
   S. speculative and sampled serving of the same model and stream
@@ -210,12 +213,12 @@ Phases, in the order they run, each of which fails the run:
      memory printed (not gated); then the CLI with --replicas 2
      --route-policy prefix --shared-prefix 64 against --replicas 1:
      tokens equal, K8 launched decode steps x 26; (b) BERT-large at full
-     width and depth (fp32 compute, seq 128, global batch 16, seed 0, 3
-     fused_lans steps, hold schedule) on meshes whose two ranks are two
-     processes on the one card under gloo (said why on a line): on 2 x 1,
-     losses within 1e-4 relative of a one-process fused run on the same
-     global batch, its gradient summed in the mesh's order (the two
-     blocks of 8 on their own, the means over the 16, the blocks'
+     width, 12 of its 24 layers (fp32 compute, seq 128, global batch 16,
+     seed 0, 3 fused_lans steps, hold schedule) on meshes whose two ranks
+     are two processes on the one card under gloo (said why on a line):
+     on 2 x 1, losses within 1e-4 relative of a one-process fused run on
+     the same global batch, its gradient summed in the mesh's order (the
+     two blocks of 8 on their own, the means over the 16, the blocks'
      gradients added), step-1 params within 2e-5, every element, no
      partial all-reduce; on 2 x 1 with zero3 (each layer gathered at its
      use, gradients reduce-scattered) the same gates; on 1 x 2 (attention
@@ -240,7 +243,17 @@ Phases, in the order they run, each of which fails the run:
      2e-2), each output held under the kernel that computes it (K1's
      summed sums; K2's and K5's summed norms, m and v; K3's, K4's and
      K6's x) and for each shard count; each kernel timed on one shard
-     beside its byte bound.
+     beside its byte bound; (e) the serving engine on a mesh (run after
+     (d), before (c)): gemma2-2b at full width and depth, fp32, K8, 4
+     slots, block 16, phase 3's stream after a warm-up stream, through
+     the engine on 2 x 1 (two slots and half of every arena's data blocks
+     per rank) and 1 x 2 (4 of the 8 heads and 2 of the 4 KV heads, and
+     half the MLP columns, per rank), two gloo processes on the one card,
+     then through the CLI with --mesh 2x1: greedy tokens equal phase 3's
+     on every rank, K8 launched decode steps x 26 on every rank, each
+     rank's data-block bytes exactly half of one card's; each rank's
+     arena bytes, KV heads, peak memory, median decode step and
+     collective ms per step printed.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -291,6 +304,7 @@ SERVE_ARGV = ["--arch", "gemma2-2b", "--full", "--precision", "fp32",
 SPEC_ARGV = ["--spec-draft", "self", "--spec-k", "4"]
 SAMPLER_ARGV = ["--sampler", "temperature=0.8,top_k=50,top_p=0.9,seed=3"]
 N_LAYERS = 26                        # gemma2-2b
+LOCAL_HEADS = (4, 2)                 # gemma2-2b's heads on a 1 x 2 rank
 GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--full", "--precision",
                 "fp32", "--attn-kernel", "paged", "--requests", "8",
                 "--max-batch", "4", "--prompt-len", "64", "--new-tokens",
@@ -488,19 +502,22 @@ def phase_kernels(torch, pa):
     max_err = {"paged_attention_fused": 0.0, "paged_attention": 0.0}
     k7_vs_k8 = 0.0
     n_cases = 0
-    for kv_dt, q_dt in ((torch.float32, torch.float32),
-                        (torch.bfloat16, torch.float32),
-                        (torch.bfloat16, torch.bfloat16)):
+    # gemma2-2b's heads, and a rank's on a 1 x 2 mesh (phase D(e))
+    for (h, n_kv), (kv_dt, q_dt) in itertools.product(
+            ((8, 4), LOCAL_HEADS),
+            ((torch.float32, torch.float32),
+             (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16))):
         for S in (1, 4):
             for window, null_write in itertools.product((None, 24),
                                                         (False, True)):
-                args = pa.decode_case(B=4, S=S, n_heads=8, n_kv=4,
+                args = pa.decode_case(B=4, S=S, n_heads=h, n_kv=n_kv,
                                       head_dim=256, block_size=16, nb=8,
                                       dtype=kv_dt, q_dtype=q_dt,
                                       device="cuda", seed=n_cases,
                                       null_write=null_write)
-                where = (f"({kv_dt}, S={S}, window={window}, "
-                         f"null_write={null_write})")
+                where = (f"(h={h}, n_kv={n_kv}, {kv_dt}, S={S}, "
+                         f"window={window}, null_write={null_write})")
                 kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
                 err = paged_parity_at(torch, pa, args, kw, where)
                 k7_vs_k8 = max(k7_vs_k8, err.pop("k7_on_k8"))
@@ -508,7 +525,8 @@ def phase_kernels(torch, pa):
                     max_err[name] = max(max_err[name], e)
                 n_cases += 1
     print(f"kernel parity: paged_attention_fused (K8) and paged_attention "
-          f"(K7), {n_cases} cases each, max |out - plain| K8 "
+          f"(K7), {n_cases} cases each (h 8 / n_kv 4 and a 1 x 2 rank's "
+          f"h {LOCAL_HEADS[0]} / n_kv {LOCAL_HEADS[1]}), max |out - plain| K8 "
           f"{max_err['paged_attention_fused']:.3e}, K7 "
           f"{max_err['paged_attention']:.3e}, K7 on K8's post-write arenas "
           f"vs K8 {k7_vs_k8:.3e} (tolerance 1e-5); arenas torch.equal; "
@@ -569,10 +587,37 @@ def phase_kernels(torch, pa):
                 entries[name]["long_context"] = dict(nb=nb, **timing)
     for name in entries:
         entries[name]["max_abs_err"] = max_err[name]
+    entries["paged_attention_fused"]["mesh_local"] = local_heads_timing(
+        torch, pa, flush, kw)
 
     entries["paged_attention"]["launches"] = k7_path(
         torch, pa, torch.float32, "gemma2-2b", gemma_layer_kw)
     return entries
+
+
+def local_heads_timing(torch, pa, flush, kw):
+    """K8 at a 1 x 2 rank's heads (h 4, n_kv 2, hd 256) at the serving
+    shape: held to its plain version (1e-5, arenas torch.equal) and timed
+    beside its byte bound. Returns its entry."""
+    h, n_kv = LOCAL_HEADS
+    args = pa.decode_case(B=4, S=1, n_heads=h, n_kv=n_kv, head_dim=256,
+                          block_size=16, nb=6, dtype=torch.bfloat16,
+                          q_dtype=torch.float32, device="cuda", seed=97)
+    errs = paged_parity_at(torch, pa, args, kw, "(1 x 2 local heads)")
+    plain = [a.clone() for a in args]
+    ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
+    plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
+                       flush)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args, 1)
+    print(f"kernel timing paged_attention_fused (1 x 2 rank's heads: B=4 "
+          f"S=1 h={h} n_kv={n_kv} hd=256 bs=16 nb=6, bf16 arenas, L2 "
+          f"evicted): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes, {flops} "
+          f"flops), bound / time {bound_ms / ms:.3f}; max |out - plain| "
+          f"{errs['paged_attention_fused']:.3e} (tolerance 1e-5)")
+    return dict(n_heads=h, n_kv=n_kv, head_dim=256, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs["paged_attention_fused"])
 
 
 def gemma_layer_kw(layer):
@@ -2600,9 +2645,11 @@ def phase_router(torch, pa, serve_mod):
 
 # name: (arch, data, model, zero3, depth or None for the arch's own)
 MESH_RUNS = {
-    "2x1": ("bert-large", 2, 1, False, None),
-    "2x1-zero3": ("bert-large", 2, 1, True, None),
-    "1x2": ("bert-large", 1, 2, False, None),
+    # D(b): BERT-large at full width and 12 of its 24 layers, the depth
+    # cut when phase D(e) was added, to keep the script's time
+    "2x1": ("bert-large", 2, 1, False, 12),
+    "2x1-zero3": ("bert-large", 2, 1, True, 12),
+    "1x2": ("bert-large", 1, 2, False, 12),
     # D(d): granite-moe-3b-a800m at full width; two ranks of fp32 params
     # and moments at its full depth would not fit the one card, and one
     # layer keeps phase D nearer 150 s
@@ -2937,6 +2984,211 @@ def phase_mesh(torch):
             for name in MESH_RUNS}
 
 
+# phase D(e): name: (data, model)
+SERVE_MESHES = {"2x1": (2, 1), "1x2": (1, 2)}
+
+
+def arena_bytes(pool, data_only=False):
+    """Bytes of a paged pool's K and V arenas (with data_only, of their
+    data blocks alone: no null block) and, without, their positions."""
+    total = 0
+    for si, m in pool.maps.items():
+        arena = pool.cache["slots"][si]
+        for name in ("k", "v") if data_only else ("k", "v", "pos"):
+            t = arena[name]
+            blocks = m.alloc.n_blocks - (1 if data_only else 0)
+            total += t[:, 0].numel() * t.element_size() * blocks
+    return total
+
+
+def serve_mesh_run(torch, name, arch, timer):
+    """One mesh of phase D(e) on this rank: phase 3's stream through the
+    engine on the mesh after a warm-up stream, the whole params freed
+    once the engine holds its own; returns its numbers."""
+    import gc
+    import statistics
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serving import (ContinuousEngine, PagedCachePool,
+                                     synthetic_requests)
+    data, model = SERVE_MESHES[name]
+    mesh = make_local_mesh(data=data, model=model, device="cuda")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def engine():       # SERVE_ARGV's engine, on the mesh
+        return ContinuousEngine(arch, params, max_batch=4, max_len=96,
+                                policy="fp32", mesh=mesh, prefill_bucket=8,
+                                block_size=16, attn_kernel="paged")
+
+    def stream(n, new):
+        return synthetic_requests(n, arch.cfg.vocab, prompt_len=64,
+                                  new_tokens=new, seed=0)
+    engine().run(stream(2, 4))
+    eng = engine()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms, coll_ms = [], []
+    real = eng._step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        timer["ms"] = 0.0
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(timer["ms"])
+        return out
+    eng._step = timed
+
+    one = PagedCachePool(eng.arch, 4, 96, block_size=16, device="meta")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = stream(8, 32)
+    pa.paged_attention_fused.launches = 0
+    eng.run(reqs)
+    launches = pa.paged_attention_fused.launches
+    out = dict(tokens={r.rid: r.generated.tolist() for r in reqs},
+               launches=launches, decode_steps=eng.steps_run,
+               step_ms=statistics.median(step_ms),
+               collective_ms=statistics.mean(coll_ms),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               arena_bytes=arena_bytes(eng.pool),
+               one_arena_bytes=arena_bytes(one),
+               data_block_bytes=arena_bytes(eng.pool, data_only=True),
+               one_data_block_bytes=arena_bytes(one, data_only=True),
+               kv_heads=eng.pool.cache["slots"][0]["k"].shape[-2])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_rank(rank, world, init_method, out_path):
+    """One rank of phase D(e), in a process of its own: gemma2-2b at full
+    width and depth (fp32, K8, 4 slots, block 16) on each mesh of
+    SERVE_MESHES through the engine, then through the CLI with --mesh
+    2x1, two gloo ranks sharing the one card. Writes its numbers as JSON
+    to out_path."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import select_device
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import partial
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as serve_mod
+    select_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    timer = {"ms": 0.0}
+    real = partial.all_gather_dim
+
+    def timed(*a, **k):        # every collective of a serve step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            timer["ms"] += (time.perf_counter() - t0) * 1e3
+    partial.all_gather_dim = timed
+    try:
+        arch = get_arch("gemma2-2b")
+        out = {"rank": rank, "runs": {}}
+        for name in SERVE_MESHES:
+            out["runs"][name] = serve_mesh_run(torch, name, arch, timer)
+        pa.paged_attention_fused.launches = 0
+        stats, done = serve_mod.main(SERVE_ARGV + ["--mesh", "2x1"])
+        out["cli"] = dict(tokens={r.rid: r.generated.tolist() for r in done},
+                          launches=pa.paged_attention_fused.launches,
+                          decode_steps=stats["decode_steps"],
+                          mesh_devices=stats["mesh_devices"])
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_serve_mesh(torch, paged_tokens):
+    """Phase D(e): gemma2-2b served on 2 x 1 and 1 x 2 meshes (two gloo
+    processes on the one card) through the engine, and on 2 x 1 through
+    the CLI: greedy tokens equal phase 3's one-card tokens, K8 launched
+    decode steps x 26 on every rank. Returns K8's launches per run and
+    rank."""
+    import multiprocessing
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "src", "repro_torch",
+                                            "kernels", "_build"))
+    ctx = multiprocessing.get_context("spawn")
+    paths = [os.path.join(tmp, f"serve{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=serve_mesh_rank, args=(
+        r, 2, f"tcp://localhost:{port}", paths[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MESH_JOIN_S)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"serving mesh: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp)
+    launches = {}
+    for name in list(SERVE_MESHES) + ["cli"]:
+        label = "CLI --mesh 2x1" if name == "cli" else f"engine {name}"
+        launches[name if name != "cli" else "cli-2x1"] = []
+        for r in ranks:
+            x = r["cli"] if name == "cli" else r["runs"][name]
+            tokens = {int(k): v for k, v in x["tokens"].items()}
+            check(tokens == paged_tokens,
+                  f"serving mesh {label} rank {r['rank']}: greedy tokens "
+                  f"differ from phase 3's one-card tokens")
+            check(x["launches"] == x["decode_steps"] * N_LAYERS,
+                  f"serving mesh {label} rank {r['rank']}: K8 launched "
+                  f"{x['launches']} times for {x['decode_steps']} decode "
+                  f"steps x {N_LAYERS}")
+            launches[name if name != "cli" else "cli-2x1"].append(
+                x["launches"])
+            if name == "cli":
+                continue
+            data, model = SERVE_MESHES[name]
+            # a rank's share of the data blocks' K and V: exactly 1 / (D M)
+            check(x["data_block_bytes"] * data * model
+                  == x["one_data_block_bytes"],
+                  f"serving mesh {name} rank {r['rank']}: data-block K/V "
+                  f"bytes {x['data_block_bytes']} are not 1/{data * model} "
+                  f"of one card's {x['one_data_block_bytes']}")
+            print(f"serving mesh {name} rank {r['rank']}: arena bytes "
+                  f"(K, V, positions) {x['arena_bytes']} = "
+                  f"{x['arena_bytes'] / x['one_arena_bytes']:.4f} x one "
+                  f"card's {x['one_arena_bytes']}; data-block K/V bytes "
+                  f"{x['data_block_bytes']} = 1/{data * model} of one "
+                  f"card's (a 2 x 1 rank adds its own null block, a 1 x 2 "
+                  f"rank keeps every position); KV heads {x['kv_heads']}, "
+                  f"peak "
+                  f"{x['peak_gb']:.2f} GB, decode step median "
+                  f"{x['step_ms']:.2f} ms, collective {x['collective_ms']:.2f}"
+                  f" ms per step (gloo through the host), K8 "
+                  f"{x['launches']} = {x['decode_steps']} x {N_LAYERS}")
+        print(f"serving mesh {label}: greedy tokens equal phase 3's on both "
+              f"ranks")
+    return launches
+
+
 def shard_rows(kops, n_shards, lamb_clip=None, step=4):
     rows = []
     for _ in range(n_shards):
@@ -3146,6 +3398,15 @@ def run() -> int:
     print(f"serve: paged == xla greedy tokens for {len(paged_tokens)} "
           f"requests; kernel launches {kernel['launches']} = "
           f"{paged['decode_steps']} decode steps x {n_layers}")
+    before = pa.paged_attention_fused.launches
+    _, interp_tokens = serve(serve_mod, SERVE_ARGV + ["--interpret"],
+                             "fp32 paged --interpret")
+    check(pa.paged_attention_fused.launches == before,
+          "--interpret launched the kernel")
+    check(interp_tokens == paged_tokens,
+          "greedy tokens differ between --interpret and the kernel path")
+    print(f"serve: --interpret (K8's plain version on the card) == kernel "
+          f"path greedy tokens, K8 launches unchanged at {before}")
     bf16_argv = list(SERVE_ARGV)
     bf16_argv[bf16_argv.index("fp32")] = "bf16"
     serve(serve_mod, bf16_argv, "bf16 paged")
@@ -3187,6 +3448,9 @@ def run() -> int:
     print(f"phase D(a): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
+    t1 = time.perf_counter()
+    kernel["mesh"] = phase_serve_mesh(torch, paged_tokens)
+    print(f"phase D(e): {time.perf_counter() - t1:.1f} s")
     shards = phase_shards(torch, kl, kb, kops)
     print(f"phase D: {time.perf_counter() - t0:.1f} s")
     kernel["router"] = dict(launches=router_launches)

@@ -93,28 +93,35 @@ class Arch:
         return loss, {"router_entropy": aux["router_entropy"]}
 
     def init_cache(self, batch: int, max_len: int, *, device="cpu",
-                   clamp_window: bool = True):
+                   clamp_window: bool = True,
+                   kv_heads: Optional[int] = None):
         """Pooled per-slot serving cache: `batch` slots of max_len rows
         (decoders: window-sized rings on sliding-window layers unless
         clamp_window=False, the chunked prefill's cache; encdec: the
-        self-attention cache in compute_dtype), cursors at 0."""
+        self-attention cache in compute_dtype), cursors at 0. kv_heads:
+        the KV heads it holds (default all; a model rank's share on a
+        serving mesh)."""
         if self.kind == "encdec":
             return ed_lib.init_encdec_cache(self.cfg, batch, max_len,
                                             dtype=self.cfg.compute_dtype,
-                                            per_slot=True, device=device)
+                                            per_slot=True, device=device,
+                                            kv_heads=kv_heads)
         if self.kind != "decoder":
             raise ValueError(f"{self.kind} has no decode cache")
         return dec_lib.init_decoder_cache(self.cfg, batch, max_len,
                                           device=device,
-                                          clamp_window=clamp_window)
+                                          clamp_window=clamp_window,
+                                          kv_heads=kv_heads)
 
     def init_paged_cache(self, batch: int, max_len: int, *,
                          block_size: int = 16, n_blocks=None, device="cpu",
-                         row_margin: int = 0):
+                         row_margin: int = 0,
+                         kv_heads: Optional[int] = None):
         """Paged (block-arena) serving cache, decoder-only. n_blocks
         defaults to the dense-equivalent budget: `batch` slots' worth of
         blocks per attention slot-type. row_margin widens the rings
-        (speculative decoding; models/decoder.paged_layout)."""
+        (speculative decoding; models/decoder.paged_layout). kv_heads as
+        init_cache's."""
         if self.kind != "decoder":
             raise NotImplementedError("paged serving is decoder-only")
         if n_blocks is None:
@@ -124,10 +131,12 @@ class Arch:
                         for si, ring in filter(None, layout)}
         return dec_lib.init_paged_decoder_cache(
             self.cfg, batch, max_len, block_size=block_size,
-            n_blocks=n_blocks, device=device, row_margin=row_margin)
+            n_blocks=n_blocks, device=device, row_margin=row_margin,
+            kv_heads=kv_heads)
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,
-                positions=None, per_slot: bool = True):
+                positions=None, per_slot: bool = True,
+                kv_heads: Optional[int] = None):
         """Full-sequence forward into a fresh cache -> (last-position
         logits (B, 1, V), cache). positions (B, S) gives per-slot local
         timelines; left-pad rows carry positions < 0.
@@ -136,13 +145,14 @@ class Arch:
         serving admission) it encodes, projects the cross K/V once and
         returns them dense under cache["cross"]; per_slot=False is the
         single-stream form (a 0-d cursor; decode_step then takes the
-        encoder output as batch["memory"]). Decoders serve pooled only."""
+        encoder output as batch["memory"]). Decoders serve pooled only.
+        kv_heads: the KV heads of the pooled cache (init_cache's)."""
         toks = batch["tokens"]
         if self.kind == "encdec":
             if per_slot:
                 return ed_lib.prefill_serve(
                     params, self.cfg, toks, positions, batch["frames"],
-                    cache_len or toks.shape[1])
+                    cache_len or toks.shape[1], kv_heads=kv_heads)
             memory = ed_lib.encode(params, self.cfg, batch["frames"])
             cache = ed_lib.init_encdec_cache(
                 self.cfg, toks.shape[0], cache_len or toks.shape[1],
@@ -157,7 +167,7 @@ class Arch:
                              "cache only")
         cache = dec_lib.init_decoder_cache(
             self.cfg, toks.shape[0], cache_len or toks.shape[1],
-            device=toks.device)
+            device=toks.device, kv_heads=kv_heads)
         logits, cache, _ = dec_lib.decoder_apply(params, self.cfg, toks,
                                                  caches=cache,
                                                  positions=positions)

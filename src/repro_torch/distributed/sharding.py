@@ -298,9 +298,182 @@ def cache_pspec(cache: Tree, mesh) -> Tree:
 
 
 def cache_shardings(cache: Tree, mesh) -> Tree:
-    """cache_pspec as DTensor placements on `mesh`: the layout a pool on
-    a mesh pins its arenas to."""
+    """cache_pspec as DTensor placements on `mesh` (JAX's rule; the
+    port's pools are placed by ServeLayout)."""
     return _map_cache(lambda s: placements(s, mesh), cache_pspec(cache, mesh))
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh
+# --------------------------------------------------------------------------
+
+def heads_split(heads, mesh) -> bool:
+    """Does a model axis of `mesh` cut attention on whole heads: a model
+    axis of two or more ranks that divides both n_heads and n_kv
+    (heads), as use_plan's split?"""
+    msize = _axis_size(mesh, "model")
+    return msize > 1 and all(n % msize == 0 for n in heads)
+
+
+def serve_pspec(cache: Tree, mesh, heads) -> Tree:
+    """The serving placement of a (global) pool cache as PSpecs: the
+    placement that ServeLayout computes and the pools allocate by
+    (serving/cache_pool.py; the tests hold the two equal). cache_pspec
+    on the data axis (slots, or arena blocks, over "data" where the size
+    divides), and over "model" the KV-head dim of the K/V leaves (those
+    named "k" and "v": (..., rows, n_kv, hd)) where the model axis cuts
+    attention on whole heads (heads_split), never head_dim: the paged
+    kernel takes its softmax inside the launch, so a rank must hold every
+    element of its heads' q.k. Nothing else is cut over "model": integer
+    bookkeeping, the Mamba state (its projections are used whole) and,
+    where the heads do not split, the K/V, which every model rank then
+    holds whole."""
+    split = heads_split(heads, mesh)
+
+    def walk(v, s, name=None):
+        if v is None:
+            return None
+        if isinstance(s, PSpec):
+            s = list(s)
+            if s and s[-1] == "model":
+                s[-1] = None             # head_dim stays whole
+            if split and name in ("k", "v"):
+                s[-2] = "model"
+            return PSpec(*s)
+        if isinstance(v, dict):
+            return {k: walk(v[k], s[k], k) for k in v}
+        return type(v)(walk(a, b) for a, b in zip(v, s))
+
+    return walk(cache, cache_pspec(cache, mesh))
+
+
+def serve_params(params: Tree, mesh, heads) -> Tree:
+    """A rank's copy of `params` (whole, the same on every rank) for
+    serving on `mesh`: each leaf whose use plan is tensor parallel
+    (use_plan: attention wq / wk / wv / wo on whole heads, the MLP's up /
+    gate / down) becomes its model shard, marked with that plan for the
+    models' fetch (models/common.py), so that a rank computes its own
+    heads and ff columns and the row-parallel products are summed over
+    "model" in rank order (distributed/partial.py: _sum32). Every other
+    leaf stays whole and unmarked: the embedding and readout, norms,
+    routers, MoE expert stacks and the Mamba projections are used as
+    they are on every rank (serving has no gradient to save, and a
+    per-step gather of the embedding would move more bytes than it
+    holds). Nothing is cut over "data"."""
+    from repro_torch.core.optim.base import tree_map, tree_paths
+    pspec = params_pspec(params, mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    msize = _axis_size(mesh, "model")
+
+    def place(path, t, spec):
+        use = use_plan(path, spec, mesh, heads)
+        if use is None or use.kind == "gather":
+            return t
+        dim = dict(use.cuts)["model"]
+        out = t.chunk(msize, dim=dim)[coord["model"]].contiguous()
+        out._use = Use(use.kind, (("model", dim),))
+        return out
+
+    return tree_map(place, tree_paths(params), params, pspec)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """Where a serving engine's per-slot state lives on a mesh (one
+    device: data = model = 1, every slot local).
+
+    `max_batch` slots are cut over the `data` ranks in blocks of
+    `block` consecutive slots: data rank d decodes slots [d * block,
+    (d + 1) * block) and holds their cache rows, block-table rows and
+    its own share of every arena (serving/cache_pool.py). Its device
+    structures have `rows` rows: the block, or two where the block is
+    one slot, the second a dead row (position -1, null table, never
+    admitted), because BLAS takes a one-row product down a matrix-vector
+    path whose sums run in another order than the many-row product one
+    device runs, so a one-slot block would part from one device in its
+    last bits. `split` is True where the `model` axis cuts attention on
+    whole heads (heads_split): a rank then holds n_kv / model KV heads
+    of every cache and arena (local_heads)."""
+    max_batch: int
+    data: int = 1
+    model: int = 1
+    data_rank: int = 0
+    split: bool = False
+
+    @property
+    def block(self) -> int:
+        return self.max_batch // self.data
+
+    @property
+    def rows(self) -> int:
+        return max(self.block, 2) if self.data > 1 else self.max_batch
+
+    @property
+    def lo(self) -> int:
+        return self.data_rank * self.block
+
+    def shard(self, slot: int) -> int:
+        """The data rank that holds `slot`."""
+        return slot // self.block
+
+    def owns(self, slot: int) -> bool:
+        return self.shard(slot) == self.data_rank
+
+    def local(self, slot: int) -> int:
+        """`slot`'s row within its data rank's block."""
+        return slot % self.block
+
+    def at(self, slot: int):
+        """(the data rank that holds `slot`, its row there); IndexError
+        outside [0, max_batch)."""
+        if not (0 <= slot < self.max_batch):
+            raise IndexError(f"slot {slot} out of range [0, "
+                             f"{self.max_batch})")
+        return self.shard(slot), self.local(slot)
+
+    def plan_key(self, shard: int, key):
+        """A pool's admission-plan key: `key` (a slot-type), paired with
+        the data rank's share on a data mesh."""
+        return key if self.data == 1 else (shard, key)
+
+    def local_heads(self, n: int) -> int:
+        """A model rank's share of `n` attention (or KV) heads."""
+        return n // self.model if self.split else n
+
+    def pad_rows(self, x, fill=0):
+        """A (block, ...) array or tensor padded with `fill` to `rows`
+        rows."""
+        pad = self.rows - x.shape[0]
+        if pad == 0:
+            return x
+        if torch.is_tensor(x):
+            return torch.cat([x, torch.full((pad, *x.shape[1:]), fill,
+                                            dtype=x.dtype, device=x.device)])
+        return np.concatenate([x, np.full((pad, *x.shape[1:]), fill,
+                                          dtype=x.dtype)])
+
+    def local_rows(self, x, fill=0):
+        """This rank's rows of a (max_batch, ...) array or tensor, padded
+        with `fill` to `rows` rows."""
+        return self.pad_rows(x[self.lo:self.lo + self.block], fill)
+
+
+def serve_layout(heads, max_batch: int, mesh=None) -> ServeLayout:
+    """The ServeLayout of `max_batch` slots on `mesh` (None: one
+    device). The slots must divide over "data": a mesh never falls back
+    to one device."""
+    if mesh is None:
+        return ServeLayout(max_batch)
+    shape = mesh_shape(mesh)
+    if "pod" in shape:
+        raise ValueError("serving takes a (data, model) mesh")
+    data, model = shape.get("data", 1), shape.get("model", 1)
+    if max_batch % data:
+        raise ValueError(f"max_batch {max_batch} does not divide over "
+                         f"{data} data ranks")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return ServeLayout(max_batch, data, model, coord.get("data", 0),
+                       heads_split(heads, mesh))
 
 
 # --------------------------------------------------------------------------

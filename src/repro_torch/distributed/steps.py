@@ -1,7 +1,7 @@
 """Train and serve step builders (port of repro/distributed/steps.py:
 build_train_step, on one device or on a mesh, with place_train_step in
-the place of jit_train_step; build_serve_step, build_verify_step and
-greedy_next on one device).
+the place of jit_train_step; build_prefill_step, build_serve_step,
+build_verify_step and greedy_next, on one device or on a serving mesh).
 
 PyTorch runs eagerly, so where the JAX package jitted a step the port
 returns a plain function. The serving cache (arenas, tables, cursors) is
@@ -53,9 +53,23 @@ its sums: the model ranks' parts are added in fp32 at least and in rank
 order (distributed/partial.py), so that a run gives the same bits
 whatever the backend, and one device that splits its matmuls alike
 (the tests' mesh-order reference) gives them too.
+
+Serving on a mesh runs one process per rank, each with the same engine
+loop (serving/engine.py). The steps take the engine's whole (max_batch,
+...) tokens, positions and sampler keys on every rank, and a rank's
+pool cache (its slots' rows, its share of each arena, its KV heads:
+distributed/sharding.py: ServeLayout). A serve or verify step decodes
+the rank's own rows (ServeLayout.local_rows) and gathers the picks over
+"data", so that every rank returns every slot's token; a prefill step
+runs the admitted group whole on every rank. The models see the model
+axis alone (serving_ambient): the params' tensor-parallel leaves
+(sharding.serve_params) then compute the rank's heads and ff columns,
+and MoE routes each call's batch as one group, as one device does.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, Optional
 
 import torch
@@ -72,7 +86,117 @@ def greedy_next(logits):
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
 
 
-def build_serve_step(decode_fn: Callable, *, sampler=None):
+class _ModelAxis:
+    """The model axis of a serving mesh alone, as the models' ambient
+    mesh: sizes {"model": M}, and its process group."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.shape = {"model": shd.mesh_shape(mesh).get("model", 1)}
+
+    def get_group(self, name):
+        return self.mesh.get_group(name)
+
+
+def serving_ambient(mesh):
+    """The ambient mesh of a serving call on `mesh` (nothing off a
+    mesh): the model axis only, so that tensor-parallel leaves find
+    their group while each call's batch stays whole to the models (an
+    MoE layer routes it as one group; models/moe.py)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return ambient_mesh(Ambient(_ModelAxis(mesh)))
+
+
+def gather_slots(picks, layout, mesh, flag=None):
+    """Every slot's picks: this rank's block (its first `block` rows)
+    gathered over "data" in rank order. With `flag` (a 0-d count of this
+    rank's), returns (picks, the data ranks' flags summed), the flags
+    riding in the same gather."""
+    picks = picks[:layout.block].contiguous()
+    if layout.data == 1:
+        return picks if flag is None else (picks, flag)
+    from repro_torch.distributed.partial import all_gather_dim
+    group = mesh.get_group("data")
+    if flag is None:
+        return all_gather_dim(picks, 0, group)
+    row = torch.cat([picks.reshape(1, -1),
+                     flag.to(picks.dtype).reshape(1, 1)], dim=1)
+    rows = all_gather_dim(row, 0, group)
+    return rows[:, :-1].reshape(-1, *picks.shape[1:]), rows[:, -1].sum()
+
+
+def shared_clock(mesh, device):
+    """time.perf_counter off a mesh. On one, a clock that reads rank 0's
+    time.perf_counter on every rank (a broadcast over the world group, so
+    every rank calls it at the same points of the same loop): the
+    serving decisions that read a clock (SLO eviction, the deadline
+    policy's order, an open-loop driver's arrivals) then come out alike
+    everywhere."""
+    if mesh is None:
+        return time.perf_counter
+    dev = (torch.device(device) if dist.get_backend() == "nccl"
+           else torch.device("cpu"))
+
+    def clock():
+        t = torch.tensor([time.perf_counter()], dtype=torch.float64,
+                         device=dev)
+        dist.broadcast(t, src=0)
+        return float(t)
+    return clock
+
+
+def _not_finite(logits):
+    return (~torch.isfinite(logits)).any()
+
+
+def _counted(step, mesh, layout, nonfinite):
+    """A serve or verify step (-> picks, cache, its logits' non-finite
+    flag) as the builders return it: (picks, cache), every slot's picks
+    on a mesh, and `nonfinite` (a 0-d int64 tensor, None: no count)
+    raised by one for a step whose logits held a NaN or inf on any data
+    rank."""
+    def count(bad):
+        if nonfinite is not None:
+            nonfinite.add_(bad > 0)
+
+    if mesh is None:
+        def one_step(*args):
+            out, new_cache, bad = step(*args)
+            count(bad)
+            return out, new_cache
+        return one_step
+
+    def mesh_step(params, tokens, positions, cache, keys=None):
+        with serving_ambient(mesh):
+            out, new_cache, bad = step(
+                params, layout.local_rows(tokens),
+                layout.local_rows(positions, -1), cache,
+                None if keys is None else layout.local_rows(keys))
+        out, bad = gather_slots(out, layout, mesh, flag=bad)
+        count(bad)
+        return out, new_cache
+    return mesh_step
+
+
+def build_prefill_step(prefill_fn: Callable, mesh=None):
+    """prefill_fn(...) -> (logits, cache), run under the serving mesh's
+    ambient (serving_ambient): on every rank the whole admitted group,
+    its padding and row count one device's, so that a data mesh's
+    prompt K/V and first tokens are one device's bits; a model axis
+    computes each rank's heads (the cache holds them). Off a mesh,
+    prefill_fn itself."""
+    if mesh is None:
+        return prefill_fn
+
+    def prefill(*args, **kw):
+        with serving_ambient(mesh):
+            return prefill_fn(*args, **kw)
+    return prefill
+
+
+def build_serve_step(decode_fn: Callable, mesh=None, *, sampler=None,
+                     layout=None, nonfinite=None):
     """decode_fn(params, batch, cache) -> (logits, cache), e.g.
     Arch.decode_step. Returns
 
@@ -84,19 +208,27 @@ def build_serve_step(decode_fn: Callable, *, sampler=None):
         step(params, tokens, positions, cache, keys (B, 2) uint32)
             -> (next_tokens (B,) int32, cache)
 
-    picking tokens from fp32 logits whatever the serving precision."""
+    picking tokens from fp32 logits whatever the serving precision.
+
+    On a mesh (with its ServeLayout `layout`) the step takes every
+    slot's tokens, positions and keys and the rank's cache, decodes the
+    rank's rows and returns every slot's picks (the module docstring).
+    `nonfinite` (a 0-d int64 device tensor) gains one for each step whose
+    logits hold a NaN or inf, in any slot of any data rank."""
     pick = _picker(sampler)
 
     @torch.no_grad()
     def step(params, tokens, positions, cache, keys=None):
         logits, new_cache = decode_fn(
             params, {"tokens": tokens, "positions": positions}, cache)
-        return pick(logits[:, -1, :].float(), keys), new_cache
+        return (pick(logits[:, -1, :].float(), keys), new_cache,
+                _not_finite(logits))
 
-    return step
+    return _counted(step, mesh, layout, nonfinite)
 
 
-def build_verify_step(decode_fn: Callable, *, sampler=None):
+def build_verify_step(decode_fn: Callable, mesh=None, *, sampler=None,
+                      layout=None, nonfinite=None):
     """The speculative verify step: K tokens per slot in one forward.
 
     decode_fn(params, batch, cache) -> (logits (B, K, V), cache). Returns
@@ -108,7 +240,8 @@ def build_verify_step(decode_fn: Callable, *, sampler=None):
     uint32). Row (b, i) is the target's pick for the position after
     positions[b, i], made exactly as build_serve_step makes its single
     row (fp32 logits, the row's own key), so a speculative stream equals
-    the non-speculative one token for token."""
+    the non-speculative one token for token. On a mesh, and `nonfinite`,
+    as build_serve_step's."""
     pick = _picker(sampler)
 
     @torch.no_grad()
@@ -118,9 +251,9 @@ def build_verify_step(decode_fn: Callable, *, sampler=None):
         B, K, V = logits.shape
         flat_keys = None if keys is None else keys.reshape(B * K, 2)
         out = pick(logits.reshape(B * K, V).float(), flat_keys)
-        return out.reshape(B, K), new_cache
+        return out.reshape(B, K), new_cache, _not_finite(logits)
 
-    return step
+    return _counted(step, mesh, layout, nonfinite)
 
 
 def _picker(sampler):

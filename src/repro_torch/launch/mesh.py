@@ -11,9 +11,12 @@ the caller sets up (`torch.distributed.init_process_group` with its own
 address, world size and rank, and the backend it names). A mesh never
 has fewer ranks than asked: a world of another size raises. Functions,
 not module-level constants: importing this module touches no device or
-process group.
+process group. `join_launched_group` joins the group a launcher such as
+torchrun describes in the environment (the serve CLI's --mesh).
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -46,6 +49,30 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _mk(shape, axes, device)
+
+
+def join_launched_group(device: torch.device) -> torch.device:
+    """Join the process group that a launcher (torchrun) describes in the
+    environment (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT),
+    unless a group is initialised already or none is described. Returns
+    this rank's device: on CUDA, card LOCAL_RANK (or the rank) where
+    there is a card per rank, joined with NCCL, else card 0, joined with
+    gloo (NCCL refuses two ranks on one card); gloo on the CPU."""
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        rank = int(os.environ.get("RANK", 0))
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    own_card = (device.type == "cuda"
+                and torch.cuda.device_count() >= world > 1)
+    if own_card:
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if own_card else "gloo",
+                                init_method="env://")
+    return device
 
 
 def make_local_mesh(*, data: int = 1, model: int = 1, device: str = "cuda"):

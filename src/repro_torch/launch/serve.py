@@ -13,6 +13,8 @@ baseline, and scoring or embedding with a bert arch, on CUDA unless
       --arch whisper-large-v3 --shared-inputs 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch bert-large --task score
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch gemma2-2b --full --attn-kernel paged --mesh 2x1
 
 The flags and defaults are those of `repro.launch.serve`, plus
 --device, and so are the flag-compatibility errors (`flag_errors`). It
@@ -45,7 +47,18 @@ feeding fp16 queries to the kernel.
 inputs; --shared-inputs N draws only N distinct inputs, whose cross
 blocks same-input requests share in the arena); --arch bert-large
 --task score|embed scores or embeds (--max-len defaults to
---prompt-len). Flags whose feature is not ported yet raise and say so.
+--prompt-len). --interpret (with --attn-kernel paged) runs the
+kernel's plain PyTorch version on the card too, launching nothing.
+
+--mesh DxM (2x1, 1x2, 2x2; a bare N is 1xN) serves on a mesh of D x M
+ranks (serving/engine.py), with --replicas too (each replica on the
+mesh): run it as D x M processes under `torchrun --nproc-per-node D*M`
+(one card per rank with NCCL where there are enough cards, else all on
+card 0 with gloo), or inside a process group the caller has set up.
+Every rank builds the same weights from --seed and serves the same
+stream; rank 0 prints the report. A world of another size, or no
+process group, exits with both counts: a mesh never serves on one
+device.
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import select_device
 from repro_torch.configs import get_arch, reduced_arch
@@ -93,17 +107,6 @@ CONTINUOUS_ONLY_FLAGS = (
     ("--mesh", lambda a: a.mesh is not None),
 )
 
-# (flag, requested?) for features of repro.launch.serve the port does not
-# have yet and that no layer below the CLI sees: each raises "not yet
-# ported" instead of running something else. --mesh waits for the serving
-# engine on a mesh; --interpret is the Pallas kernel's, which the port
-# has no counterpart of.
-NOT_PORTED_FLAGS = (
-    ("--mesh", lambda a: a.mesh is not None),
-    ("--interpret", lambda a: a.interpret),
-)
-
-
 def flag_errors(args) -> list:
     """Every flag-compatibility error of this parse, in the JAX
     launcher's wording; one SystemExit lists them all."""
@@ -125,6 +128,27 @@ def flag_errors(args) -> list:
             "--interpret: only applies to the Pallas kernel path "
             "(--attn-kernel paged)")
     return errs
+
+
+def parse_mesh(spec, device="cpu"):
+    """'DxM' (data x model) or a bare 'N' (1 x N) -> a mesh over the
+    ranks of the process group (launch/mesh.py:make_local_mesh); None
+    stays None (one device). A group of another size, or none, exits
+    with a message that names both counts."""
+    if spec is None:
+        return None
+    from repro_torch.launch.mesh import make_local_mesh
+    low = str(spec).lower()
+    data, model = low.split("x") if "x" in low else (1, low)
+    data, model = int(data), int(model)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != data * model:
+        raise SystemExit(
+            f"--mesh {spec} needs {data * model} ranks, the process group "
+            f"has {world}: run it under torchrun --nproc-per-node "
+            f"{data * model}, or in a process group of that size")
+    return make_local_mesh(data=data, model=model,
+                           device=torch.device(device).type)
 
 
 def kind_error(args, kind: str):
@@ -198,7 +222,9 @@ def build_parser():
                     help="paged decode attention: 'paged' runs the "
                          "hand-written kernel, 'xla' the plain-torch "
                          "gather (token-identical). Default: the arch's")
-    ap.add_argument("--interpret", action="store_true")
+    ap.add_argument("--interpret", action="store_true",
+                    help="--attn-kernel paged through the kernel's plain "
+                         "PyTorch version on any device (no launch)")
     ap.add_argument("--chunk-budget", type=int, default=None,
                     help="per-step token budget of chunked-prefill "
                          "admission: prompts prefill chunk by chunk in "
@@ -215,7 +241,9 @@ def build_parser():
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft tokens proposed and verified per round "
                          "(>= 2; default 4)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a DxM mesh (a bare N: 1xN) of D*M "
+                         "ranks, e.g. under torchrun --nproc-per-node")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--route-policy", default=None,
                     choices=["prefix", "depth", "rr"])
@@ -251,10 +279,6 @@ def main(argv=None, requests=None):
     errs = flag_errors(args)
     if errs:
         raise SystemExit("; ".join(errs))
-    bad = [flag for flag, req in NOT_PORTED_FLAGS if req(args)]
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: not yet ported to "
-                         f"repro_torch (use repro.launch.serve)")
     try:
         engine, reqs, log, device = _build(args)
     except NotImplementedError as e:     # a feature not ported yet
@@ -266,7 +290,8 @@ def main(argv=None, requests=None):
         if args.arrival_rate is not None:
             arrivals = poisson_arrivals(len(reqs), args.arrival_rate,
                                         seed=args.seed)
-            wall = OpenLoopDriver(engine, reqs, arrivals).run()
+            wall = OpenLoopDriver(engine, reqs, arrivals,
+                                  time_fn=engine.clock).run()
             stats = engine.report(wall)
             stats.update(slo_report(
                 reqs, SLO(args.ttft_slo_ms, args.itl_slo_ms), wall))
@@ -288,12 +313,14 @@ def main(argv=None, requests=None):
                  precision=args.precision,
                  cache=args.cache if args.engine == "continuous"
                  else "static", attn_kernel=attn_kernel,
-                 sampler=args.sampler, device=str(device), mesh="1x1")
+                 sampler=args.sampler, device=str(device),
+                 mesh=args.mesh or "1x1")
     log.log(-1, **{k: v for k, v in stats.items()
                    if isinstance(v, (int, float))})
     log.close()
-    print(json.dumps({k: round(v, 3) if isinstance(v, float) else v
-                      for k, v in stats.items()}))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                          for k, v in stats.items()}))
     return stats, done
 
 
@@ -304,6 +331,11 @@ def _build(args):
     if err:
         raise SystemExit(err)
     device = select_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import join_launched_group
+        device = join_launched_group(device)
+        mesh = parse_mesh(args.mesh, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = arch.init(gen)
     if arch.kind == "bert":          # scoring holds no decode budget
@@ -358,11 +390,14 @@ def _build(args):
     def make_engine(replica):
         return ContinuousEngine(
             arch, params, max_batch=args.max_batch, max_len=max_len,
-            policy=args.precision, prefill_bucket=args.prefill_bucket,
+            policy=args.precision, mesh=mesh,
+            prefill_bucket=args.prefill_bucket,
             on_step=make_on_step(replica), cache=args.cache,
             block_size=args.block_size,
             slots_budget=args.slots_budget or None, sampler=args.sampler,
-            attn_kernel=args.attn_kernel, growth=args.growth or "lazy",
+            attn_kernel=args.attn_kernel,
+            kernel_interpret=args.interpret,
+            growth=args.growth or "lazy",
             sched_policy=args.sched_policy, slo_ms=args.slo_ms,
             preempt=args.preempt, retain_blocks=args.retain_blocks,
             watermark=args.watermark, chunk_budget=args.chunk_budget,

@@ -17,6 +17,11 @@ serving branch with both decode implementations:
   decode_kernel="xla"    plain-torch scatter then block-table gather —
                          the name matches the JAX flag it mirrors.
 
+With `kernel_interpret` the "paged" branch calls the kernel's plain
+PyTorch version (paged_attention_fused_plain) on any device: JAX's
+Pallas interpret mode, the escape hatch for a layout the kernel cannot
+take; it launches nothing.
+
 Caches are updated IN PLACE where the JAX code returned updated copies
 of donated buffers: the returned cache dict holds the same arena
 tensors, already written. The single-stream cache (a scalar write
@@ -71,6 +76,10 @@ class AttnConfig:
     # arena[table] into a dense (B, ring_len) copy; "paged" runs the
     # fused kernel. Only the paged serving branch reads this.
     decode_kernel: str = "xla"
+    # decode_kernel "paged" through the kernel's plain PyTorch version on
+    # any device (the JAX package's Pallas interpret mode): the hatch for
+    # a layout the kernel cannot take
+    kernel_interpret: bool = False
 
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig, *, cross: bool = False,
@@ -217,9 +226,10 @@ def attn_apply(p, cfg: AttnConfig, x, *, kv_x=None, positions=None,
         q_pos = (positions if positions.ndim == 2
                  else positions.expand(B, S)).to(torch.int32).contiguous()
         if cfg.decode_kernel == "paged":
-            from repro_torch.kernels.paged_attention import (
-                paged_attention_fused)
-            out = paged_attention_fused(
+            from repro_torch.kernels import paged_attention as pa
+            fused = (pa.paged_attention_fused_plain if cfg.kernel_interpret
+                     else pa.paged_attention_fused)
+            out = fused(
                 q.contiguous(), k_new, v_new, cache["k"], cache["v"],
                 cache["pos"], tbl, q_pos, idx, scale=scale,
                 window=cfg.sliding_window, softcap=cfg.logit_softcap)

@@ -64,6 +64,9 @@ class DecoderConfig:
     final_softcap: Optional[float] = None
     post_block_norm: bool = False
     attn_kernel: str = "xla"                   # paged decode: "xla" | "paged"
+    # "paged" through the plain version (attention.py); None, as in the
+    # JAX config this one equals field by field, is off
+    kernel_interpret: Optional[bool] = None
 
     activation: str = "silu"
     gated_mlp: bool = True
@@ -107,7 +110,8 @@ class DecoderConfig:
             rope_theta=self.rope_theta,
             sliding_window=self.sliding_window if local else None,
             logit_softcap=self.attn_softcap,
-            decode_kernel=self.attn_kernel)
+            decode_kernel=self.attn_kernel,
+            kernel_interpret=bool(self.kernel_interpret))
 
     def moe_cfg(self) -> moe_lib.MoeConfig:
         return moe_lib.MoeConfig(
@@ -365,7 +369,8 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
 
 def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, *, device="cpu",
-                       clamp_window: bool = True):
+                       clamp_window: bool = True,
+                       kv_heads: Optional[int] = None):
     """Pooled per-slot caches stacked per superblock slot; "attn_local"
     slots get ring buffers of the window size. KV is stored in `dtype`
     (bf16 by default, as in the JAX package, whatever the compute
@@ -378,7 +383,11 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
     is enforced by the mask instead of the ring, and the paged pool's
     insert picks the window's tail out of the full-length rows. Mamba
     slots hold their fp32 SSM state and conv tail per batch slot
-    (models/mamba2.init_mamba_cache), stacked over the periods."""
+    (models/mamba2.init_mamba_cache), stacked over the periods. kv_heads
+    (default n_kv_heads): the KV heads the attention caches hold, a model
+    rank's share on a serving mesh (distributed/sharding.py:
+    ServeLayout)."""
+    n_kv = kv_heads or cfg.n_kv_heads
     slots = []
     for mixer, _ in cfg.superblock:
         if mixer == "mamba":
@@ -390,7 +399,7 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
         if clamp_window and mixer == "attn_local" and cfg.sliding_window:
             L = min(max_len, cfg.sliding_window)
         slots.append(attn_lib.init_kv_cache(
-            batch, L, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+            batch, L, n_kv, cfg.resolved_head_dim, dtype,
             device, lead=(cfg.n_periods,)))
     return {"slots": tuple(slots),
             "index": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -430,14 +439,15 @@ def paged_layout(cfg: DecoderConfig, max_len: int, block_size: int,
 def init_paged_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                              *, block_size: int, n_blocks,
                              dtype=torch.bfloat16, device="cpu",
-                             row_margin: int = 0):
+                             row_margin: int = 0,
+                             kv_heads: Optional[int] = None):
     """Paged cache: per attention slot-type a (n_periods, n_blocks + 1,
     block_size, ...) arena (block 0 the null block) and a (batch,
     ring_len // block_size) int32 table of zeros; per Mamba slot-type the
     slot-resident (n_periods, batch, ...) state of init_decoder_cache and
     a None table; per-slot LOCAL write cursors under "index". n_blocks:
     data blocks per arena, an int or {slot_idx: int}. row_margin widens
-    the rings (paged_layout)."""
+    the rings (paged_layout). kv_heads as init_decoder_cache's."""
     slots, tables = [], []
     for si, layout in enumerate(paged_layout(cfg, max_len, block_size,
                                              row_margin)):
@@ -450,7 +460,8 @@ def init_paged_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
         _, ring_len = layout
         nb = n_blocks[si] if isinstance(n_blocks, dict) else n_blocks
         slots.append(attn_lib.init_paged_kv_cache(
-            nb + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim,
+            nb + 1, block_size, kv_heads or cfg.n_kv_heads,
+            cfg.resolved_head_dim,
             dtype, device, lead=(cfg.n_periods,)))
         tables.append(torch.zeros((batch, ring_len // block_size),
                                   dtype=torch.int32, device=device))

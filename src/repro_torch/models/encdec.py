@@ -216,14 +216,16 @@ def encdec_apply(params, cfg: EncDecConfig, frame_embeds, tokens):
 
 def init_encdec_cache(cfg: EncDecConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, *, per_slot: bool = False,
-                      device="cpu"):
+                      device="cpu", kv_heads: Optional[int] = None):
     """Self-attention decoder caches, stacked (n_layers, ...).
 
     per_slot=True is the pooled layout the serving engine slices per
     slot: {"slots": {"self": stacked}, "index": (B,)} with a position row
     per slot. The default is the single-stream layout of `decode`:
-    {"self": stacked, "index": 0-d}, one position row (L, max_len)."""
-    L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    {"self": stacked, "index": 0-d}, one position row (L, max_len).
+    kv_heads: the heads the cache holds (default n_heads; a model rank's
+    share on a serving mesh)."""
+    L, H, hd = cfg.n_layers, kv_heads or cfg.n_heads, cfg.head_dim
     if per_slot:
         stacked = init_kv_cache(batch, max_len, H, hd, dtype, device,
                                 lead=(L,))
@@ -242,16 +244,17 @@ def precompute_cross_kv(params, cfg: EncDecConfig, memory):
     """Every decoder layer's cross-attention K/V of one encoder output:
     memory (B, Sm, d) -> k, v each (L, B, Sm, n_heads, head_dim) in
     compute_dtype, the projections attention computes inline from
-    kv_x=memory."""
-    h, hd, cd = cfg.n_heads, cfg.head_dim, cfg.compute_dtype
+    kv_x=memory (a model rank's heads where wk / wv are column
+    parallel)."""
+    hd, cd = cfg.head_dim, cfg.compute_dtype
     ca = unbind_layers(params["dec_layers"]["cross_attn"])
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(ca, i)
         k = dense_apply(lp["wk"], memory, cd)
         v = dense_apply(lp["wv"], memory, cd)
-        ks.append(k.reshape(*k.shape[:-1], h, hd))
-        vs.append(v.reshape(*v.shape[:-1], h, hd))
+        ks.append(k.reshape(*k.shape[:-1], -1, hd))
+        vs.append(v.reshape(*v.shape[:-1], -1, hd))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -288,7 +291,7 @@ def decode_serve(params, cfg: EncDecConfig, tokens, positions, cache):
 
 
 def prefill_serve(params, cfg: EncDecConfig, tokens, positions, frames,
-                  cache_len: int):
+                  cache_len: int, kv_heads: Optional[int] = None):
     """Batched encdec admission: encode, project the cross K/V once, run
     the decoder prompt into fresh per-slot caches of cache_len rows.
 
@@ -304,7 +307,8 @@ def prefill_serve(params, cfg: EncDecConfig, tokens, positions, frames,
     memory = encode(params, cfg, frames)
     ck, cv = precompute_cross_kv(params, cfg, memory)
     cache = init_encdec_cache(cfg, B, cache_len, dtype=cfg.compute_dtype,
-                              per_slot=True, device=tokens.device)
+                              per_slot=True, device=tokens.device,
+                              kv_heads=kv_heads)
     cache["cross"] = {"k": ck, "v": cv,
                       "pos": torch.arange(memory.shape[1],
                                           dtype=torch.int32,

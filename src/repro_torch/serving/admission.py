@@ -43,6 +43,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import heads_split, mesh_shape
+from repro_torch.distributed.steps import build_prefill_step
+
 
 def chunk_granularity(cfg) -> int:
     """Smallest chunk length the arch supports, never below 2 (a one-row
@@ -116,10 +119,18 @@ class PrefillTask:
 class AdmissionController:
     """Runs at most one PrefillTask, one chunk per engine step. The task
     cache lives on the params' device and is written in place by each
-    chunk forward."""
+    chunk forward.
+
+    On a serving mesh (`mesh=`, params placed by
+    distributed/sharding.py:serve_params) every rank runs the same chunks
+    of the same task, and the task cache is placed as the dense pool
+    places a cache of one slot: whole on every data rank (one slot does
+    not divide over "data"), the model rank's KV heads where the model
+    axis cuts attention on whole heads. The pool's insert then keeps it
+    on the rank that holds the slot."""
 
     def __init__(self, arch, params, *, chunk_budget: int,
-                 prefill_len: int):
+                 prefill_len: int, mesh=None):
         if arch.kind != "decoder":
             # chunks run arch.decode_step against a per-slot self-
             # attention cache: the resumable-chunk contract holds for
@@ -138,7 +149,10 @@ class AdmissionController:
         self.prefill_len = prefill_len
         self.device = params["embed"]["embedding"].device
         self.task: Optional[PrefillTask] = None
-        self._chunk = _build_chunk_fn(arch)
+        self._kv_heads = None           # all of them
+        if mesh is not None and heads_split(arch.heads, mesh):
+            self._kv_heads = arch.heads[1] // mesh_shape(mesh)["model"]
+        self._chunk = build_prefill_step(_build_chunk_fn(arch), mesh)
         self.chunks_run = 0          # lifetime chunk forwards
         self.chunk_tokens = 0        # lifetime padded rows chunked
         self.size_counts: Dict[int, int] = {}   # chunk size -> forwards
@@ -160,7 +174,8 @@ class AdmissionController:
         # clamp_window=False: full-length rows on sliding-window layers
         # keep every chunk on the resumable write path (module docstring)
         return self.arch.init_cache(1, self.prefill_len, device=self.device,
-                                    clamp_window=False)
+                                    clamp_window=False,
+                                    kv_heads=self._kv_heads)
 
     def warmup(self):
         """Run each chunk size once against a scratch cache, so that the

@@ -34,6 +34,24 @@ the digest of the raw input frames (`frames_key`), so that requests
 decoding the same input (beams, retries) share its blocks, and a
 drained input's blocks stay warm on the retained LRU.
 
+On a serving mesh (`mesh=`, one process per rank, every rank running
+the same engine loop) each pool holds the rank's part of the cache, as
+its ServeLayout (distributed/sharding.py) places it; serve_pspec states
+the same placement as PSpecs of the whole cache. The slots are cut
+over "data" in blocks, so a rank holds its block's rows (plus a dead
+pad row where the block is one slot), its block-table rows, and its OWN
+SHARE of every arena: n_blocks // data data blocks and a null block of
+its own, addressed by local block ids.
+Every rank keeps the host bookkeeping of every data rank's share (a
+BlockTableMap per share and slot-type, `shards`), so that admission,
+growth and preemption decide alike everywhere, and a slot is given
+blocks only from its own rank's share: prefix sharing and the retained
+LRU work within a share. Every in-place write (insert, evict, grow's
+copy-on-write and fresh positions, rollback, the Mamba state) lands
+only on the rank that holds the slot. Where the model axis cuts
+attention on whole heads the K/V leaves hold the rank's n_kv / model
+heads; the Mamba state stays whole on every model rank.
+
 Mamba slots (mamba2, jamba) keep their state SLOT-RESIDENT in both
 pools: one fp32 (H, N, P) SSM state and (W - 1, C) conv tail per decode
 slot, (n_periods, max_batch, ...), whatever the prompt's length, so
@@ -51,6 +69,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import serve_layout
 from repro_torch.models import decoder as dec_lib
 from repro_torch.serving.block_allocator import BlockTableMap, NoBlocksError
 
@@ -86,42 +105,46 @@ def _min_rows(pos, index, rows):
 
 class CachePool:
     """Owns the pooled per-slot decode cache and its insert / evict /
-    rollback ops, on `device`."""
+    rollback ops, on `device`; on a serving `mesh`, this rank's rows of
+    it (the module docstring)."""
 
     def __init__(self, arch, max_batch: int, max_len: int, *,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.arch = arch
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = torch.device(device)
-        self.cache = arch.init_cache(max_batch, max_len, device=device)
+        self.layout = serve_layout(arch.heads, max_batch, mesh)
+        self.cache = arch.init_cache(
+            self.layout.rows, max_len, device=device,
+            kv_heads=self.layout.local_heads(arch.heads[1]))
         self._mamba_slots = _mamba_slots(arch.cfg)
-
-    def _check_slot(self, slot: int):
-        if not (0 <= slot < self.max_batch):
-            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
 
     def insert(self, request_cache: PyTree, slot: int):
         """Copy a prefilled batch-1 cache (max_len rows; Mamba state) into
         `slot`."""
-        self._check_slot(slot)
+        shard, row = self.layout.at(slot)
+        if shard != self.layout.data_rank:
+            return
         for pool, req in zip(self.cache["slots"], request_cache["slots"]):
             for name in pool:
-                pool[name][:, slot] = req[name][:, 0].to(pool[name].dtype)
-        self.cache["index"][slot] = request_cache["index"][0]
+                pool[name][:, row] = req[name][:, 0].to(pool[name].dtype)
+        self.cache["index"][row] = request_cache["index"][0]
 
     def evict(self, slot: int):
         """Blank `slot`: zero K/V, positions -1, zero Mamba state, cursor
         0."""
-        self._check_slot(slot)
+        shard, row = self.layout.at(slot)
+        if shard != self.layout.data_rank:
+            return
         for si, pool in enumerate(self.cache["slots"]):
             if si in self._mamba_slots:
-                _state_blank(pool, slot)
+                _state_blank(pool, row)
                 continue
-            pool["k"][:, slot] = 0
-            pool["v"][:, slot] = 0
-            pool["pos"][:, slot] = -1
-        self.cache["index"][slot] = 0
+            pool["k"][:, row] = 0
+            pool["v"][:, row] = 0
+            pool["pos"][:, row] = -1
+        self.cache["index"][row] = 0
 
     def lengths(self):
         """Per-slot write cursors (host array) — diagnostic only."""
@@ -136,7 +159,9 @@ class CachePool:
         pool's fixed-shape scatter."""
         total = sum(len(r) for r in rows.values())
         assert total <= capacity, (total, capacity)
-        pairs = [(slot, r) for slot, rws in rows.items() for r in rws]
+        lay = self.layout
+        pairs = [(lay.local(slot), r) for slot, rws in rows.items()
+                 if lay.owns(slot) for r in rws]
         b = torch.as_tensor([p[0] for p in pairs], dtype=torch.long,
                             device=self.device)
         for si, leaf in enumerate(self.cache["slots"] if pairs else ()):
@@ -147,7 +172,8 @@ class CachePool:
                                 device=self.device)
             _min_rows(leaf["pos"], b, r)
         self.cache["index"] = torch.as_tensor(
-            np.asarray(new_index, np.int32), device=self.device)
+            lay.local_rows(np.asarray(new_index, np.int32)),
+            device=self.device)
 
 
 def _arena_insert(arena, req, src_rows, dst_blocks, row_valid):
@@ -188,7 +214,9 @@ class PagedCachePool:
 
     slots_budget sizes each attention arena in dense-slot equivalents:
     `slots_budget * ring_len // block_size` data blocks (+1 null); the
-    default (== max_batch) matches a dense per-slot pool's memory.
+    default (== max_batch) matches a dense per-slot pool's memory. On a
+    serving mesh each data rank's share holds that count // data, plus
+    its own null block (the module docstring).
     """
 
     def __init__(self, arch, max_batch: int, max_len: int, *,
@@ -196,15 +224,18 @@ class PagedCachePool:
                  share_prefix: bool = True,
                  attn_kernel: Optional[str] = None, growth: str = "eager",
                  retain_blocks: int = 0, watermark: int = 0,
-                 row_margin: int = 0, device="cpu"):
+                 row_margin: int = 0, device="cpu", mesh=None):
         """Args as the JAX pool's, plus `device`, where the arenas,
         tables and cursors live. row_margin widens every ring for a
         speculative verify burst (pass spec_k - 1). attn_kernel="paged"
         checks the layout against the kernel's limits here, at
         construction, for the widest launch the pool feeds (S =
-        row_margin + 1 query rows): on CUDA a layout the kernel cannot
-        take raises (kernels/paged_attention.ensure_kernel_fit); on the
-        CPU the problems are kept in `tile_problems`."""
+        row_margin + 1 query rows, a model rank's heads): on CUDA a
+        layout the kernel cannot take raises
+        (kernels/paged_attention.ensure_kernel_fit); on the CPU the
+        problems are kept in `tile_problems`. An arch whose config sets
+        kernel_interpret runs the kernel's plain version and checks
+        nothing."""
         if arch.kind != "decoder":
             raise NotImplementedError("paged serving is decoder-only")
         if attn_kernel is None:
@@ -224,39 +255,54 @@ class PagedCachePool:
         self.share_prefix = share_prefix
         self.row_margin = row_margin
         self.device = torch.device(device)
+        lay = self.layout = serve_layout(arch.heads, max_batch, mesh)
         budget = slots_budget if slots_budget is not None else max_batch
         layout = dec_lib.paged_layout(arch.cfg, max_len, block_size,
                                       row_margin)
         base = dec_lib.paged_layout(arch.cfg, max_len, block_size)
-        self.maps = {}
         n_blocks = {}
         for entry, base_entry in zip(layout, base):
             if entry is None:            # a Mamba slot: slot-resident
                 continue
             (si, ring), (_, src_len) = entry, base_entry
-            n_blocks[si] = budget * (ring // block_size)
-            self.maps[si] = BlockTableMap(
-                max_batch, ring, block_size, n_blocks[si] + 1,
-                retain_limit=min(retain_blocks, max(n_blocks[si] - 1, 0)),
-                watermark=min(watermark, max(n_blocks[si] - 1, 0)),
+            n_blocks[si] = (budget * (ring // block_size), ring, src_len)
+        self.n_local = {si: n // lay.data for si, (n, _, _) in
+                        n_blocks.items()}
+        if any(n < 1 for n in self.n_local.values()):
+            raise ValueError(f"an arena of {n_blocks} blocks leaves a data "
+                             f"rank of {lay.data} no block")
+        # one share of blocks per data rank, each with its own allocator,
+        # tables of its slots and prefix registry
+        self.shards = [
+            {si: BlockTableMap(
+                lay.block, ring, block_size, self.n_local[si] + 1,
+                retain_limit=min(retain_blocks,
+                                 max(self.n_local[si] - 1, 0)),
+                watermark=min(watermark, max(self.n_local[si] - 1, 0)),
                 src_len=src_len)
-        full = arch.init_paged_cache(max_batch, max_len,
+             for si, (_, ring, src_len) in n_blocks.items()}
+            for _ in range(lay.data)]
+        self.maps = self.shards[lay.data_rank]
+        kv = lay.local_heads(arch.heads[1])
+        full = arch.init_paged_cache(lay.rows, max_len,
                                      block_size=block_size,
-                                     n_blocks=n_blocks, device=device,
-                                     row_margin=row_margin)
+                                     n_blocks=self.n_local, device=device,
+                                     row_margin=row_margin, kv_heads=kv)
         full.pop("tables")               # host-owned: see device_tables()
         self.cache = full
         self._mamba_slots = _mamba_slots(arch.cfg)
         self.tile_problems: list = []
-        if attn_kernel == "paged" and self.maps:
+        if (attn_kernel == "paged" and self.maps
+                and not arch.cfg.kernel_interpret):
             # checked for the first attention slot-type (all share the
             # heads and the arena dtype); an arch without one (mamba2)
             # launches no kernel and has nothing to check
             from repro_torch.kernels.paged_attention import ensure_kernel_fit
             cfg = arch.cfg
             self.tile_problems = ensure_kernel_fit(
-                block_size, cfg.resolved_head_dim, cfg.n_heads,
-                cfg.n_kv_heads, full["slots"][min(self.maps)]["k"].dtype,
+                block_size, cfg.resolved_head_dim,
+                lay.local_heads(cfg.n_heads), kv,
+                full["slots"][min(self.maps)]["k"].dtype,
                 S=row_margin + 1, device=self.device)
         self._pending_grown = {si: [] for si in self.maps}
         self.shared_hits = 0
@@ -265,12 +311,14 @@ class PagedCachePool:
     # ---------------- layout helpers ----------------
 
     def device_tables(self):
-        """Per-slot-type block tables on the pool's device (None for Mamba
-        slots), uploaded from the host mirror only after a mutation
-        changed them."""
+        """Per-slot-type block tables of this rank's slots on the pool's
+        device (None for Mamba slots; a pad row of nulls where the rank
+        holds one slot), uploaded from the host mirror only after a
+        mutation changed them."""
         if self._dev_tables is None:
             self._dev_tables = tuple(
-                torch.as_tensor(self.maps[si].table, device=self.device)
+                torch.as_tensor(self.layout.pad_rows(self.maps[si].table),
+                                device=self.device)
                 if si in self.maps else None
                 for si in range(len(self.arch.cfg.superblock)))
         return self._dev_tables
@@ -293,28 +341,36 @@ class PagedCachePool:
     # ---------------- admission ----------------
 
     def admission_plan(self, prompt, plen: int, padded_len: int,
-                       budget: int, *, share: Optional[bool] = None) -> dict:
+                       budget: int, *, share: Optional[bool] = None,
+                       slot: Optional[int] = None) -> dict:
         """{slot-type: fresh blocks + retained revivals} an insert would
         consume; lazy growth counts prompt-backed positions only. `share`
         overrides share_prefix for this plan (a chunked admission passes
-        False: see insert)."""
+        False: see insert). On a data mesh the plan is for `slot`'s
+        share, keyed (share, slot-type)."""
         if share is None:
             share = self.share_prefix
-        return {si: sum(m.admission_plan(prompt, plen, padded_len, budget,
-                                         share, lazy=self.growth == "lazy"))
-                for si, m in self.maps.items()}
+        shard, _ = self.layout.at(self.layout.lo if slot is None else slot)
+        return {self.layout.plan_key(shard, si): sum(m.admission_plan(
+            prompt, plen, padded_len, budget, share,
+            lazy=self.growth == "lazy"))
+            for si, m in self.shards[shard].items()}
 
-    def admissible_blocks(self) -> dict:
-        """Blocks admission may plan against, per attention slot-type:
+    def admissible_blocks(self, slot: Optional[int] = None) -> dict:
+        """Blocks admission may plan against, per attention slot-type
+        (of `slot`'s share on a data mesh, keyed as admission_plan):
         free + reclaimable retained, minus the growth watermark."""
-        return {si: m.admissible() for si, m in self.maps.items()}
+        shard, _ = self.layout.at(self.layout.lo if slot is None else slot)
+        return {self.layout.plan_key(shard, si): m.admissible()
+                for si, m in self.shards[shard].items()}
 
     def prefix_warm(self, prompt, plen: int, padded_len: int) -> bool:
         """Is the request's leading prompt block already resident (live
-        shared or retained) in any attention slot-type's registry? The
-        prefix-affinity scheduling policy's admission signal."""
+        shared or retained) in any attention slot-type's registry (of any
+        data rank's share)? The prefix-affinity scheduling policy's
+        admission signal."""
         return any(m.prefix_warm(prompt, plen, padded_len)
-                   for m in self.maps.values())
+                   for maps in self.shards for m in maps.values())
 
     def insert(self, request_cache: PyTree, slot: int, *, prompt,
                plen: int, padded_len: int, budget: int,
@@ -327,24 +383,27 @@ class PagedCachePool:
         chunks change the reduction shapes, so its KV is not bit for bit
         a whole prefill's and must never be content-addressed). The
         request cache may be longer than a ring (the chunked prefill's
-        unclamped sliding-window rows): _src_rows takes the ring's tail."""
-        if not (0 <= slot < self.max_batch):
-            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+        unclamped sliding-window rows): _src_rows takes the ring's tail.
+        Every rank books the chain; only the slot's rank writes."""
+        shard, row = self.layout.at(slot)
+        maps = self.shards[shard]
         if share is None:
             share = self.share_prefix
         placed = {}
         try:
-            for si, m in self.maps.items():
-                placed[si] = m.insert(slot, prompt, plen, padded_len, budget,
+            for si, m in maps.items():
+                placed[si] = m.insert(row, prompt, plen, padded_len, budget,
                                       share, lazy=self.growth == "lazy")
         except NoBlocksError:
             for si in placed:
-                self.maps[si].rollback_insert(slot, placed[si])
+                maps[si].rollback_insert(row, placed[si])
             raise
         self.shared_hits += sum(p.shared for ps in placed.values()
                                 for p in ps)
+        if shard != self.layout.data_rank:
+            return
         self._dev_tables = None
-        for si, m in self.maps.items():
+        for si, m in maps.items():
             cache_len = request_cache["slots"][si]["k"].shape[2]
             src, backed = self._src_rows(m.ring_len, cache_len, plen,
                                          padded_len)
@@ -356,21 +415,22 @@ class PagedCachePool:
                           request_cache["slots"][si], src, dst, backed)
         for si in self._mamba_slots:
             _state_insert(self.cache["slots"][si],
-                          request_cache["slots"][si], slot)
-        self.cache["index"][slot] = plen
+                          request_cache["slots"][si], row)
+        self.cache["index"][row] = plen
 
     def evict(self, slot: int):
         """Return the slot's blocks to the allocator, blank its Mamba
         state and zero its cursor. Freed blocks keep their bytes; nothing
         references them."""
-        if not (0 <= slot < self.max_batch):
-            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
+        shard, row = self.layout.at(slot)
+        for m in self.shards[shard].values():
+            m.evict(row)
+        if shard != self.layout.data_rank:
+            return
         self._dev_tables = None
-        for m in self.maps.values():
-            m.evict(slot)
         for si in self._mamba_slots:
-            _state_blank(self.cache["slots"][si], slot)
-        self.cache["index"][slot] = 0
+            _state_blank(self.cache["slots"][si], row)
+        self.cache["index"][row] = 0
 
     # ---------------- lazy growth ----------------
 
@@ -379,21 +439,28 @@ class PagedCachePool:
         in every attention slot-type. Returns True when a table changed;
         flush_growth() must run before the next decode step. Raises
         NoBlocksError when an arena is exhausted (the engine preempts)."""
+        shard, local = self.layout.at(slot)
         grew = False
-        for si, m in self.maps.items():
+        for si, m in self.shards[shard].items():
             n_cow = len(m._pending_cow)
-            b = m.grow(slot, row)
+            b = m.grow(local, row)
             if len(m._pending_cow) != n_cow:
                 grew = True       # COW: dst takes its pos from the copy
             elif b is not None:
-                self._pending_grown[si].append(b)
+                if shard == self.layout.data_rank:
+                    self._pending_grown[si].append(b)
                 grew = True
         return grew
 
     def flush_growth(self):
         """Apply what grow() buffered: first the wrap-time copy-on-write
         block copies (k, v and pos, src -> dst), then position -1 over
-        the plainly grown blocks (they hold a previous occupant's rows)."""
+        the plainly grown blocks (they hold a previous occupant's rows).
+        Other data ranks' copies are theirs to make."""
+        for d, maps in enumerate(self.shards):
+            if d != self.layout.data_rank:
+                for m in maps.values():
+                    m._pending_cow.clear()
         if not (any(m._pending_cow for m in self.maps.values())
                 or any(self._pending_grown.values())):
             return
@@ -428,12 +495,16 @@ class PagedCachePool:
         rows, as in the JAX pool's fixed-shape scatter."""
         total = sum(len(r) for r in rows.values())
         assert total <= capacity, (total, capacity)
+        lay = self.layout
         for si, m in self.maps.items():
             blks, offs = [], []
             for slot, rws in rows.items():
+                if not lay.owns(slot):
+                    continue
                 for r in rws:
                     rr = r % m.ring_len
-                    blks.append(int(m.table[slot, rr // m.block_size]))
+                    blks.append(int(m.table[lay.local(slot),
+                                            rr // m.block_size]))
                     offs.append(rr % m.block_size)
             if blks:
                 _min_rows(self.cache["slots"][si]["pos"],
@@ -442,17 +513,21 @@ class PagedCachePool:
                           torch.as_tensor(offs, dtype=torch.long,
                                           device=self.device))
         self.cache["index"] = torch.as_tensor(
-            np.asarray(new_index, np.int32), device=self.device)
+            lay.local_rows(np.asarray(new_index, np.int32)),
+            device=self.device)
 
     # ---------------- telemetry ----------------
 
+    def _all_maps(self):
+        return [m for maps in self.shards for m in maps.values()]
+
     @property
     def retained_hits(self) -> int:
-        return sum(m.retained_hits for m in self.maps.values())
+        return sum(m.retained_hits for m in self._all_maps())
 
     @property
     def prefix_misses(self) -> int:
-        return sum(m.prefix_misses for m in self.maps.values())
+        return sum(m.prefix_misses for m in self._all_maps())
 
     @property
     def retained_hit_rate(self) -> float:
@@ -460,8 +535,9 @@ class PagedCachePool:
         return hit_rate(self.retained_hits, self.prefix_misses)
 
     def check_invariants(self):
-        """Assert every slot-type's allocator/table/registry invariants."""
-        for m in self.maps.values():
+        """Assert every share's and slot-type's allocator/table/registry
+        invariants."""
+        for m in self._all_maps():
             m.check_invariants()
 
 
@@ -521,12 +597,15 @@ class EncDecCachePool:
        "cross": {"k"/"v": (L, n_blocks + 1, bs, H, hd),
                  "pos": (n_blocks + 1, bs), "table": (B, max_blocks)}}
     The table is uploaded from the host map after each insert and
-    eviction, the only mutations that change it."""
+    eviction, the only mutations that change it. On a serving mesh, this
+    rank's part: its slots' rows, its share of the cross arena (n_blocks
+    // data blocks and a null block of its own) and its heads (the
+    module docstring)."""
 
     def __init__(self, arch, max_batch: int, max_len: int, *,
                  block_size: int = 16, slots_budget: Optional[int] = None,
                  share_prefix: bool = True, retain_blocks: int = 0,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         """slots_budget sizes the cross arena in inputs (default
         max_batch): slots_budget * padded_frames // block_size blocks,
         plus the null block."""
@@ -540,20 +619,23 @@ class EncDecCachePool:
         self.block_size = block_size
         self.share_prefix = share_prefix
         self.device = torch.device(device)
+        lay = self.layout = serve_layout(arch.heads, max_batch, mesh)
         self.n_frames = cfg.n_frames
         self.padded_frames = -(-cfg.n_frames // block_size) * block_size
         budget = slots_budget if slots_budget is not None else max_batch
-        n_blocks = budget * (self.padded_frames // block_size)
+        n_blocks = budget * (self.padded_frames // block_size) // lay.data
         # budget 1, plen = padded_len = ring_len = padded_frames: decode
         # rows never overwrite the chain and the layout is never rolled,
         # so every block is content-keyed and shareable
-        self.map = BlockTableMap(
-            max_batch, self.padded_frames, block_size, n_blocks + 1,
+        self.shards = [BlockTableMap(
+            lay.block, self.padded_frames, block_size, n_blocks + 1,
             retain_limit=min(retain_blocks, max(n_blocks - 1, 0)),
-            src_len=self.padded_frames)
-        cache = arch.init_cache(max_batch, max_len, device=device)
-        L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
-        shape = (L, n_blocks + 1, block_size, H, hd)
+            src_len=self.padded_frames) for _ in range(lay.data)]
+        self.map = self.shards[lay.data_rank]
+        H = lay.local_heads(cfg.n_heads)
+        cache = arch.init_cache(lay.rows, max_len, device=device,
+                                kv_heads=H)
+        shape = (cfg.n_layers, n_blocks + 1, block_size, H, cfg.head_dim)
         dt = cfg.compute_dtype
         cache["cross"] = {
             "k": torch.zeros(shape, dtype=dt, device=device),
@@ -565,27 +647,28 @@ class EncDecCachePool:
         self._upload_table()
         self.shared_hits = 0   # cross blocks reused instead of re-written
 
-    def _check_slot(self, slot: int):
-        if not (0 <= slot < self.max_batch):
-            raise IndexError(f"slot {slot} out of range [0, {self.max_batch})")
-
     def _upload_table(self):
-        self.cache["cross"]["table"] = torch.as_tensor(self.map.table,
-                                                       device=self.device)
+        self.cache["cross"]["table"] = torch.as_tensor(
+            self.layout.pad_rows(self.map.table), device=self.device)
 
     # ---------------- admission ----------------
 
-    def admission_plan(self, frames) -> dict:
+    def admission_plan(self, frames, slot: Optional[int] = None) -> dict:
         """{"cross": fresh blocks + retained revivals} an insert of this
         input would consume, for the engine's gate against
-        admissible_blocks()."""
+        admissible_blocks() (on a data mesh, in `slot`'s share, keyed
+        (share, "cross"))."""
+        shard, _ = self.layout.at(self.layout.lo if slot is None else slot)
         key = frames_key(frames, self.padded_frames)
-        return {"cross": sum(self.map.admission_plan(
+        plan = self.shards[shard].admission_plan(
             key, self.padded_frames, self.padded_frames, 1,
-            self.share_prefix))}
+            self.share_prefix)
+        return {self.layout.plan_key(shard, "cross"): sum(plan)}
 
-    def admissible_blocks(self) -> dict:
-        return {"cross": self.map.admissible()}
+    def admissible_blocks(self, slot: Optional[int] = None) -> dict:
+        shard, _ = self.layout.at(self.layout.lo if slot is None else slot)
+        return {self.layout.plan_key(shard, "cross"):
+                self.shards[shard].admissible()}
 
     def free_blocks(self) -> dict:
         return {"cross": self.map.alloc.n_free}
@@ -603,19 +686,22 @@ class EncDecCachePool:
         admission prefill cache. cross_k / cross_v: (L, Sm, H, hd), the
         request's dense cross projections. frames: the raw (n_frames, d)
         input, used only for content keying."""
-        self._check_slot(slot)
+        shard, row = self.layout.at(slot)
+        m = self.shards[shard]
         key = frames_key(frames, self.padded_frames)
-        placed = self.map.insert(slot, key, self.padded_frames,
-                                 self.padded_frames, 1, self.share_prefix)
+        placed = m.insert(row, key, self.padded_frames,
+                          self.padded_frames, 1, self.share_prefix)
         self.shared_hits += sum(p.shared for p in placed)
-        dst = np.zeros(self.map.max_blocks, np.int32)
+        if shard != self.layout.data_rank:
+            return
+        dst = np.zeros(m.max_blocks, np.int32)
         for p in placed:
             if not p.shared:
                 dst[p.chain_pos] = p.block
         for name, leaf in self.cache["slots"]["self"].items():
-            leaf[:, slot] = request_cache["slots"]["self"][name][:, 0].to(
+            leaf[:, row] = request_cache["slots"]["self"][name][:, 0].to(
                 leaf.dtype)
-        self.cache["index"][slot] = request_cache["index"][0]
+        self.cache["index"][row] = request_cache["index"][0]
         _cross_insert(self.cache["cross"], cross_k, cross_v, dst,
                       self.n_frames)
         self._upload_table()
@@ -624,13 +710,15 @@ class EncDecCachePool:
         """Release the slot's cross blocks (the last holder parks them
         warm when retention is on) and blank its self-attention rows:
         zero K/V, positions -1, cursor 0."""
-        self._check_slot(slot)
-        self.map.evict(slot)
+        shard, row = self.layout.at(slot)
+        self.shards[shard].evict(row)
+        if shard != self.layout.data_rank:
+            return
         leaf = self.cache["slots"]["self"]
-        leaf["k"][:, slot] = 0
-        leaf["v"][:, slot] = 0
-        leaf["pos"][:, slot] = -1
-        self.cache["index"][slot] = 0
+        leaf["k"][:, row] = 0
+        leaf["v"][:, row] = 0
+        leaf["pos"][:, row] = -1
+        self.cache["index"][row] = 0
         self._upload_table()
 
     # ---------------- introspection ----------------
@@ -641,11 +729,11 @@ class EncDecCachePool:
 
     @property
     def retained_hits(self) -> int:
-        return self.map.retained_hits
+        return sum(m.retained_hits for m in self.shards)
 
     @property
     def prefix_misses(self) -> int:
-        return self.map.prefix_misses
+        return sum(m.prefix_misses for m in self.shards)
 
     @property
     def retained_hit_rate(self) -> float:
@@ -653,8 +741,9 @@ class EncDecCachePool:
         return hit_rate(self.retained_hits, self.prefix_misses)
 
     def retained_blocks(self) -> dict:
-        return {"cross": self.map.n_retained}
+        return {"cross": sum(m.n_retained for m in self.shards)}
 
     def check_invariants(self):
-        """Assert the cross map's allocator/table/registry invariants."""
-        self.map.check_invariants()
+        """Assert every share's cross map invariants."""
+        for m in self.shards:
+            m.check_invariants()

@@ -76,8 +76,43 @@ pool: the same prefill, sampler keys and left-pad masking, and for
 encdec the dense cross K/V padded to the arena's blocked length, so
 that its output is the pooled engine's.
 
-Not ported yet: meshes (an engine on one device; several engines behind
-serving/router.py's ReplicaRouter share a card).
+On a mesh (`mesh=`, a DeviceMesh of ("data", "model") from
+launch/mesh.py:make_local_mesh) the engine runs as one process per rank
+of a torch.distributed group (gloo on the CPU and for ranks that share
+a card, NCCL with a card per rank), where JAX serves from one
+controller over sharded arrays:
+  * every rank runs this same engine loop on the same requests, so the
+    scheduler, the block bookkeeping and admission decide alike
+    everywhere;
+  * what differs is which slots' rows, which arena blocks and which heads
+    live on each rank (distributed/sharding.py: ServeLayout; the same
+    placement as PSpecs, serve_pspec): the slots are cut over "data" in
+    blocks, each rank decoding its own block against its own share of
+    each arena (a null block of its own, local block ids; prefix sharing
+    and the retained LRU within a share), and where the model axis cuts
+    attention on whole heads a rank holds n_kv / model KV heads of every
+    cache and computes its heads and ff columns with the tensor-parallel
+    params (serve_params; elsewhere attention runs whole on every model
+    rank);
+  * after each decode step the picked tokens are gathered over "data",
+    so every rank's host loop sees all of them, and with them each
+    rank's flag of non-finite logits, so every rank counts a step whose
+    logits held a NaN or inf in any slot (distributed/steps.py);
+  * every clock read of the loop (submit and admission times, the
+    policy's `now`, the times of tokens and completions) is rank 0's
+    time.perf_counter, broadcast (distributed/steps.py: shared_clock),
+    so that SLO eviction and the deadline policy decide alike on every
+    rank; an open-loop driver takes the same clock (`clock`) for its
+    arrivals;
+  * an admitted group is prefilled whole on every rank, at one device's
+    padding and row count, and each rank keeps its slots' rows;
+  * a mesh never falls back to one device: a process group of the wrong
+    size, or none, raises (launch/mesh.py), and so do slots that do not
+    divide over "data".
+A data mesh gives one device's bits under every policy; a model mesh
+splits each attention and MLP matmul and sums the parts in rank order
+(distributed/partial.py), so fp32 tokens equal one device's. run_one
+serves on one device only; ServeEngine takes `mesh` and never shards.
 """
 from __future__ import annotations
 
@@ -89,8 +124,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.optim.base import tree_leaves, tree_map
-from repro_torch.distributed.steps import (build_serve_step,
-                                           build_verify_step, greedy_next)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.steps import (build_prefill_step,
+                                           build_serve_step,
+                                           build_verify_step, gather_slots,
+                                           greedy_next, serving_ambient,
+                                           shared_clock)
 from repro_torch.serving.admission import (AdmissionController,
                                            chunk_granularity)
 from repro_torch.serving.block_allocator import NoBlocksError
@@ -144,17 +183,6 @@ def apply_serving_policy(arch, params, policy=None):
     return arch, params
 
 
-def counting_decode(arch, nonfinite):
-    """arch.decode_step that adds one to `nonfinite` (a 0-d int64 device
-    tensor, updated in place) for each call whose fp32 logits hold a NaN
-    or inf."""
-    def decode(params, batch, cache):
-        logits, cache = arch.decode_step(params, batch, cache)
-        nonfinite.add_((~torch.isfinite(logits)).any())
-        return logits, cache
-    return decode
-
-
 def prompt_granularity(cfg) -> int:
     """Smallest prefill length multiple the arch supports: mamba's chunked
     scan needs S % chunk == 0; attention takes any length."""
@@ -163,18 +191,21 @@ def prompt_granularity(cfg) -> int:
     return 1
 
 
-def build_prefill_fn(arch, max_len: int):
+def build_prefill_fn(arch, max_len: int, kv_heads: Optional[int] = None):
     """(params, tokens, positions) -> (fp32 last-position logits
-    (B, 1, V), pooled cache of max_len rows)."""
+    (B, 1, V), pooled cache of max_len rows, holding kv_heads KV heads:
+    default all)."""
     @torch.no_grad()
     def prefill(params, tokens, positions):
         logits, cache = arch.prefill(params, {"tokens": tokens},
-                                     cache_len=max_len, positions=positions)
+                                     cache_len=max_len, positions=positions,
+                                     kv_heads=kv_heads)
         return logits.float(), cache
     return prefill
 
 
-def build_encdec_prefill_fn(arch, max_len: int):
+def build_encdec_prefill_fn(arch, max_len: int,
+                            kv_heads: Optional[int] = None):
     """(params, tokens, positions, frames) -> (fp32 last-position logits,
     cache): one pass runs the encoder over the frames and the masked
     decoder prefill over the prompt; the cache holds the per-slot self
@@ -184,9 +215,27 @@ def build_encdec_prefill_fn(arch, max_len: int):
     def prefill(params, tokens, positions, frames):
         logits, cache = arch.prefill(
             params, {"tokens": tokens, "frames": frames},
-            cache_len=max_len, positions=positions)
+            cache_len=max_len, positions=positions, kv_heads=kv_heads)
         return logits.float(), cache
     return prefill
+
+
+def _score_step(arch, mesh, layout):
+    """(params, tokens, positions) -> (MLM ids, pooled vectors) of the
+    whole (max_batch, S) batch: arch.score, and on a mesh each rank
+    scoring its rows (a model axis computing its heads and ff columns),
+    the outputs gathered over "data"."""
+    score = torch.no_grad()(arch.score)
+    if mesh is None:
+        return score
+
+    def step(params, tokens, positions):
+        with serving_ambient(mesh):
+            ids, pooled = score(params, layout.local_rows(tokens),
+                                layout.local_rows(positions, -1))
+        return (gather_slots(ids, layout, mesh),
+                gather_slots(pooled, layout, mesh))
+    return step
 
 
 def build_first_token_fn(sampler: Optional[Sampler]):
@@ -352,20 +401,27 @@ class ContinuousEngine:
     default; `cache="dense"` for the per-slot-rows baseline)."""
 
     def __init__(self, arch, params, *, max_batch: int = 8,
-                 max_len: int = 256, policy=None, prefill_bucket: int = 1,
+                 max_len: int = 256, policy=None, mesh=None,
+                 prefill_bucket: int = 1,
                  on_step=None, cache: str = "paged", block_size: int = 16,
                  slots_budget: Optional[int] = None,
                  share_prefix: bool = True, sampler=None,
-                 attn_kernel: Optional[str] = None, growth: str = "lazy",
+                 attn_kernel: Optional[str] = None,
+                 kernel_interpret: bool = False,
+                 growth: str = "lazy",
                  sched_policy="fifo", slo_ms: Optional[float] = None,
                  preempt: bool = True, retain_blocks: Optional[int] = None,
                  watermark: int = 0, spec_draft=None, spec_k: int = 4,
                  chunk_budget: Optional[int] = None,
                  task: str = "generate"):
-        """Args as the JAX engine's (mesh excepted). Caches live on the
-        device of the params. cache "paged" or "dense"; attn_kernel
-        "paged" runs the hand-written kernel, "xla" the plain-torch
-        gather (paged pool only), None adopts arch.cfg.attn_kernel.
+        """Args as the JAX engine's. Caches live on the device of the
+        params. mesh: a serving mesh (the module docstring), every rank
+        passing the same whole params. cache "paged" or "dense";
+        attn_kernel "paged" runs the hand-written kernel, "xla" the
+        plain-torch gather (paged pool only), None adopts
+        arch.cfg.attn_kernel; kernel_interpret=True (with "paged" only)
+        runs the kernel's plain version on any device, launching
+        nothing (JAX's Pallas interpret mode).
         spec_draft=(draft_arch, draft_params) enables speculative
         decoding with spec_k (>= 2) tokens per round; it needs the paged
         pool and attention-only superblocks on both models.
@@ -422,6 +478,10 @@ class ContinuousEngine:
         if attn_kernel == "paged" and cache != "paged":
             raise ValueError("attn_kernel='paged' requires cache='paged' "
                              "(the dense pool has no block tables)")
+        if kernel_interpret and attn_kernel != "paged":
+            raise ValueError(
+                "kernel_interpret only applies to attn_kernel='paged' "
+                "(the XLA gather path has no kernel to interpret)")
         self.spec = spec_draft is not None
         if self.spec:
             if spec_k < 2:
@@ -446,10 +506,21 @@ class ContinuousEngine:
                     f"vocab {arch.cfg.vocab}")
         self.spec_k = spec_k if self.spec else 1
         self.arch, self.params = apply_serving_policy(arch, params, policy)
-        if arch.kind == "decoder" and attn_kernel != self.arch.cfg.attn_kernel:
+        if arch.kind == "decoder" and (
+                attn_kernel != self.arch.cfg.attn_kernel
+                or kernel_interpret != bool(self.arch.cfg.kernel_interpret)):
             self.arch = dataclasses.replace(self.arch, cfg=dataclasses.replace(
-                self.arch.cfg, attn_kernel=attn_kernel))
+                self.arch.cfg, attn_kernel=attn_kernel,
+                kernel_interpret=kernel_interpret))
+        self.mesh = mesh
+        self.layout = shd.serve_layout(arch.heads, max_batch, mesh)
+        if mesh is not None:
+            self.params = shd.serve_params(self.params, mesh, arch.heads)
+        kv = self.layout.local_heads(arch.heads[1])
         self.device = tree_leaves(self.params)[0].device
+        # every clock read of the engine loop: on a mesh rank 0's, so that
+        # the decisions that read it come out alike on every rank
+        self.clock = shared_clock(mesh, self.device)
         self.max_batch = max_batch
         self.max_len = max_len
         self.paged = cache == "paged" and arch.kind == "decoder"
@@ -486,7 +557,7 @@ class ContinuousEngine:
             self.pool = EncDecCachePool(
                 self.arch, max_batch, max_len, block_size=block_size,
                 slots_budget=slots_budget, share_prefix=share_prefix,
-                retain_blocks=retain_blocks, device=self.device)
+                retain_blocks=retain_blocks, device=self.device, mesh=mesh)
             self._prefill_len = max_len
         elif self.paged:
             self.pool = PagedCachePool(
@@ -494,14 +565,14 @@ class ContinuousEngine:
                 slots_budget=slots_budget, share_prefix=share_prefix,
                 attn_kernel=attn_kernel, growth=growth, retain_blocks=retain_blocks,
                 watermark=watermark, row_margin=self.spec_k - 1,
-                device=self.device)
+                device=self.device, mesh=mesh)
             # slack rows so the padded prompt never reaches the request
             # cache's last row, which stays pos=-1 (the insert's filler)
             self._prefill_len = max_len + max(block_size,
                                               self.prefill_bucket)
         else:
             self.pool = CachePool(self.arch, max_batch, max_len,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
             self._prefill_len = max_len
         self.scheduler = Scheduler(max_batch)
         slo_s = slo_ms / 1e3 if slo_ms is not None else None
@@ -516,30 +587,41 @@ class ContinuousEngine:
         # engine: a dropped engine then holds no reference cycle, and its
         # pools are freed at once, without the collector
         if self.bert:
-            self._score = torch.no_grad()(self.arch.score)
+            self._score = _score_step(self.arch, mesh, self.layout)
             self._step = self._prefill = None
         else:
-            decode = counting_decode(self.arch, self._nonfinite)
-            self._step = build_serve_step(decode, sampler=self.sampler)
-            self._prefill = (
-                build_encdec_prefill_fn(self.arch, self._prefill_len)
+            self._step = build_serve_step(
+                self.arch.decode_step, mesh, sampler=self.sampler,
+                layout=self.layout, nonfinite=self._nonfinite)
+            self._prefill = build_prefill_step(
+                build_encdec_prefill_fn(self.arch, self._prefill_len, kv)
                 if self.encdec
-                else build_prefill_fn(self.arch, self._prefill_len))
+                else build_prefill_fn(self.arch, self._prefill_len, kv),
+                mesh)
         self._first, self._wants_keys = build_first_token_fn(self.sampler)
         self._admission = None
         if chunk_budget is not None:
             self._admission = AdmissionController(
                 self.arch, self.params, chunk_budget=chunk_budget,
-                prefill_len=self._prefill_len)
+                prefill_len=self._prefill_len, mesh=mesh)
         if self.spec:
             self.draft_arch, self.draft_params = apply_serving_policy(
                 draft_arch, draft_params, policy)
+            dheads = self.draft_arch.heads
+            if mesh is not None:
+                self.draft_params = shd.serve_params(self.draft_params,
+                                                     mesh, dheads)
             self.draft_pool = CachePool(self.draft_arch, max_batch, max_len,
-                                        device=self.device)
-            self._draft_prefill = build_prefill_fn(self.draft_arch, max_len)
-            self._draft_step = build_serve_step(self.draft_arch.decode_step,
-                                                sampler=self.sampler)
-            self._verify = build_verify_step(decode, sampler=self.sampler)
+                                        device=self.device, mesh=mesh)
+            self._draft_prefill = build_prefill_step(build_prefill_fn(
+                self.draft_arch, max_len,
+                self.draft_pool.layout.local_heads(dheads[1])), mesh)
+            self._draft_step = build_serve_step(
+                self.draft_arch.decode_step, mesh, sampler=self.sampler,
+                layout=self.draft_pool.layout)
+            self._verify = build_verify_step(
+                self.arch.decode_step, mesh, sampler=self.sampler,
+                layout=self.layout, nonfinite=self._nonfinite)
             # host mirror of the draft pool's write cursors (PADDED rows,
             # unlike _positions' local timeline)
             self._draft_rows = np.zeros(max_batch, np.int64)
@@ -594,7 +676,7 @@ class ContinuousEngine:
     def _stamp(self, request: Request):
         """Give the request its id and submit time, and queue it."""
         self._assign_rid(request)
-        request.trace.mark_submit()
+        request.trace.mark_submit(self.clock())
         self.scheduler.submit(request)
 
     def _assign_rid(self, request: Request):
@@ -617,7 +699,7 @@ class ContinuousEngine:
     def _finish(self, slot: int):
         req = self.scheduler.complete(slot)
         req.generated = np.array(self._emitted.pop(slot), np.int32)
-        req.trace.done_t = time.perf_counter()
+        req.trace.done_t = self.clock()
         self._release(slot)
         return req
 
@@ -684,7 +766,7 @@ class ContinuousEngine:
                 if req is None:
                     return 0
                 return len(req.prompt) + len(self._emitted.get(slot, ()))
-        return PolicyContext(now=time.perf_counter(),
+        return PolicyContext(now=self.clock(),
                              admit_seq=self._admit_seq,
                              admit_t=self._admit_time,
                              active=self.scheduler.active,
@@ -693,21 +775,22 @@ class ContinuousEngine:
 
     def _fits(self, req: Request, pending: dict):
         """Would this request's block plan fit beside the admissions
-        already planned in this pass? (The dense pool always fits; an
-        encdec request plans its cross blocks.)"""
+        already planned in this pass, in the share of the slot it would
+        get? (The dense pool always fits; an encdec request plans its
+        cross blocks.)"""
+        slot = self.scheduler.next_free
         if self.encdec:
             need = self.pool.admission_plan(
-                np.asarray(req.frames, np.float32))
-            avail = self.pool.admissible_blocks()
-            return need["cross"] + pending.get("cross", 0) \
-                <= avail["cross"], need
-        if not self.paged:
+                np.asarray(req.frames, np.float32), slot=slot)
+        elif not self.paged:
             return True, None
-        budget = req.max_new_tokens - len(self._resume_of(req))
-        need = self.pool.admission_plan(self._full_prompt(req),
-                                        self._plen(req),
-                                        self._padded_len(req), budget)
-        avail = self.pool.admissible_blocks()
+        else:
+            budget = req.max_new_tokens - len(self._resume_of(req))
+            need = self.pool.admission_plan(self._full_prompt(req),
+                                            self._plen(req),
+                                            self._padded_len(req), budget,
+                                            slot=slot)
+        avail = self.pool.admissible_blocks(slot)
         ok = all(n + pending.get(si, 0) <= avail[si]
                  for si, n in need.items())
         return ok, need
@@ -768,7 +851,7 @@ class ContinuousEngine:
                     self._first, self.sampler, self._wants_keys, logits,
                     pad_reqs,
                     token_idx=[len(self._resume_of(r)) for r in pad_reqs])
-                now = time.perf_counter()
+                now = self.clock()
                 for g, (slot, req) in enumerate(grp):
                     resume = self._resume_of(req)
                     try:
@@ -825,12 +908,13 @@ class ContinuousEngine:
         share=False, as the insert does. A stale True corrupts nothing:
         the insert's NoBlocksError requeues the request."""
         budget = req.max_new_tokens - len(self._resume_of(req))
+        slot = self.scheduler.next_free
         need = self.pool.admission_plan(self._full_prompt(req),
                                         self._plen(req),
                                         self._padded_len(req), budget,
-                                        share=False)
-        hold = len(self._decode_slots())
-        avail = self.pool.admissible_blocks()
+                                        share=False, slot=slot)
+        hold = len(self._same_share(slot, self._decode_slots()))
+        avail = self.pool.admissible_blocks(slot)
         return all(n + hold <= avail[si] for si, n in need.items())
 
     def _next_task_fits(self) -> bool:
@@ -890,7 +974,7 @@ class ContinuousEngine:
         first, rkeys = first_tokens(self._first, self.sampler,
                                     self._wants_keys, task.last_logits,
                                     [req], token_idx=[task.resume_len])
-        now = time.perf_counter()
+        now = self.clock()
         self._resume.pop(req.rid, None)
         t0 = int(first[0])
         if req.trace.admit_t is None:   # the FIRST admission
@@ -948,7 +1032,10 @@ class ContinuousEngine:
                                 "paged arena exhausted mid-decode with "
                                 "preemption disabled: raise slots_budget "
                                 "/ watermark, or enable preempt")
-                        candidates = self._decode_slots()
+                        # only a slot of the same share frees blocks
+                        # this slot can take
+                        candidates = self._same_share(
+                            slot, self._decode_slots())
                         victim = self.sched_policy.victim(
                             candidates, self._policy_ctx())
                         if victim == slot and len(candidates) == 1:
@@ -959,6 +1046,12 @@ class ContinuousEngine:
                         self._preempt(victim)
                         if victim == slot:
                             break   # this slot was the sacrifice
+
+    def _same_share(self, slot: int, slots: list) -> list:
+        """Those of `slots` that the data rank holding `slot` holds (all
+        of them off a mesh)."""
+        shard = self.layout.shard(slot)
+        return [s for s in slots if self.layout.shard(s) == shard]
 
     def _evict_overdue(self):
         """SLO eviction: an active request older (since admission) than
@@ -1020,7 +1113,7 @@ class ContinuousEngine:
             nxt, new_cache = self._step(*args)
             self.pool.cache["index"] = new_cache["index"]
             nxt = nxt.cpu().numpy()      # host sync: tokens feed next step
-            now = time.perf_counter()
+            now = self.clock()
             self.steps_run += 1
             self.slot_steps += len(active)
             for slot in active:
@@ -1066,7 +1159,7 @@ class ContinuousEngine:
             self.params, torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(positions, device=self.device))
         ids, pooled = ids.cpu().numpy(), pooled.cpu().numpy()
-        now = time.perf_counter()
+        now = self.clock()
         self.steps_run += 1
         self.slot_steps += n
         self.max_concurrent = max(self.max_concurrent, n)
@@ -1150,7 +1243,7 @@ class ContinuousEngine:
         ys, new_cache = self._verify(*args)
         self.pool.cache["index"] = new_cache["index"]
         ys = ys.cpu().numpy()
-        now = time.perf_counter()
+        now = self.clock()
         self.steps_run += 1
         self.slot_steps += len(active)
         self.spec_rounds += 1
@@ -1221,6 +1314,9 @@ class ContinuousEngine:
         masking and sampler keys, and for encdec the same cross
         contraction length (the dense cross K/V padded to the arena's
         blocked frame count, pads masked as the arena's filler)."""
+        if self.mesh is not None:
+            raise ValueError("run_one serves at batch 1 on one device: "
+                             "build the engine without a mesh")
         self._assign_rid(request)
         if request.trace.submit_t == 0.0:
             request.trace.mark_submit()
@@ -1272,7 +1368,7 @@ class ContinuousEngine:
         self._count_nonfinite(logits)
         first, rkeys = first_tokens(self._first, self.sampler,
                                     self._wants_keys, logits, [request])
-        now = time.perf_counter()
+        now = self.clock()
         request.trace.admit_t = now
         request.trace.mark_token(now)
         emitted = [int(first[0])]
@@ -1286,7 +1382,7 @@ class ContinuousEngine:
                                                    np.int32)),)
             nxt, cache = self._step(*args)
             t = int(nxt.cpu().numpy()[0])
-            request.trace.mark_token(time.perf_counter())
+            request.trace.mark_token(self.clock())
             emitted.append(t)
             tok[0, 0] = t
             pos[0, 0] += 1
@@ -1305,7 +1401,7 @@ class ContinuousEngine:
         ids, pooled = self._score(
             self.params, torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(positions, device=self.device))
-        now = time.perf_counter()
+        now = self.clock()
         request.trace.admit_t = now
         self._fill_scores(request, ids.cpu().numpy()[0],
                           pooled.cpu().numpy()[0], int(lens[0]), now)
@@ -1317,7 +1413,8 @@ class ContinuousEngine:
         queue depth, preemptions, the task, the number of steps whose
         logits were not all finite, (paged, encdec) prefix or cross
         block hits, (chunked) chunk forwards, rows and forwards per chunk
-        size, and (speculative) rounds and acceptance."""
+        size, and (speculative) rounds and acceptance; mesh_devices, the
+        ranks of the mesh (1 off a mesh)."""
         done = self.scheduler.completed
         stats = aggregate([r.trace for r in done], wall_s,
                           sum(len(r.generated) for r in done))
@@ -1327,6 +1424,8 @@ class ContinuousEngine:
         stats["max_concurrent"] = self.max_concurrent
         stats["preemptions"] = self.preemptions
         stats["sched_policy"] = self.sched_policy.name
+        stats["mesh_devices"] = (self.mesh.size() if self.mesh is not None
+                                 else 1)
         stats.update(self._depth.stats())
         stats["task"] = self.task
         if self.paged or self.encdec:
@@ -1359,7 +1458,11 @@ class ServeEngine:
     with ContinuousEngine."""
 
     def __init__(self, arch, params, *, max_len: int = 512, policy=None,
-                 sampler=None):
+                 mesh=None, sampler=None):
+        # mesh is taken for signature parity with ContinuousEngine and
+        # never used: the static baseline is the one-device reference a
+        # sharded engine is held to, as in the JAX package
+        del mesh
         if arch.kind != "decoder":
             raise ValueError(f"serving needs a decoder arch, got {arch.kind}")
         self.arch, self.params = apply_serving_policy(arch, params, policy)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -93,6 +94,9 @@ class ReplicaRouter:
                 f"got {policy!r}")
         self.replicas = list(replicas)
         self.policy = policy
+        # the replicas' clock (a mesh's shared one), for an open-loop
+        # driver
+        self.clock = getattr(self.replicas[0], "clock", time.perf_counter)
         if block_size is None:
             pools = [p for p in (getattr(e, "pool", None)
                                  for e in self.replicas)

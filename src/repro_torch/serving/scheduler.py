@@ -106,6 +106,12 @@ class Scheduler:
 
     # ---------------- slot side ----------------
 
+    @property
+    def next_free(self) -> Optional[int]:
+        """The slot the next assignment binds (None when none is free):
+        the engine plans an admission in that slot's share of the pool."""
+        return self._free[0] if self._free else None
+
     def peek(self, i: int = 0):
         """The i-th queued request in arrival order (None when out of
         range) — lets the engine gate admission on cache-pool capacity
@@ -124,6 +130,22 @@ class Scheduler:
         self.active[slot] = req
         self._slot_ticket[slot] = ticket
         return slot, req
+
+    def assign_one(self) -> Optional[Tuple[int, Any]]:
+        """Bind the queue head to one free slot (FIFO), or None if
+        either side is empty."""
+        return self.assign_at(0)
+
+    def assign(self) -> List[Tuple[int, Any]]:
+        """Bind queued requests to free slots (FIFO). Returns the new
+        (slot, request) pairs; the caller prefills and inserts their
+        caches."""
+        pairs: List[Tuple[int, Any]] = []
+        while True:
+            pair = self.assign_one()
+            if pair is None:
+                return pairs
+            pairs.append(pair)
 
     def _reinsert(self, slot: int) -> Any:
         if slot not in self.active:
@@ -147,6 +169,11 @@ class Scheduler:
         distinct name so call sites read as what they are. The ENGINE
         owns the continuation state (generated-so-far tokens)."""
         return self._reinsert(slot)
+
+    def admitted_order(self, slot: int) -> int:
+        """The active slot's arrival ticket (a stable tie-break for victim
+        selection)."""
+        return self._slot_ticket[slot]
 
     def complete(self, slot: int):
         """Release a slot whose request finished; returns the request.

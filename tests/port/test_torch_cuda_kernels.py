@@ -998,3 +998,68 @@ def test_cuda_mesh_full_width_memory_on_four_cards(tmp_path):
               f"{[round(x / 1e9, 2) for x in peaks]} vs 1 x 1 "
               f"{one / 1e9:.2f} ({[round(x / one, 3) for x in peaks]})")
         assert max(peaks) < one, (name, peaks, one)
+
+
+# --------------------------------------------------------------------------
+# the serving engine on four cards over NCCL (tests/port/serve_worker.py;
+# on the CPU the same cases run under gloo in test_torch_sharded_serving.py)
+# --------------------------------------------------------------------------
+
+from port import serve_worker  # noqa: E402
+
+SERVE_FOUR_CARDS = {"1x4": dict(data=1, model=4),
+                    "2x2": dict(data=2, model=2)}
+SERVE_CASES = ["fp32", "kernel-fp32"]
+
+
+@pytest.fixture(scope="module")
+def four_card_serving(tmp_path_factory):
+    """{layout: every rank's results, "one": {case: the one-card run}}:
+    reduced qwen2.5-14b (random weights from seed 0), each layout's four
+    ranks in turn, then the one-card runs on card 0."""
+    import multiprocessing
+    from repro_torch import select_device
+    from repro_torch.configs import reduced_arch
+    from repro_torch.kernels import build
+    select_device("cuda")
+    build.build_all(["paged_attention"])   # once, before the ranks load it
+    tmp = tmp_path_factory.mktemp("serve-cards")
+    params = {"qwen2.5-14b": reduced_arch("qwen2.5-14b").init(
+        torch.Generator().manual_seed(0))}
+    inputs = tmp / "params.pt"
+    torch.save(params, inputs)
+    ctx = multiprocessing.get_context("spawn")
+    out = {}
+    for name, layout in SERVE_FOUR_CARDS.items():
+        procs = serve_worker.start(ctx, serve_worker.run_rank, 4, tmp, name,
+                                   layout, SERVE_CASES, str(inputs),
+                                   device="cuda")
+        out[name] = serve_worker.join(procs, tmp, name, 300)
+    dev = serve_worker.to_device(params, "cuda:0")
+    out["one"] = {c: serve_worker.run_case(c, dev) for c in SERVE_CASES}
+    return out
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+@pytest.mark.parametrize("layout", list(SERVE_FOUR_CARDS))
+def test_cuda_serving_mesh_on_four_cards(request, layout, case):
+    """Needs four cards: the serving engine on 1 x 4 (the MLP split over
+    four ranks; reduced qwen's two KV heads do not divide over them, so
+    attention runs whole on each) and 2 x 2 (two slots over "data", heads
+    and MLP over "model") over NCCL, with the gather and with K8: greedy
+    fp32 tokens equal one card's, every rank's host state equal, and K8
+    launched decode steps x layers on every rank."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    runs = request.getfixturevalue("four_card_serving")
+    want = runs["one"][case]
+    assert serve_worker.ranks_agree(runs[layout], case)
+    n_layers = serve_worker.case_arch(case).cfg.n_layers
+    for rank in runs[layout]:
+        got = rank[case]
+        assert serve_worker.same_tokens(got["tokens"], want["tokens"])
+        assert got["report"]["mesh_devices"] == 4
+        if case == "kernel-fp32":
+            assert got["launches"] == got["steps"] * n_layers > 0
+        else:
+            assert got["launches"] == 0

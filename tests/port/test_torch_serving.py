@@ -224,13 +224,92 @@ def test_cli_defaults_to_cuda_and_never_falls_back():
         tserve.main(["--requests", "1"])
 
 
+CLI_SMALL = ["--device", "cpu", "--requests", "4", "--prompt-len", "12",
+             "--new-tokens", "6", "--seed", "1"]
+
+
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2x1"], ["--mesh", "1x2"],
     ["--attn-kernel", "paged", "--interpret"],
     ["--replicas", "2", "--mesh", "2x1"]])
-def test_cli_unported_features_raise(argv):
-    with pytest.raises(SystemExit, match="not (yet )?ported"):
-        tserve.main(["--device", "cpu", *argv])
+def test_cli_unported_features_raise(argv, tmp_path):
+    """--mesh and --interpret do what the JAX launcher's do: --mesh in
+    one process (no group of its ranks) exits naming both counts and
+    never serves on one device; --interpret serves through the kernel's
+    plain version with the kernel path's tokens and no launch;
+    --replicas 2 --mesh 2x1 serves on two gloo ranks with one process's
+    tokens, each replica on the mesh."""
+    if argv[0] == "--mesh":
+        with pytest.raises(SystemExit, match="--mesh .* needs 2 ranks, "
+                                             "the process group has 1"):
+            tserve.main([*CLI_SMALL, *argv])
+        return
+    if "--interpret" in argv:
+        from repro_torch.kernels import paged_attention as pa
+        launches = pa.paged_attention_fused.launches
+        _, want = tserve.main([*CLI_SMALL, "--attn-kernel", "paged"])
+        stats, got = tserve.main([*CLI_SMALL, *argv])
+        assert stats["attn_kernel"] == "paged"
+        assert pa.paged_attention_fused.launches == launches
+    else:
+        import multiprocessing
+        from port import serve_worker as sw
+        _, want = tserve.main([*CLI_SMALL, "--replicas", "2"])
+        procs = sw.start(multiprocessing.get_context("spawn"),
+                         sw.run_cli_rank, 2, tmp_path, "cli",
+                         [*CLI_SMALL, *argv])
+        ranks = sw.join(procs, tmp_path, "cli", 300)
+        got = ranks[0]["tokens"]
+        assert sw.same_tokens(ranks[1]["tokens"], got)
+        for r in ranks:
+            assert r["report"]["mesh"] == "2x1"
+            assert [p["mesh_devices"] for p in
+                    r["report"]["per_replica"]] == [2, 2]
+    assert token_lists(got) == token_lists(want)
+
+
+def token_lists(done):
+    return [np.asarray(getattr(r, "generated", r)).tolist() for r in done]
+
+
+def test_interpret_needs_the_paged_kernel(gemma_pair):
+    """kernel_interpret applies only with attn_kernel="paged", as JAX's
+    guard has it."""
+    _, _, tarch, tparams = gemma_pair
+    with pytest.raises(ValueError, match="kernel_interpret only applies"):
+        ContinuousEngine(tarch, tparams, attn_kernel="xla",
+                         kernel_interpret=True)
+
+
+def test_interpret_never_calls_the_kernel_entry(gemma_pair, monkeypatch):
+    """With kernel_interpret the paged branch calls K8's plain version
+    itself, on any device: the kernel's entry point is never reached, and
+    the tokens are the kernel path's. The pool checks no kernel layout
+    then: a head_dim the kernel cannot copy (12) leaves tile_problems
+    empty with the hatch, and lists it without."""
+    import dataclasses
+    from repro_torch.kernels import paged_attention as pa
+    _, _, tarch, tparams = gemma_pair
+    reqs = lambda: [Request(prompt=np.arange(5 + i, dtype=np.int32) + 7,
+                            max_new_tokens=4) for i in range(3)]
+    want = ContinuousEngine(tarch, tparams, max_batch=2, max_len=32,
+                            attn_kernel="paged").run_batch(reqs())
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel entry was called")
+    monkeypatch.setattr(pa, "paged_attention_fused", refuse)
+    got = ContinuousEngine(tarch, tparams, max_batch=2, max_len=32,
+                           attn_kernel="paged",
+                           kernel_interpret=True).run_batch(reqs())
+    assert token_lists(got) == token_lists(want)
+    odd = dataclasses.replace(tarch, cfg=dataclasses.replace(
+        tarch.cfg, head_dim=12))
+    from repro_torch.serving import PagedCachePool
+    assert PagedCachePool(odd, 2, 32, attn_kernel="paged").tile_problems
+    interp = dataclasses.replace(odd, cfg=dataclasses.replace(
+        odd.cfg, kernel_interpret=True))
+    assert PagedCachePool(interp, 2, 32,
+                          attn_kernel="paged").tile_problems == []
 
 
 @pytest.mark.parametrize("argv,match", [
