@@ -234,8 +234,21 @@ Phases, in the order they run, each of which fails the run:
      (d) granite-moe-3b-a800m at full width (d 1536, 40 experts) and 1
      layer on 2 x 1, each rank's block routed as its group: the gates
      of (b)'s 2 x 1 against the mesh-order one-process run, K1-K3 3 x
-     12 per rank, router_entropy printed beside the one process's. Both
-     ranks exit 0 within the join timeout; (c) the sharded-leaf contract
+     12 per rank, router_entropy printed beside the one process's; (f)
+     on 1 x 2, the model axis computing on what it cuts, at full width,
+     2 fused_lans steps each: granite-moe-3b-a800m (1 layer, (d)'s
+     batch; 20 of the 40 experts a rank), gemma2-2b (2 layers, seq 1024,
+     batch 2; its tied embedding, readout and chunked loss on 128,000
+     vocab rows a rank) and mamba2-130m (24 layers, seq 1024, batch 2;
+     12 of each mixer's 24 heads a rank, vocab 50280 cut too): (b)'s 1 x
+     2 gates against the one-process run that splits the experts, the
+     vocab and the Mamba mixers as the ranks do (mesh_worker.model_split),
+     K1-K3 launched 2 x the rank's leaves on each rank, and no shape the
+     fetch gathered on either rank that of an expert stack, a vocab-cut
+     table or a Mamba projection; step ms, collective ms per step, the
+     largest gathered shape and rank 1's peak beside the one-process
+     run's printed. Both ranks exit 0 within the join timeout; (c) the
+     sharded-leaf contract
      in one process: the
      100,663,296-element leaf cut into 2 and 4 shards, K1-K3, K1/K2/K4
      (bf16 copy) and K1/K5/K6 run on each shard with their partial sums
@@ -2643,18 +2656,27 @@ def phase_router(torch, pa, serve_mod):
     return launches
 
 
-# name: (arch, data, model, zero3, depth or None for the arch's own)
+# name: (arch, data, model, zero3, depth or None for the arch's own,
+#        global batch, seq, steps)
 MESH_RUNS = {
     # D(b): BERT-large at full width and 12 of its 24 layers, the depth
     # cut when phase D(e) was added, to keep the script's time
-    "2x1": ("bert-large", 2, 1, False, 12),
-    "2x1-zero3": ("bert-large", 2, 1, True, 12),
-    "1x2": ("bert-large", 1, 2, False, 12),
+    "2x1": ("bert-large", 2, 1, False, 12, 16, 128, MESH_STEPS),
+    "2x1-zero3": ("bert-large", 2, 1, True, 12, 16, 128, MESH_STEPS),
+    "1x2": ("bert-large", 1, 2, False, 12, 16, 128, MESH_STEPS),
     # D(d): granite-moe-3b-a800m at full width; two ranks of fp32 params
     # and moments at its full depth would not fit the one card, and one
     # layer keeps phase D nearer 150 s
-    "granite-2x1": ("granite-moe-3b-a800m", 2, 1, False, 1),
+    "granite-2x1": ("granite-moe-3b-a800m", 2, 1, False, 1, 16, 128,
+                    MESH_STEPS),
+    # D(f): the model axis computes on the experts (20 of 40 a rank),
+    # the vocab (gemma2-2b's 256000 rows, 128000 a rank; mamba2's 50280)
+    # and the Mamba-2 mixers (12 of 24 heads a rank), full width
+    "granite-1x2": ("granite-moe-3b-a800m", 1, 2, False, 1, 16, 128, 2),
+    "gemma2-1x2": ("gemma2-2b", 1, 2, False, 2, 2, 1024, 2),
+    "mamba2-1x2": ("mamba2-130m", 1, 2, False, None, 2, 1024, 2),
 }
+SPLIT_RUNS = ("granite-1x2", "gemma2-1x2", "mamba2-1x2")   # phase D(f)
 MESH_MEMORY_CUT = 0.70       # rank 1's peak under zero3 / 1 x 2 vs 2 x 1
 
 
@@ -2702,8 +2724,10 @@ def collective_timer(torch, dist, partial, steps):
     return acc
 
 
-def mesh_run(torch, name, rank, ref_rank, timer):
-    """One run of phase D(b) / D(d) on this rank; returns its numbers."""
+def mesh_run(torch, name, rank, ref_rank, timer, gathered):
+    """One run of phase D(b), D(d) or D(f) on this rank; returns its
+    numbers. `gathered` is the list the fetch's gathers append their
+    shapes to."""
     import dataclasses
     import gc
     import contextlib
@@ -2721,14 +2745,16 @@ def mesh_run(torch, name, rank, ref_rank, timer):
     from repro_torch.kernels import lans as kl
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_local_mesh
-    arch_name, data, model, zero3, depth = MESH_RUNS[name]
+    t_run = time.perf_counter()
+    arch_name, data, model, zero3, depth, size, seq, n_steps = \
+        MESH_RUNS[name]
     arch = get_arch(arch_name)
     arch = dataclasses.replace(arch, cfg=dataclasses.replace(
         arch.cfg, compute_dtype=torch.float32,
         **({} if depth is None else {"n_layers": depth})))
-    sched = train_mod.make_schedule("hold", 2e-3, MESH_STEPS, 0.2, 0.3)
-    batches = list(zip(range(MESH_STEPS), cli_batches(
-        torch, train_mod, arch, 16, 128, 0)()))
+    sched = train_mod.make_schedule("hold", 2e-3, n_steps, 0.2, 0.3)
+    batches = list(zip(range(n_steps), cli_batches(
+        torch, train_mod, arch, size, seq, 0)()))
     init = lambda: arch.init(torch.Generator(device="cuda").manual_seed(0))
     split = model > 1
     whole = lambda tree: {p: host_whole(torch, partial, v)
@@ -2742,9 +2768,18 @@ def mesh_run(torch, name, rank, ref_rank, timer):
             return tx.update(grads, state, params)
         return tx._replace(update=update)
 
-    def steps(step, params, state):
+    def steps(step, placed):
+        """(losses, step ms, step-1 params whole, router entropies, (peak
+        bytes since the caller's reset, peak bytes of the last step
+        alone: no gate's whole-tree gathers run in it)). placed: [params,
+        state], emptied, so that no generation outlives its step."""
+        params, state = placed
+        placed.clear()
         losses, ms, first, entropy = [], [], None, []
         for i, b in batches:
+            if i == n_steps - 1:
+                before = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, state, m = step(params, state, b)
@@ -2754,7 +2789,8 @@ def mesh_run(torch, name, rank, ref_rank, timer):
             ms.append((time.perf_counter() - t0) * 1e3)
             if i == 0:
                 first = whole(params)
-        return losses, ms, first, entropy
+        last = torch.cuda.max_memory_allocated()
+        return losses, ms, first, entropy, (max(before, last), last)
 
     out = {}
     if rank == ref_rank:
@@ -2768,10 +2804,13 @@ def mesh_run(torch, name, rank, ref_rank, timer):
         step, init_fn = build_train_step(
             arch.loss_fn, recording(fused_lans(sched), ref_seen),
             param_init_fn=lambda _: init())
-        with (mesh_order(data, 1, model=model, heads=arch.heads)
+        torch.cuda.reset_peak_memory_stats()
+        with (mesh_order(data, 1, model=model, heads=arch.heads,
+                         mamba=arch.mamba)
               if data > 1 or split else contextlib.nullcontext()):
-            out["ref_losses"], _, ref_first, out["ref_entropy"] = steps(
-                step, *init_fn(None))
+            (out["ref_losses"], _, ref_first, out["ref_entropy"],
+             peaks) = steps(step, list(init_fn(None)))
+        out["ref_peak_gb"], out["ref_last_peak_gb"] = (p / 1e9 for p in peaks)
         del step, init_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -2779,7 +2818,7 @@ def mesh_run(torch, name, rank, ref_rank, timer):
     seen = []
     step, init_fn = build_train_step(
         arch.loss_fn, recording(fused_lans(sched), seen), mesh, zero3=zero3,
-        param_init_fn=lambda _: init(), heads=arch.heads)
+        param_init_fn=lambda _: init(), heads=arch.heads, mamba=arch.mamba)
     params, state = init_fn(None)
     pspec, ospec = step.specs_for(params, state)
     # placed (cut) before the run, the whole init freed: the peak is the
@@ -2794,15 +2833,20 @@ def mesh_run(torch, name, rank, ref_rank, timer):
         k.launches = 0
     reduce_partials.calls = 0
     timer["ms"] = 0.0
-    losses, ms, first, entropy = steps(step, params, state)
+    gathered.clear()
+    out.update(n_leaves=len(tree_leaves(params)),
+               n_params=sum((p.to_local() if hasattr(p, "to_local")
+                             else p).numel() for p in tree_leaves(params)))
+    placed = [params, state]
+    del params, state
+    losses, ms, first, entropy, peaks = steps(step, placed)
     out.update(losses=losses, step_ms=ms, entropy=entropy,
-               collective_ms=timer["ms"] / MESH_STEPS,
+               peak_gb=peaks[0] / 1e9, last_peak_gb=peaks[1] / 1e9,
+               collective_ms=timer["ms"] / n_steps,
+               gathered=sorted(set(gathered)),
                launches={k.__name__: k.launches for k in kl.KERNELS},
-               partial_allreduces=reduce_partials.calls,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               n_leaves=len(tree_leaves(params)),
-               n_params=sum(p.numel() for p in tree_leaves(params)))
-    del step, params, state
+               partial_allreduces=reduce_partials.calls)
+    del step
     gc.collect()
     torch.cuda.empty_cache()
     if rank == ref_rank:
@@ -2833,6 +2877,7 @@ def mesh_run(torch, name, rank, ref_rank, timer):
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
+    out["run_s"] = time.perf_counter() - t_run
     return out
 
 
@@ -2841,12 +2886,11 @@ def _paths(tree):
     return tree_paths(tree)
 
 
-def mesh_rank(rank, world, init_method, out_path, ref_rank):
-    """One rank of phase D(b) and D(d), in a process of its own: every run
-    of MESH_RUNS on two gloo ranks sharing the one card, 3 fused_lans
-    steps each on the global batch of 16. The reference rank also runs
-    each one-process reference (no mesh) for the gates. Writes its
-    numbers as JSON to out_path."""
+def mesh_rank(rank, world, init_method, out_path, ref_rank, names):
+    """One rank of phase D(b), D(d) and D(f), in a process of its own:
+    the runs `names` of MESH_RUNS on two gloo ranks sharing the one card.
+    The reference rank also runs each one-process reference (no mesh)
+    for the gates. Writes its numbers as JSON to out_path."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import gc
@@ -2861,8 +2905,19 @@ def mesh_rank(rank, world, init_method, out_path, ref_rank):
     try:
         out = {"rank": rank, "runs": {}}
         timer = collective_timer(torch, dist, partial, steps)
-        for name in MESH_RUNS:
-            out["runs"][name] = mesh_run(torch, name, rank, ref_rank, timer)
+        gathered = []
+        plain = partial.gather_leaf
+
+        def recorded(t, cuts):
+            result = plain(t, cuts)
+            if cuts:
+                gathered.append(tuple(result.shape))
+            return result
+
+        partial.gather_leaf = recorded
+        for name in names:
+            out["runs"][name] = mesh_run(torch, name, rank, ref_rank, timer,
+                                         gathered)
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -2871,10 +2926,17 @@ def mesh_rank(rank, world, init_method, out_path, ref_rank):
         json.dump(out, f)
 
 
-def phase_mesh(torch):
-    """Phase D(b) and D(d): BERT-large on 2 x 1, 2 x 1 with zero3 and 1 x
-    2 meshes, and granite-moe-3b-a800m (full width, 2 layers) on 2 x 1,
-    two ranks as two processes on the one card under gloo."""
+def phase_mesh(torch, names=tuple(MESH_RUNS)):
+    """Phase D(b), D(d) and D(f): BERT-large on 2 x 1, 2 x 1 with zero3
+    and 1 x 2 meshes, granite-moe-3b-a800m (full width, 1 layer) on 2 x
+    1, and on 1 x 2 granite-moe (its experts over "model"), gemma2-2b (a
+    vocab-parallel readout and loss) and mamba2-130m (Mamba-2 on whole
+    heads), two ranks as two processes on the one card under gloo; the
+    runs `names` of MESH_RUNS (D(f) alone: SPLIT_RUNS)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import dataclasses
+    from port.mesh_worker import model_cut_shapes
+    from repro_torch.configs import get_arch
     import multiprocessing
     import socket
     import tempfile
@@ -2892,7 +2954,8 @@ def phase_mesh(torch):
     ctx = multiprocessing.get_context("spawn")
     paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
     procs = [ctx.Process(target=mesh_rank, args=(
-        r, 2, f"tcp://localhost:{port}", paths[r], 0)) for r in range(2)]
+        r, 2, f"tcp://localhost:{port}", paths[r], 0, names))
+        for r in range(2)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -2912,7 +2975,8 @@ def phase_mesh(torch):
         with open(path) as f:
             ranks.append(json.load(f))
     shutil.rmtree(tmp)
-    for name, (arch, data, model, zero3, depth) in MESH_RUNS.items():
+    for name in names:
+        arch, data, model, zero3, depth, size, seq, n_steps = MESH_RUNS[name]
         r0, r1 = (r["runs"][name] for r in ranks)
         where = f"mesh {name} ({arch})"
         check(r0["losses"] == r1["losses"],
@@ -2923,7 +2987,7 @@ def phase_mesh(torch):
                            f"{r0['ref_losses']} ({rel:.3e} relative)")
         for i, r in enumerate((r0, r1)):
             for k in ("sq_norm", "lans_phase1", "lans_phase2"):
-                check(r["launches"][k] == r0["n_leaves"] * MESH_STEPS,
+                check(r["launches"][k] == r0["n_leaves"] * n_steps,
                       f"{where} rank {i}: {k} launched "
                       f"{r['launches'][k]} times")
             check(r["launches"]["lans_phase2_cast"] == 0,
@@ -2958,7 +3022,7 @@ def phase_mesh(torch):
                   f"per step {x['collective_ms']:.2f} (gloo, host-timed, "
                   f"through the host: no measure of NVLink), "
                   f"peak_gb {x['peak_gb']:.2f}, K1-K3 launches "
-                  f"{x['launches']['sq_norm']} = {MESH_STEPS} x "
+                  f"{x['launches']['sq_norm']} = {n_steps} x "
                   f"{x['n_leaves']}, partial all-reduces "
                   f"{x['partial_allreduces']}, {x['n_params']} local "
                   f"elements")
@@ -2968,8 +3032,35 @@ def phase_mesh(torch):
             print(f"{where}: router_entropy {r0['entropy']} vs one process "
                   f"{r0['ref_entropy']} (the aux metric; moe_aux_loss is "
                   f"inside the loss)")
-    peaks = {name: ranks[1]["runs"][name]["peak_gb"] for name in MESH_RUNS}
-    for name in ("2x1-zero3", "1x2"):
+        if name in SPLIT_RUNS:
+            a = get_arch(arch)
+            if depth is not None:
+                a = dataclasses.replace(a, cfg=dataclasses.replace(
+                    a.cfg, n_layers=depth))
+            cut, _ = model_cut_shapes(a)
+            for r in ranks:
+                shapes = {tuple(g) for g in r["runs"][name]["gathered"]}
+                check(not shapes & cut,
+                      f"{where} rank {r['rank']}: the fetch gathered "
+                      f"{sorted(shapes & cut)}: an expert stack, a "
+                      f"vocab-cut table or a Mamba projection")
+            shapes = [tuple(g) for g in r1["gathered"]]
+            biggest = max(shapes, key=lambda g: math.prod(g), default=None)
+            print(f"{where}: the fetch gathered no expert stack, vocab-cut "
+                  f"table or Mamba projection on either rank (gate); rank "
+                  f"1 gathered {len(shapes)} shapes, the largest "
+                  f"{biggest} ({math.prod(biggest) if biggest else 0} "
+                  f"elements); rank 1 peak {r1['peak_gb']:.2f} GB vs the "
+                  f"one-process run's {r0['ref_peak_gb']:.2f} GB, in "
+                  f"the last step alone (no gate's whole-tree gathers) "
+                  f"{r1['last_peak_gb']:.2f} GB vs "
+                  f"{r0['ref_last_peak_gb']:.2f} GB; "
+                  f"{r0['run_s']:.1f} s")
+    split_s = sum(ranks[0]["runs"][n]["run_s"] for n in names
+                  if n in SPLIT_RUNS)
+    print(f"phase D(f): {split_s:.1f} s")
+    peaks = {name: ranks[1]["runs"][name]["peak_gb"] for name in names}
+    for name in ("2x1-zero3", "1x2") if "2x1" in names else ():
         ratio = peaks[name] / peaks["2x1"]
         check(ratio <= MESH_MEMORY_CUT,
               f"mesh {name}: rank 1 peak {peaks[name]:.2f} GB is "
@@ -2981,7 +3072,7 @@ def phase_mesh(torch):
     print(f"mesh: {time.perf_counter() - t0:.1f} s")
     return {name: {k: ranks[0]["runs"][name]["launches"][k]
                    for k in ("sq_norm", "lans_phase1", "lans_phase2")}
-            for name in MESH_RUNS}
+            for name in names}
 
 
 # phase D(e): name: (data, model)

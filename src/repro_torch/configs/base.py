@@ -38,6 +38,17 @@ class Arch:
         n_kv = getattr(self.cfg, "n_kv_heads", self.cfg.n_heads)
         return self.cfg.n_heads, n_kv
 
+    @property
+    def mamba(self):
+        """The Mamba-2 mixer's config (models/mamba2.py: MambaConfig:
+        its heads and groups) of a decoder with Mamba slots, else None:
+        what a mesh's use plan needs to cut the mixer over "model" on
+        whole heads (distributed/sharding.py: use_plan)."""
+        if self.kind != "decoder" or all(
+                mixer != "mamba" for mixer, _ in self.cfg.superblock):
+            return None
+        return self.cfg.mamba_cfg()
+
     def init(self, gen: torch.Generator):
         """Random params drawn from `gen`, on `gen.device`."""
         if self.kind == "bert":

@@ -29,9 +29,23 @@ goes through the autograd functions below:
                   order: _sum32);
   model_slice     the rank's slice of a replicated leaf used with
                   column-parallel outputs (a bias), its gradient
-                  all-gathered back over "model" to the whole leaf's.
+                  all-gathered back over "model" to the whole leaf's;
+  model_take      the same for any index set of the rank's (a Mamba
+                  conv bias: its heads' channels and B / C whole), the
+                  ranks' gradients summed in rank order;
+  all_sum         a sum over "model" whose every rank uses the total on
+                  its own part (a norm's sum of squares over a cut dim):
+                  summed in rank order forward and backward;
+  exchange        a leaf cut on contiguous columns at rest turned into
+                  the columns the rank uses (a Mamba in_proj / conv_w:
+                  its heads', and B / C whole), one all-to-all of the
+                  layer's shards; the backward pass sends each gradient
+                  back to the rank that holds its column and sums the
+                  ranks' parts of a column they all used in rank order.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -87,6 +101,13 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
                       device=t.device)
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+def max_over(t, group):
+    """A detached copy of `t`, its elementwise maximum over `group`."""
+    top = t.detach().clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    return top
 
 
 def _chunk(t, dim, group):
@@ -185,3 +206,106 @@ def model_slice(t, dim, group):
     """This rank's chunk of `t` on `dim` over `group`, its gradient
     assembled over `group` into the whole tensor's."""
     return _ModelSlice.apply(t, dim, group)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum32(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(g, ctx.group), None
+
+
+def all_sum(t, group):
+    """t summed over `group` in rank order, for every rank to use on its
+    own part: its gradient is summed over `group` the same way."""
+    return _AllSum.apply(t, group)
+
+
+class _ModelTake(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, idx, group):
+        ctx.shape, ctx.idx, ctx.group = t.shape, idx, group
+        return t.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = torch.promote_types(g.dtype, torch.float32)
+        full = torch.zeros(ctx.shape, dtype=acc, device=g.device)
+        full.index_copy_(0, ctx.idx, g.to(acc))
+        return _sum32(full, ctx.group).to(g.dtype), None, None
+
+
+def model_take(t, idx, group):
+    """Rows `idx` (a list, this rank's) of the replicated `t`, its
+    gradient assembled over `group` into the whole tensor's: the ranks'
+    parts added in rank order (a row several ranks take gets their sum)."""
+    return _ModelTake.apply(t, torch.as_tensor(idx, device=t.device), group)
+
+
+@functools.lru_cache(maxsize=None)
+def exchange_plan(size: int, segments: tuple, n: int, rank: int):
+    """(sent, received) of `rank` among `n` ranks that hold contiguous
+    chunks of a dim of `size` and use the indices segment_columns gives
+    each (distributed/sharding.py): sent[t] the indices of this rank's
+    chunk that rank t uses, in order; received[s] the count of its own
+    indices rank s holds. Rank t's indices ascend, and so do the chunks,
+    so what it receives from the ranks in order is its indices in
+    order."""
+    from repro_torch.distributed.sharding import segment_columns
+    chunk = size // n
+    sent = tuple(tuple(c - rank * chunk for c in segment_columns(
+        segments, n, t) if rank * chunk <= c < (rank + 1) * chunk)
+        for t in range(n))
+    mine = segment_columns(segments, n, rank)
+    received = tuple(sum(1 for c in mine if s * chunk <= c < (s + 1) * chunk)
+                     for s in range(n))
+    return sent, received
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, segments, group):
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        sent, received = exchange_plan(t.shape[dim] * n, segments, n, rank)
+        idx = torch.as_tensor([i for s in sent for i in s], dtype=torch.long,
+                              device=t.device)
+        ctx.dim, ctx.group, ctx.shape = dim, group, t.shape
+        ctx.sent, ctx.received, ctx.idx = sent, received, idx
+        src = t.movedim(dim, 0).index_select(0, idx).contiguous()
+        out = torch.empty((sum(received), *src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.all_to_all_single(out, src, list(received),
+                               [len(s) for s in sent], group=group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        src = g.movedim(ctx.dim, 0).contiguous()
+        back = torch.empty((ctx.idx.numel(), *src.shape[1:]), dtype=g.dtype,
+                           device=g.device)
+        dist.all_to_all_single(back, src, [len(s) for s in ctx.sent],
+                               list(ctx.received), group=ctx.group)
+        acc = torch.promote_types(g.dtype, torch.float32)
+        shape = list(ctx.shape)
+        shape.insert(0, shape.pop(ctx.dim))
+        grad = torch.zeros(shape, dtype=acc, device=g.device)
+        start = 0
+        for sent in ctx.sent:          # rank order: a shared column's sum
+            n = len(sent)
+            grad.index_add_(0, ctx.idx[start:start + n],
+                            back[start:start + n].to(acc))
+            start += n
+        return grad.to(g.dtype).movedim(0, ctx.dim).contiguous(), None, \
+            None, None
+
+
+def exchange(t, dim, segments, group):
+    """A rank's contiguous chunk `t` of a leaf cut on `dim` over `group`
+    turned into the indices of that dim the rank uses (segment_columns
+    of `segments`), in order: one all-to-all moves to each rank what it
+    uses of the others' chunks (see _Exchange for the backward pass)."""
+    return _Exchange.apply(t, dim, segments, group)

@@ -34,21 +34,41 @@ tuple of axis names (`tuple(jax P) == tuple(PSpec)` for the same rule).
 Use plans (the train step on a mesh, distributed/steps.py): `use_plan`
 reads from a leaf's spec how the models use it during the step
 (models/common.py: fetch). A leaf with no cut is used as it is. A
-column-parallel leaf (an attention wq / wk / wv or an MLP up / gate
-kernel cut over "model" on its columns) keeps its model shard, and the
-rank computes its own heads or ff columns; a row-parallel one (wo, down,
-cut on its rows) keeps it too, and the rank's partial product is summed
-over "model". The split is only taken where the cut falls on whole
-heads: both n_heads and n_kv divisible by the model size, so that every
-rank's columns are whole heads of q and of k / v. The JAX rules cut
-wherever the dim divides, which can split a head (n_kv 1 over two ranks:
-half a head each); such an attention block, and every other cut leaf, is
-gathered whole at its use, one layer at a time. A leaf also cut over a
-data axis (zero3) is gathered over that axis in either case.
+leaf cut over "model" where the model axis can compute on its shard
+keeps that shard, and the rank computes its part:
+- "col" / "row": an attention wq / wk / wv or an MLP up / gate kernel
+  cut on its columns computes the rank's heads or ff columns; wo or
+  down, cut on its rows, the rank's partial product, summed over
+  "model". Attention is split only on whole heads: both n_heads and
+  n_kv divisible by the model size, so that every rank's columns are
+  whole heads of q and of k / v (the JAX rules cut wherever the dim
+  divides, which can split a head: n_kv 1 over two ranks, half a head
+  each; such an attention block is gathered). An MoE expert stack that
+  the rule cut on its ff dim (E does not divide) is "col" (up, gate) or
+  "row" (down) too: each rank computes every expert's ff columns;
+- "expert": an MoE expert stack (E, din, dout) cut on E: the rank runs
+  its own experts on the rows routed to them (models/moe.py);
+- "vocab": a token embedding (V, d) or an untied lm_head (d, V) cut on
+  V: the lookup and the readout work on the rank's rows, and the cross
+  entropy on its (..., V / m) logits (models/common.py);
+- "mamba": a Mamba-2 mixer's in_proj kernel or conv_w, cut on their
+  columns at rest as the JAX rule cuts them (contiguous columns, which
+  need not fall on heads), exchanged at use into the rank's own heads'
+  columns (`segments`: the cut dim's parts, each split over the ranks
+  or whole on every one; distributed/partial.py: exchange); its
+  out_proj is "row". Only where the model size divides the mixer's
+  heads (and its groups, or there is one group), from the `mamba`
+  config the step is given.
+Every other cut leaf is gathered whole at its use, one layer at a time:
+the router kernel (every rank needs all E logits), a vocab that does
+not divide (left whole by the rule), attention that would split a head.
+A leaf also cut over a data axis (zero3) is gathered over that axis in
+either case.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -367,7 +387,10 @@ def serve_params(params: Tree, mesh, heads) -> Tree:
 
     def place(path, t, spec):
         use = use_plan(path, spec, mesh, heads)
-        if use is None or use.kind == "gather":
+        # dense kernels only: an expert stack cut on its ff dim is "col"
+        # / "row" too, and stays whole here
+        if (use is None or use.kind not in ("col", "row")
+                or not path.endswith("/kernel")):
             return t
         dim = dict(use.cuts)["model"]
         out = t.chunk(msize, dim=dim)[coord["model"]].contiguous()
@@ -483,32 +506,79 @@ def serve_layout(heads, max_batch: int, mesh=None) -> ServeLayout:
 @dataclasses.dataclass(frozen=True)
 class Use:
     """How the models use one cut leaf in a step on a mesh: `kind`
-    "col" or "row" (tensor parallel: the model shard is used as it is)
-    or "gather" (gathered whole at its use); `cuts` the (axis name,
-    tensor dim) pairs the leaf is cut on, in the mesh's dim order."""
+    "col", "row", "expert", "vocab" or "mamba" (the model shard is used
+    as it is, a "mamba" one after its exchange) or "gather" (gathered
+    whole at its use); `cuts` the (axis name, tensor dim) pairs the leaf
+    is cut on, in the mesh's dim order; `segments` a "mamba" leaf's
+    parts of its model-cut dim, (size, split) each (mamba_segments)."""
     kind: str
     cuts: tuple
+    segments: tuple = ()
 
     @property
     def gathered(self) -> tuple:
         """The cuts the fetch all-gathers: all of them, or all but the
-        model cut of a tensor-parallel leaf."""
+        model cut of a leaf used as its model shard."""
         return tuple(c for c in self.cuts
                      if self.kind == "gather" or c[0] != "model")
 
     def unstacked(self) -> "Use":
         """The plan of one layer's slice of a stacked leaf."""
-        return Use(self.kind, tuple((a, d - 1) for a, d in self.cuts))
+        return Use(self.kind, tuple((a, d - 1) for a, d in self.cuts),
+                   self.segments)
 
 
 _COLUMN = ("wq", "wk", "wv", "up", "gate")
 _ROW = ("wo", "down")
 
 
-def use_plan(path: str, spec: PSpec, mesh, heads=None) -> Optional[Use]:
+def mamba_split(mamba, msize: int) -> bool:
+    """Does a model axis of `msize` ranks cut a Mamba-2 mixer of config
+    `mamba` (models/mamba2.py: MambaConfig) on whole heads: two or more
+    ranks, dividing its heads, its groups or there being one group
+    (then B and C stay whole on every rank), and its in_proj and conv_w
+    columns (the rule cuts them only then)?"""
+    if mamba is None or msize < 2:
+        return False
+    h, g, gn = mamba.nheads, mamba.ngroups, mamba.ngroups * mamba.dstate
+    return (h % msize == 0 and (g % msize == 0 or g == 1)
+            and (2 * mamba.d_inner + 2 * gn + h) % msize == 0
+            and (mamba.d_inner + 2 * gn) % msize == 0)
+
+
+def mamba_segments(leaf: str, mamba, msize: int) -> tuple:
+    """The parts of a Mamba-2 leaf's cut dim, (size, split) each: split
+    parts are cut over the ranks by heads (or groups), the others whole
+    on every rank. in_proj's columns are [z, x, B, C, dt], conv_w's [x,
+    B, C] (models/mamba2.py)."""
+    head = mamba.nheads * mamba.headdim
+    gn = mamba.ngroups * mamba.dstate
+    groups = mamba.ngroups % msize == 0
+    if leaf == "in_proj":
+        return ((head, True), (head, True), (gn, groups), (gn, groups),
+                (mamba.nheads, True))
+    return ((head, True), (gn, groups), (gn, groups))
+
+
+@functools.lru_cache(maxsize=None)
+def segment_columns(segments: tuple, msize: int, rank: int) -> tuple:
+    """The indices along the cut dim that `rank` of `msize` uses: its
+    chunk of each split part and all of each whole one, in order."""
+    out, start = [], 0
+    for size, split in segments:
+        lo, n = ((rank * size // msize, size // msize) if split
+                 else (0, size))
+        out.extend(range(start + lo, start + lo + n))
+        start += size
+    return tuple(out)
+
+
+def use_plan(path: str, spec: PSpec, mesh, heads=None,
+             mamba=None) -> Optional[Use]:
     """The use plan of the leaf at `path` placed by `spec` on `mesh`
     (None: not cut, used as it is). heads: (n_heads, n_kv) of the
-    model's attention, without which attention is never split."""
+    model's attention, without which attention is never split; mamba:
+    its Mamba-2 mixer's config, without which Mamba is never split."""
     order = list(mesh_shape(mesh))
     cuts = sorted(((name, d) for d, entry in enumerate(spec)
                    for name in (entry if isinstance(entry, tuple) else
@@ -517,19 +587,39 @@ def use_plan(path: str, spec: PSpec, mesh, heads=None) -> Optional[Use]:
     if not cuts:
         return None
     model = dict(cuts).get("model")
+    kind, segments = "gather", ()
+    if model is None:
+        return Use(kind, tuple(cuts))
     parts = path.lower().split("/")
-    owner = parts[-2] if len(parts) >= 2 and parts[-1] == "kernel" else None
+    name = parts[-1]
+    owner = parts[-2] if len(parts) >= 2 and name == "kernel" else None
     msize = _axis_size(mesh, "model")
     whole_heads = heads is not None and all(n % msize == 0 for n in heads)
-    ok = owner in ("up", "gate", "down") or (
-        owner in ("wq", "wk", "wv", "wo") and whole_heads)
-    kind = "gather"
-    if model is not None and ok:
-        if owner in _COLUMN and model == len(spec) - 1:
+    last, rows = len(spec) - 1, len(spec) - 2
+    if owner in ("up", "gate", "down") or (
+            owner in ("wq", "wk", "wv", "wo") and whole_heads):
+        if owner in _COLUMN and model == last:
             kind = "col"
-        elif owner in _ROW and model == len(spec) - 2:
+        elif owner in _ROW and model == rows:
             kind = "row"
-    return Use(kind, tuple(cuts))
+    elif owner is None and name in ("up", "gate", "down") and len(spec) >= 3:
+        # an MoE expert stack (..., E, din, dout)
+        if model == len(spec) - 3:
+            kind = "expert"
+        elif name in _COLUMN and model == last:
+            kind = "col"
+        elif name in _ROW and model == rows:
+            kind = "row"
+    elif (name == "embedding" and model == 0) or (owner == "lm_head"
+                                                  and model == last):
+        kind = "vocab"
+    elif mamba_split(mamba, msize):
+        if (owner == "in_proj" or name == "conv_w") and model == last:
+            kind = "mamba"
+            segments = mamba_segments(owner or name, mamba, msize)
+        elif owner == "out_proj" and model == rows:
+            kind = "row"
+    return Use(kind, tuple(cuts), segments)
 
 
 def spec_of(t, mesh) -> PSpec:
@@ -545,11 +635,11 @@ def spec_of(t, mesh) -> PSpec:
     return PSpec(*(tuple(e) if e else None for e in entries))
 
 
-def params_uses(params: Tree, mesh, heads=None) -> Tree:
+def params_uses(params: Tree, mesh, heads=None, mamba=None) -> Tree:
     """use_plan of every leaf of `params` (placed on `mesh`), by its
     placements."""
     return tree_map(lambda pth, v: use_plan(pth, spec_of(v, mesh), mesh,
-                                            heads),
+                                            heads, mamba),
                     tree_paths(params), params)
 
 
@@ -579,8 +669,11 @@ def placements(spec: PSpec, mesh) -> tuple:
 def local_shard(t: torch.Tensor, mesh, places) -> torch.Tensor:
     """This rank's block of the whole tensor `t` under `places`: for each
     mesh dim in order, the coordinate's chunk along its Shard dim (even
-    chunks: the rules only shard dims the axis size divides)."""
+    chunks: the rules only shard dims the axis size divides). A block is
+    a copy, never a view that would keep the whole tensor's storage
+    alive (a chunk of an outer dim is contiguous as it is)."""
     coord = mesh.get_coordinate()
+    cut = False
     for md, p in enumerate(places):
         if p.is_shard():
             n = mesh.size(md)
@@ -588,7 +681,9 @@ def local_shard(t: torch.Tensor, mesh, places) -> torch.Tensor:
                 raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
                                  f"split evenly over {n} ranks")
             t = t.chunk(n, dim=p.dim)[coord[md]]
-    return t.contiguous()
+            cut = True
+    return t.clone(memory_format=torch.contiguous_format) if cut else \
+        t.contiguous()
 
 
 def distribute_leaf(t, mesh, spec: PSpec):

@@ -35,6 +35,12 @@ between uses:
 - a leaf cut over "model" on whole heads or ff columns is used as its
   shard in a column- or row-parallel matmul, so that the model axis
   cuts the compute too (one all-reduce of the activations per block);
+  so are MoE expert stacks (each rank its experts, or every expert's
+  ff columns: models/moe.py), a vocab-cut embedding and lm_head (the
+  lookup, the readout and the cross entropy on each rank's vocab rows:
+  models/common.py) and a Mamba-2 mixer cut on whole heads (its
+  in_proj and conv_w exchanged into the rank's heads' columns at use:
+  models/mamba2.py);
 - every other cut leaf is gathered at its use, one layer at a time,
   inside the layer's recomputed region, so that the backward pass
   gathers it again rather than keeping it whole;
@@ -286,7 +292,8 @@ def loss_and_grads(loss_fn, params, batch, scale):
 def build_train_step(loss_fn: Callable, tx, mesh=None, *,
                      microbatches: int = 1, zero3: bool = False,
                      param_init_fn: Optional[Callable] = None, policy=None,
-                     loss_scale=None, heads: Optional[tuple] = None):
+                     loss_scale=None, heads: Optional[tuple] = None,
+                     mamba=None):
     """Returns (step_fn, init_fn), on one device or, with `mesh`, on it.
 
     step_fn: (params, opt_state, batch) -> (params, opt_state, metrics)
@@ -305,7 +312,9 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
     place_train_step does the placing. `heads`, the (n_heads, n_kv) of
     the model's attention (Arch.heads), is required with a mesh: the
     step splits attention over "model" where both divide over it, on
-    whole heads.
+    whole heads. `mamba`, the Mamba-2 mixer's config (Arch.mamba), lets
+    it split a Mamba mixer on whole heads too; without it the mixer's
+    projections are gathered.
     """
     if mesh is not None and heads is None:
         raise ValueError("build_train_step on a mesh needs heads= "
@@ -388,7 +397,7 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         local = lambda b: {**{k: shd.local_shard(
             v, mesh, shd.placements(bspec[k], mesh)) if v.ndim else v
             for k, v in b.items()}, WHOLE: b}
-        uses = shd.params_uses(params, mesh, heads)
+        uses = shd.params_uses(params, mesh, heads, mamba)
 
         def on_shards(live, b):
             # the live leaves carry their use plans to the models' fetch

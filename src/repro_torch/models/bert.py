@@ -34,11 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (_randn, dense_apply, dense_init,
-                                       embed_apply, embed_init, fetch,
-                                       fetch_tree, gelu, layer_params,
+                                       embed_apply, embed_attend, embed_init,
+                                       fetch, fetch_tree, gelu, layer_params,
                                        layernorm_apply, layernorm_init,
-                                       mlp_apply, mlp_init, unbind_layers,
-                                       WHOLE)
+                                       log_likelihood, mlp_apply, mlp_init,
+                                       unbind_layers, WHOLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,13 +140,14 @@ def bert_encode(params, cfg: BertConfig, tokens, token_types=None,
 
 
 def _mlm_logits(params, cfg: BertConfig, h):
-    """The MLM head: transform, tied decoder, fp32 output bias."""
+    """The MLM head: transform, tied decoder, fp32 output bias (on a mesh
+    whose model axis cuts the vocab, the rank's columns and its slice of
+    the bias: models/common.py: embed_attend)."""
     cd = cfg.compute_dtype
     t = dense_apply(fetch_tree(params["mlm_transform"]), h, cd)
     t = layernorm_apply(fetch_tree(params["mlm_ln"]), gelu(t))
-    emb = fetch(params["tok_embed"]["embedding"])
-    mlm = torch.matmul(t.to(cd), emb.to(cd).t())
-    return mlm.float() + fetch(params["mlm_bias"]).float()
+    return embed_attend(fetch_tree(params["tok_embed"]), t, cd,
+                        bias=fetch(params["mlm_bias"]))
 
 
 def _tied(params):
@@ -198,8 +199,7 @@ def bert_pretrain_loss(params, cfg: BertConfig, batch):
     labels = batch["mlm_labels"].long()
     valid = labels != -100
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = F.log_softmax(mlm_logits, dim=-1)
-    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    ll = log_likelihood(mlm_logits, safe)
     whole = batch.get(WHOLE)
     count = (valid.sum() if whole is None
              else (whole["mlm_labels"] != -100).sum())

@@ -14,14 +14,23 @@ use plan (distributed/sharding.py: use_plan). Each leaf goes through
 `fetch` at its use: `layer_params` fetches one layer's leaves, which the
 models call inside the layer's recomputed region, so that only the
 shards are kept for the backward pass; the other leaves are fetched
-where they are used. Off a mesh `fetch` is the identity. A
-tensor-parallel leaf comes back as its model shard, and `dense_apply`
-then does its part of the split matmul: a column-parallel kernel's bias
-is taken as the rank's slice and its input's gradient is summed over
-"model", a row-parallel product is summed over "model" before its bias
-is added; `tp_enter` marks a replicated leaf used on a column-parallel
-block's local heads (a QK-norm scale), whose gradient the model ranks
-sum.
+where they are used. Off a mesh `fetch` is the identity. A leaf the
+model axis computes on comes back as its model shard (a Mamba
+projection's after its exchange), marked with its kind, and the
+functions that use it do the rank's part:
+- `dense_apply`: a column-parallel kernel's bias is taken as the
+  rank's slice and its input's gradient is summed over "model", a
+  row-parallel product is summed over "model" before its bias is added;
+  `tp_enter` marks a replicated leaf used on a column-parallel block's
+  local heads (a QK-norm scale), whose gradient the model ranks sum;
+- a vocab-cut table or lm_head: `embed_apply` looks up the rank's rows
+  (zero for ids outside them) and sums the ranks' parts over "model";
+  `embed_attend` and `dense_apply` give the rank's (..., V / m) logits,
+  marked vocab-parallel (`is_vocab`), on which `log_likelihood` takes
+  the log-softmax with its max and its sum of exponentials over
+  "model" (in rank order) and the label's logit from the rank that
+  owns it;
+- MoE expert stacks and Mamba-2 mixers: models/moe.py, models/mamba2.py.
 """
 from __future__ import annotations
 
@@ -105,10 +114,13 @@ def fetch(t):
     use = getattr(t, "_use", None)
     if use is None:
         return t
-    from repro_torch.distributed.partial import gather_leaf
+    from repro_torch.distributed.partial import exchange, gather_leaf
     amb = ambient()
     out = gather_leaf(t, [(amb.group(a), d, a in amb.cut)
                           for a, d in use.gathered])
+    if use.segments:           # used as the columns of its ranks' heads
+        out = exchange(out, dict(use.cuts)["model"], use.segments,
+                       amb.group("model"))
     if use.kind != "gather":
         out._tp = use.kind
     return out
@@ -121,8 +133,34 @@ def fetch_tree(tree):
 
 
 def tp_kind(w) -> Optional[str]:
-    """"col" or "row" for a fetched tensor-parallel kernel, else None."""
+    """The use plan's kind of a fetched leaf that the model axis computes
+    on ("col", "row", "expert", "vocab", "mamba"), else None."""
     return getattr(w, "_tp", None)
+
+
+# kinds whose output is the rank's columns, its input's gradient summed
+# over "model" (Megatron's f): an in_proj's columns are its heads'
+_COL_KINDS = ("col", "vocab", "mamba")
+
+
+def is_vocab(logits) -> bool:
+    """Are `logits` a rank's vocab-parallel (..., V / m) columns?"""
+    return getattr(logits, "_vocab", False)
+
+
+def keep_vocab(out, logits):
+    """`out`, computed elementwise from `logits`, marked vocab-parallel
+    where they are."""
+    if is_vocab(logits):
+        out._vocab = True
+    return out
+
+
+def _model():
+    """(the model axis's process group, this rank's index in it)."""
+    import torch.distributed as dist
+    group = ambient().group("model")
+    return group, dist.get_rank(group)
 
 
 def tp_enter(t, w):
@@ -176,7 +214,7 @@ def dense_apply(p, x, compute_dtype=torch.bfloat16):
         group = ambient().group("model")
         acc = torch.promote_types(compute_dtype, torch.float32)
         x = x.to(compute_dtype).to(acc)
-        if kind == "col":
+        if kind in _COL_KINDS:
             x = partial.copy_to_model(x, group)
         y = torch.matmul(x, w.to(compute_dtype).to(acc))
         if kind == "row":
@@ -187,6 +225,8 @@ def dense_apply(p, x, compute_dtype=torch.bfloat16):
         if kind == "col":
             b = partial.model_slice(b, b.ndim - 1, group)
         y = y + b.to(compute_dtype)
+    if kind == "vocab":
+        y._vocab = True
     return y
 
 
@@ -197,13 +237,80 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 
 
 def embed_apply(p, ids, compute_dtype=torch.bfloat16):
-    return p["embedding"][ids.long()].to(compute_dtype)
+    table = p["embedding"]
+    if tp_kind(table) == "vocab":
+        return _vocab_lookup(table, ids, compute_dtype)
+    return table[ids.long()].to(compute_dtype)
 
 
-def embed_attend(p, x, compute_dtype=torch.bfloat16):
-    """Tied-readout logits: x @ E^T."""
-    return torch.matmul(x.to(compute_dtype),
-                        p["embedding"].to(compute_dtype).t())
+def _vocab_lookup(table, ids, compute_dtype):
+    """The rows of `ids` from a rank's rows of a vocab-cut table: its
+    own, zero for the others, summed over "model" (one part is not
+    zero, so the sum is exact); the gradient reaches its own rows."""
+    from repro_torch.distributed.partial import reduce_from_model
+    group, rank = _model()
+    n = table.shape[0]
+    local = ids.long() - rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)] * mine[..., None].to(
+        table.dtype)
+    return reduce_from_model(rows, group).to(compute_dtype)
+
+
+def embed_attend(p, x, compute_dtype=torch.bfloat16, bias=None):
+    """Tied-readout logits: x @ E^T, plus an fp32 `bias` (V,) when given
+    (the logits then fp32); a rank's vocab-parallel columns of them for a
+    vocab-cut table."""
+    table = p["embedding"]
+    if tp_kind(table) == "vocab":
+        return _vocab_readout(table, x, compute_dtype, bias)
+    y = torch.matmul(x.to(compute_dtype), table.to(compute_dtype).t())
+    return y if bias is None else y.float() + bias.float()
+
+
+def _vocab_readout(table, x, compute_dtype, bias=None):
+    """A rank's columns of x @ E^T from its rows of E, as dense_apply's
+    column-parallel product (at fp32 at least, x's gradient summed over
+    "model"), plus its slice of `bias`; marked vocab-parallel."""
+    from repro_torch.distributed import partial
+    group, _ = _model()
+    acc = torch.promote_types(compute_dtype, torch.float32)
+    x = partial.copy_to_model(x.to(compute_dtype).to(acc), group)
+    y = torch.matmul(x, table.to(compute_dtype).to(acc).t()).to(
+        compute_dtype)
+    if bias is not None:
+        y = y.float() + partial.model_slice(bias, 0, group).float()
+    y._vocab = True
+    return y
+
+
+def log_likelihood(logits, labels):
+    """fp32 log p(label) at each position of `logits` (..., V), labels
+    (...) ids in [0, V); on vocab-parallel logits (is_vocab) the same,
+    from every rank's columns (_vocab_log_likelihood)."""
+    if is_vocab(logits):
+        return _vocab_log_likelihood(logits, labels)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def _vocab_log_likelihood(logits, labels):
+    """log p(label) from a rank's (..., V / m) logits: the label's logit
+    (from the rank that holds it, summed over "model") less the
+    log-sum-exp, its max taken over "model" and its sum of exponentials
+    summed over "model" in rank order. The gradient of a rank's logits is
+    its part of softmax - onehot."""
+    from repro_torch.distributed import partial
+    group, rank = _model()
+    z = logits.float()
+    n = z.shape[-1]
+    top = partial.max_over(z.amax(-1, keepdim=True), group)
+    total = partial.reduce_from_model(torch.exp(z - top).sum(-1), group)
+    local = labels.long() - rank * n
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(z, -1, torch.where(mine, local, 0)[..., None])
+    picked = partial.reduce_from_model(picked[..., 0] * mine, group)
+    return picked - top[..., 0] - torch.log(total)
 
 
 def rmsnorm_init(dim: int, dtype=torch.float32, device=None,

@@ -40,7 +40,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (dense_apply, dense_init, embed_apply,
                                        embed_attend, embed_init, fetch_tree,
-                                       layer_params, mlp_apply, mlp_init,
+                                       keep_vocab, layer_params,
+                                       log_likelihood, mlp_apply, mlp_init,
                                        rmsnorm_apply, rmsnorm_init, softcap,
                                        unbind_layers)
 
@@ -306,16 +307,17 @@ def _head_logits(params, cfg: DecoderConfig, x):
     else:
         logits = dense_apply(fetch_tree(params["lm_head"]), x,
                              cfg.compute_dtype)
-    return softcap(logits.float(), cfg.final_softcap)
+    # on a mesh whose model axis cuts the vocab: the rank's columns
+    return keep_vocab(softcap(logits.float(), cfg.final_softcap), logits)
 
 
 def _token_nll(logits, labels, ignore_id: int):
     """(sum over the valid rows of -log p(label), count of valid rows),
-    the log-softmax in fp32."""
+    the log-softmax in fp32 (vocab-parallel on a rank's columns:
+    models/common.py: log_likelihood)."""
     valid = labels != ignore_id
     safe = torch.where(valid, labels, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    ll = log_likelihood(logits, safe)
     return -(ll * valid).sum(), valid.sum()
 
 
@@ -344,7 +346,8 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
     """lm_loss of the head's logits of `hidden` (B, S, d_model) without
     materialising the (B, S, V) logits: `chunk` positions at a time, each
     chunk's head, softcap and log-softmax recomputed in the backward
-    pass, so only (B, chunk, V) logits are ever live. An fp32 total and
+    pass, so only (B, chunk, V) logits are ever live (a rank's (B,
+    chunk, V / m) where the model axis cuts the vocab). An fp32 total and
     an integer count of valid labels (or `count`, as lm_loss takes it),
     then total / max(count, 1)."""
     B, S, _ = hidden.shape

@@ -34,7 +34,7 @@ from repro_torch.models.attention import (AttnConfig, attn_apply, attn_init,
                                           init_kv_cache)
 from repro_torch.models.common import (_randn, dense_apply, embed_apply,
                                        embed_attend, embed_init, fetch,
-                                       fetch_tree, layer_params,
+                                       fetch_tree, keep_vocab, layer_params,
                                        layernorm_apply, layernorm_init,
                                        mlp_apply, mlp_init, unbind_layers)
 
@@ -170,8 +170,9 @@ def _layer_cache(stacked, i, index):
 
 def _readout(params, cfg: EncDecConfig, x):
     x = layernorm_apply(fetch_tree(params["dec_ln_post"]), x)
-    return embed_attend(fetch_tree(params["dec_embed"]), x,
-                        cfg.compute_dtype).float()
+    logits = embed_attend(fetch_tree(params["dec_embed"]), x,
+                          cfg.compute_dtype)
+    return keep_vocab(logits.float(), logits)
 
 
 def decode(params, cfg: EncDecConfig, tokens, memory, *, caches=None,

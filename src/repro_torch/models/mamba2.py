@@ -23,6 +23,17 @@ the KV arenas are bf16) and, as the port's attention caches, is written
 IN PLACE: the chunked path starts from its state and leaves the final
 state and the conv tail in it, which is what a chunked prefill carries
 from chunk to chunk.
+
+On a mesh whose model axis cuts the mixer on whole heads (a train step:
+distributed/sharding.py: use_plan, kind "mamba"), each rank runs the
+mixer on its H / m heads (`_mamba_split`): its in_proj columns arrive
+exchanged into its heads' z, x and dt and the whole B and C (or its
+groups, where they divide), its conv_w likewise, in_proj's input
+gradient summed over "model" (Megatron's f); dt_bias, A_log, D and the
+norm scale are sliced to its heads (model_slice), the conv bias taken at
+its channels (model_take). The SSD scan needs nothing of the other
+heads. The gated RMSNorm over the whole d_inner sums its squares over
+"model" in rank order (all_sum), and out_proj is row parallel.
 """
 from __future__ import annotations
 
@@ -32,8 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dense_apply, dense_init,
-                                       rmsnorm_apply, rmsnorm_init)
+from repro_torch.models.common import (ambient, dense_apply, dense_init,
+                                       rmsnorm_apply, rmsnorm_init, tp_kind)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +173,27 @@ def mamba_apply(p, cfg: MambaConfig, x, *, cache=None, valid=None,
     with a cache is the recurrent step, anything else the chunked scan
     (from the cache's state when given). valid: optional (B, S) bool,
     False at left padding."""
-    B, S, _ = x.shape
+    if tp_kind(p["in_proj"]["kernel"]) == "mamba":
+        if cache is not None:
+            raise ValueError("a mixer cut over the model axis takes no "
+                             "cache")
+        return _mamba_split(p, cfg, x, valid, compute_dtype), None
+    proj = dense_apply(p["in_proj"], x, compute_dtype)
+    y, new_cache = _ssm(cfg, proj, p["conv_w"], p["conv_b"], p["dt_bias"],
+                        p["A_log"], p["D"], compute_dtype, valid, cache)
+    y = rmsnorm_apply(p["norm"], y)
+    out = dense_apply(p["out_proj"], y, compute_dtype)
+    return out.to(x.dtype), new_cache
+
+
+def _ssm(cfg: MambaConfig, proj, conv_w, conv_b, dt_bias, a_log, d_skip,
+         compute_dtype, valid=None, cache=None):
+    """The mixer between its projections: proj (B, S, in_proj's columns)
+    -> (y * silu(z) (B, S, d_inner) in compute_dtype, cache or None)."""
+    B, S, _ = proj.shape
     H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.dstate
     di = cfg.d_inner
 
-    proj = dense_apply(p["in_proj"], x, compute_dtype)
     z, xr, Bm, Cm, dt = torch.split(
         proj, [di, di, G * N, G * N, H], dim=-1)
 
@@ -175,14 +202,14 @@ def mamba_apply(p, cfg: MambaConfig, x, *, cache=None, valid=None,
         conv_in = conv_in * valid[..., None].to(conv_in.dtype)
     conv_state = cache["conv"] if cache is not None else None
     conv_out, new_conv = _causal_conv(
-        conv_in, p["conv_w"].to(compute_dtype),
-        p["conv_b"].to(compute_dtype), conv_state)
+        conv_in, conv_w.to(compute_dtype), conv_b.to(compute_dtype),
+        conv_state)
     xr, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = F.softplus(dt.float() + dt_bias.float())
     if valid is not None:
         dt = dt * valid[..., None].to(dt.dtype)
-    A = -torch.exp(p["A_log"].float())                   # (H,) negative
+    A = -torch.exp(a_log.float())                        # (H,) negative
     a_log_t = dt * A[None, None, :]                      # (B, S, H)
 
     xh = xr.reshape(B, S, H, P)
@@ -214,12 +241,57 @@ def mamba_apply(p, cfg: MambaConfig, x, *, cache=None, valid=None,
         if "index" in cache:
             new_cache["index"] = cache["index"] + S
 
-    y = y + p["D"].to(compute_dtype)[None, None, :, None] * xh
+    y = y + d_skip.to(compute_dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, di)
-    y = y * F.silu(z)
-    y = rmsnorm_apply(p["norm"], y)
-    out = dense_apply(p["out_proj"], y, compute_dtype)
-    return out.to(x.dtype), new_cache
+    return y * F.silu(z), new_cache
+
+
+def local_cfg(cfg: MambaConfig, model: int) -> MambaConfig:
+    """The mixer one of `model` ranks runs: its heads, and its groups
+    where they divide (else all of them, B and C whole on every rank)."""
+    groups = cfg.ngroups // model if cfg.ngroups % model == 0 else \
+        cfg.ngroups
+    return dataclasses.replace(cfg, d_inner=cfg.d_inner // model,
+                               ngroups=groups)
+
+
+def sum_sq(y):
+    """fp32 sum of squares over y's last dim (keepdim): a rank's part of
+    the gated norm's over the whole d_inner."""
+    y32 = y.float()
+    return (y32 * y32).sum(-1, keepdim=True)
+
+
+def gated_norm(y, ss, n: int, scale, eps: float = 1e-6):
+    """rmsnorm_apply of y, whose sum of squares over all `n` columns
+    (this rank's and the others') is `ss`, with the scale of y's
+    columns."""
+    y32 = y.float()
+    out = y32 * torch.rsqrt(ss / n + eps)
+    return (out * (1.0 + scale.float())).to(y.dtype)
+
+
+def _mamba_split(p, cfg: MambaConfig, x, valid, compute_dtype):
+    """The mixer on this rank's heads of a model axis that cuts it (the
+    module docstring); its output summed over "model"."""
+    import torch.distributed as dist
+    from repro_torch.distributed import partial
+    from repro_torch.distributed.sharding import (mamba_segments,
+                                                  segment_columns)
+    group = ambient().group("model")
+    model, rank = dist.get_world_size(group), dist.get_rank(group)
+    lc = local_cfg(cfg, model)
+    proj = dense_apply(p["in_proj"], x, compute_dtype)
+    channels = segment_columns(mamba_segments("conv_w", cfg, model), model,
+                               rank)
+    conv_b = partial.model_take(p["conv_b"], channels, group)
+    heads = [partial.model_slice(p[k], 0, group)
+             for k in ("dt_bias", "A_log", "D")]
+    y, _ = _ssm(lc, proj, p["conv_w"], conv_b, *heads, compute_dtype, valid)
+    ss = partial.all_sum(sum_sq(y), group)
+    y = gated_norm(y, ss, cfg.d_inner,
+                   partial.model_slice(p["norm"]["scale"], 0, group))
+    return dense_apply(p["out_proj"], y, compute_dtype).to(x.dtype)
 
 
 def init_mamba_cache(batch: int, cfg: MambaConfig, dtype=torch.float32,

@@ -39,6 +39,20 @@ them alone (one host sync for the per-expert counts). Both are the
 reference's function up to fp32 summation order, drops included.
 chip_smoke.py's phase M(a) times both on granite-moe-3b-a800m's decode
 step and on a batched prefill; each is faster where it is taken.
+
+On a mesh whose model axis cuts the expert stacks (a train step:
+distributed/sharding.py: use_plan), the model ranks of one data group
+hold the same tokens and route them alike (the router is whole on every
+rank). Each rank then runs its part of the experts (`experts_part`) on
+the route one device would take: its E / m experts ("expert": its slice
+of the dense buffer, or only its experts' gathered rows), or, where E
+does not divide and the stacks are cut on their ff dim ("col" / "row"),
+every expert's ff columns. The products are taken at fp32 at least from
+operands rounded to the compute dtype (as models/common.py: dense_apply
+splits a matmul), each rank combines its picks, and the combined parts
+are summed over "model" in rank order; the input's and the gates'
+gradients are summed over "model" (Megatron's f). No all-to-all is
+needed, since the batch is cut over "data" only.
 """
 from __future__ import annotations
 
@@ -48,7 +62,8 @@ import math
 import torch
 
 from repro_torch.models.common import (ACTIVATIONS, ambient,
-                                       ambient_axis_size, dense_init)
+                                       ambient_axis_size, dense_init,
+                                       tp_kind)
 
 # Largest E * cap for which the experts run over the dense (E, cap, d)
 # buffer; above it each expert runs on its gathered rows. Set between a
@@ -144,35 +159,13 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
     if valid is not None:
         keep = keep & vg.repeat_interleave(K, dim=1)
 
-    x_rep = xg.to(compute_dtype).repeat_interleave(K, dim=1)  # (G, TlK, d)
-    if E * cap <= DENSE_ROWS:
-        # the reference's dense buffer: kept pairs at (expert, position),
-        # dropped ones in an overflow row that is cut off
-        pos_c = torch.where(keep, pos_k, cap)
-        buf = torch.zeros((G, E, cap + 1, d), dtype=compute_dtype,
-                          device=x.device)
-        g_idx = torch.arange(G, device=x.device)[:, None].expand_as(flat_e)
-        buf.index_put_((g_idx, flat_e, pos_c), x_rep, accumulate=True)
-        yout = _expert_mlp(p, cfg, buf[:, :, :cap], None, compute_dtype)
-        y_tk = yout[g_idx, flat_e, torch.clamp(pos_c, max=cap - 1)]
+    if tp_kind(p["up"]) is not None:
+        out = _split_experts(p, cfg, xg, gates_k.reshape(G, Tl * K), flat_e,
+                             pos_k, keep, cap, compute_dtype)
     else:
-        # each expert on its own kept rows, sorted by expert (dropped
-        # pairs sort last, under key E, and are never computed)
-        key = torch.where(keep, flat_e, E).reshape(-1)
-        order = torch.argsort(key, stable=True)
-        counts = torch.bincount(key, minlength=E + 1).tolist()
-        rows = x_rep.reshape(-1, d)[order]
-        y_sorted = torch.zeros_like(rows)
-        start = 0
-        for e, n in enumerate(counts[:E]):
-            if n:
-                y_sorted[start:start + n] = _expert_mlp(
-                    p, cfg, rows[start:start + n], e, compute_dtype)
-                start += n
-        y_tk = y_sorted[torch.argsort(order)].reshape(G, Tl * K, d)
-    w = (gates_k.reshape(G, Tl * K).to(compute_dtype)
-         * keep.to(compute_dtype))
-    out = (y_tk * w[..., None]).reshape(G, Tl, K, d).sum(dim=2)
+        out = _experts(p, cfg, xg.to(compute_dtype),
+                       gates_k.reshape(G, Tl * K).to(compute_dtype), flat_e,
+                       pos_k, keep, cap, 0, compute_dtype)
     out = out.reshape(B, S, d)
 
     density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
@@ -187,3 +180,80 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
     aux_loss = torch.sum(density * density_proxy) * (E / K)
     return out.to(x.dtype), {"moe_aux_loss": aux_loss,
                              "router_entropy": entropy}
+
+
+def _experts(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep, cap: int,
+             first: int, compute_dtype):
+    """The combined expert outputs (G, Tl, d) of the routed pairs: x (G,
+    Tl, d) the group's rows, gates (G, Tl * K) and flat_e, pos_k, keep
+    the pairs' gates, experts, buffer positions and kept flags. The
+    experts of p's stacks are [first, first + El), El their count; a
+    pair routed to another expert adds nothing. The route is one
+    device's: the dense (El, cap) buffer while E * cap <= DENSE_ROWS,
+    else each expert on its gathered rows."""
+    G, Tl, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    El = p["up"].shape[0]
+    local = flat_e - first
+    mine = keep & (local >= 0) & (local < El)
+    x_rep = x.repeat_interleave(K, dim=1)                # (G, TlK, d)
+    if E * cap <= DENSE_ROWS:
+        # the reference's dense buffer: kept pairs at (expert, position),
+        # dropped ones (and other ranks') in an overflow row that is cut
+        # off
+        e_idx = torch.where(mine, local, 0)
+        pos_c = torch.where(mine, pos_k, cap)
+        buf = torch.zeros((G, El, cap + 1, d), dtype=x.dtype,
+                          device=x.device)
+        g_idx = torch.arange(G, device=x.device)[:, None].expand_as(flat_e)
+        buf.index_put_((g_idx, e_idx, pos_c), x_rep, accumulate=True)
+        yout = _expert_mlp(p, cfg, buf[:, :, :cap], None, compute_dtype)
+        y_tk = yout[g_idx, e_idx, torch.clamp(pos_c, max=cap - 1)]
+    else:
+        # each expert on its own kept rows, sorted by expert (dropped
+        # pairs sort last, under key El, and are never computed)
+        key = torch.where(mine, local, El).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=El + 1).tolist()
+        rows = x_rep.reshape(-1, d)[order]
+        y_sorted = torch.zeros_like(rows)
+        start = 0
+        for e, n in enumerate(counts[:El]):
+            if n:
+                y_sorted[start:start + n] = _expert_mlp(
+                    p, cfg, rows[start:start + n], e, compute_dtype)
+                start += n
+        y_tk = y_sorted[torch.argsort(order)].reshape(G, Tl * K, d)
+    w = gates * mine.to(gates.dtype)
+    return (y_tk * w[..., None]).reshape(G, Tl, K, d).sum(dim=2)
+
+
+def experts_part(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep,
+                 cap: int, first: int, compute_dtype):
+    """One model rank's part of the combined expert outputs (_experts):
+    p its expert stacks (its E / m experts from `first`, or every
+    expert's ff columns with first 0), taken at x's dtype (fp32 at
+    least) from their values rounded to compute_dtype."""
+    stacks = {k: p[k].to(compute_dtype).to(x.dtype)
+              for k in ("up", "gate", "down") if k in p}
+    return _experts(stacks, cfg, x, gates, flat_e, pos_k, keep, cap, first,
+                    x.dtype)
+
+
+def _split_experts(p, cfg: MoeConfig, xg, gates, flat_e, pos_k, keep,
+                   cap: int, compute_dtype):
+    """The combined expert outputs on a model axis that cuts the expert
+    stacks: this rank's experts_part, summed over "model" in rank order
+    and rounded to compute_dtype once; xg's and the gates' gradients are
+    summed over "model"."""
+    import torch.distributed as dist
+    from repro_torch.distributed import partial
+    group = ambient().group("model")
+    acc = torch.promote_types(compute_dtype, torch.float32)
+    x = partial.copy_to_model(xg.to(compute_dtype).to(acc), group)
+    gates = partial.copy_to_model(gates.to(compute_dtype).to(acc), group)
+    first = (dist.get_rank(group) * p["up"].shape[0]
+             if tp_kind(p["up"]) == "expert" else 0)
+    part = experts_part(p, cfg, x, gates, flat_e, pos_k, keep, cap, first,
+                        compute_dtype)
+    return partial.reduce_from_model(part, group).to(compute_dtype)

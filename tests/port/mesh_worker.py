@@ -34,11 +34,30 @@ CASES = {
     "bert-adamw": ("bert-large", "adamw", 1),
     "qwen_kv1-fused_lans": ("qwen2.5-14b:kv1", "fused_lans", 1),
 }
-# reduced archs with a config changed: name -> (arch, cfg fields). kv1:
-# one KV head, so that n_kv * head_dim divides over two model ranks but
-# n_kv does not, and the use plan gathers attention rather than split a
-# head (the MLP is still split)
-VARIANTS = {"qwen2.5-14b:kv1": ("qwen2.5-14b", {"n_kv_heads": 1})}
+# cases run on the model axis only (1 x 2 under gloo, every four-card
+# layout): a hybrid with MoE experts over "model", Mamba-2 mixers cut on
+# heads and a vocab-parallel readout; a tied, soft-capped readout, also
+# through the chunked loss; MoE whose experts do not divide over the
+# model ranks, cut on their ff dim
+SPLIT_CASES = {
+    "jamba-fused_lans": ("jamba-1.5-large-398b", "fused_lans", 1),
+    "gemma2-fused_lans": ("gemma2-2b", "fused_lans", 1),
+    "gemma2_chunk-fused_lans": ("gemma2-2b:chunk16", "fused_lans", 1),
+    "granite_e5-fused_lans": ("granite-moe-3b-a800m:e5", "fused_lans", 1),
+}
+ALL_CASES = {**CASES, **SPLIT_CASES}
+# reduced archs with a config changed: name -> (arch, reduced_decoder's
+# fields). kv1: one KV head, so that n_kv * head_dim divides over two
+# model ranks but n_kv does not, and the use plan gathers attention
+# rather than split a head (the MLP is still split); e5: five experts;
+# chunk16: the reduced arch, its loss chunked (CHUNKED)
+VARIANTS = {"qwen2.5-14b:kv1": ("qwen2.5-14b", {"n_kv_heads": 1}),
+            "granite-moe-3b-a800m:e5": ("granite-moe-3b-a800m",
+                                        {"n_experts": 5}),
+            "gemma2-2b:chunk16": ("gemma2-2b", {})}
+# arch name -> positions per chunk of its chunked_lm_loss, in place of
+# the arch's own rule (which chunks only at vocab >= 65536, seq >= 1024)
+CHUNKED = {"gemma2-2b:chunk16": 16}
 # seq of the batches: a multiple of the reduced Mamba-2 chunk (16),
 # within whisper's reduced max_target (64)
 SEQ = 32
@@ -56,11 +75,37 @@ def make_tx(name):
 
 def reduced(arch_name):
     """The port's reduced arch of a case (VARIANTS applied)."""
-    from repro_torch.configs import reduced_arch
+    from repro_torch.configs import get_arch, reduced_arch, reduced_decoder
     base, over = VARIANTS.get(arch_name, (arch_name, {}))
-    arch = reduced_arch(base)
-    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
-                                                             **over))
+    if not over:
+        return reduced_arch(base)
+    arch = get_arch(base)
+    return dataclasses.replace(arch, cfg=reduced_decoder(arch.cfg, **over))
+
+
+def loss_of(arch_name, arch):
+    """The loss a case trains: the arch's own, or for a CHUNKED arch the
+    decoder's loss through chunked_lm_loss at its chunk (as Arch.loss_fn
+    takes it, the embedding and readout fetched once)."""
+    chunk = CHUNKED.get(arch_name)
+    if chunk is None:
+        return arch.loss_fn
+    from repro_torch.models import decoder as dec_lib
+    from repro_torch.models.common import WHOLE, fetch_tree
+
+    def loss_fn(params, batch):
+        whole = batch.get(WHOLE)
+        count = None if whole is None else (whole["labels"] != -100).sum()
+        params = {**params, **{k: fetch_tree(params[k]) for k in
+                               ("embed", "lm_head") if k in params}}
+        hidden, _, aux = dec_lib.decoder_apply(
+            params, arch.cfg, batch["tokens"], return_hidden=True)
+        loss = dec_lib.chunked_lm_loss(
+            params, arch.cfg, hidden, batch["labels"], chunk=chunk,
+            moe_aux=aux["moe_aux_loss"], count=count)
+        return loss, {"router_entropy": aux["router_entropy"]}
+
+    return loss_fn
 
 
 def case_arch(arch_name, policy):
@@ -73,7 +118,7 @@ def case_arch(arch_name, policy):
 
 
 def is_moe(case_name):
-    return "granite" in CASES[case_name][0]
+    return getattr(reduced(ALL_CASES[case_name][0]).cfg, "n_experts", 0) > 0
 
 
 def splits_matmuls(layout):
@@ -97,9 +142,10 @@ def early_paths(params, data, model=1):
 
 
 class _SimUse:
-    """A tensor-parallel use plan on one device (mesh_order): the fetch
-    hands the whole leaf on, marked with `kind` for split_dense."""
+    """A model-axis use plan on one device (mesh_order): the fetch hands
+    the whole leaf on, marked with `kind` for the splits below."""
     gathered = ()
+    segments = ()
 
     def __init__(self, kind):
         self.kind = kind
@@ -108,9 +154,10 @@ class _SimUse:
         return self
 
 
-def sim_uses(params, data, model, heads, zero3=False):
+def sim_uses(params, data, model, heads, zero3=False, mamba=None):
     """{path: _SimUse or None} of `params`: the leaves a mesh of `data` x
-    `model` uses tensor parallel (distributed/sharding.py: use_plan)."""
+    `model` computes on as their model shards (distributed/sharding.py:
+    use_plan)."""
     import types
     from repro_torch.core.optim.base import tree_map, tree_paths
     from repro_torch.distributed import sharding as shd
@@ -118,7 +165,7 @@ def sim_uses(params, data, model, heads, zero3=False):
     spec = shd.params_pspec(params, mesh, zero3=zero3)
 
     def sim(path, s):
-        use = shd.use_plan(path, s, mesh, heads)
+        use = shd.use_plan(path, s, mesh, heads, mamba)
         return _SimUse(use.kind) if use and use.kind != "gather" else None
 
     return tree_map(sim, tree_paths(params), spec)
@@ -145,8 +192,9 @@ def split_dense(plain, model):
     tensor-parallel kernel's product on one device: each rank's columns
     (and bias slice) on their own, or each rank's rows' product, summed
     in rank order in fp32 at least before the one rounding; x's gradient
-    the ranks' parts added in rank order too. Any other kernel as `plain`
-    has it."""
+    the ranks' parts added in rank order too. A vocab-cut lm_head is
+    column parallel, its logits marked vocab-parallel. Any other kernel
+    as `plain` has it."""
     from repro_torch.models.common import tp_kind
 
     def dense(p, x, compute_dtype=torch.bfloat16):
@@ -157,7 +205,7 @@ def split_dense(plain, model):
         x = x.to(compute_dtype).to(acc)
         w = p["kernel"].to(compute_dtype).to(acc)
         b = p.get("bias")
-        if kind == "col":
+        if kind in ("col", "vocab"):
             # one copy of x per rank, whose gradients are added in rank
             # order before the other layers' uses of x add theirs, as
             # copy_to_model adds them on the mesh
@@ -166,7 +214,10 @@ def split_dense(plain, model):
             if b is not None:
                 ys = [y + b_r.to(compute_dtype)
                       for y, b_r in zip(ys, b.chunk(model, -1))]
-            return torch.cat(ys, -1)
+            y = torch.cat(ys, -1)
+            if kind == "vocab":
+                y._vocab = True
+            return y
         parts = [torch.matmul(x_r, w_r) for x_r, w_r in
                  zip(x.chunk(model, -1), w.chunk(model, -2))]
         y = parts[0]
@@ -178,28 +229,159 @@ def split_dense(plain, model):
     return dense
 
 
+def _in_rank_order(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def split_vocab(model):
+    """The vocab-parallel pieces of models/common.py as `model` ranks
+    compute them, on one device: {name: function} of _vocab_lookup,
+    _vocab_readout and _vocab_log_likelihood. The lookup is one device's
+    (each id's row from its one rank, the others adding zero); the
+    readout gives each rank's columns from its rows of the table (x's
+    gradient the ranks' parts in rank order, each rank its slice of the
+    bias); the log-likelihood takes the max over every column, each
+    rank's sum of exponentials over its columns, the sums added in rank
+    order, and the label's logit from its rank."""
+
+    def lookup(table, ids, compute_dtype):
+        return table[ids.long()].to(compute_dtype)
+
+    def readout(table, x, compute_dtype, bias=None):
+        acc = torch.promote_types(compute_dtype, torch.float32)
+        xs = _RankCopies.apply(x.to(compute_dtype).to(acc), model)
+        ys = [torch.matmul(x_r, t_r.to(compute_dtype).to(acc).t()).to(
+            compute_dtype) for x_r, t_r in zip(xs, table.chunk(model, 0))]
+        if bias is not None:
+            ys = [y.float() + b_r.float()
+                  for y, b_r in zip(ys, bias.chunk(model, 0))]
+        y = torch.cat(ys, -1)
+        y._vocab = True
+        return y
+
+    def log_likelihood(logits, labels):
+        zs = [z.contiguous() for z in logits.float().chunk(model, -1)]
+        n = zs[0].shape[-1]
+        with torch.no_grad():
+            top = torch.stack([z.amax(-1, keepdim=True) for z in zs]).amax(0)
+        total = _in_rank_order([torch.exp(z - top).sum(-1) for z in zs])
+        picks = []
+        for r, z in enumerate(zs):
+            local = labels.long() - r * n
+            mine = (local >= 0) & (local < n)
+            picks.append(torch.gather(
+                z, -1, torch.where(mine, local, 0)[..., None])[..., 0] * mine)
+        return _in_rank_order(picks) - top[..., 0] - torch.log(total)
+
+    return {"_vocab_lookup": lookup, "_vocab_readout": readout,
+            "_vocab_log_likelihood": log_likelihood}
+
+
+def split_experts(model):
+    """models/moe.py's _split_experts as `model` ranks compute it, on one
+    device: each rank's experts_part from its chunk of the stacks (its
+    experts, or every expert's ff columns), on its own copy of the rows
+    and the gates (their gradients added in rank order), the parts added
+    in rank order before the one rounding."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import tp_kind
+
+    def experts(p, cfg, xg, gates, flat_e, pos_k, keep, cap, compute_dtype):
+        acc = torch.promote_types(compute_dtype, torch.float32)
+        xs = _RankCopies.apply(xg.to(compute_dtype).to(acc), model)
+        gs = _RankCopies.apply(gates.to(compute_dtype).to(acc), model)
+        by_expert = tp_kind(p["up"]) == "expert"
+        dims = {k: 0 if by_expert else (-2 if k == "down" else -1)
+                for k in ("up", "gate", "down") if k in p}
+        parts = []
+        for r in range(model):
+            stacks = {k: p[k].chunk(model, d)[r].contiguous()
+                      for k, d in dims.items()}
+            first = r * stacks["up"].shape[0] if by_expert else 0
+            parts.append(moe.experts_part(stacks, cfg, xs[r], gs[r], flat_e,
+                                          pos_k, keep, cap, first,
+                                          compute_dtype))
+        return _in_rank_order(parts).to(compute_dtype)
+
+    return experts
+
+
+def split_mamba(model):
+    """models/mamba2.py's _mamba_split as `model` ranks compute it, on
+    one device: each rank's in_proj and conv_w columns and conv bias
+    channels taken from its own copy of the leaf (the ranks' gradients
+    of the columns they share, B and C, added in rank order), its heads'
+    slices of the small leaves, the mixer on its heads, the sums of
+    squares of the gated norm added in rank order (each rank's copy's
+    gradient too), and out_proj's row parts added in rank order."""
+    from repro_torch.distributed.sharding import (mamba_segments,
+                                                  segment_columns)
+    from repro_torch.models import mamba2
+
+    def mixer(p, cfg, x, valid, compute_dtype):
+        acc = torch.promote_types(compute_dtype, torch.float32)
+        lc = mamba2.local_cfg(cfg, model)
+        xs = _RankCopies.apply(x.to(compute_dtype).to(acc), model)
+        ks = _RankCopies.apply(p["in_proj"]["kernel"], model)
+        ws = _RankCopies.apply(p["conv_w"], model)
+        bs = _RankCopies.apply(p["conv_b"], model)
+        ys = []
+        for r in range(model):
+            cols, chans = (torch.as_tensor(segment_columns(
+                mamba_segments(leaf, cfg, model), model, r), device=x.device)
+                for leaf in ("in_proj", "conv_w"))
+            w = ks[r].index_select(-1, cols).to(compute_dtype).to(acc)
+            proj = torch.matmul(xs[r], w).to(compute_dtype)
+            heads = [p[k].chunk(model)[r] for k in ("dt_bias", "A_log", "D")]
+            y, _ = mamba2._ssm(lc, proj, ws[r].index_select(-1, chans),
+                               bs[r].index_select(0, chans), *heads,
+                               compute_dtype, valid)
+            ys.append(y)
+        totals = _RankCopies.apply(
+            _in_rank_order([mamba2.sum_sq(y) for y in ys]), model)
+        parts = []
+        for r, y in enumerate(ys):
+            h = mamba2.gated_norm(y, totals[r], cfg.d_inner,
+                                  p["norm"]["scale"].chunk(model)[r])
+            w = p["out_proj"]["kernel"].chunk(model, 0)[r]
+            parts.append(torch.matmul(h.to(compute_dtype).to(acc),
+                                      w.to(compute_dtype).to(acc)))
+        return _in_rank_order(parts).to(compute_dtype).to(x.dtype)
+
+    return mixer
+
+
 @contextlib.contextmanager
-def dense_split(model):
-    """While active, the models' dense layers run split_dense for `model`
-    ranks."""
+def model_split(model):
+    """While active, the models compute as `model` ranks split them, on
+    one device: dense layers by split_dense, the vocab by split_vocab,
+    MoE experts by split_experts and Mamba mixers by split_mamba."""
     import sys
-    from repro_torch.models import common
+    from repro_torch.models import common, mamba2, moe
     plain = common.dense_apply
     mods = [m for name, m in sys.modules.items()
             if name.startswith("repro_torch.models")
             and getattr(m, "dense_apply", None) is plain]
-    for m in mods:
-        m.dense_apply = split_dense(plain, model)
+    patches = [(m, "dense_apply", split_dense(plain, model)) for m in mods]
+    patches += [(common, k, f) for k, f in split_vocab(model).items()]
+    patches += [(moe, "_split_experts", split_experts(model)),
+                (mamba2, "_mamba_split", split_mamba(model))]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    for m, k, f in patches:
+        setattr(m, k, f)
     try:
         yield
     finally:
-        for m in mods:
-            m.dense_apply = plain
+        for m, k, f in saved:
+            setattr(m, k, f)
 
 
 @contextlib.contextmanager
 def mesh_order(data, microbatches, early=frozenset(), model=1, heads=None,
-               zero3=False):
+               zero3=False, mamba=None):
     """While active, a one-device step built with microbatches=1 takes its
     gradient in the order of a mesh of `data` x `model` ranks whose batch
     is cut over the data ranks (distributed/steps.py): each rank's block
@@ -211,9 +393,9 @@ def mesh_order(data, microbatches, early=frozenset(), model=1, heads=None,
     early_paths) are summed as a zero3 mesh sums them, over the ranks in
     each microbatch's backward pass in the leaf's dtype, then over the
     microbatches in fp32. The leaves a mesh with a model axis splits
-    (sim_uses, from `heads`) are split as its ranks split them
-    (split_dense), the ranks' parts added in rank order, as the mesh adds
-    them (distributed/partial.py). The models see the
+    (sim_uses, from `heads` and `mamba`) are split as its ranks split
+    them (model_split), the ranks' parts added in rank order, as the
+    mesh adds them (distributed/partial.py). The models see the
     mesh's data axis (models/common.py: Ambient), so that MoE routes each
     block as its group; the dispatch fractions the mesh sums over the
     ranks are taken from a forward pass of every block first. The maths is
@@ -240,7 +422,7 @@ def mesh_order(data, microbatches, early=frozenset(), model=1, heads=None,
         """loss_fn, its live leaves marked as the mesh uses them."""
         if model == 1:
             return loss_fn
-        uses = sim_uses(params, data, model, heads, zero3)
+        uses = sim_uses(params, data, model, heads, zero3, mamba)
 
         def fn(live, b):
             tree_map(steps._mark, live, uses)
@@ -348,7 +530,7 @@ def mesh_order(data, microbatches, early=frozenset(), model=1, heads=None,
 
     steps.loss_and_grads = in_mesh_order
     try:
-        with dense_split(model) if model > 1 else contextlib.nullcontext():
+        with model_split(model) if model > 1 else contextlib.nullcontext():
             yield
     finally:
         steps.loss_and_grads = plain
@@ -394,14 +576,15 @@ def one_device_step(case, data=1, *, order=True, early=frozenset(),
     arch = case_arch(case["arch"], policy)
     mb = case["microbatches"]
     meshed = data > 1 or model > 1
-    step, _ = build_train_step(arch.loss_fn, tx,
+    step, _ = build_train_step(loss_of(case["arch"], arch), tx,
                                microbatches=1 if meshed and order else mb,
                                policy=policy)
     if not meshed:
         return step
 
     def in_mesh_order(params, state, batch):
-        with (mesh_order(data, mb, early, model, arch.heads, zero3) if order
+        with (mesh_order(data, mb, early, model, arch.heads, zero3,
+                         arch.mamba) if order
               else groups_of(data)):
             return step(params, state, batch)
 
@@ -443,9 +626,9 @@ def run_steps(case, params, batches, mesh=None, *, zero3=False, zero1=False,
     arch = case_arch(case["arch"], policy)
     seen, ref_seen = [], []
     step, init = build_train_step(
-        arch.loss_fn, recording(tx, seen), mesh, zero3=zero3,
+        loss_of(case["arch"], arch), recording(tx, seen), mesh, zero3=zero3,
         microbatches=case["microbatches"], param_init_fn=lambda _: params,
-        policy=policy, heads=arch.heads)
+        policy=policy, heads=arch.heads, mamba=arch.mamba)
     p, o = init(None)
     ref = None
     if mesh is None:
@@ -588,13 +771,13 @@ def lm_batch(rng, cfg, rows=4):
 
 
 def port_inputs(seed=0):
-    """Inputs made by the port alone (no JAX): params of every case's
-    reduced arch from a CPU torch.Generator, and seeded numpy batches
-    (MLM with -100 on unmasked positions for BERT, lm_batch for the
-    others)."""
+    """Inputs made by the port alone (no JAX): params of the reduced arch
+    of every case of ALL_CASES from a CPU torch.Generator, and seeded
+    numpy batches (MLM with -100 on unmasked positions for BERT,
+    lm_batch for the others)."""
     params, batches = {}, {}
     rng = np.random.default_rng(seed)
-    for name in dict.fromkeys(a for a, _, _ in CASES.values()):
+    for name in dict.fromkeys(a for a, _, _ in ALL_CASES.values()):
         arch = reduced(name)
         params[name] = arch.init(torch.Generator().manual_seed(seed))
         out = []
@@ -605,7 +788,7 @@ def port_inputs(seed=0):
         batches[name] = out
     cases = {name: dict(arch=a, optimizer=o, microbatches=mb,
                         batches=batches[a])
-             for name, (a, o, mb) in CASES.items()}
+             for name, (a, o, mb) in ALL_CASES.items()}
     return params, cases
 
 
@@ -675,7 +858,7 @@ def check_against_one_device(got, want, layout, case):
     bias's direction, is another. The per-step check holds it."""
     for check in got["checks"]:
         check_step(check, layout)
-    bf16 = CASES[case][1] == "fused_mixed_lans"
+    bf16 = ALL_CASES[case][1] == "fused_mixed_lans"
     np.testing.assert_allclose(got["losses"], want["losses"],
                                rtol=1e-4 if bf16 else 1e-5)
     cuts = layout["model"] > 1 or layout["zero3"] or layout["zero1"]
@@ -683,7 +866,51 @@ def check_against_one_device(got, want, layout, case):
         p for p in want["params"] if cuts and key_bias(p)})
 
 
-CUT_ARCHS = ("bert-large", "qwen2.5-14b")
+CUT_ARCHS = ("bert-large", "qwen2.5-14b", "jamba-1.5-large-398b",
+             "gemma2-2b")
+# arch: {delta: the config fields changed from the reduced arch}. On 1 x
+# 2 the FLOPs a delta adds or removes (a step's, counted on each rank)
+# are half of one device's: "layers" a layer or a period (attention and
+# MLP split on whole heads and ff columns), "vocab" the readout (and
+# its cross entropy), "experts" the expert stacks' ff (on the dense
+# route; jamba's dense MLP slots share d_ff and are split too), "mamba"
+# the Mamba-2 mixers' d_inner (their heads: in_proj's z, x and dt
+# columns, the SSD scan, out_proj). A jamba period is not a delta: its
+# router and in_proj's B / C columns are whole on every rank.
+FLOP_DELTAS = {
+    "bert-large": {"layers": {"n_layers": 1}, "vocab": {"vocab": 1024}},
+    "qwen2.5-14b": {"layers": {"n_layers": 1}, "vocab": {"vocab": 2048}},
+    "jamba-1.5-large-398b": {"experts": {"d_ff": 512},
+                             "mamba": {"mamba_d_inner": 1024},
+                             "vocab": {"vocab": 2048}},
+    "gemma2-2b": {"layers": {"n_layers": 4}, "vocab": {"vocab": 2048}},
+}
+
+
+def model_cut_shapes(arch):
+    """(the shapes of the leaves of `arch` that a model axis computes on
+    as their shards where the rules cut them: MoE expert stacks, the
+    token embedding and lm_head, Mamba-2's in_proj, conv_w and out_proj;
+    each as a whole and, stacked, a layer's; the same of every other
+    leaf of two dims or more)."""
+    from repro_torch.core.optim.base import tree_items
+    with torch.device("meta"):
+        params = arch.init(None)
+    cut, other = set(), set()
+    for path, v in tree_items(params):
+        if v.ndim < 2:
+            continue
+        parts = path.split("/")
+        named = (parts[-1] == "embedding" or path.endswith("lm_head/kernel")
+                 or (parts[-1] in ("up", "gate", "down")
+                     and parts[-2] == "ffn")
+                 or path.endswith(("mixer/in_proj/kernel", "mixer/conv_w",
+                                   "mixer/out_proj/kernel")))
+        shapes = {tuple(v.shape)}
+        if path.startswith(("layers", "slot", "enc_layers", "dec_layers")):
+            shapes.add(tuple(v.shape[1:]))
+        (cut if named else other).update(shapes)
+    return cut, other
 
 
 def _one_step(arch, mesh, zero3, batch, count_flops):
@@ -695,7 +922,7 @@ def _one_step(arch, mesh, zero3, batch, count_flops):
                                                place_train_step)
     step, init = build_train_step(
         arch.loss_fn, fused_lans(LR), mesh, zero3=zero3,
-        param_init_fn=arch.init, heads=arch.heads)
+        param_init_fn=arch.init, heads=arch.heads, mamba=arch.mamba)
     p, o = init(torch.Generator().manual_seed(0))
     if mesh is not None:
         pspec, ospec = step.specs_for(p, o)
@@ -709,9 +936,10 @@ def _one_step(arch, mesh, zero3, batch, count_flops):
 def run_cut_rank(rank, world, store_path, layout, out_path):
     """One rank of test_torch_mesh_cut.py: for each of CUT_ARCHS, one step
     on the layout's mesh with every shape the fetch gathers recorded
-    (partial.gather_leaf wrapped); on a mesh with a model axis, also the
-    matmul FLOPs of a step at one and at two layers, on the mesh and on
-    one device."""
+    (partial.gather_leaf wrapped); with layout["flops"], also the matmul
+    FLOPs of a step of the reduced arch and of each FLOP_DELTAS variant,
+    on the mesh and (rank 0) on one device: {"base" or delta: (mesh,
+    one or None)}."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
@@ -740,13 +968,16 @@ def run_cut_rank(rank, world, store_path, layout, out_path):
             seen.clear()
             _one_step(arch, mesh, layout["zero3"], batch, False)
             res = {"gathered": list(seen)}
-            if layout["model"] > 1:
-                for n in (1, 2):
+            if layout.get("flops"):
+                res["flops"] = {}
+                variants = {"base": {}, **FLOP_DELTAS[name]}
+                for delta, over in variants.items():
                     a = dataclasses.replace(arch, cfg=dataclasses.replace(
-                        arch.cfg, n_layers=n))
-                    res[f"mesh{n}"] = _one_step(a, mesh, layout["zero3"],
-                                                batch, True)
-                    res[f"one{n}"] = _one_step(a, None, False, batch, True)
+                        arch.cfg, **over))
+                    res["flops"][delta] = (
+                        _one_step(a, mesh, layout["zero3"], batch, True),
+                        _one_step(a, None, False, batch, True) if rank == 0
+                        else None)
             out[name] = res
         torch.save(out, f"{out_path}.{rank}")
     finally:

@@ -923,17 +923,20 @@ def four_card_runs(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("case", list(mesh_worker.CASES))
+@pytest.mark.parametrize("case", list(mesh_worker.ALL_CASES))
 @pytest.mark.parametrize("layout", list(FOUR_CARDS))
 def test_cuda_mesh_on_four_cards(request, layout, case):
-    """Needs four cards: the cases of mesh_worker.CASES (reduced
+    """Needs four cards: the cases of mesh_worker.ALL_CASES (reduced
     bert-large with fused_lans, fused_mixed_lans, fused_lamb, lans and
     adamw, qwen2.5-14b with 2 microbatches and with one KV head,
-    granite-moe, whisper and mamba2) on 2 x 2, 2 x 2 with zero3 and 1 x 4
-    meshes over NCCL, 3 steps, against the one-card step in the layout's
-    order with mesh_worker's tolerances; the fused optimizers' kernels
-    launched on every step and leaf, their sums of squares added in one
-    all-reduce per group of cut leaves and reduction."""
+    granite-moe, whisper and mamba2; jamba, gemma2-2b with and without
+    a forced chunked loss, granite-moe with five experts) on 2 x 2, 2 x
+    2 with zero3 and 1 x 4 meshes over NCCL, 3 steps, against the
+    one-card step in the layout's order (its experts, vocab and Mamba-2
+    mixers split as the model ranks split them) with mesh_worker's
+    tolerances; the fused optimizers' kernels launched on every step and
+    leaf, their sums of squares added in one all-reduce per group of cut
+    leaves and reduction."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices")
     runs = request.getfixturevalue("four_card_runs")
@@ -941,7 +944,7 @@ def test_cuda_mesh_on_four_cards(request, layout, case):
     want = runs["ref", layout][case]
     mesh_worker.check_against_one_device(got, want, FOUR_CARDS[layout],
                                          case)
-    arch, optimizer, _ = mesh_worker.CASES[case]
+    arch, optimizer, _ = mesh_worker.ALL_CASES[case]
     n_leaves = len(want["params"])
     first = {"fused_lans": "lans_phase1", "fused_mixed_lans": "lans_phase1",
              "fused_lamb": "lamb_phase1"}.get(optimizer)

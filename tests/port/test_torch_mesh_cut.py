@@ -1,16 +1,21 @@
 """The mesh train step cuts memory and compute per rank (distributed/
 steps.py), held under gloo on the CPU, one set of spawned ranks per
 layout (tests/port/mesh_worker.py: run_cut_rank), for reduced
-bert-large and qwen2.5-14b with fused_lans:
+bert-large, qwen2.5-14b (untied lm_head), jamba-1.5-large-398b (MoE and
+Mamba-2) and gemma2-2b (tied, soft-capped readout) with fused_lans:
 
 - the fetch gathers one layer's leaf, or one leaf that is not stacked,
   at a time, never a stacked leaf whole (2 x 1 with zero3, 1 x 2, 2 x
   2; every gathered shape is recorded by wrapping partial.gather_leaf);
-- on 1 x 2 each rank's matmul FLOPs in the stacked layers (a step at two
-  layers less a step at one, forward, recompute and backward, counted by
-  torch.utils.flop_counter.FlopCounterMode) are exactly half of the
-  one-device step's: the attention and MLP matmuls are split over
-  "model";
+  with a model axis (1 x 2, 2 x 2) it gathers no MoE expert stack, no
+  vocab-cut embedding or lm_head and no Mamba-2 in_proj, conv_w or
+  out_proj at any shape: the ranks compute on their shards;
+- on 1 x 2 the matmul FLOPs (forward, recompute and backward, counted
+  on each rank by torch.utils.flop_counter.FlopCounterMode) that each
+  of mesh_worker.FLOP_DELTAS adds to a step are exactly half of what it
+  adds to the one-device step: a layer (attention and MLP split over
+  "model"), the readout, the MoE experts (dense route) and the Mamba-2
+  mixers' heads;
 - a step on a mesh is not built without the attention's heads, which
   its split needs.
 """
@@ -24,7 +29,7 @@ from repro_torch.core.optim.base import tree_items
 
 LAYOUTS = {
     "2x1-zero3": dict(data=2, model=1, zero3=True, zero1=False),
-    "1x2": dict(data=1, model=2, zero3=False, zero1=False),
+    "1x2": dict(data=1, model=2, zero3=False, zero1=False, flops=True),
     "2x2": dict(data=2, model=2, zero3=False, zero1=False),
 }
 JOIN_S = 300
@@ -86,24 +91,36 @@ def _leaf_shapes(arch_name):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_fetch_gathers_one_layer_at_a_time(cut_runs, layout, arch):
     allowed, whole = _leaf_shapes(arch)
+    cut, other = mesh_worker.model_cut_shapes(
+        mesh_worker.case_arch(arch, "fp32"))
+    # a shape shared with a leaf that may be gathered would hide one
+    assert not cut & other, cut & other
     for rank in cut_runs[layout]:
         gathered = rank[arch]["gathered"]
-        assert gathered, "nothing was gathered"
+        if LAYOUTS[layout]["zero3"]:
+            # every leaf of two dims or more is cut over "data"
+            assert gathered, "nothing was gathered"
         assert not set(gathered) & whole, gathered
         assert set(gathered) <= allowed, set(gathered) - allowed
-        biggest = max(gathered, key=lambda s: torch.Size(s).numel())
-        assert torch.Size(biggest).numel() <= max(
-            torch.Size(s).numel() for s in allowed)
+        if LAYOUTS[layout]["model"] > 1:
+            assert not set(gathered) & cut, set(gathered) & cut
+        if gathered:
+            biggest = max(gathered, key=lambda s: torch.Size(s).numel())
+            assert torch.Size(biggest).numel() <= max(
+                torch.Size(s).numel() for s in allowed)
 
 
 @pytest.mark.parametrize("arch", mesh_worker.CUT_ARCHS)
 def test_layer_flops_halve_on_1x2(cut_runs, arch):
-    for rank in cut_runs["1x2"]:
-        r = rank[arch]
-        layer_one = r["one2"] - r["one1"]
-        layer_mesh = r["mesh2"] - r["mesh1"]
-        assert layer_one > 0
-        assert 2 * layer_mesh == layer_one, (layer_mesh, layer_one)
+    ranks = cut_runs["1x2"]
+    one = {k: v[1] for k, v in ranks[0][arch]["flops"].items()}  # rank 0's
+    for rank in ranks:
+        mesh = {k: v[0] for k, v in rank[arch]["flops"].items()}
+        for delta in mesh_worker.FLOP_DELTAS[arch]:
+            d_one = one[delta] - one["base"]
+            d_mesh = mesh[delta] - mesh["base"]
+            assert d_one != 0, delta
+            assert 2 * abs(d_mesh) == abs(d_one), (delta, d_mesh, d_one)
 
 
 def test_mesh_step_needs_heads():

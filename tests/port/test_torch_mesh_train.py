@@ -14,7 +14,15 @@ adamw, reduced qwen2.5-14b with fused_lans and microbatches=2, and with
 fused_lans reduced granite-moe-3b-a800m (MoE: a rank's block routes as
 its group), whisper-large-v3, mamba2-130m and qwen2.5-14b with one KV
 head (the model axis cannot split a head, so attention is gathered, the
-MLP split), for 3 steps from the bridged JAX params.
+MLP split), for 3 steps from the bridged JAX params. On 1 x 2 the model
+axis also splits the vocab (every case's embedding and readout:
+qwen2.5-14b's untied lm_head, BERT's tied MLM head with its bias,
+whisper's decoder embedding), MoE experts (granite-moe) and Mamba-2
+mixers (mamba2), and 1 x 2 alone runs mesh_worker.SPLIT_CASES: reduced
+jamba-1.5-large-398b (experts over "model", Mamba-2 on whole heads),
+gemma2-2b (tied, soft-capped readout), gemma2-2b through chunked_lm_loss
+at a chunk of 16 positions, and granite-moe with five experts (cut on
+their ff dim).
 
 Each layout runs in one set of processes (a pair, four for 2 x 2)
 started with the spawn method (tests/port/mesh_worker.py), whose
@@ -25,33 +33,35 @@ The reference is the port's one-device step, with its gradient summed in
 the mesh's order (mesh_worker.mesh_order: each data rank's block on its
 own, its means over the whole batch, then the blocks' gradients added,
 as the all-reduce adds them, or per microbatch for the leaves zero3
-reduce-scatters; MoE routing each block as its group; on a layout with
-a model axis the attention and MLP matmuls split as its ranks split
-them, their parts added in rank order in fp32, as distributed/partial.py
-adds them). The maths is one device's; the order of the sums is the
-mesh's, so that the gradients agree bit for bit and every element can
-be held (mesh_worker.check_against_one_device): fp32 params within rtol
-1e-5 and atol 1e-6, and losses within 1e-5, as the fused-vs-unfused step
-test (test_torch_train.py) holds them; bf16 (fused_mixed_lans) params
-within one bf16 ulp and losses within 1e-4, as test_torch_train.py
-holds that transform against the generic wrapper. Each step is held
-from the mesh step's own start (params, state and batch), every element
-of every leaf; the params after the three steps are held too, every
-element but the attention key bias where leaves are cut (its gradient
-is rounding noise, mesh_worker says why). A layout with a model axis is
-also held, each step, by its gradient (every element within rtol 1e-5,
-atol 1e-6 of the reference's) and by its update (within 2e-5, bf16 one
-ulp, of the one-device optimizer's on the mesh's own gradient). The
-losses are also held to the plain one-device step's (1e-5; bf16 1e-3)
-and to the JAX step's on a 1 x 1 mesh (1e-5; bf16 3e-2, bf16 compute in
-both frameworks, the JAX package's bf16 tolerance), and the one-device
-step's fp32 params to the JAX step's (rtol 1e-5, atol 1e-6; the key
-bias apart). MoE on two data ranks routes in two groups, each with its
-own capacity, as the JAX step does on a data mesh: its losses are held
-to the port's one-device step routing in two groups and to the JAX step
-on a 2 x 1 mesh of two host devices (a subprocess). Planted faults (an
-update not applied, a step on half the batch, a column-parallel bias
-gradient not summed over "model") must fail the comparison.
+reduce-scatters; MoE routing each block as its group; on a layout with a
+model axis the attention and MLP matmuls, the vocab, the experts and the
+Mamba-2 mixers split as its ranks split them, their parts added in rank
+order in fp32, as distributed/partial.py adds them:
+mesh_worker.model_split). The maths is one device's; the order of the
+sums is the mesh's, so that the gradients agree bit for bit and every
+element can be held (mesh_worker.check_against_one_device): fp32 params
+within rtol 1e-5 and atol 1e-6, and losses within 1e-5, as the
+fused-vs-unfused step test (test_torch_train.py) holds them; bf16
+(fused_mixed_lans) params within one bf16 ulp and losses within 1e-4, as
+test_torch_train.py holds that transform against the generic wrapper.
+Each step is held from the mesh step's own start (params, state and
+batch), every element of every leaf; the params after the three steps
+are held too, every element but the attention key bias where leaves are
+cut (its gradient is rounding noise, mesh_worker says why). A layout
+with a model axis is also held, each step, by its gradient (every
+element within rtol 1e-5, atol 1e-6 of the reference's) and by its
+update (within 2e-5, bf16 one ulp, of the one-device optimizer's on the
+mesh's own gradient). The losses are also held to the plain one-device
+step's (1e-5; bf16 1e-3) and to the JAX step's on a 1 x 1 mesh (1e-5;
+bf16 3e-2, bf16 compute in both frameworks, the JAX package's bf16
+tolerance), and the one-device step's fp32 params to the JAX step's
+(rtol 1e-5, atol 1e-6; the key bias apart). MoE on two data ranks routes
+in two groups, each with its own capacity, as the JAX step does on a
+data mesh: its losses are held to the port's one-device step routing in
+two groups and to the JAX step on a 2 x 1 mesh of two host devices (a
+subprocess). Planted faults (an update not applied, a step on half the
+batch, a column-parallel bias gradient not summed over "model") must
+fail the comparison.
 """
 import dataclasses
 import json
@@ -86,6 +96,8 @@ from repro_torch.core.optim.base import tree_items
 
 STEPS = mesh_worker.STEPS
 CASES = mesh_worker.CASES
+SPLIT_CASES = mesh_worker.SPLIT_CASES
+ALL_CASES = mesh_worker.ALL_CASES
 LAYOUTS = {
     "2x1": dict(data=2, model=1, zero3=False, zero1=False),
     "1x2": dict(data=1, model=2, zero3=False, zero1=False),
@@ -221,7 +233,7 @@ def runs(tmp_path_factory):
     then each pair joined."""
     tmp = tmp_path_factory.mktemp("mesh")
     jparams, tparams, np_batches = {}, {}, {}
-    for name in dict.fromkeys(a for a, _, _ in CASES.values()):
+    for name in dict.fromkeys(a for a, _, _ in ALL_CASES.values()):
         ja = _jarch(name)
         jparams[name] = jax.jit(ja.init)(jax.random.PRNGKey(0))
         tparams[name] = params_from_jax(mesh_worker.reduced(name).cfg,
@@ -229,16 +241,19 @@ def runs(tmp_path_factory):
                                                      jparams[name]))
         np_batches[name] = (_bert_batches(ja.cfg.vocab)
                             if name == "bert-large" else _lm_batches(ja.cfg))
-    cases = {name: dict(arch=a, optimizer=o, microbatches=mb,
+    every = {name: dict(arch=a, optimizer=o, microbatches=mb,
                         batches=[{k: torch.from_numpy(v) for k, v in b.items()}
                                  for b in np_batches[a]])
-             for name, (a, o, mb) in CASES.items()}
-    inputs = tmp / "inputs.pt"
-    torch.save({"params": tparams, "cases": cases}, inputs)
+             for name, (a, o, mb) in ALL_CASES.items()}
+    cases = {name: every[name] for name in CASES}
+    inputs = {name: tmp / f"inputs-{name}.pt" for name in ("all", "1x2")}
+    torch.save({"params": tparams, "cases": cases}, inputs["all"])
+    torch.save({"params": tparams, "cases": every}, inputs["1x2"])
 
     ctx = multiprocessing.get_context("spawn")
-    procs = {lname: mesh_worker.start_ranks(ctx, layout, tmp, inputs, lname)
-             for lname, layout in LAYOUTS.items()}
+    procs = {lname: mesh_worker.start_ranks(
+        ctx, layout, tmp, inputs["1x2" if lname == "1x2" else "all"], lname)
+        for lname, layout in LAYOUTS.items()}
     out = {"one": {}, "order2": {}, "order2-zero3": {}, "order1x2": {},
            "order2x2": {}, "groups2": {}, "jax": {}, "jax2": {}}
     threads = torch.get_num_threads()
@@ -267,6 +282,13 @@ def runs(tmp_path_factory):
                                         case["microbatches"],
                                         jparams[case["arch"]],
                                         np_batches[case["arch"]])
+        for name in SPLIT_CASES:
+            case = every[name]
+            for key, kw in (("one", dict(data=1)),
+                            ("order1x2", dict(model=2))):
+                losses, got, *_ = mesh_worker.run_steps(
+                    case, tparams[case["arch"]], case["batches"], **kw)
+                out[key][name] = {"losses": losses, "params": got}
         out["init"] = {name: dict(tree_items(p)) for name, p in
                        tparams.items()}
         out["tparams"], out["cases"] = tparams, cases
@@ -389,6 +411,25 @@ def test_mesh_check_catches_planted_faults(runs, fault):
     with pytest.raises(AssertionError):
         mesh_worker.check_against_one_device(got, want, LAYOUTS[layout],
                                              case)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_case_matches_one_device_on_1x2(runs, case):
+    """The model axis's splits of the experts, the vocab and the Mamba-2
+    mixers (SPLIT_CASES, 1 x 2 only): against the one-device step that
+    splits them as the two ranks do (mesh_worker.model_split), every
+    step's params, gradient and update on the mesh's own gradient and
+    the params after the steps (check_against_one_device); the losses
+    also against the plain one-device step's (1e-5); K1-K3's sums of
+    squares added in one all-reduce for each of the step's two
+    reductions."""
+    got = runs["1x2"][case]
+    assert len(got["checks"]) == STEPS
+    mesh_worker.check_against_one_device(got, runs["order1x2"][case],
+                                         LAYOUTS["1x2"], case)
+    np.testing.assert_allclose(got["losses"], runs["one"][case]["losses"],
+                               rtol=1e-5)
+    assert got["calls"] == [2] * STEPS
 
 
 @pytest.mark.parametrize("case", list(CASES))
