@@ -199,6 +199,17 @@ Phases, in the order they run, each of which fails the run:
      partials) and timed beside their byte bounds, and the kernels of one
      whole fused LANS update over gemma2-2b's 2,614,341,888 parameters
      beside 48 bytes per parameter. Each sub-phase's time is printed;
+  A. the analysis, on phase 7's fused BERT-large step (after its
+     profile) and phase T(a)'s fused gemma2-2b step: the dry run of the
+     same configuration on one device (launch/dryrun.py on meta tensors:
+     FLOPs by dtype, bytes, argument and temp bytes); its argument bytes
+     of params and state equal the live ones on the card; 3 steps after a
+     warm-up, each ended by a synchronize: the achieved TFLOP/s over the
+     wall and over the profiled device busy time, the MFU (the counted
+     matmul FLOPs over the wall time at the peak of their dtype), the
+     roofline share (the dry run's bound over the wall, and its
+     dominant term) and the predicted peak memory (argument + temp)
+     over max_memory_allocated; a summary of both before the last lines;
   D. the mesh and the router (after phase T, its memory freed): (a)
      gemma2-2b at full width, fp32, K8, block 16, 4 slots per engine: a
      chat service's stream of 3 tenants x 4 requests (a 64-token system
@@ -294,8 +305,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # fixed blocks, so that freed leaves of different sizes do not strand
 # memory between them
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
 SLEEP_CYCLES = 1_000_000            # ~0.5 ms of card time ahead of a timing
 LANS_TOL = {"fp32": dict(rtol=2e-5, atol=2e-5),
@@ -430,35 +439,62 @@ def time_reps(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def paged_bound(args, S):
+def card_bound(flops, nbytes):
+    """(bound ms, "bytes" or "operations") of work on the card: the bytes
+    at its memory rate and the FLOPs (fp32, outside the tensor cores) at
+    that peak, the NVIDIA H100 SXM constants of launch/mesh.py."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def bytes_ms(nbytes):
+    """Milliseconds to move `nbytes` at the card's memory rate."""
+    from repro_torch.launch.mesh import HBM_BW
+    return nbytes / HBM_BW * 1e3
+
+
+def kernel_cost(name, g, x):
+    """(FLOPs, bytes) of one launch of optimizer kernel `name` on the
+    gradient g and weights x (the cost functions beside the kernels)."""
+    import torch
+    from repro_torch.kernels import lamb as kb
+    from repro_torch.kernels import lans as kl
+    return {"sq_norm": lambda: kl.sq_norm_cost(g),
+            "lans_phase1": lambda: kl.lans_phase1_cost(g, x),
+            "lans_phase2": lambda: kl.lans_phase2_cost(g, x),
+            "lans_phase2_cast": lambda: kl.lans_phase2_cost(
+                g, x, torch.bfloat16),
+            "lamb_phase1": lambda: kb.lamb_phase1_cost(g, x),
+            "lamb_phase2": lambda: kb.lamb_phase2_cost(x)}[name]()
+
+
+def update_bytes(leaves, names):
+    """Bytes the kernels `names` move, each once per leaf of `leaves`
+    (fp32 weights, their gradients fp32)."""
+    return sum(kernel_cost(k, t, t)[1] for t in leaves for k in names)
+
+
+LANS_K123 = ("sq_norm", "lans_phase1", "lans_phase2")
+
+
+def paged_bound(args):
     """(bound ms, bound_by, bytes, flops) of one paged-attention call on
-    these inputs (K8's nine operands, or K7's six): each referenced
-    non-null block's K, V and positions read once, q / new rows / tables
-    / cursors read once, the output and the written rows stored once; 4
-    flops per (query row, key, head dim) for QK^T and PV (K8 also
-    attends to its S new rows)."""
+    these inputs (K8's nine operands, or K7's six), by the kernel's cost
+    (kernels/paged_attention.py: paged_cost) on the blocks, table entries
+    and valid rows of this call's data."""
+    from repro_torch.kernels import paged_attention as pa
     if len(args) == 9:
         q, k_new, v_new, k_arena, v_arena, pos, tables, q_pos, cursor = args
     else:
         q, k_arena, v_arena, pos, tables, q_pos = args
         k_new = cursor = None
-    _, bs, n_kv, hd = k_arena.shape
-    esz = k_arena.element_size()
-    blocks = tables[tables != 0].unique().numel()
-    nbytes = (blocks * (2 * bs * n_kv * hd * esz + bs * 4)
-              + q.numel() * q.element_size()
-              + 4 * (tables.numel() + q_pos.numel()) + q.numel() * 4)
-    keys = int((tables != 0).sum(dim=1).sum()) * bs
-    if k_new is not None:
-        n_new = int((q_pos >= 0).sum())
-        nbytes += (2 * k_new.numel() * esz + 4 * cursor.numel()
-                   + n_new * (2 * n_kv * hd * esz + 4))
-        keys += S * tables.shape[0]
-    flops = 4 * q.shape[2] * hd * S * keys
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    flops, nbytes = pa.paged_cost(q, k_arena, tables, q_pos, k_new=k_new,
+                                  cursor=cursor,
+                                  **pa.paged_counts(tables, q_pos))
+    return (*card_bound(flops, nbytes), nbytes, flops)
 
 
 def read_args(args):
@@ -575,7 +611,7 @@ def phase_kernels(torch, pa):
             ms = time_ms(kern, flush)
             plain_ms = time_ms(plain_fn, flush)
             launches = device_launches(torch, kern, flush)
-            bound_ms, bound_by, nbytes, flops = paged_bound(operands, 1)
+            bound_ms, bound_by, nbytes, flops = paged_bound(operands)
             print(f"kernel timing {name} ({shape} shape: B=4 S=1 h=8 n_kv=4 "
                   f"hd=256 bs=16 nb={nb}, bf16 arenas, L2 evicted): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -621,7 +657,7 @@ def local_heads_timing(torch, pa, flush, kw):
     ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
     plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
                        flush)
-    bound_ms, bound_by, nbytes, flops = paged_bound(args, 1)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args)
     print(f"kernel timing paged_attention_fused (1 x 2 rank's heads: B=4 "
           f"S=1 h={h} n_kv={n_kv} hd=256 bs=16 nb=6, bf16 arenas, L2 "
           f"evicted): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -723,7 +759,7 @@ def spec_verify_timing(torch, pa, flush, S=4, dtype=None):
     plain_ms = time_ms(
         lambda: pa.paged_attention_fused_plain(*plain, **kw), flush)
     launches = device_launches(torch, kern, flush)
-    bound_ms, bound_by, nbytes, flops = paged_bound(args, S)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args)
     arena = "bf16" if dtype == torch.bfloat16 else "fp32"
     print(f"kernel parity and timing paged_attention_fused at S={S} "
           f"(verify shape: B=4 h=8 n_kv=4 hd=256 bs=16 nb=7 row-margined, "
@@ -1111,7 +1147,7 @@ def phase_chunked(torch, pa, serve_mod, flush):
     ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
     plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
                        flush)
-    bound_ms, bound_by, nbytes, flops = paged_bound(args, 1)
+    bound_ms, bound_by, nbytes, flops = paged_bound(args)
     print(f"kernel timing paged_attention_fused (phase C shape: B=4 S=1 "
           f"nb={max_len // 16}, bf16 arenas, L2 evicted): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
@@ -1174,7 +1210,7 @@ def kernel_timing(torch, pa, args, kw, flush, S, label):
         ms = time_ms(kern, flush)
         plain_ms = time_ms(plain_fn, flush)
         launches = device_launches(torch, kern, flush)
-        bound_ms, bound_by, nbytes, flops = paged_bound(operands, S)
+        bound_ms, bound_by, nbytes, flops = paged_bound(operands)
         print(f"kernel timing {name} ({label}, L2 evicted): kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes, {flops} "
@@ -1484,22 +1520,20 @@ def lans_parity(torch, kl, kops):
 
 
 def time_calls(torch, n, calls):
-    """Time each {name: (kernel, plain, library call or None, bytes moved,
-    flops)} at n fp32 elements, L2 evicted, beside its bound (the larger
-    of bytes at 3.35 TB/s and flops at 67 TFLOP/s). Returns {name:
-    timing entry}."""
+    """Time each {name: (kernel, plain, library call or None, (flops,
+    bytes moved))} at n fp32 elements, L2 evicted, beside its bound (the
+    larger of bytes at 3.35 TB/s and flops at 67 TFLOP/s: card_bound),
+    the cost being the kernel's own (kernels/lans.py, lamb.py). Returns
+    {name: timing entry}."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for name, (kern, plain, lib, nbytes, flops) in calls.items():
+    for name, (kern, plain, lib, (flops, nbytes)) in calls.items():
         ms = time_ms(kern, flush, n=10)
         plain_ms = time_ms(plain, flush, n=5, warmup=1)
         lib_ms = None if lib is None else time_ms(lib, flush, n=10)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_FP32_FLOPS * 1e3
+        bound_ms, bound_by = card_bound(flops, nbytes)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations")
+                         bound_ms=bound_ms, bound_by=bound_by)
         print(f"kernel timing {name} (n={n} fp32, L2 evicted): kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -1552,23 +1586,25 @@ def lans_timing(torch, kl, kops, err, n=LARGEST_LEAF):
           f"master == K3, copy == cast, K1 bitwise repeatable")
     for name, e in big.items():
         err[name] = max(err[name], e)
-    # name: (kernel, plain, library call, bytes moved, flops)
+    # name: (kernel, plain, library call, (flops, bytes moved))
     calls = {
         "sq_norm": (lambda: kl.sq_norm(g), lambda: kl.sq_norm_plain(g),
                     lambda: torch.linalg.vector_norm(g, dtype=torch.float32),
-                    4 * n, 2 * n),
+                    kl.sq_norm_cost(g)),
         "lans_phase1": (
             lambda: kl.lans_phase1(scal, g, m, v, x, beta2=0.999, **kw),
             lambda: kl.lans_phase1_plain(scal, g, m, v, x, beta2=0.999,
-                                         **kw), None, 24 * n, 24 * n),
+                                         **kw), None,
+            kl.lans_phase1_cost(g, x)),
         "lans_phase2": (
             lambda: kl.lans_phase2(scal, norms, g, m1, v1, x, **kw),
             lambda: kl.lans_phase2_plain(scal, norms, g, m1, v1, x, **kw),
-            None, 20 * n, 16 * n),
+            None, kl.lans_phase2_cost(g, x)),
         "lans_phase2_cast": (
             lambda: kl.lans_phase2_cast(scal, norms, g, m1, v1, x, **cast),
             lambda: kl.lans_phase2_cast_plain(scal, norms, g, m1, v1, x,
-                                              **cast), None, 22 * n, 16 * n),
+                                              **cast), None,
+            kl.lans_phase2_cost(g, x, torch.bfloat16)),
     }
     return time_calls(torch, n, calls)
 
@@ -1612,13 +1648,14 @@ def fused_step_timing(torch, arch, kops):
     fused_ms = (fused_ms + time_reps(torch, update, 5)) / 2
     per_leaf_ms = (per_leaf_ms + time_reps(torch, fused, 5)) / 2
     unfused_ms = time_reps(torch, lambda: tx.update(g, state, x), 3)
-    bound_ms = 48 * n_params / H100_BYTES_PER_S * 1e3
+    nbytes = update_bytes([t for (_, t), _, _ in leaves], LANS_K123)
+    bound_ms = bytes_ms(nbytes)
     print(f"fused LANS step, bert-large fp32 ({len(leaves)} leaves, "
           f"{n_params} params): fused_lans update {fused_ms:.3f} ms "
           f"(K1+K2+K3 per leaf, scalars once per step), the kernels leaf "
           f"by leaf with scalars per leaf {per_leaf_ms:.3f} ms, unfused "
           f"lans update {unfused_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"(48 B/param at 3.35 TB/s)")
+          f"({nbytes / n_params:g} B/param at 3.35 TB/s)")
     check(len(leaves) == BERT_LEAVES, f"bert-large has {len(leaves)} leaves")
     return dict(fused_step_ms=fused_ms, per_leaf_ms=per_leaf_ms,
                 unfused_step_ms=unfused_ms, bound_ms=bound_ms)
@@ -1696,16 +1733,16 @@ def lamb_timing(torch, kl, kb, kops, err):
     for name, e in big.items():
         err[name] = max(err[name], e)
     kw = dict(beta1=0.9, beta2=0.999, eps=1e-6)
-    # name: (kernel, plain, library call, bytes moved, flops)
+    # name: (kernel, plain, library call, (flops, bytes moved))
     calls = {
         "lamb_phase1": (
             lambda: kb.lamb_phase1(scal, g, m, v, x, **kw),
             lambda: kb.lamb_phase1_plain(scal, g, m, v, x, **kw), None,
-            24 * n, 20 * n),
+            kb.lamb_phase1_cost(g, x)),
         "lamb_phase2": (
             lambda: kb.lamb_phase2(scal, norms, m1, v1, x, eps=1e-6),
             lambda: kb.lamb_phase2_plain(scal, norms, m1, v1, x, eps=1e-6),
-            None, 16 * n, 10 * n),
+            None, kb.lamb_phase2_cost(x)),
     }
     return time_calls(torch, n, calls)
 
@@ -1730,14 +1767,17 @@ def fused_lamb_timing(torch, arch):
     first = time_reps(torch, update, 5)
     unfused_ms = time_reps(torch, lambda: tx.update(g, state, x), 3)
     fused_ms = (first + time_reps(torch, update, 5)) / 2
-    bound_ms = 40 * n_params / H100_BYTES_PER_S * 1e3
-    clip_bound_ms = 44 * n_params / H100_BYTES_PER_S * 1e3
+    nbytes = update_bytes(tree_leaves(x), ("lamb_phase1", "lamb_phase2"))
+    clip_bytes = update_bytes(tree_leaves(x), ("sq_norm",))
+    bound_ms = bytes_ms(nbytes)
+    clip_bound_ms = bytes_ms(nbytes + clip_bytes)
     print(f"fused LAMB step, bert-large fp32 ({len(tree_leaves(x))} leaves,"
           f" {n_params} params): fused_lamb update {fused_ms:.3f} ms (K1 "
           f"per leaf for the clip, then K5+K6 per leaf), unfused lamb "
-          f"update {unfused_ms:.3f} ms, bound {bound_ms:.3f} ms (40 B/param"
-          f" at 3.35 TB/s; {clip_bound_ms:.3f} ms with the clip's 4 B/param"
-          f" norm pass)")
+          f"update {unfused_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({nbytes / n_params:g} B/param at 3.35 TB/s; "
+          f"{clip_bound_ms:.3f} ms with the clip's "
+          f"{clip_bytes / n_params:g} B/param norm pass)")
     del x, g, state, fstate
     torch.cuda.empty_cache()
     return dict(fused_step_ms=fused_ms, unfused_step_ms=unfused_ms,
@@ -1766,12 +1806,15 @@ def device_profile(torch, fn):
     return wall_ms, kernels, counts
 
 
-def profile_step(torch, step_fn, params, state, batch, n_params):
+def profile_step(torch, step_fn, params, state, batch):
     """One training step under torch.profiler: wall time, device busy
     time (the sum of the kernels' own device times), the idle share, the
     device time by kernel family, and K1-K3's device time summed over
-    the step's launches beside their bounds summed over the leaves (4,
-    24 and 20 bytes per parameter at 3.35 TB/s)."""
+    the step's launches beside their bounds summed over the leaves (the
+    kernels' own byte counts at 3.35 TB/s: 4, 24 and 20 bytes per fp32
+    parameter). Returns (wall ms, device busy ms), busy None where the
+    profiler saw no device activity."""
+    from repro_torch.core.optim.base import tree_leaves
     wall_ms, kernels, counts = device_profile(
         torch, lambda: float(step_fn(params, state, batch)[2]["loss"]))
     busy = sum(kernels.values())
@@ -1788,7 +1831,7 @@ def profile_step(torch, step_fn, params, state, batch, n_params):
     if busy == 0:
         print(f"profile[fused route step]: wall {wall_ms:.2f} ms; device "
               f"time not measured (the profiler saw no device activity)")
-        return
+        return wall_ms, None
     print(f"profile[fused route step]: wall {wall_ms:.2f} ms (under the "
           f"profiler), device busy {busy:.2f} ms, idle share "
           f"{1 - busy / wall_ms:.3f}; by family "
@@ -1797,21 +1840,23 @@ def profile_step(torch, step_fn, params, state, batch, n_params):
         print(f"  {ms:8.3f} ms  {name[:110]}")
     # the finishing pass (finish_sums_kernel) of K1 and K2 is shared and
     # listed on its own
-    for label, word, per_param in (("K1 sq_norm", "sq_norm_kernel", 4),
-                                   ("K2 lans_phase1", "lans_phase1_kernel",
-                                    24),
-                                   ("K3 lans_phase2", "lans_phase2_kernel",
-                                    20),
-                                   ("K1/K2 finishing pass",
-                                    "finish_sums_kernel", 0)):
+    leaves = tree_leaves(params)
+    for label, word, kern in (("K1 sq_norm", "sq_norm_kernel", "sq_norm"),
+                              ("K2 lans_phase1", "lans_phase1_kernel",
+                               "lans_phase1"),
+                              ("K3 lans_phase2", "lans_phase2_kernel",
+                               "lans_phase2"),
+                              ("K1/K2 finishing pass",
+                               "finish_sums_kernel", None)):
         ms = sum(v for k, v in kernels.items() if word in k)
         n = sum(c for k, c in counts.items() if word in k)
-        bound = per_param * n_params / H100_BYTES_PER_S * 1e3
+        bound = bytes_ms(update_bytes(leaves, (kern,))) if kern else 0
         print(f"profile[fused route step]: {label}: {n} launches, device "
               f"time summed {ms:.4f} ms"
               + (f", bound summed over the leaves {bound:.4f} ms (bytes), "
-                 f"bound / time {bound / ms:.3f}" if per_param and ms
+                 f"bound / time {bound / ms:.3f}" if kern and ms
                  else ""))
+    return wall_ms, busy
 
 
 def mixed_step1(torch, arch, sched, batches, leaves=BERT_LEAVES):
@@ -1966,9 +2011,12 @@ def train_routes(torch, kl):
               f"{name} launched {launches[name]} times, expected "
               f"{steps} x {BERT_LEAVES}")
     check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
-    profile_step(torch, step_fn, params, state, next(batches()),
-                 sum(t.numel() for t in tree_leaves(params)))
+    _, busy = profile_step(torch, step_fn, params, state, next(batches()))
+    box = [params, state]
     del params, state
+    analysis = phase_analysis(torch, "bert-large", arch,
+                              lambda: fused_lans(sched), step_fn, box,
+                              batches, busy)
     torch.cuda.empty_cache()
 
     # bf16 through fused_mixed_lans: K1, K2 and K4
@@ -2009,7 +2057,7 @@ def train_routes(torch, kl):
           f"{fp16['overflow_count']} step_ms "
           f"{[round(t * 1e3, 2) for t in fp16['step_s']]}")
     torch.cuda.empty_cache()
-    return launches, bf16_launches
+    return launches, bf16_launches, analysis
 
 
 def train_argv(optimizer, precision, steps):
@@ -2098,6 +2146,103 @@ def peak_gb(torch):
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def leaf_bytes(torch, tree):
+    """Bytes of a tree's tensors (numel x element size, each leaf once)."""
+    from torch.utils._pytree import tree_flatten
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def phase_analysis(torch, label, arch, make_tx, step_fn, box, batches,
+                   busy_ms, steps=3):
+    """Phase A on one training step (phase 7's or phase T's): the dry run
+    of the same configuration on one device (launch/dryrun.py:
+    trace_train, meta tensors on the host: FLOPs by dtype, bytes,
+    argument and temp bytes), then `steps` steps after a warm-up, each
+    ended by torch.cuda.synchronize(), from the params and state in `box`
+    ([params, state]: the caller's only references, taken here). Prints
+    the achieved FLOP/s over the wall time and over `busy_ms` (the device
+    busy time the phase's profile measured), the MFU (the counted matmul
+    FLOPs over the wall time at the peak of the dtype each ran in), the
+    whole step's roofline share (bound / wall) and the predicted peak
+    memory (argument + temp) beside torch.cuda.max_memory_allocated().
+    Gate: the dry run's argument bytes of params and optimizer state
+    equal the bytes of the live ones on the card. Returns the numbers."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS
+    t0 = time.perf_counter()
+    it = batches()
+    batch = next(it)
+    dry, _ = dryrun.trace_train(arch, batch, tx=make_tx(), policy="fp32")
+    trace_s = time.perf_counter() - t0
+    mem = dry["memory_analysis"]
+    params, state = box.pop(0), box.pop(0)
+    live = leaf_bytes(torch, (params, state))
+    dry_state = mem["argument_size_in_bytes"] - leaf_bytes(torch, batch)
+    check(dry_state == live, f"phase A[{label}]: the dry run's params and "
+          f"state take {dry_state} bytes, the card's {live}")
+    params, state, _ = step_fn(params, state, batch)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _, b in zip(range(steps), it):
+        t1 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, b)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(metrics["loss"])),
+          f"phase A[{label}]: a loss is not finite")
+    del params, state, metrics
+    wall_ms = statistics.median(wall)
+    by_dtype = dry["flops_by_dtype"]
+    matmul = {k: v for k, v in by_dtype.items() if k != "elementwise"}
+    at_peak_s = sum(v / PEAK_FLOPS[k] for k, v in matmul.items())
+    mfu = at_peak_s / (wall_ms / 1e3)
+    flops = dry["flops"]
+    roof = dry["roofline"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    out = dict(flops_by_dtype=by_dtype, flops=flops,
+               bytes=dry["bytes_accessed"],
+               argument_bytes=mem["argument_size_in_bytes"],
+               temp_bytes=mem["temp_size_in_bytes"], trace_s=trace_s,
+               wall_ms=wall, busy_ms=busy_ms, mfu=mfu,
+               tflops_wall=flops / (wall_ms / 1e3) / 1e12,
+               tflops_busy=(flops / (busy_ms / 1e3) / 1e12 if busy_ms
+                            else None),
+               roofline=roof, roofline_share=roof["bound_s"] / (wall_ms / 1e3),
+               predicted_peak=predicted, max_allocated=peak)
+    peaks = ", ".join(f"{k} {v:.4e} FLOPs at {PEAK_FLOPS[k] / 1e12:g} "
+                      f"TFLOP/s" for k, v in matmul.items())
+    print(f"phase A[{label}]: dry run (one device, meta tensors, "
+          f"{trace_s:.1f} s on the host): FLOPs by dtype "
+          + ", ".join(f"{k} {v:.4e}" for k, v in by_dtype.items())
+          + f", {dry['bytes_accessed']:.4e} bytes, argument "
+          f"{mem['argument_size_in_bytes']} bytes (params and state "
+          f"{dry_state} == {live} live on the card), temp "
+          f"{mem['temp_size_in_bytes']} bytes")
+    print(f"phase A[{label}]: step wall {[round(t, 3) for t in wall]} ms "
+          f"(median {wall_ms:.3f}, {steps} steps after a warm-up, each "
+          f"ended by a synchronize); achieved {out['tflops_wall']:.2f} "
+          f"TFLOP/s over the wall time, "
+          + (f"{out['tflops_busy']:.2f} TFLOP/s over the profiled device "
+             f"busy time {busy_ms:.2f} ms" if busy_ms
+             else "device busy time not measured"))
+    print(f"phase A[{label}]: MFU {mfu:.4f} (matmul FLOPs {peaks}; "
+          f"{at_peak_s * 1e3:.3f} ms at peak over the {wall_ms:.3f} ms "
+          f"wall); roofline share {out['roofline_share']:.4f} (bound "
+          f"{roof['bound_s'] * 1e3:.3f} ms by {roof['dominant']}: compute "
+          f"{roof['compute_s'] * 1e3:.3f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.3f} ms, collective "
+          f"{roof['collective_s'] * 1e3:.3f} ms); predicted peak memory "
+          f"{predicted / 1e9:.3f} GB (argument + temp) vs "
+          f"max_memory_allocated {peak / 1e9:.3f} GB, ratio "
+          f"{predicted / peak:.4f}")
+    print(f"phase A[{label}]: {time.perf_counter() - t0:.1f} s; "
+          f"{card_line()}")
+    return out
+
+
 def run_steps(torch, step_fn, params, state, batches, steps):
     """`steps` training steps on the stream's batches: (params, state,
     losses, step ms, the last metrics). The caller hands over its only
@@ -2141,11 +2286,12 @@ def decoder_update_timing(torch, arch, kops, n_leaves):
             o.x.sub(xt)
 
     ms = (time_reps(torch, update, 3) + time_reps(torch, update, 3)) / 2
-    bound_ms = 48 * n_params / H100_BYTES_PER_S * 1e3
+    nbytes = update_bytes([t for (_, t), _, _ in leaves], LANS_K123)
+    bound_ms = bytes_ms(nbytes)
     print(f"fused LANS update, gemma2-2b fp32 ({len(leaves)} leaves, "
           f"{n_params} params): K1+K2+K3 over every leaf {ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms (48 B/param at 3.35 TB/s), bound / "
-          f"time {bound_ms / ms:.3f}")
+          f"bound {bound_ms:.3f} ms ({nbytes / n_params:g} B/param at 3.35 "
+          f"TB/s), bound / time {bound_ms / ms:.3f}")
     check(len(leaves) == n_leaves, f"gemma2-2b has {len(leaves)} leaves")
     del x, g, zeros, leaves
     torch.cuda.empty_cache()
@@ -2272,10 +2418,15 @@ def decoder_routes(torch, kl, kops):
               f"{name} launched {launches[name]} times, expected "
               f"{steps} x {n_leaves}")
     check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
-    profile_step(torch, step_fn, params, state, next(batches()), n_params)
-    del params, state, step_fn, init_fn
-    torch.cuda.empty_cache()
+    _, busy = profile_step(torch, step_fn, params, state, next(batches()))
+    box = [params, state]
+    del params, state
     print(f"phase T(a): {time.perf_counter() - t0:.1f} s")
+    analysis = phase_analysis(torch, "gemma2-2b", arch,
+                              lambda: fused_lans(sched), step_fn, box,
+                              batches, busy)
+    del step_fn, init_fn
+    torch.cuda.empty_cache()
 
     # (c) bf16 steps through fused_mixed_lans: K1, K2, K4
     t0 = time.perf_counter()
@@ -2313,7 +2464,7 @@ def decoder_routes(torch, kl, kops):
     torch.cuda.empty_cache()
     update = decoder_update_timing(torch, arch, kops, n_leaves)
     print(f"phase T(e): {time.perf_counter() - t0:.1f} s")
-    return launches, bf16_launches, times, errs, update
+    return launches, bf16_launches, times, errs, update, analysis
 
 
 def whisper_serving(torch, serve_mod):
@@ -2519,7 +2670,7 @@ def whisper_training(torch, kl, kops):
               f"{name} launched {launches[name]} times, expected "
               f"{steps} x {WHISPER_LEAVES}")
     check(launches["lans_phase2_cast"] == 0, "the fp32 route launched K4")
-    profile_step(torch, step_fn, params, state, next(batches()), n_params)
+    profile_step(torch, step_fn, params, state, next(batches()))
     del params, state, step_fn, init_fn
     torch.cuda.empty_cache()
     errs = {k.__name__: 0.0 for k in kl.KERNELS}
@@ -3398,22 +3549,23 @@ def phase_shards(torch, kl, kb, kops):
         bm, bv, bnorms = kb.lamb_phase1(lrow, gs, ms, vs, xs, beta1=0.9,
                                         beta2=0.999, eps=1e-6)
         calls = {
-            "sq_norm": (lambda: kl.sq_norm(gs), 4),
-            "lans_phase1": (lambda: kl.lans_phase1(
-                row, gs, ms, vs, xs, beta2=0.999, **kw), 24),
-            "lans_phase2": (lambda: kl.lans_phase2(
-                row, norms, gs, m1, v1, xs, **kw), 20),
-            "lans_phase2_cast": (lambda: kl.lans_phase2_cast(
+            "sq_norm": lambda: kl.sq_norm(gs),
+            "lans_phase1": lambda: kl.lans_phase1(
+                row, gs, ms, vs, xs, beta2=0.999, **kw),
+            "lans_phase2": lambda: kl.lans_phase2(
+                row, norms, gs, m1, v1, xs, **kw),
+            "lans_phase2_cast": lambda: kl.lans_phase2_cast(
                 row, norms, gs, m1, v1, xs, lp_dtype=torch.bfloat16, **kw),
-                22),
-            "lamb_phase1": (lambda: kb.lamb_phase1(
-                lrow, gs, ms, vs, xs, beta1=0.9, beta2=0.999, eps=1e-6), 24),
-            "lamb_phase2": (lambda: kb.lamb_phase2(
-                lrow, bnorms, bm, bv, xs, eps=1e-6), 16),
+            "lamb_phase1": lambda: kb.lamb_phase1(
+                lrow, gs, ms, vs, xs, beta1=0.9, beta2=0.999, eps=1e-6),
+            "lamb_phase2": lambda: kb.lamb_phase2(
+                lrow, bnorms, bm, bv, xs, eps=1e-6),
         }
-        for name, (fn, bytes_per) in calls.items():
+        for name, fn in calls.items():
             ms_ = time_ms(fn, flush, n=10)
-            bound = bytes_per * s / H100_BYTES_PER_S * 1e3
+            nbytes = kernel_cost(name, gs, xs)[1]
+            bytes_per = nbytes // s
+            bound = bytes_ms(nbytes)
             out.setdefault(name, {})[str(k)] = dict(
                 n=s, ms=ms_, bound_ms=bound, bound_by="bytes",
                 max_abs_err=err[name][str(k)])
@@ -3527,11 +3679,11 @@ def run() -> int:
     times.update(lamb_timing(torch, kl, kb, kops, errs))
     fused_lamb_timing(torch, get_arch("bert-large"))
     torch.cuda.empty_cache()
-    fp32_launches, bf16_launches = train_routes(torch, kl)
+    fp32_launches, bf16_launches, bert_analysis = train_routes(torch, kl)
     lamb_launches = lamb_routes(torch, kl, kb)
     t0 = time.perf_counter()
-    dec_fp32, dec_bf16, dec_times, dec_errs, dec_update = decoder_routes(
-        torch, kl, kops)
+    (dec_fp32, dec_bf16, dec_times, dec_errs, dec_update,
+     dec_analysis) = decoder_routes(torch, kl, kops)
     print(f"phase T: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3581,6 +3733,21 @@ def run() -> int:
     next(e for e in entries if e["name"] == "sq_norm")["decoder"][
         "whole_update"] = dec_update
 
+    for label, a in (("bert-large", bert_analysis),
+                     ("gemma2-2b", dec_analysis)):
+        busy = ("not measured" if a["tflops_busy"] is None
+                else f"{a['tflops_busy']:.2f}")
+        print(f"phase A summary[{label}]: FLOPs by dtype "
+              + ", ".join(f"{k} {v:.4e}"
+                          for k, v in a["flops_by_dtype"].items())
+              + f"; step wall {[round(t, 3) for t in a['wall_ms']]} ms; "
+              f"MFU {a['mfu']:.4f} (bf16 / fp16 at 989 TFLOP/s, fp32 at "
+              f"67); {a['tflops_wall']:.2f} TFLOP/s over the wall, {busy} "
+              f"over the busy {a['busy_ms']} ms; roofline share "
+              f"{a['roofline_share']:.4f} ({a['roofline']['dominant']}); "
+              f"peak memory predicted {a['predicted_peak'] / 1e9:.3f} GB / "
+              f"measured {a['max_allocated'] / 1e9:.3f} GB = "
+              f"{a['predicted_peak'] / a['max_allocated']:.4f}")
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
-from repro_torch.configs.base import Arch, reduced_decoder
+from repro_torch.configs.base import (SHAPES, Arch, InputShape,
+                                      reduced_decoder)
 
 _MODULES = {
     "grok-1-314b": "grok_1_314b",
@@ -22,6 +24,9 @@ _MODULES = {
     "bert-large": "bert_large",
 }
 
+# the ten assigned archs: what the dry run's --arch all runs
+ASSIGNED = [k for k in _MODULES if k != "bert-large"]
+
 # archs of the JAX package that the port does not have yet: none
 NOT_PORTED = ()
 
@@ -33,23 +38,28 @@ def get_arch(name: str) -> Arch:
         f"repro_torch.configs.{_MODULES[name]}").ARCH
 
 
+def all_archs() -> Dict[str, Arch]:
+    return {name: get_arch(name) for name in _MODULES}
+
+
 def reduced_arch(name: str) -> Arch:
     """Smoke-test variant: decoders by reduced_decoder (<= 2 periods,
     d_model 256, <= 4 experts, vocab 1k, max_seq 256, fp32 params);
     encdec 2L per stack / 128d / 4H / ff 256 / vocab 512 / 16 frames /
     max_target 64; bert 2L / 128d / 4H / ff 256 / vocab 512 / max_pos
-    128."""
+    128. zero3 is cleared, as in the JAX package."""
     arch = get_arch(name)
     if arch.kind == "encdec":
         return dataclasses.replace(arch, cfg=dataclasses.replace(
             arch.cfg, n_layers=2, d_model=128, n_heads=4, d_ff=256,
-            vocab=512, n_frames=16, max_target=64))
+            vocab=512, n_frames=16, max_target=64), zero3=False)
     if arch.kind == "bert":
         return dataclasses.replace(arch, cfg=dataclasses.replace(
             arch.cfg, n_layers=2, d_model=128, n_heads=4, d_ff=256,
-            vocab=512, max_pos=128))
-    return dataclasses.replace(arch, cfg=reduced_decoder(arch.cfg))
+            vocab=512, max_pos=128), zero3=False)
+    return dataclasses.replace(arch, cfg=reduced_decoder(arch.cfg),
+                               zero3=False)
 
 
-__all__ = ["Arch", "NOT_PORTED", "get_arch", "reduced_arch",
-           "reduced_decoder"]
+__all__ = ["SHAPES", "Arch", "InputShape", "ASSIGNED", "NOT_PORTED",
+           "all_archs", "get_arch", "reduced_arch", "reduced_decoder"]

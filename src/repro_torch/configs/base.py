@@ -1,4 +1,5 @@
-"""Arch: binds a model family to its config (port of repro/configs/base.py).
+"""Arch: binds a model family to its config and to the input shapes of
+the dry run (port of repro/configs/base.py).
 
 Every family of the JAX package: the decoders' training (the causal-LM
 loss, chunked over the sequence for big vocabularies) and serving (init,
@@ -7,11 +8,22 @@ the encoder-decoder's training (lm_loss over encdec_apply) and serving
 (the pooled per-slot self cache, admission prefill that encodes and
 projects the cross K/V once, the pooled and single-stream decode
 steps); and BERT's pretraining and scoring forward (`score`).
+
+The dry run's surface (launch/dryrun.py) builds everything on the meta
+device, so that nothing is allocated: `abstract_params` (init under
+torch.device("meta")), `input_specs`, `cache_specs` and
+`paged_cache_specs` of the four assigned input shapes:
+  train_4k     seq 4096    global_batch 256   -> train step
+  prefill_32k  seq 32768   global_batch 32    -> prefill step
+  decode_32k   seq 32768   global_batch 128   -> serve step (1 new token)
+  long_500k    seq 524288  global_batch 1     -> serve step; archs with
+                                                 long_context_ok only
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -22,11 +34,32 @@ from repro_torch.models.common import WHOLE, fetch_tree
 
 
 @dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+META = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
     kind: str                      # "decoder" | "encdec" | "bert"
     cfg: Any
     source: str                    # citation for the config
+    zero3: bool = False            # FSDP over the data axis (>=100B params)
+    zero1: bool = False            # ZeRO-1: moments cut over "data" too
+    long_context_ok: bool = False  # sub-quadratic / windowed: long_500k
     embeds_input: bool = False     # VLM stub: the model takes embeddings
     train_microbatches: int = 4    # grad-accum splits of the global batch
 
@@ -211,6 +244,100 @@ class Arch:
             raise ValueError(f"{self.kind} has no scoring forward")
         return bert_lib.bert_serve_outputs(params, self.cfg, tokens,
                                            positions)
+
+    # ---------------- the dry run's shapes (meta tensors) ----------------
+
+    def supports(self, shape_name: str) -> bool:
+        shape = SHAPES[shape_name]
+        if self.kind == "bert" and shape.kind != "train":
+            return False
+        if shape.name == "long_500k":
+            return self.long_context_ok
+        return True
+
+    def skip_reason(self, shape_name: str) -> str:
+        """Why the dry run skips a shape that `supports` refuses (the JAX
+        dry run's words)."""
+        shape = SHAPES[shape_name]
+        return ("long_500k requires sub-quadratic attention"
+                if shape_name == "long_500k"
+                else f"{self.kind} has no {shape.kind} step")
+
+    def input_specs(self, shape_name: str) -> dict:
+        """Meta-tensor stand-ins for every model input of this shape."""
+        shape = SHAPES[shape_name]
+        B, S = shape.global_batch, shape.seq_len
+        i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=META)
+        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=META)
+        if self.kind == "bert":
+            return {"tokens": i32(B, S), "token_types": i32(B, S),
+                    "mlm_labels": i32(B, S), "nsp_labels": i32(B)}
+        if self.kind == "encdec":
+            frames = f32(B, self.cfg.n_frames, self.cfg.d_model)
+            if shape.kind == "train":
+                return {"frames": frames, "tokens": i32(B, S),
+                        "labels": i32(B, S)}
+            if shape.kind == "prefill":
+                return {"frames": frames, "tokens": i32(B, S)}
+            return {"tokens": i32(B, 1), "memory": frames}
+        if shape.kind == "train":
+            if self.embeds_input:
+                return {"embeds": f32(B, S, self.cfg.d_model),
+                        "labels": i32(B, S)}
+            return {"tokens": i32(B, S), "labels": i32(B, S)}
+        if shape.kind == "prefill":
+            return {"tokens": i32(B, S)}
+        return {"tokens": i32(B, 1)}
+
+    def cache_specs(self, shape_name: str):
+        """The dense decode cache of this shape, on the meta device: the
+        encoder-decoder's single-stream cache (its decode step then takes
+        the encoder output as batch["memory"]), a decoder's pooled one
+        (the port's decoders serve pooled only: a (B,) cursor and (B, L)
+        position rows where the JAX package's single-stream cache has a
+        0-d cursor and (L,) rows)."""
+        shape = SHAPES[shape_name]
+        B, S = shape.global_batch, shape.seq_len
+        if self.kind == "encdec":
+            return ed_lib.init_encdec_cache(self.cfg, B, S,
+                                            dtype=self.cfg.compute_dtype,
+                                            device=META)
+        return self.init_cache(B, S, device=META)
+
+    def paged_cache_specs(self, shape_name: str, *, block_size: int = 16,
+                          batch: Optional[int] = None, layout=None):
+        """The paged cache the dry run's decode shapes serve from, on the
+        meta device. One device: each arena one null block short of the
+        dense-equivalent budget, as in the JAX package. With a serving
+        mesh's ServeLayout (distributed/sharding.py), one data rank's
+        pool as serving/cache_pool.py builds it for `batch` slots
+        (default the shape's global batch): its rows, its share of every
+        arena's blocks and its KV heads."""
+        shape = SHAPES[shape_name]
+        B = batch or shape.global_batch
+        layout_ = dec_lib.paged_layout(self.cfg, shape.seq_len, block_size)
+        if layout is None:
+            n_blocks = {si: B * (ring // block_size) - 1
+                        for si, ring in filter(None, layout_)}
+            return self.init_paged_cache(B, shape.seq_len,
+                                         block_size=block_size,
+                                         n_blocks=n_blocks, device=META)
+        n_blocks = {si: B * (ring // block_size) // layout.data
+                    for si, ring in filter(None, layout_)}
+        return self.init_paged_cache(
+            layout.rows, shape.seq_len, block_size=block_size,
+            n_blocks=n_blocks, device=META,
+            kv_heads=layout.local_heads(self.heads[1]))
+
+    def abstract_params(self):
+        """The params' tree at full size on the meta device."""
+        with torch.device("meta"):
+            return self.init(None)
+
+    def param_count(self) -> int:
+        from repro_torch.core.optim.base import tree_leaves
+        return sum(math.prod(t.shape)
+                   for t in tree_leaves(self.abstract_params()))
 
 
 def reduced_decoder(cfg: dec_lib.DecoderConfig, **over):

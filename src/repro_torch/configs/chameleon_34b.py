@@ -33,6 +33,7 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="arXiv:2405.09818",
+    zero1=True,                # ZeRO-1: moments cut over "data"
     train_microbatches=16,
     embeds_input=True,
 )

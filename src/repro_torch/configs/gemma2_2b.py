@@ -34,4 +34,5 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="arXiv:2408.00118",
+    long_context_ok=True,
 )

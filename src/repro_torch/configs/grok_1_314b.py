@@ -32,5 +32,7 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="hf:xai-org/grok-1",
+    zero3=True,                # FSDP over the data axis (314B params)
     train_microbatches=8,
+    long_context_ok=False,     # full attention, no windowed variant
 )

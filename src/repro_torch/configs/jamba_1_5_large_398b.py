@@ -51,5 +51,7 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="arXiv:2403.19887",
+    zero3=True,
     train_microbatches=8,
+    long_context_ok=True,      # Mamba slots O(1) per token; 1-in-8 attn
 )

@@ -29,4 +29,5 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="arXiv:2405.21060",
+    long_context_ok=True,      # O(1) state per token
 )

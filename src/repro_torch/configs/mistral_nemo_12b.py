@@ -30,4 +30,5 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="hf:mistralai/Mistral-Nemo-Base-2407",
+    long_context_ok=True,
 )

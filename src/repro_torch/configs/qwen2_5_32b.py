@@ -28,5 +28,6 @@ ARCH = Arch(
     kind="decoder",
     cfg=CONFIG,
     source="hf:Qwen/Qwen2.5-0.5B",
+    zero1=True,                # ZeRO-1: moments cut over "data"
     train_microbatches=16,
 )

@@ -84,6 +84,7 @@ import torch.distributed as dist
 from repro_torch.core.optim.base import apply_updates, tree_leaves, tree_map
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.partial import sum_over, whole
+from repro_torch.launch import trace_cost
 from repro_torch.models.common import WHOLE, Ambient, ambient_mesh
 
 
@@ -291,6 +292,7 @@ def loss_and_grads(loss_fn, params, batch, scale):
 
 def build_train_step(loss_fn: Callable, tx, mesh=None, *,
                      microbatches: int = 1, zero3: bool = False,
+                     zero1: bool = False,
                      param_init_fn: Optional[Callable] = None, policy=None,
                      loss_scale=None, heads: Optional[tuple] = None,
                      mamba=None):
@@ -319,6 +321,7 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
     if mesh is not None and heads is None:
         raise ValueError("build_train_step on a mesh needs heads= "
                          "(Arch.heads)")
+    zero1 = zero1 and not zero3
     from repro_torch import precision
     if policy is not None:
         policy = precision.get_policy(policy)
@@ -337,23 +340,28 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
             raise ValueError(f"batch {n} does not split into "
                              f"{microbatches} microbatches")
         size = n // microbatches
-        grads, losses, auxs = None, [], []
-        for i in range(microbatches):
+        # float aux averaged over the whole batch, other aux from the
+        # last microbatch (as the JAX package does)
+        summed = lambda v: torch.is_tensor(v) and v.is_floating_point()
+        grads = loss = aux = None
+        # every trip after the first has the same work: a tracer that
+        # folds loops runs two trips (launch/trace_cost.py: loop)
+        for i in trace_cost.loop(microbatches):
             mb = {k: v[i * size:(i + 1) * size] if v.ndim >= 1 else v
                   for k, v in batch.items()}
             loss_i, aux_i, g_i = loss_and_grads(fn, params, local(mb),
                                                 scale)
-            grads = g_i if grads is None else tree_map(torch.add, grads, g_i)
-            losses.append(loss_i)
-            auxs.append(aux_i)
+            if grads is None:
+                grads, loss, aux = g_i, loss_i, aux_i
+                continue
+            grads = tree_map(torch.add, grads, g_i)
+            loss = loss + loss_i
+            aux = {k: aux[k] + v if summed(v) else v
+                   for k, v in aux_i.items()}
         grads = tree_map(lambda g: g / microbatches, grads)
-        loss = torch.stack(losses).sum() / microbatches
-        # float aux averaged over the whole batch, other aux from the
-        # last microbatch (as the JAX package does)
-        aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0)
-               if torch.is_tensor(v) and v.is_floating_point()
-               else v for k, v in auxs[-1].items()}
-        return loss, aux, grads
+        aux = {k: v / microbatches if summed(v) else v
+               for k, v in aux.items()}
+        return loss / microbatches, aux, grads
 
     def update(params, opt_state, loss, aux, grads, scale):
         with torch.no_grad():
@@ -413,11 +421,27 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         loss = sum_over(loss, groups)
         aux = {k: sum_over(v, groups) if torch.is_tensor(v)
                and v.is_floating_point() else v for k, v in aux.items()}
-        grads = tree_map(lambda g, p, u: _placed_grad(g, p, u, mesh, cut),
-                         grads, params, uses)
+        if not zero1:
+            grads = tree_map(lambda g, p, u: _placed_grad(
+                g, p, u, mesh, cut), grads, params, uses)
+            box = [grads]
+            del grads
+            return update(params, opt_state, loss, aux, box.pop(), scale)
+        # ZeRO-1: the gradients reduce-scattered to the moments' cut, the
+        # update on the rank's shards, the new weights gathered whole
+        mspec = shd.params_pspec(params, mesh, zero3=True)
+        grads = tree_map(lambda g, p, u, ms: _placed_grad(
+            g, p, u, mesh, cut, shd.placements(ms, mesh)), grads, params,
+            uses, mspec)
+        shards = tree_map(lambda p, ms: _redistribute(
+            p, mesh, shd.placements(ms, mesh)), params, mspec)
         box = [grads]
         del grads
-        return update(params, opt_state, loss, aux, box.pop(), scale)
+        new_params, new_opt, metrics = update(shards, opt_state, loss, aux,
+                                              box.pop(), scale)
+        new_params = tree_map(lambda q, p: _redistribute(
+            q, mesh, getattr(p, "placements", None)), new_params, params)
+        return new_params, new_opt, metrics
 
     def init_fn(gen: torch.Generator):
         if param_init_fn is None:
@@ -433,7 +457,10 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
 
     def specs_for(params_like, opt_like):
         pspec = shd.params_pspec(params_like, mesh, zero3=zero3)
-        return pspec, shd.opt_state_pspec(opt_like, pspec)
+        mspec = (shd.params_pspec(params_like, mesh, zero3=True) if zero1
+                 else None)
+        return pspec, shd.opt_state_pspec(opt_like, pspec,
+                                          moments_spec=mspec)
 
     mesh_step_fn.specs_for = specs_for
     return mesh_step_fn, init_fn
@@ -461,16 +488,35 @@ def _mark(t, use):
         t._use = use
 
 
-def _placed_grad(g, p, use, mesh, cut):
+def _redistribute(t, mesh, places):
+    """A DTensor at `places` (None: as it is); a plain leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor) or places is None \
+            or tuple(t.placements) == tuple(places):
+        return t
+    return t.redistribute(mesh, places)
+
+
+def _placed_grad(g, p, use, mesh, cut, target=None):
     """A rank's gradient of its shard of p as a DTensor at p's
-    placements. The data dims of `cut` (the batch's) that the backward
-    pass has not summed it over (all but the leaf's own data cuts, which
-    its gather reduce-scattered) are summed here: for a leaf with no cut
+    placements, or at `target` (ZeRO-1: the moments' cut over the data
+    axes). The data dims of `cut` (the batch's) that the backward pass
+    has not summed it over (all but the leaf's own data cuts, which its
+    gather reduce-scattered) are summed here: for a leaf with no cut
     (use None), the whole leaf's gradient, by the all-reduce of a
-    Partial DTensor."""
+    Partial DTensor; to a `target` cut over a data dim, by its
+    reduce-scatter."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     if not isinstance(p, DTensor):
         return sum_over(g, [mesh.get_group(name) for name in cut])
+    if target is not None and tuple(target) != tuple(p.placements):
+        summed = set() if use is None else {a for a, _ in use.cuts}
+        places = [Partial() if name in cut and name not in summed
+                  else pl for name, pl in zip(mesh.mesh_dim_names,
+                                              p.placements)]
+        return DTensor.from_local(g, mesh, places,
+                                  run_check=False).redistribute(
+            mesh, target)
     if use is None:
         places = [Partial() if name in cut else Replicate()
                   for name in mesh.mesh_dim_names]

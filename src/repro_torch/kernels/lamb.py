@@ -17,6 +17,10 @@ operands' device, laid out as the TPU kernels' (1, 8) operand:
 [bc1, bc2, eta, lam, trust, clip, 0, 0] (slot 5 is the global clip
 factor, where LANS keeps g_sq). Neither they nor the norms K5 returns
 are read back to the host.
+
+Each kernel's cost (`*_cost`: FLOPs and the bytes it must move) is kept
+here, and on a meta tensor a wrapper runs its stand-in, as in
+kernels/lans.py.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.optim_common import (
-    DTYPE_CODE, MAX_PARTS, check_max_parts, check_operands, on_cuda, ptr,
-    raise_on, stream, trust_ratio)
+    DTYPE_CODE, MAX_PARTS, charge, check_max_parts, check_operands, on_cuda,
+    ptr, raise_on, stand_in, stream, trust_ratio)
 
 
 # --------------------------------------------------------------------------
@@ -62,6 +66,22 @@ def lamb_phase2_plain(scalars, norms, m, v, x, *, eps):
 
 
 # --------------------------------------------------------------------------
+# costs: (FLOPs, bytes) of one launch on n elements, as kernels/lans.py's
+# --------------------------------------------------------------------------
+
+def lamb_phase1_cost(g, x):
+    """K5: g, m, v and x read, the new m and v written (fp32 moments)."""
+    n = x.numel()
+    return 20 * n, n * (g.element_size() + x.element_size() + 16)
+
+
+def lamb_phase2_cost(x):
+    """K6: m, v and x read, x written."""
+    n = x.numel()
+    return 10 * n, n * (2 * x.element_size() + 8)
+
+
+# --------------------------------------------------------------------------
 # the wrappers
 # --------------------------------------------------------------------------
 
@@ -84,6 +104,10 @@ def lamb_phase1(scalars, g, m, v, x, *, beta1, beta2, eps
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: (m_new, v_new, norms). New tensors; the inputs are not
     written."""
+    if stand_in(g):
+        charge("lamb_phase1", lamb_phase1_cost(g, x))
+        return (torch.empty_like(m), torch.empty_like(v),
+                torch.empty(8, dtype=torch.float32, device=g.device))
     if not on_cuda(g, "lamb_phase1"):
         return lamb_phase1_plain(scalars, g, m, v, x, beta1=beta1,
                                  beta2=beta2, eps=eps)
@@ -103,6 +127,9 @@ def lamb_phase1(scalars, g, m, v, x, *, beta1, beta2, eps
 
 def lamb_phase2(scalars, norms, m, v, x, *, eps) -> torch.Tensor:
     """K6: x_new in x's dtype (m, v are K5's new moments)."""
+    if stand_in(x):
+        charge("lamb_phase2", lamb_phase2_cost(x))
+        return torch.empty_like(x)
     if not on_cuda(x, "lamb_phase2"):
         return lamb_phase2_plain(scalars, norms, m, v, x, eps=eps)
     check_operands(scalars, norms, None, m, v, x)

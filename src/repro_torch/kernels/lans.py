@@ -23,6 +23,13 @@ are an 8-float tensor on the operands' device, laid out as the TPU
 kernels' (1, 8) operand: [bc1, bc2, eta, lam, trust, g_sq, 0, 0]; the
 norms K2 returns are another 8-float tensor. Neither is read back to the
 host.
+
+Each kernel's cost (`*_cost`: FLOPs and the bytes it must move, each
+operand read once and each output written once) is kept here: the
+bounds of chip_smoke.py and the dry run (launch/dryrun.py) both read it.
+On a meta tensor a wrapper runs its stand-in, which returns outputs of
+the kernel's shapes and dtypes and charges that cost to the tracer in
+force (launch/trace_cost.py: charge_kernel).
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.optim_common import (
-    DTYPE_CODE, GX_TYPES, MAX_PARTS, check, check_max_parts, check_operands,
-    on_cuda, ptr, raise_on, stream, trust_ratio)
+    DTYPE_CODE, GX_TYPES, MAX_PARTS, charge, check, check_max_parts,
+    check_operands, on_cuda, ptr, raise_on, stand_in, stream, trust_ratio)
 
 _LP_TYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -104,6 +111,32 @@ def lans_phase2_cast_plain(scalars, norms, g, m, v, x, *, lp_dtype, beta1,
 
 
 # --------------------------------------------------------------------------
+# costs: (FLOPs, bytes) of one launch on n elements; the FLOPs are fp32,
+# outside the tensor cores
+# --------------------------------------------------------------------------
+
+def sq_norm_cost(x):
+    """K1: x read once; a square and an add per element."""
+    n = x.numel()
+    return 2 * n, n * x.element_size()
+
+
+def lans_phase1_cost(g, x):
+    """K2: g, m, v and x read, the new m and v written (fp32 moments)."""
+    n = x.numel()
+    return 24 * n, n * (g.element_size() + x.element_size() + 16)
+
+
+def lans_phase2_cost(g, x, lp_dtype=None):
+    """K3 (lp_dtype None) or K4: g, m, v and x read, x written, and K4's
+    copy in lp_dtype unless that is fp32 (the master itself)."""
+    n = x.numel()
+    lp = (torch.empty((), dtype=lp_dtype).element_size()
+          if lp_dtype not in (None, torch.float32) else 0)
+    return 16 * n, n * (g.element_size() + 2 * x.element_size() + 8 + lp)
+
+
+# --------------------------------------------------------------------------
 # the wrappers
 # --------------------------------------------------------------------------
 
@@ -129,6 +162,10 @@ def sq_norm(x, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: sum of squares of a flat fp32/bf16 tensor, in fp32. Written
     into `out` (a 1-element fp32 tensor, e.g. the g_sq slot of the
     scalars) when given; returned as a 0-d tensor."""
+    if stand_in(x):
+        charge("sq_norm", sq_norm_cost(x))
+        return (out.reshape(()) if out is not None else
+                torch.empty((), dtype=torch.float32, device=x.device))
     if not on_cuda(x, "sq_norm"):
         val = sq_norm_plain(x)
         if out is None:
@@ -152,6 +189,10 @@ def lans_phase1(scalars, g, m, v, x, *, beta1, beta2, eps
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2: (m_new, v_new, norms). New tensors; the inputs are not
     written."""
+    if stand_in(g):
+        charge("lans_phase1", lans_phase1_cost(g, x))
+        return (torch.empty_like(m), torch.empty_like(v),
+                torch.empty(8, dtype=torch.float32, device=g.device))
     if not on_cuda(g, "lans_phase1"):
         return lans_phase1_plain(scalars, g, m, v, x, beta1=beta1,
                                  beta2=beta2, eps=eps)
@@ -187,6 +228,9 @@ def _phase2(scalars, norms, g, m, v, x, lp_dtype, beta1, eps):
 
 def lans_phase2(scalars, norms, g, m, v, x, *, beta1, eps) -> torch.Tensor:
     """K3: x_new in x's dtype (m, v are K2's new moments)."""
+    if stand_in(g):
+        charge("lans_phase2", lans_phase2_cost(g, x))
+        return torch.empty_like(x)
     if not on_cuda(g, "lans_phase2"):
         return lans_phase2_plain(scalars, norms, g, m, v, x, beta1=beta1,
                                  eps=eps)
@@ -200,6 +244,11 @@ def lans_phase2_cast(scalars, norms, g, m, v, x, *, lp_dtype, beta1, eps
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (x_new fp32, x_new in lp_dtype) from an fp32 master x, in one
     pass. lp_dtype fp32 returns the master twice (the same tensor)."""
+    if stand_in(g):
+        charge("lans_phase2_cast", lans_phase2_cost(g, x, lp_dtype))
+        x_new = torch.empty_like(x)
+        return x_new, (x_new if lp_dtype == torch.float32 else
+                       torch.empty(x.shape, dtype=lp_dtype, device=x.device))
     if not on_cuda(g, "lans_phase2_cast"):
         return lans_phase2_cast_plain(scalars, norms, g, m, v, x,
                                       lp_dtype=lp_dtype, beta1=beta1,

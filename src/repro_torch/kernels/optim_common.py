@@ -24,6 +24,26 @@ def trust_ratio(x_norm, u_sq, trust):
     return torch.where(trust > 0.0, s, one)
 
 
+def stand_in(t) -> bool:
+    """True for a meta tensor or a fake one: the dry run's (launch/
+    dryrun.py), on which a wrapper runs its kernel's stand-in (outputs of
+    the kernel's shapes and dtypes, its cost charged to the tracer in
+    force: launch/trace_cost.py) and neither the kernel nor its plain
+    version."""
+    if t.device.type == "meta":
+        return True
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def charge(name, cost):
+    """A stand-in's launch of kernel `name`, charged to the tracer in force
+    at its (FLOPs, bytes) `cost`; the FLOPs are fp32 elementwise work."""
+    from repro_torch.launch.trace_cost import charge_kernel
+    flops, nbytes = cost
+    charge_kernel(name, {"elementwise": flops}, nbytes)
+
+
 def on_cuda(t, name) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one
     (run the plain version); raise for any other device."""

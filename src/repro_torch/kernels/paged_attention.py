@@ -33,6 +33,11 @@ first launch has finished reading. The wrapper allocates the partials'
 scratch; `smem_bytes` is the first launch's shared-memory plan and
 `kernel_fit_problems` its limits.
 
+`paged_cost` is a call's cost (FLOPs and the bytes it must move), read
+by chip_smoke.py's bounds (with `paged_counts` of the call's tables) and
+by the dry run: on meta tensors the wrappers run a stand-in that
+charges it (launch/trace_cost.py), every table entry counted live.
+
 Contract (the same as the JAX kernel's):
   q (B, [S,] h, hd) fp32, bf16 or fp16 (fp16 serving's queries); k_new / v_new (B, [S,] n_kv, hd) in
   the arena dtype; arenas (n_blocks, bs, n_kv, hd) fp32 or bf16; pos
@@ -56,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import NEG_INF
+from repro_torch.kernels.optim_common import stand_in
 
 # Shared memory a Hopper block may use (dynamic, after opting in).
 SMEM_LIMIT = 232448
@@ -457,6 +463,52 @@ def _launch(wrapper, q, k_new, v_new, k_arena, v_arena, pos_arena, tables,
     return out
 
 
+def paged_counts(tables, q_pos) -> dict:
+    """What a call's cost depends on in its data: the distinct non-null
+    blocks its tables reference, its non-null table entries and its
+    valid query rows."""
+    return dict(blocks=int(tables[tables != 0].unique().numel()),
+                entries=int((tables != 0).sum()),
+                n_new=int((q_pos >= 0).sum()))
+
+
+def paged_cost(q, k_arena, tables, q_pos, *, blocks, entries, k_new=None,
+               cursor=None, n_new=0):
+    """(FLOPs, bytes) of one K7 call (k_new None) or K8 call, q (B, S, h,
+    hd): each referenced block's K, V and positions read once, q, the
+    tables and q_pos read once, the fp32 output written once, and K8's
+    new rows and cursors read and its valid rows (K, V, position)
+    written; 4 FLOPs per (query row, key, head dim) for QK^T and PV, over
+    `entries` table entries of block_size keys each (K8 also attends to
+    its S new rows). The FLOPs are fp32, outside the tensor cores."""
+    B, S, h, _ = q.shape
+    _, bs, n_kv, hd = k_arena.shape
+    esz = k_arena.element_size()
+    nbytes = (blocks * (2 * bs * n_kv * hd * esz + bs * 4)
+              + q.numel() * q.element_size()
+              + 4 * (tables.numel() + q_pos.numel()) + q.numel() * 4)
+    keys = entries * bs
+    if k_new is not None:
+        nbytes += (2 * k_new.numel() * esz + 4 * cursor.numel()
+                   + n_new * (2 * n_kv * hd * esz + 4))
+        keys += S * B
+    return 4 * h * hd * S * keys, nbytes
+
+
+def _stand_in(wrapper, q, k_arena, tables, q_pos, k_new=None, cursor=None):
+    """A meta call's output (B, S, h, hd) fp32, its cost charged with every
+    table entry live (at most the arena's non-null blocks) and every
+    query row valid."""
+    from repro_torch.launch.trace_cost import charge_kernel
+    flops, nbytes = paged_cost(
+        q, k_arena, tables, q_pos,
+        blocks=min(tables.numel(), k_arena.shape[0] - 1),
+        entries=tables.numel(), k_new=k_new, cursor=cursor,
+        n_new=q_pos.numel())
+    charge_kernel(wrapper.__name__, {"float32": flops}, nbytes)
+    return torch.empty(q.shape, dtype=torch.float32, device=q.device)
+
+
 def _on_cuda(q):
     if q.device.type == "cpu":
         return False
@@ -474,7 +526,7 @@ def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
     run the plain version; CUDA tensors launch the kernel or raise.
     `paged_attention_fused.launches` counts kernel launches."""
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-    if not _on_cuda(q):
+    if not stand_in(q) and not _on_cuda(q):
         return paged_attention_fused_plain(
             q, k_new, v_new, k_arena, v_arena, pos_arena, tables, q_pos,
             cursor, **kw)
@@ -482,8 +534,12 @@ def paged_attention_fused(q, k_new, v_new, k_arena, v_arena, pos_arena,
     if squeeze:
         q, q_pos = q[:, None], q_pos[:, None]
         k_new, v_new = k_new[:, None], v_new[:, None]
-    out = _launch(paged_attention_fused, q, k_new, v_new, k_arena,
-                  v_arena, pos_arena, tables, q_pos, cursor, **kw)
+    if stand_in(q):
+        out = _stand_in(paged_attention_fused, q, k_arena, tables, q_pos,
+                        k_new, cursor)
+    else:
+        out = _launch(paged_attention_fused, q, k_new, v_new, k_arena,
+                      v_arena, pos_arena, tables, q_pos, cursor, **kw)
     return out[:, 0] if squeeze else out
 
 
@@ -501,7 +557,9 @@ def paged_attention(q, k_arena, v_arena, pos_arena, tables, q_pos, *,
     squeeze = q.ndim == 3
     if squeeze:
         q, q_pos = q[:, None], q_pos[:, None]
-    if _on_cuda(q):
+    if stand_in(q):
+        out = _stand_in(paged_attention, q, k_arena, tables, q_pos)
+    elif _on_cuda(q):
         out = _launch(paged_attention, q, None, None, k_arena, v_arena,
                       pos_arena, tables, q_pos, None, **kw)
     else:

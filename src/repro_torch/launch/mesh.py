@@ -80,3 +80,23 @@ def make_local_mesh(*, data: int = 1, model: int = 1, device: str = "cuda"):
     (tests, examples, one host). A 1 x 1 mesh without a process group
     starts a one-rank group of its own."""
     return _mk((data, model), ("data", "model"), device)
+
+
+# NVIDIA H100 SXM hardware constants for the roofline model (per card).
+# Source: NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W
+# power limit; a card set below 700 W runs slower under load.
+PEAK_FLOPS = {
+    "bfloat16": 989e12,      # tensor cores
+    "float16": 989e12,       # tensor cores
+    "tf32": 495e12,          # fp32 matmuls with TF32 allowed
+    "float32": 67e12,        # fp32 outside the tensor cores
+}
+# the rate the one-FLOP-per-element ops (elementwise, reductions) are
+# charged at: fp32 outside the tensor cores
+PEAK_FLOPS["elementwise"] = PEAK_FLOPS["float32"]
+HBM_BW = 3.35e12             # bytes/s, HBM3
+HBM_BYTES = 80e9             # bytes
+# NVLink 4, each way, per card. The production mesh's "model" axis of 16
+# spans two 8-card hosts, so that its traffic crosses between hosts; the
+# roofline charges it at this rate all the same and adds no term for it.
+NVLINK_BW = 4.5e11           # bytes/s (450 GB/s)

@@ -148,7 +148,10 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
     gates_k, idx_k = _top_k(probs, K)                        # (G, Tl, K)
     gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True), min=1e-9)
 
-    sel = torch.nn.functional.one_hot(idx_k, E)              # (G, Tl, K, E)
+    # one_hot by a comparison, the same ops on every device (the CPU's
+    # one_hot kernel also checks the range of its input)
+    sel = (idx_k[..., None] == torch.arange(E, device=idx_k.device)
+           ).to(torch.int64)                                 # (G, Tl, K, E)
     if valid is not None:
         vg = valid.reshape(G, Tl)
         sel = sel * vg[..., None, None].to(sel.dtype)        # pads: nowhere
@@ -214,7 +217,7 @@ def _experts(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep, cap: int,
         # pairs sort last, under key El, and are never computed)
         key = torch.where(mine, local, El).reshape(-1)
         order = torch.argsort(key, stable=True)
-        counts = torch.bincount(key, minlength=El + 1).tolist()
+        counts = _expert_counts(key, El, E)
         rows = x_rep.reshape(-1, d)[order]
         y_sorted = torch.zeros_like(rows)
         start = 0
@@ -226,6 +229,17 @@ def _experts(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep, cap: int,
         y_tk = y_sorted[torch.argsort(order)].reshape(G, Tl * K, d)
     w = gates * mine.to(gates.dtype)
     return (y_tk * w[..., None]).reshape(G, Tl, K, d).sum(dim=2)
+
+
+def _expert_counts(key, El: int, E: int) -> list:
+    """The rows of each of the El local experts (and, last, the dropped
+    pairs) under the sort key. On a meta tensor (the dry run: no data)
+    the pairs are taken as routed evenly over the E experts, none
+    dropped: each local expert gets key.numel() // E of them."""
+    if key.device.type == "meta":
+        each = key.numel() // E
+        return [each] * El + [key.numel() - each * El]
+    return torch.bincount(key, minlength=El + 1).tolist()
 
 
 def experts_part(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep,

@@ -81,11 +81,14 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
             return o._replace(x_lp=o.x_lp - p)
 
         # One host read of the finite flag per step, in place of the JAX
-        # package's lax.cond: an overflow step launches nothing.
-        if bool(finite) and on_mesh(params):
+        # package's lax.cond: an overflow step launches nothing. On meta
+        # tensors (the dry run) there is no flag to read: the finite
+        # step is traced.
+        ok = finite.device.type == "meta" or bool(finite)
+        if ok and on_mesh(params):
             new_master, new_mu, new_nu, updates_out = _mesh_update(
                 box.pop(), state, master, params)
-        elif bool(finite):
+        elif ok:
             rows = step_scalars(sched(state.count), state.count + 1, params,
                                 mask_fn, beta1=beta1, beta2=beta2,
                                 lam=weight_decay)

@@ -94,8 +94,9 @@ def mixed_precision(tx: GradientTransformation, policy: Policy,
         master = _merge_master(state.master, params)
         grads32 = ls.unscale(updates, state.loss_scale)
         finite = all_finite(grads32)
-        # one host read of the flag per step (JAX: lax.cond)
-        if bool(finite):
+        # one host read of the flag per step (JAX: lax.cond); on meta
+        # tensors (the dry run) the finite step is traced
+        if finite.device.type == "meta" or bool(finite):
             u32, new_inner = tx.update(grads32, state.inner, master)
             new_master = apply_updates(master, u32)
         else:

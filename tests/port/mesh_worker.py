@@ -627,8 +627,9 @@ def run_steps(case, params, batches, mesh=None, *, zero3=False, zero1=False,
     seen, ref_seen = [], []
     step, init = build_train_step(
         loss_of(case["arch"], arch), recording(tx, seen), mesh, zero3=zero3,
-        microbatches=case["microbatches"], param_init_fn=lambda _: params,
-        policy=policy, heads=arch.heads, mamba=arch.mamba)
+        zero1=zero1, microbatches=case["microbatches"],
+        param_init_fn=lambda _: params, policy=policy, heads=arch.heads,
+        mamba=arch.mamba)
     p, o = init(None)
     ref = None
     if mesh is None:
@@ -636,9 +637,6 @@ def run_steps(case, params, batches, mesh=None, *, zero3=False, zero1=False,
                                model=model, zero3=zero3)
     else:
         pspec, ospec = step.specs_for(p, o)
-        if zero1:
-            ospec = shd.opt_state_pspec(
-                o, pspec, moments_spec=shd.params_pspec(p, mesh, zero3=True))
         step = place_train_step(step, mesh, pspec, ospec, batches[0])
         shape = shd.mesh_shape(mesh)
         early = (early_paths(params, shape["data"], shape["model"])
@@ -1045,3 +1043,74 @@ def run_memory_rank(rank, world, store_path, layout, out_path):
         torch.save({"peak": peak}, f"{out_path}.{rank}")
     finally:
         dist.destroy_process_group()
+
+
+# the dry run against real runs (test_torch_dryrun.py): name -> (arch,
+# microbatches); the unfused lans of the JAX dry run's optimizer
+COUNT_CASES = {"bert": ("bert-large", 2),
+               "granite": ("granite-moe-3b-a800m", 1),
+               "gemma2": ("gemma2-2b", 1)}
+
+
+def count_batch(name, rows=4):
+    """The seeded batch of a COUNT_CASES case (its shapes are what the dry
+    run sees)."""
+    arch = case_arch(COUNT_CASES[name][0], "fp32")
+    rng = np.random.default_rng(0)
+    b = (_bert_batch(rng, arch.cfg, rows) if arch.kind == "bert"
+         else lm_batch(rng, arch.cfg, rows))
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def count_case(name, mesh, layout, gen=None):
+    """The dry run's record (launch/dryrun.py: trace_train) of one step of
+    a COUNT_CASES case on `mesh` with the layout's zero3 / zero1: on meta
+    tensors, or with a torch.Generator `gen` on real ones."""
+    from repro_torch.core.optim import lans
+    from repro_torch.launch import dryrun
+    arch_name, mb = COUNT_CASES[name]
+    arch = dataclasses.replace(case_arch(arch_name, "fp32"),
+                               zero3=layout["zero3"], zero1=layout["zero1"])
+    analysis, _ = dryrun.trace_train(arch, count_batch(name), mesh,
+                                     microbatches=mb, tx=lans(LR), gen=gen)
+    keep = ("flops_by_dtype", "bytes_accessed", "collective_bytes",
+            "collective_counts", "memory_analysis")
+    return {k: analysis[k] for k in keep}
+
+
+def run_count_rank(rank, world, store_path, layout, out_path):
+    """One gloo rank of the dry run's check: every COUNT_CASES step run on
+    real CPU tensors on the layout's mesh, counted by the dry run's
+    tracer; writes {case: record}."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(data=layout["data"], model=layout["model"],
+                               device="cpu")
+        out = {name: count_case(name, mesh, layout,
+                                gen=torch.Generator().manual_seed(0))
+               for name in COUNT_CASES}
+        torch.save(out, f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def dry_counts(layouts):
+    """{layout: [each rank's {case: record}]} of the dry run on meta
+    tensors, each rank in a fake process group of the layout's ranks (run
+    in a process of its own: the dry run takes the default group)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    out = {}
+    for lname, layout in layouts.items():
+        world = layout["data"] * layout["model"]
+        out[lname] = []
+        for rank in range(world):
+            with dryrun.fake_world(world, rank):
+                mesh = make_local_mesh(data=layout["data"],
+                                       model=layout["model"], device="cpu")
+                out[lname].append({name: count_case(name, mesh, layout)
+                                   for name in COUNT_CASES})
+    return out
