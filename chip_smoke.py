@@ -277,7 +277,22 @@ Phases, in the order they run, each of which fails the run:
      on every rank, K8 launched decode steps x 26 on every rank, each
      rank's data-block bytes exactly half of one card's; each rank's
      arena bytes, KV heads, peak memory, median decode step and
-     collective ms per step printed.
+     collective ms per step printed. On 1 x 2 the tied 256,000-row vocab
+     is cut too (128,000 rows a rank, the picks taken over "model"), and
+     phase S's sampled stream (temperature=0.8,top_k=50,top_p=0.9,seed=3)
+     runs after the greedy one: its tokens equal phase S's; (g) serving
+     on 1 x 2 cuts what training's model axis cuts (after (e), two gloo
+     processes on the one card, fp32, (e)'s stream after a warm-up
+     stream): granite-moe-3b-a800m at full width and depth with K8, 20
+     of its 40 experts a rank (its 49155-row vocab does not divide), and
+     mamba2-130m, 12 of its 24 heads and 25,140 of its vocab rows a rank
+     (in_proj and conv_w placed at load in its heads' columns, its
+     heads' SSM state): greedy tokens equal phase M's one-card tokens, K8
+     launched decode steps x 32 on each rank for granite and never for
+     mamba2, each rank's bytes of expert stacks, vocab tables and Mamba
+     out_proj exactly half of one card's and of in_proj / conv_w exactly
+     its columns'; each rank's peak, median decode step and collective
+     ms per step printed, and (g)'s seconds.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -781,7 +796,8 @@ def spec_verify_timing(torch, pa, flush, S=4, dtype=None):
 def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
     """Phase S: speculative and sampled serving of full-width gemma2-2b
     (see the module docstring). `paged` / `paged_tokens` are phase 3's
-    fp32 kernel run. Returns K8's S = 4 entry for the kernels line."""
+    fp32 kernel run. Returns K8's S = 4 entry for the kernels line and
+    the sampled stream's tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.models.decoder import paged_layout
     from repro_torch.serving import (ContinuousEngine, make_spec_pair,
@@ -920,7 +936,7 @@ def phase_spec(torch, pa, serve_mod, paged, paged_tokens, flush):
           f"vs {paged['itl_p99_ms']:.2f} (a round's tokens share one "
           f"timestamp; no gain claimed)")
     entry["launches"] = spec["spec_rounds"] * N_LAYERS
-    return entry
+    return entry, samp["paged"]
 
 
 def chunked_stream(vocab, n=12, seed=4):
@@ -1273,7 +1289,8 @@ def moe_route_timing(torch, eng, reps=3):
 def phase_moe_mamba(torch, pa, serve_mod, flush, fp32_tokens):
     """Phase M: MoE, Mamba-2 and hybrid decoders served on the card, and
     fp16 serving (see the module docstring). `fp32_tokens` are phase 3's
-    fp32 kernel run's. Returns K8's and K7's granite and fp16 entries."""
+    fp32 kernel run's. Returns K8's and K7's granite and fp16 entries,
+    and under "tokens" granite's and mamba2's greedy tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.serving import ContinuousEngine, synthetic_requests
     t_all = time.perf_counter()
@@ -1447,6 +1464,8 @@ def phase_moe_mamba(torch, pa, serve_mod, flush, fp32_tokens):
         same / total
     print(f"phase M(e): {time.perf_counter() - t0:.1f} s")
     print(f"phase M: {time.perf_counter() - t_all:.1f} s")
+    # the one-card tokens phase D(g) holds its 1 x 2 runs to
+    entries["tokens"] = {"granite": g_tokens, "mamba2": mamba["static"]}
     return entries
 
 
@@ -3243,10 +3262,11 @@ def arena_bytes(pool, data_only=False):
     return total
 
 
-def serve_mesh_run(torch, name, arch, timer):
+def serve_mesh_run(torch, name, arch, timer, sampler=None):
     """One mesh of phase D(e) on this rank: phase 3's stream through the
     engine on the mesh after a warm-up stream, the whole params freed
-    once the engine holds its own; returns its numbers."""
+    once the engine holds its own; with `sampler`, then the same stream
+    sampled on a fresh engine. Returns its numbers."""
     import gc
     import statistics
     from repro_torch.kernels import paged_attention as pa
@@ -3257,10 +3277,11 @@ def serve_mesh_run(torch, name, arch, timer):
     mesh = make_local_mesh(data=data, model=model, device="cuda")
     params = arch.init(torch.Generator(device="cuda").manual_seed(0))
 
-    def engine():       # SERVE_ARGV's engine, on the mesh
+    def engine(sampler=None):       # SERVE_ARGV's engine, on the mesh
         return ContinuousEngine(arch, params, max_batch=4, max_len=96,
                                 policy="fp32", mesh=mesh, prefill_bucket=8,
-                                block_size=16, attn_kernel="paged")
+                                block_size=16, attn_kernel="paged",
+                                sampler=sampler)
 
     def stream(n, new):
         return synthetic_requests(n, arch.cfg.vocab, prompt_len=64,
@@ -3300,19 +3321,32 @@ def serve_mesh_run(torch, name, arch, timer):
                one_arena_bytes=arena_bytes(one),
                data_block_bytes=arena_bytes(eng.pool, data_only=True),
                one_data_block_bytes=arena_bytes(one, data_only=True),
-               kv_heads=eng.pool.cache["slots"][0]["k"].shape[-2])
+               kv_heads=eng.pool.cache["slots"][0]["k"].shape[-2],
+               vocab_rows=eng.params["embed"]["embedding"].shape[0],
+               nonfinite=eng.report(1.0)["nonfinite_logit_steps"])
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    if sampler is not None:
+        params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+        eng = engine(sampler)
+        del params
+        reqs = stream(8, 32)
+        eng.run(reqs)
+        out["sampled_tokens"] = {r.rid: r.generated.tolist() for r in reqs}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
-def serve_mesh_rank(rank, world, init_method, out_path):
+def serve_mesh_rank(rank, world, init_method, out_path, runs=None):
     """One rank of phase D(e), in a process of its own: gemma2-2b at full
     width and depth (fp32, K8, 4 slots, block 16) on each mesh of
     SERVE_MESHES through the engine, then through the CLI with --mesh
-    2x1, two gloo ranks sharing the one card. Writes its numbers as JSON
-    to out_path."""
+    2x1, two gloo ranks sharing the one card; `runs` (phase D(g), a
+    list of SPLIT_SERVE names) runs those instead. Writes its numbers as
+    JSON to out_path."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import torch.distributed as dist
@@ -3338,10 +3372,16 @@ def serve_mesh_rank(rank, world, init_method, out_path):
             timer["ms"] += (time.perf_counter() - t0) * 1e3
     partial.all_gather_dim = timed
     try:
-        arch = get_arch("gemma2-2b")
         out = {"rank": rank, "runs": {}}
+        if runs is not None:
+            for name in runs:
+                out["runs"][name] = split_serve_run(torch, name, timer)
+            return
+        arch = get_arch("gemma2-2b")
         for name in SERVE_MESHES:
-            out["runs"][name] = serve_mesh_run(torch, name, arch, timer)
+            out["runs"][name] = serve_mesh_run(
+                torch, name, arch, timer,
+                SAMPLER_ARGV[1] if name == "1x2" else None)
         pa.paged_attention_fused.launches = 0
         stats, done = serve_mod.main(SERVE_ARGV + ["--mesh", "2x1"])
         out["cli"] = dict(tokens={r.rid: r.generated.tolist() for r in done},
@@ -3350,16 +3390,13 @@ def serve_mesh_rank(rank, world, init_method, out_path):
                           mesh_devices=stats["mesh_devices"])
     finally:
         dist.destroy_process_group()
-    with open(out_path, "w") as f:
-        json.dump(out, f)
+        with open(out_path, "w") as f:
+            json.dump(out, f)
 
 
-def phase_serve_mesh(torch, paged_tokens):
-    """Phase D(e): gemma2-2b served on 2 x 1 and 1 x 2 meshes (two gloo
-    processes on the one card) through the engine, and on 2 x 1 through
-    the CLI: greedy tokens equal phase 3's one-card tokens, K8 launched
-    decode steps x 26 on every rank. Returns K8's launches per run and
-    rank."""
+def serve_ranks(runs=None):
+    """Two ranks of serve_mesh_rank (with `runs`), each a gloo process on
+    the one card; their numbers once both exited 0."""
     import multiprocessing
     import socket
     import tempfile
@@ -3371,7 +3408,7 @@ def phase_serve_mesh(torch, paged_tokens):
     ctx = multiprocessing.get_context("spawn")
     paths = [os.path.join(tmp, f"serve{r}.json") for r in range(2)]
     procs = [ctx.Process(target=serve_mesh_rank, args=(
-        r, 2, f"tcp://localhost:{port}", paths[r])) for r in range(2)]
+        r, 2, f"tcp://localhost:{port}", paths[r], runs)) for r in range(2)]
     for p in procs:
         p.start()
     try:
@@ -3389,6 +3426,17 @@ def phase_serve_mesh(torch, paged_tokens):
         with open(path) as f:
             ranks.append(json.load(f))
     shutil.rmtree(tmp)
+    return ranks
+
+
+def phase_serve_mesh(torch, paged_tokens, sampled_tokens):
+    """Phase D(e): gemma2-2b served on 2 x 1 and 1 x 2 meshes (two gloo
+    processes on the one card) through the engine, and on 2 x 1 through
+    the CLI: greedy tokens equal phase 3's one-card tokens, K8 launched
+    decode steps x 26 on every rank; on 1 x 2, with the vocab cut, also
+    phase S's sampled stream, its tokens equal phase S's. Returns K8's
+    launches per run and rank."""
+    ranks = serve_ranks()
     launches = {}
     for name in list(SERVE_MESHES) + ["cli"]:
         label = "CLI --mesh 2x1" if name == "cli" else f"engine {name}"
@@ -3399,6 +3447,19 @@ def phase_serve_mesh(torch, paged_tokens):
             check(tokens == paged_tokens,
                   f"serving mesh {label} rank {r['rank']}: greedy tokens "
                   f"differ from phase 3's one-card tokens")
+            if "sampled_tokens" in x:
+                sampled = {int(k): v for k, v in x["sampled_tokens"].items()}
+                check(sampled == sampled_tokens,
+                      f"serving mesh {label} rank {r['rank']}: sampled "
+                      f"tokens differ from phase S's one-card tokens")
+                check(x["vocab_rows"] * 2 == 256000 and x["nonfinite"] == 0,
+                      f"serving mesh {label} rank {r['rank']}: "
+                      f"{x['vocab_rows']} vocab rows, {x['nonfinite']} "
+                      f"non-finite steps")
+                print(f"serving mesh {label} rank {r['rank']}: "
+                      f"{x['vocab_rows']} of 256000 vocab rows; the "
+                      f"sampled stream ({SAMPLER_ARGV[1]}) equals phase "
+                      f"S's tokens")
             check(x["launches"] == x["decode_steps"] * N_LAYERS,
                   f"serving mesh {label} rank {r['rank']}: K8 launched "
                   f"{x['launches']} times for {x['decode_steps']} decode "
@@ -3428,6 +3489,170 @@ def phase_serve_mesh(torch, paged_tokens):
                   f"{x['launches']} = {x['decode_steps']} x {N_LAYERS}")
         print(f"serving mesh {label}: greedy tokens equal phase 3's on both "
               f"ranks")
+    return launches
+
+
+# phase D(g): name: (arch, attn_kernel, K8 launches per decode step)
+SPLIT_SERVE = {"granite-1x2": ("granite-moe-3b-a800m", "paged",
+                               GRANITE_LAYERS),
+               "mamba2-1x2": ("mamba2-130m", None, 0)}
+
+
+def split_leaf(path):
+    """The kind of a param leaf that a model axis of two cuts in serving
+    (what it leaves whole: None): expert stacks, vocab tables, Mamba
+    out_proj rows, Mamba in_proj / conv_w columns."""
+    parts = path.split("/")
+    if parts[-1] in ("up", "gate", "down"):
+        return "expert"                 # (P, E, din, dout): no /kernel
+    if path in ("embed/embedding", "lm_head/kernel"):
+        return "vocab"
+    if parts[-2:] == ["out_proj", "kernel"]:
+        return "out_proj"
+    if parts[-2:] == ["in_proj", "kernel"] or parts[-1] == "conv_w":
+        return "columns"
+    return None
+
+
+def split_bytes(arch, params):
+    """{kind: [this rank's bytes, one card's, what the rank should hold]}
+    of the leaves split_leaf names: half of one card's (a vocab that two
+    ranks do not divide: all of it), the rank's columns of in_proj and
+    conv_w (its heads' z, x, dt; B and C whole)."""
+    from repro_torch.core.optim.base import tree_items
+    from repro_torch.distributed.sharding import (mamba_segments,
+                                                  segment_columns)
+    whole = dict(tree_items(arch.abstract_params()))
+    out = {}
+    for path, t in tree_items(params):
+        kind = split_leaf(path)
+        if kind is None:
+            continue
+        size = t.element_size()
+        one = whole[path].numel() * size
+        if kind == "columns":
+            leaf = "conv_w" if path.endswith("conv_w") else "in_proj"
+            cols = len(segment_columns(mamba_segments(leaf, arch.mamba, 2),
+                                       2, 0))
+            want = one // whole[path].shape[-1] * cols
+        elif kind == "vocab" and arch.cfg.vocab % 2:
+            want = one
+        else:
+            want = one // 2
+        acc = out.setdefault(kind, [0, 0, 0])
+        for i, v in enumerate((t.numel() * size, one, want)):
+            acc[i] += v
+    return out
+
+
+def split_serve_run(torch, name, timer):
+    """One run of phase D(g) on this rank: the arch of SPLIT_SERVE[name]
+    at full width and depth on 1 x 2, fp32, (e)'s stream after a warm-up
+    stream, the whole params freed once the engine holds its parts;
+    returns its numbers."""
+    import gc
+    import statistics
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serving import ContinuousEngine, synthetic_requests
+    arch_name, kernel, _ = SPLIT_SERVE[name]
+    arch = get_arch(arch_name)
+    mesh = make_local_mesh(data=1, model=2, device="cuda")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def engine():       # the CLI's engine of phase M, on the mesh
+        return ContinuousEngine(arch, params, max_batch=4, max_len=96,
+                                policy="fp32", mesh=mesh, prefill_bucket=8,
+                                block_size=16, attn_kernel=kernel)
+
+    def stream(n, new):
+        return synthetic_requests(n, arch.cfg.vocab, prompt_len=64,
+                                  new_tokens=new, seed=0)
+    engine().run(stream(2, 4))
+    eng = engine()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms, coll_ms = [], []
+    real = eng._step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        timer["ms"] = 0.0
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(timer["ms"])
+        return out
+    eng._step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = stream(8, 32)
+    pa.paged_attention_fused.launches = 0
+    eng.run(reqs)
+    launches = pa.paged_attention_fused.launches
+    state = [s for s in eng.pool.cache["slots"] if "ssm" in s]
+    out = dict(tokens={r.rid: r.generated.tolist() for r in reqs},
+               launches=launches, decode_steps=eng.steps_run,
+               step_ms=statistics.median(step_ms),
+               collective_ms=statistics.mean(coll_ms),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               bytes=split_bytes(arch, eng.params),
+               vocab_rows=eng.params["embed"]["embedding"].shape[0],
+               ssm=list(state[0]["ssm"].shape) if state else None,
+               nonfinite=eng.report(1.0)["nonfinite_logit_steps"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_split(torch, one_card):
+    """Phase D(g): granite-moe-3b-a800m and mamba2-130m served on 1 x 2
+    (two gloo processes on the one card), each rank computing its
+    experts, vocab rows and Mamba heads: greedy tokens equal phase M's
+    one-card tokens (`one_card`), K8 launched decode steps x 32 on each
+    rank for granite and never for mamba2, each rank's cut leaves at
+    half of one card's bytes (in_proj / conv_w at its columns'). Returns
+    K8's launches per run and rank."""
+    ranks = serve_ranks(list(SPLIT_SERVE))
+    launches = {}
+    for name, (arch_name, _, per_step) in SPLIT_SERVE.items():
+        fam = name.split("-")[0]
+        launches[name] = []
+        for r in ranks:
+            x = r["runs"][name]
+            tokens = {int(k): v for k, v in x["tokens"].items()}
+            check(tokens == one_card[fam],
+                  f"split serving {name} rank {r['rank']}: greedy tokens "
+                  f"differ from phase M's one-card tokens")
+            check(x["launches"] == x["decode_steps"] * per_step,
+                  f"split serving {name} rank {r['rank']}: K8 launched "
+                  f"{x['launches']} times for {x['decode_steps']} decode "
+                  f"steps x {per_step}")
+            check(x["nonfinite"] == 0,
+                  f"split serving {name} rank {r['rank']}: "
+                  f"{x['nonfinite']} non-finite steps")
+            for kind, (mine, one, want) in x["bytes"].items():
+                check(mine == want,
+                      f"split serving {name} rank {r['rank']}: {kind} "
+                      f"bytes {mine}, want {want} of one card's {one}")
+            launches[name].append(x["launches"])
+            sizes = "; ".join(
+                f"{kind} {mine} of one card's {one} bytes "
+                f"({mine / one:.4f})"
+                for kind, (mine, one, _) in sorted(x["bytes"].items()))
+            print(f"split serving {name} rank {r['rank']}: {sizes}; vocab "
+                  f"rows {x['vocab_rows']}, SSM state {x['ssm']}; peak "
+                  f"{x['peak_gb']:.2f} GB, decode step median "
+                  f"{x['step_ms']:.2f} ms, collective "
+                  f"{x['collective_ms']:.2f} ms per step (gloo through the "
+                  f"host), K8 {x['launches']} = {x['decode_steps']} x "
+                  f"{per_step}")
+        print(f"split serving {name}: greedy tokens equal phase M's "
+              f"one-card tokens on both ranks")
     return launches
 
 
@@ -3655,12 +3880,13 @@ def run() -> int:
     serve(serve_mod, bf16_argv, "bf16 paged")
     torch.cuda.empty_cache()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    kernel["spec_verify"] = phase_spec(torch, pa, serve_mod, paged,
-                                       paged_tokens, flush)
+    kernel["spec_verify"], sampled_tokens = phase_spec(
+        torch, pa, serve_mod, paged, paged_tokens, flush)
     torch.cuda.empty_cache()
     kernel["chunked_serving"] = phase_chunked(torch, pa, serve_mod, flush)
     torch.cuda.empty_cache()
     moe_mamba = phase_moe_mamba(torch, pa, serve_mod, flush, paged_tokens)
+    one_card_tokens = moe_mamba.pop("tokens")
     kernel.update(moe_mamba["paged_attention_fused"])
     paged_entries["paged_attention"].update(moe_mamba["paged_attention"])
     del flush
@@ -3692,8 +3918,11 @@ def run() -> int:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
     t1 = time.perf_counter()
-    kernel["mesh"] = phase_serve_mesh(torch, paged_tokens)
+    kernel["mesh"] = phase_serve_mesh(torch, paged_tokens, sampled_tokens)
     print(f"phase D(e): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    kernel["mesh"]["split-1x2"] = phase_serve_split(torch, one_card_tokens)
+    print(f"phase D(g): {time.perf_counter() - t1:.1f} s")
     shards = phase_shards(torch, kl, kb, kops)
     print(f"phase D: {time.perf_counter() - t0:.1f} s")
     kernel["router"] = dict(launches=router_launches)

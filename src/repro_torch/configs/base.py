@@ -138,13 +138,14 @@ class Arch:
 
     def init_cache(self, batch: int, max_len: int, *, device="cpu",
                    clamp_window: bool = True,
-                   kv_heads: Optional[int] = None):
+                   kv_heads: Optional[int] = None, mamba_ranks: int = 1):
         """Pooled per-slot serving cache: `batch` slots of max_len rows
         (decoders: window-sized rings on sliding-window layers unless
         clamp_window=False, the chunked prefill's cache; encdec: the
         self-attention cache in compute_dtype), cursors at 0. kv_heads:
         the KV heads it holds (default all; a model rank's share on a
-        serving mesh)."""
+        serving mesh); mamba_ranks: the ranks a decoder's Mamba heads are
+        cut over there (its state then holds the rank's heads)."""
         if self.kind == "encdec":
             return ed_lib.init_encdec_cache(self.cfg, batch, max_len,
                                             dtype=self.cfg.compute_dtype,
@@ -155,17 +156,19 @@ class Arch:
         return dec_lib.init_decoder_cache(self.cfg, batch, max_len,
                                           device=device,
                                           clamp_window=clamp_window,
-                                          kv_heads=kv_heads)
+                                          kv_heads=kv_heads,
+                                          mamba_ranks=mamba_ranks)
 
     def init_paged_cache(self, batch: int, max_len: int, *,
                          block_size: int = 16, n_blocks=None, device="cpu",
                          row_margin: int = 0,
-                         kv_heads: Optional[int] = None):
+                         kv_heads: Optional[int] = None,
+                         mamba_ranks: int = 1):
         """Paged (block-arena) serving cache, decoder-only. n_blocks
         defaults to the dense-equivalent budget: `batch` slots' worth of
         blocks per attention slot-type. row_margin widens the rings
-        (speculative decoding; models/decoder.paged_layout). kv_heads as
-        init_cache's."""
+        (speculative decoding; models/decoder.paged_layout). kv_heads and
+        mamba_ranks as init_cache's."""
         if self.kind != "decoder":
             raise NotImplementedError("paged serving is decoder-only")
         if n_blocks is None:
@@ -176,11 +179,11 @@ class Arch:
         return dec_lib.init_paged_decoder_cache(
             self.cfg, batch, max_len, block_size=block_size,
             n_blocks=n_blocks, device=device, row_margin=row_margin,
-            kv_heads=kv_heads)
+            kv_heads=kv_heads, mamba_ranks=mamba_ranks)
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None,
                 positions=None, per_slot: bool = True,
-                kv_heads: Optional[int] = None):
+                kv_heads: Optional[int] = None, mamba_ranks: int = 1):
         """Full-sequence forward into a fresh cache -> (last-position
         logits (B, 1, V), cache). positions (B, S) gives per-slot local
         timelines; left-pad rows carry positions < 0.
@@ -190,7 +193,7 @@ class Arch:
         returns them dense under cache["cross"]; per_slot=False is the
         single-stream form (a 0-d cursor; decode_step then takes the
         encoder output as batch["memory"]). Decoders serve pooled only.
-        kv_heads: the KV heads of the pooled cache (init_cache's)."""
+        kv_heads, mamba_ranks: the pooled cache's (init_cache's)."""
         toks = batch["tokens"]
         if self.kind == "encdec":
             if per_slot:
@@ -211,7 +214,7 @@ class Arch:
                              "cache only")
         cache = dec_lib.init_decoder_cache(
             self.cfg, toks.shape[0], cache_len or toks.shape[1],
-            device=toks.device, kv_heads=kv_heads)
+            device=toks.device, kv_heads=kv_heads, mamba_ranks=mamba_ranks)
         logits, cache, _ = dec_lib.decoder_apply(params, self.cfg, toks,
                                                  caches=cache,
                                                  positions=positions)
@@ -312,7 +315,7 @@ class Arch:
         mesh's ServeLayout (distributed/sharding.py), one data rank's
         pool as serving/cache_pool.py builds it for `batch` slots
         (default the shape's global batch): its rows, its share of every
-        arena's blocks and its KV heads."""
+        arena's blocks, its KV heads and its Mamba heads."""
         shape = SHAPES[shape_name]
         B = batch or shape.global_batch
         layout_ = dec_lib.paged_layout(self.cfg, shape.seq_len, block_size)
@@ -327,7 +330,7 @@ class Arch:
         return self.init_paged_cache(
             layout.rows, shape.seq_len, block_size=block_size,
             n_blocks=n_blocks, device=META,
-            kv_heads=layout.local_heads(self.heads[1]))
+            **layout.cache_kw(self.heads[1]))
 
     def abstract_params(self):
         """The params' tree at full size on the meta device."""

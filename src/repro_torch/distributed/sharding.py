@@ -21,7 +21,8 @@ FSDP (zero3=True): additionally shard the largest remaining eligible dim
 over "data".
 
 KV caches: (layers, B, L, kv, hd) -> batch over data, head_dim over model.
-SSM states: dstate over model.
+SSM states: dstate over model. (Serving places its pools by serve_pspec
+instead: KV heads and Mamba heads over model, as the steps compute.)
 
 The rules are pure functions of paths, shapes and the mesh's axis sizes,
 so a mesh is anything with a `shape` dict ({axis name: size}): a
@@ -58,7 +59,9 @@ keeps that shard, and the rank computes its part:
   or whole on every one; distributed/partial.py: exchange); its
   out_proj is "row". Only where the model size divides the mixer's
   heads (and its groups, or there is one group), from the `mamba`
-  config the step is given.
+  config the step is given. Serving places them in those columns once,
+  at load (serve_params), and marks them without segments: nothing to
+  exchange.
 Every other cut leaf is gathered whole at its use, one layer at a time:
 the router kernel (every rank needs all E logits), a vocab that does
 not divide (left whole by the rule), attention that would split a head.
@@ -335,20 +338,29 @@ def heads_split(heads, mesh) -> bool:
     return msize > 1 and all(n % msize == 0 for n in heads)
 
 
-def serve_pspec(cache: Tree, mesh, heads) -> Tree:
+def serve_pspec(cache: Tree, mesh, heads, mamba=None) -> Tree:
     """The serving placement of a (global) pool cache as PSpecs: the
     placement that ServeLayout computes and the pools allocate by
     (serving/cache_pool.py; the tests hold the two equal). cache_pspec
     on the data axis (slots, or arena blocks, over "data" where the size
-    divides), and over "model" the KV-head dim of the K/V leaves (those
-    named "k" and "v": (..., rows, n_kv, hd)) where the model axis cuts
-    attention on whole heads (heads_split), never head_dim: the paged
-    kernel takes its softmax inside the launch, so a rank must hold every
-    element of its heads' q.k. Nothing else is cut over "model": integer
-    bookkeeping, the Mamba state (its projections are used whole) and,
-    where the heads do not split, the K/V, which every model rank then
-    holds whole."""
+    divides), and over "model":
+    - the KV-head dim of the K/V leaves (those named "k" and "v": (...,
+      rows, n_kv, hd)) where the model axis cuts attention on whole heads
+      (heads_split), never head_dim: the paged kernel takes its softmax
+      inside the launch, so a rank must hold every element of its heads'
+      q.k;
+    - where it cuts the Mamba-2 mixer of config `mamba` on whole heads
+      (mamba_split), the SSM state "ssm" (..., B, H, N, P) on its heads
+      dim, and the conv tail "conv" (..., B, W - 1, C) on its channels:
+      a rank holds the channels its conv_w columns feed (segment_columns
+      of conv_w's segments: its heads' x, and B and C whole where the
+      groups do not divide), so that entry names the rank's channel set,
+      C / m channels only where the groups divide too.
+    Nothing else is cut over "model": integer bookkeeping, and the K/V
+    or Mamba state of an attention or mixer the model axis does not cut,
+    which every model rank then holds whole."""
     split = heads_split(heads, mesh)
+    msplit = mamba_split(mamba, _axis_size(mesh, "model"))
 
     def walk(v, s, name=None):
         if v is None:
@@ -359,6 +371,10 @@ def serve_pspec(cache: Tree, mesh, heads) -> Tree:
                 s[-1] = None             # head_dim stays whole
             if split and name in ("k", "v"):
                 s[-2] = "model"
+            if msplit and name == "ssm":
+                s[-3] = "model"
+            if msplit and name == "conv":
+                s[-1] = "model"
             return PSpec(*s)
         if isinstance(v, dict):
             return {k: walk(v[k], s[k], k) for k in v}
@@ -367,33 +383,57 @@ def serve_pspec(cache: Tree, mesh, heads) -> Tree:
     return walk(cache, cache_pspec(cache, mesh))
 
 
-def serve_params(params: Tree, mesh, heads) -> Tree:
+def serve_params(params: Tree, mesh, heads, mamba=None) -> Tree:
     """A rank's copy of `params` (whole, the same on every rank) for
-    serving on `mesh`: each leaf whose use plan is tensor parallel
-    (use_plan: attention wq / wk / wv / wo on whole heads, the MLP's up /
-    gate / down) becomes its model shard, marked with that plan for the
-    models' fetch (models/common.py), so that a rank computes its own
-    heads and ff columns and the row-parallel products are summed over
-    "model" in rank order (distributed/partial.py: _sum32). Every other
-    leaf stays whole and unmarked: the embedding and readout, norms,
-    routers, MoE expert stacks and the Mamba projections are used as
-    they are on every rank (serving has no gradient to save, and a
-    per-step gather of the embedding would move more bytes than it
-    holds). Nothing is cut over "data"."""
+    serving on `mesh`: each leaf whose use plan (use_plan, with the
+    model's attention `heads` and Mamba-2 config `mamba`) has the model
+    axis compute on it becomes the rank's part, placed once here and
+    marked with its plan for the models' fetch (models/common.py):
+    - "col" / "row": attention wq / wk / wv / wo on whole heads, the
+      MLP's up / gate / down, an MoE expert stack cut on its ff dim (E
+      does not divide: grok's 8 experts on 16 ranks) and a Mamba-2
+      out_proj: the rank's columns or rows, the row-parallel products
+      summed over "model" in rank order (distributed/partial.py:
+      _sum32);
+    - "expert": an MoE expert stack cut on E: the rank's E / m experts
+      (models/moe.py: _split_experts);
+    - "vocab": the token embedding (a decoder's `embed`, whisper's
+      `dec_embed`, BERT's `tok_embed`, whose MLM bias the readout slices:
+      model_slice) or an untied lm_head: the rank's vocab rows, for the
+      vocab-parallel lookup and readout and the picks over the rank's
+      logit columns (serving/sampler.py);
+    - "mamba": a Mamba-2 in_proj kernel or conv_w, placed at once in the
+      columns the rank uses (segment_columns: its heads' z, x and dt,
+      and B and C whole where the groups do not divide), where training
+      keeps the rule's contiguous columns and exchanges them at every
+      use. The mark carries no segments, so fetch does not exchange
+      them: serving has no gradient to send back. dt_bias, A_log, D and
+      the norm scale stay whole and are sliced at use (models/mamba2.py:
+      _mamba_split).
+    Every other leaf stays whole and unmarked, as in training's gathered
+    ones: norms, biases, position tables, the router kernel (every rank
+    needs all E logits), a vocab that does not divide (granite's 49155)
+    and attention that would split a head. Nothing is cut over "data".
+    A part is a copy, never a view of the whole leaf, so that the whole
+    tree can be freed once the engine holds its parts."""
     from repro_torch.core.optim.base import tree_map, tree_paths
     pspec = params_pspec(params, mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     msize = _axis_size(mesh, "model")
 
     def place(path, t, spec):
-        use = use_plan(path, spec, mesh, heads)
-        # dense kernels only: an expert stack cut on its ff dim is "col"
-        # / "row" too, and stays whole here
-        if (use is None or use.kind not in ("col", "row")
-                or not path.endswith("/kernel")):
+        use = use_plan(path, spec, mesh, heads, mamba)
+        if use is None or use.kind == "gather":
             return t
         dim = dict(use.cuts)["model"]
-        out = t.chunk(msize, dim=dim)[coord["model"]].contiguous()
+        rank = coord["model"]
+        if use.kind == "mamba":
+            cols = torch.as_tensor(segment_columns(use.segments, msize, rank),
+                                   dtype=torch.long, device=t.device)
+            out = t.index_select(dim, cols)
+        else:
+            out = t.chunk(msize, dim=dim)[rank].clone(
+                memory_format=torch.contiguous_format)
         out._use = Use(use.kind, (("model", dim),))
         return out
 
@@ -416,12 +456,17 @@ class ServeLayout:
     device runs, so a one-slot block would part from one device in its
     last bits. `split` is True where the `model` axis cuts attention on
     whole heads (heads_split): a rank then holds n_kv / model KV heads
-    of every cache and arena (local_heads)."""
+    of every cache and arena (local_heads). `mamba` is the number of
+    ranks a Mamba-2 mixer's heads are cut over: the model size where it
+    cuts the mixer on whole heads (mamba_split), else 1; a rank's SSM
+    state and conv tail are then its heads' and channels' (local_mamba,
+    models/mamba2.py: local_cfg)."""
     max_batch: int
     data: int = 1
     model: int = 1
     data_rank: int = 0
     split: bool = False
+    mamba: int = 1
 
     @property
     def block(self) -> int:
@@ -463,6 +508,13 @@ class ServeLayout:
         """A model rank's share of `n` attention (or KV) heads."""
         return n // self.model if self.split else n
 
+    def cache_kw(self, n_kv: int) -> dict:
+        """The keyword arguments of a rank's cache of a model with `n_kv`
+        KV heads (configs/base.py: Arch.init_cache, init_paged_cache,
+        prefill): its KV heads and the ranks its Mamba heads are cut
+        over."""
+        return dict(kv_heads=self.local_heads(n_kv), mamba_ranks=self.mamba)
+
     def pad_rows(self, x, fill=0):
         """A (block, ...) array or tensor padded with `fill` to `rows`
         rows."""
@@ -481,10 +533,12 @@ class ServeLayout:
         return self.pad_rows(x[self.lo:self.lo + self.block], fill)
 
 
-def serve_layout(heads, max_batch: int, mesh=None) -> ServeLayout:
+def serve_layout(heads, max_batch: int, mesh=None,
+                 mamba=None) -> ServeLayout:
     """The ServeLayout of `max_batch` slots on `mesh` (None: one
-    device). The slots must divide over "data": a mesh never falls back
-    to one device."""
+    device), for a model of attention `heads` and Mamba-2 config `mamba`
+    (None: no Mamba mixer). The slots must divide over "data": a mesh
+    never falls back to one device."""
     if mesh is None:
         return ServeLayout(max_batch)
     shape = mesh_shape(mesh)
@@ -496,7 +550,8 @@ def serve_layout(heads, max_batch: int, mesh=None) -> ServeLayout:
                          f"{data} data ranks")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     return ServeLayout(max_batch, data, model, coord.get("data", 0),
-                       heads_split(heads, mesh))
+                       heads_split(heads, mesh),
+                       model if mamba_split(mamba, model) else 1)
 
 
 # --------------------------------------------------------------------------
@@ -510,7 +565,9 @@ class Use:
     as it is, a "mamba" one after its exchange) or "gather" (gathered
     whole at its use); `cuts` the (axis name, tensor dim) pairs the leaf
     is cut on, in the mesh's dim order; `segments` a "mamba" leaf's
-    parts of its model-cut dim, (size, split) each (mamba_segments)."""
+    parts of its model-cut dim, (size, split) each (mamba_segments),
+    which fetch exchanges it into; none on a leaf already placed in the
+    rank's columns (serve_params)."""
     kind: str
     cuts: tuple
     segments: tuple = ()

@@ -68,9 +68,13 @@ distributed/sharding.py: ServeLayout). A serve or verify step decodes
 the rank's own rows (ServeLayout.local_rows) and gathers the picks over
 "data", so that every rank returns every slot's token; a prefill step
 runs the admitted group whole on every rank. The models see the model
-axis alone (serving_ambient): the params' tensor-parallel leaves
-(sharding.serve_params) then compute the rank's heads and ff columns,
-and MoE routes each call's batch as one group, as one device does.
+axis alone (serving_ambient): the params' leaves that serve_params cut
+(distributed/sharding.py) then compute the rank's part, as in training:
+its heads and ff columns, its experts (MoE routes each call's batch as
+one group, as one device does), its vocab rows and its Mamba heads.
+Where the vocab is cut, the logits are the rank's columns and every
+pick is taken over "model" (serving/sampler.py: VocabCut), and so is
+each step's non-finite flag.
 """
 from __future__ import annotations
 
@@ -88,9 +92,11 @@ from repro_torch.launch import trace_cost
 from repro_torch.models.common import WHOLE, Ambient, ambient_mesh
 
 
-def greedy_next(logits):
-    """(B, 1, V) -> (B,) int32 greedy pick."""
-    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+def greedy_next(logits, cut=None):
+    """(B, 1, V) -> (B,) int32 greedy pick; of a rank's vocab-parallel
+    columns (cut: serving/sampler.py: VocabCut), the whole row's."""
+    from repro_torch.serving.sampler import greedy
+    return greedy(logits[:, -1, :], cut)
 
 
 class _ModelAxis:
@@ -153,10 +159,6 @@ def shared_clock(mesh, device):
     return clock
 
 
-def _not_finite(logits):
-    return (~torch.isfinite(logits)).any()
-
-
 def _counted(step, mesh, layout, nonfinite):
     """A serve or verify step (-> picks, cache, its logits' non-finite
     flag) as the builders return it: (picks, cache), every slot's picks
@@ -203,7 +205,7 @@ def build_prefill_step(prefill_fn: Callable, mesh=None):
 
 
 def build_serve_step(decode_fn: Callable, mesh=None, *, sampler=None,
-                     layout=None, nonfinite=None):
+                     layout=None, nonfinite=None, vocab=None):
     """decode_fn(params, batch, cache) -> (logits, cache), e.g.
     Arch.decode_step. Returns
 
@@ -219,23 +221,27 @@ def build_serve_step(decode_fn: Callable, mesh=None, *, sampler=None,
 
     On a mesh (with its ServeLayout `layout`) the step takes every
     slot's tokens, positions and keys and the rank's cache, decodes the
-    rank's rows and returns every slot's picks (the module docstring).
-    `nonfinite` (a 0-d int64 device tensor) gains one for each step whose
-    logits hold a NaN or inf, in any slot of any data rank."""
-    pick = _picker(sampler)
+    rank's rows and returns every slot's picks (the module docstring);
+    where the model axis cuts the vocab, `vocab` (serving/sampler.py:
+    VocabCut) describes the rank's logit columns, and the picks are the
+    whole rows'. `nonfinite` (a 0-d int64 device tensor) gains one for
+    each step whose logits hold a NaN or inf, in any slot of any data
+    rank and in any model rank's columns."""
+    from repro_torch.serving.sampler import nonfinite as not_finite
+    pick = _picker(sampler, vocab)
 
     @torch.no_grad()
     def step(params, tokens, positions, cache, keys=None):
         logits, new_cache = decode_fn(
             params, {"tokens": tokens, "positions": positions}, cache)
         return (pick(logits[:, -1, :].float(), keys), new_cache,
-                _not_finite(logits))
+                not_finite(logits, vocab))
 
     return _counted(step, mesh, layout, nonfinite)
 
 
 def build_verify_step(decode_fn: Callable, mesh=None, *, sampler=None,
-                      layout=None, nonfinite=None):
+                      layout=None, nonfinite=None, vocab=None):
     """The speculative verify step: K tokens per slot in one forward.
 
     decode_fn(params, batch, cache) -> (logits (B, K, V), cache). Returns
@@ -247,9 +253,10 @@ def build_verify_step(decode_fn: Callable, mesh=None, *, sampler=None,
     uint32). Row (b, i) is the target's pick for the position after
     positions[b, i], made exactly as build_serve_step makes its single
     row (fp32 logits, the row's own key), so a speculative stream equals
-    the non-speculative one token for token. On a mesh, and `nonfinite`,
-    as build_serve_step's."""
-    pick = _picker(sampler)
+    the non-speculative one token for token. On a mesh, `vocab` and
+    `nonfinite`, as build_serve_step's."""
+    from repro_torch.serving.sampler import nonfinite as not_finite
+    pick = _picker(sampler, vocab)
 
     @torch.no_grad()
     def step(params, tokens, positions, cache, keys=None):
@@ -258,18 +265,19 @@ def build_verify_step(decode_fn: Callable, mesh=None, *, sampler=None,
         B, K, V = logits.shape
         flat_keys = None if keys is None else keys.reshape(B * K, 2)
         out = pick(logits.reshape(B * K, V).float(), flat_keys)
-        return out.reshape(B, K), new_cache, _not_finite(logits)
+        return out.reshape(B, K), new_cache, not_finite(logits, vocab)
 
     return _counted(step, mesh, layout, nonfinite)
 
 
-def _picker(sampler):
+def _picker(sampler, cut=None):
     """(fp32 logits (N, V), keys (N, 2) or None) -> (N,) int32: the
     sampler's pick (greedy, tie-stable greedy or sampled), argmax without
-    one."""
+    one; of a rank's vocab-parallel columns (cut), the whole row's."""
+    from repro_torch.serving.sampler import greedy
     if sampler is not None:
-        return sampler.sample
-    return lambda logits, keys: torch.argmax(logits, dim=-1).to(torch.int32)
+        return lambda logits, keys: sampler.sample(logits, keys, cut)
+    return lambda logits, keys: greedy(logits, cut)
 
 
 def loss_and_grads(loss_fn, params, batch, scale):

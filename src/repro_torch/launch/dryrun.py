@@ -26,10 +26,13 @@ time (and refuses to run beside another).
            traced once in its steady state (trace_cost.loop)
   prefill  the serving prefill step on the mesh (build_prefill_step):
            the whole admitted group on every data rank, the model axis
-           computing its heads and ff columns
+           computing what serve_params cuts (heads, ff columns, experts,
+           vocab rows, Mamba heads)
   decode   decoders: build_serve_step on the paged pool's share of a
-           data rank (paged_cache_specs with the ServeLayout; K8's
-           stand-in with --attn-kernel paged); encoder-decoder:
+           data rank (paged_cache_specs with the ServeLayout: its KV
+           heads and Mamba heads; K8's stand-in with --attn-kernel
+           paged), the picks over "model" where the vocab is cut;
+           encoder-decoder:
            build_serve_step on the pooled cache with the dense cross K/V
 Serving takes a (data, model) mesh: on the two-pod mesh each pod serves
 its half of the batch as a replica, and a batch that does not divide
@@ -161,8 +164,8 @@ def _serving_mesh(mesh, batch: int):
 
 def _serve_params(arch, mesh):
     params = arch.abstract_params()
-    return params if mesh is None else shd.serve_params(params, mesh,
-                                                        arch.heads)
+    return params if mesh is None else shd.serve_params(
+        params, mesh, arch.heads, arch.mamba)
 
 
 def trace_prefill(arch, shape, mesh):
@@ -171,18 +174,19 @@ def trace_prefill(arch, shape, mesh):
     from repro_torch.serving.engine import (build_encdec_prefill_fn,
                                             build_prefill_fn)
     smesh, B = _serving_mesh(mesh, shape.global_batch)
-    layout = shd.serve_layout(arch.heads, B, smesh)
-    kv = layout.local_heads(arch.heads[1])
+    layout = shd.serve_layout(arch.heads, B, smesh, arch.mamba)
+    cache_kw = layout.cache_kw(arch.heads[1])
     params = _serve_params(arch, smesh)
     batch = arch.input_specs(shape.name)
     tokens = torch.empty((B, shape.seq_len), dtype=torch.int32, device=META)
     if arch.kind == "encdec":
-        fn = build_encdec_prefill_fn(arch, shape.seq_len, kv)
+        fn = build_encdec_prefill_fn(arch, shape.seq_len,
+                                     cache_kw["kv_heads"])
         args = (params, tokens, None,
                 torch.empty((B, *batch["frames"].shape[1:]),
                             dtype=batch["frames"].dtype, device=META))
     else:
-        fn = build_prefill_fn(arch, shape.seq_len, kv)
+        fn = build_prefill_fn(arch, shape.seq_len, **cache_kw)
         args = (params, tokens, None)
     step = build_prefill_step(fn, smesh)
     with Tracer() as tracer:
@@ -212,7 +216,7 @@ def trace_decode(arch, shape, mesh, attn_kernel: str = "xla"):
     on the paged pool's share, the encoder-decoder on its pooled cache."""
     from repro_torch.distributed.steps import build_serve_step
     smesh, B = _serving_mesh(mesh, shape.global_batch)
-    layout = shd.serve_layout(arch.heads, B, smesh)
+    layout = shd.serve_layout(arch.heads, B, smesh, arch.mamba)
     kv = layout.local_heads(arch.heads[1])
     if arch.kind == "decoder":
         cache = arch.paged_cache_specs(shape.name, batch=B, layout=layout)
@@ -221,7 +225,9 @@ def trace_decode(arch, shape, mesh, attn_kernel: str = "xla"):
     params = _serve_params(arch, smesh)
     tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
     positions = torch.empty((B, 1), dtype=torch.int32, device=META)
-    step = build_serve_step(arch.decode_step, smesh, layout=layout)
+    from repro_torch.serving.sampler import vocab_cut
+    step = build_serve_step(arch.decode_step, smesh, layout=layout,
+                            vocab=vocab_cut(smesh, params))
     args = (params, tokens, positions, cache)
     with Tracer() as tracer:
         out = step(*args)

@@ -55,8 +55,10 @@ ranks (serving/engine.py), with --replicas too (each replica on the
 mesh): run it as D x M processes under `torchrun --nproc-per-node D*M`
 (one card per rank with NCCL where there are enough cards, else all on
 card 0 with gloo), or inside a process group the caller has set up.
-Every rank builds the same weights from --seed and serves the same
-stream; rank 0 prints the report. A world of another size, or no
+Every rank builds the same weights from --seed, keeps its part of them
+(its heads, ff columns, experts, vocab rows and Mamba heads where the
+model axis divides them: distributed/sharding.py: serve_params) and
+serves the same stream; rank 0 prints the report. A world of another size, or no
 process group, exits with both counts: a mesh never serves on one
 device.
 """

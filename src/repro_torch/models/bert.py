@@ -33,9 +33,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
-from repro_torch.models.common import (_randn, dense_apply, dense_init,
-                                       embed_apply, embed_attend, embed_init,
-                                       fetch, fetch_tree, gelu, layer_params,
+from repro_torch.models.common import (_randn, ambient, dense_apply,
+                                       dense_init, embed_apply, embed_attend,
+                                       embed_init, fetch, fetch_tree, gelu,
+                                       is_vocab, layer_params,
                                        layernorm_apply, layernorm_init,
                                        log_likelihood, mlp_apply, mlp_init,
                                        unbind_layers, WHOLE)
@@ -174,13 +175,18 @@ def bert_serve_outputs(params, cfg: BertConfig, tokens, positions):
     decoder serving prefill). Returns
       mlm_ids (B, S) int32: greedy masked-LM argmax per column (pad
         columns give ids of no meaning; the engine keeps the valid tail),
+        the whole vocab's also where a serving mesh cuts it,
       pooled (B, d) fp32: the tanh-pooled vector at each row's FIRST
         valid column (position 0, the [CLS] token).
     One fixed-shape forward, no cache."""
-    B = tokens.shape[0]
+    from repro_torch.serving.sampler import greedy, vocab_cut
+    B, S = tokens.shape
     h = bert_encode(params, cfg, tokens, positions=positions)
-    mlm_ids = torch.argmax(_mlm_logits(params, cfg, h),
-                           dim=-1).to(torch.int32)
+    logits = _mlm_logits(params, cfg, h)
+    # on a serving mesh whose model axis cuts the vocab: the rank's
+    # columns, whose argmax is taken over "model" (serving/sampler.py)
+    cut = vocab_cut(ambient().mesh) if is_vocab(logits) else None
+    mlm_ids = greedy(logits.reshape(B * S, -1), cut).reshape(B, S)
     # first valid column per row: the first maximum of the indicator
     cls_col = torch.argmax((positions >= 0).to(torch.int32), dim=1)
     cls_h = h[torch.arange(B, device=h.device), cls_col]

@@ -373,7 +373,8 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
 def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, *, device="cpu",
                        clamp_window: bool = True,
-                       kv_heads: Optional[int] = None):
+                       kv_heads: Optional[int] = None,
+                       mamba_ranks: int = 1):
     """Pooled per-slot caches stacked per superblock slot; "attn_local"
     slots get ring buffers of the window size. KV is stored in `dtype`
     (bf16 by default, as in the JAX package, whatever the compute
@@ -389,14 +390,16 @@ def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
     (models/mamba2.init_mamba_cache), stacked over the periods. kv_heads
     (default n_kv_heads): the KV heads the attention caches hold, a model
     rank's share on a serving mesh (distributed/sharding.py:
-    ServeLayout)."""
+    ServeLayout); mamba_ranks: the ranks the Mamba heads are cut over
+    there, a rank's state then its heads' and channels'
+    (mamba2.local_cfg)."""
     n_kv = kv_heads or cfg.n_kv_heads
     slots = []
     for mixer, _ in cfg.superblock:
         if mixer == "mamba":
             slots.append(mamba_lib.init_mamba_cache(
-                batch, cfg.mamba_cfg(), device=device,
-                lead=(cfg.n_periods,)))
+                batch, mamba_lib.local_cfg(cfg.mamba_cfg(), mamba_ranks),
+                device=device, lead=(cfg.n_periods,)))
             continue
         L = max_len
         if clamp_window and mixer == "attn_local" and cfg.sliding_window:
@@ -443,21 +446,23 @@ def init_paged_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,
                              *, block_size: int, n_blocks,
                              dtype=torch.bfloat16, device="cpu",
                              row_margin: int = 0,
-                             kv_heads: Optional[int] = None):
+                             kv_heads: Optional[int] = None,
+                             mamba_ranks: int = 1):
     """Paged cache: per attention slot-type a (n_periods, n_blocks + 1,
     block_size, ...) arena (block 0 the null block) and a (batch,
     ring_len // block_size) int32 table of zeros; per Mamba slot-type the
     slot-resident (n_periods, batch, ...) state of init_decoder_cache and
     a None table; per-slot LOCAL write cursors under "index". n_blocks:
     data blocks per arena, an int or {slot_idx: int}. row_margin widens
-    the rings (paged_layout). kv_heads as init_decoder_cache's."""
+    the rings (paged_layout). kv_heads and mamba_ranks as
+    init_decoder_cache's."""
     slots, tables = [], []
     for si, layout in enumerate(paged_layout(cfg, max_len, block_size,
                                              row_margin)):
         if layout is None:
             slots.append(mamba_lib.init_mamba_cache(
-                batch, cfg.mamba_cfg(), device=device,
-                lead=(cfg.n_periods,)))
+                batch, mamba_lib.local_cfg(cfg.mamba_cfg(), mamba_ranks),
+                device=device, lead=(cfg.n_periods,)))
             tables.append(None)
             continue
         _, ring_len = layout

@@ -273,7 +273,7 @@ def decode_serve(params, cfg: EncDecConfig, tokens, positions, cache):
     Returns (fp32 logits (B, S, vocab), cache with cursors + S)."""
     S = tokens.shape[1]
     cd = cfg.compute_dtype
-    x = embed_apply(params["dec_embed"], tokens, cd)
+    x = embed_apply(fetch_tree(params["dec_embed"]), tokens, cd)
     pos_table = params["dec_pos"].to(cd)
     x = x + pos_table[torch.clamp(positions, 0,
                                   pos_table.shape[0] - 1).long()]

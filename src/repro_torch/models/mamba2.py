@@ -34,6 +34,12 @@ norm scale are sliced to its heads (model_slice), the conv bias taken at
 its channels (model_take). The SSD scan needs nothing of the other
 heads. The gated RMSNorm over the whole d_inner sums its squares over
 "model" in rank order (all_sum), and out_proj is row parallel.
+Serving on such a mesh runs the same split with a cache: the rank's
+in_proj and conv_w arrive already in its columns (placed at load:
+distributed/sharding.py: serve_params), and its cache holds its heads'
+SSM state (B, H / m, N, P) and its channels' conv tail (init_mamba_cache
+of local_cfg), which the recurrent step and the chunked scan from a
+state (prefill, chunked prefill) update in place.
 """
 from __future__ import annotations
 
@@ -174,10 +180,7 @@ def mamba_apply(p, cfg: MambaConfig, x, *, cache=None, valid=None,
     (from the cache's state when given). valid: optional (B, S) bool,
     False at left padding."""
     if tp_kind(p["in_proj"]["kernel"]) == "mamba":
-        if cache is not None:
-            raise ValueError("a mixer cut over the model axis takes no "
-                             "cache")
-        return _mamba_split(p, cfg, x, valid, compute_dtype), None
+        return _mamba_split(p, cfg, x, valid, compute_dtype, cache)
     proj = dense_apply(p["in_proj"], x, compute_dtype)
     y, new_cache = _ssm(cfg, proj, p["conv_w"], p["conv_b"], p["dt_bias"],
                         p["A_log"], p["D"], compute_dtype, valid, cache)
@@ -271,9 +274,13 @@ def gated_norm(y, ss, n: int, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.float())).to(y.dtype)
 
 
-def _mamba_split(p, cfg: MambaConfig, x, valid, compute_dtype):
+def _mamba_split(p, cfg: MambaConfig, x, valid, compute_dtype, cache=None):
     """The mixer on this rank's heads of a model axis that cuts it (the
-    module docstring); its output summed over "model"."""
+    module docstring) -> (its output summed over "model", cache or
+    None). cache: the rank's share of a serving cache (init_mamba_cache
+    of local_cfg: its heads' SSM state, its channels' conv tail), which
+    the recurrent step or the chunked scan from its state updates in
+    place, as on one device."""
     import torch.distributed as dist
     from repro_torch.distributed import partial
     from repro_torch.distributed.sharding import (mamba_segments,
@@ -287,17 +294,21 @@ def _mamba_split(p, cfg: MambaConfig, x, valid, compute_dtype):
     conv_b = partial.model_take(p["conv_b"], channels, group)
     heads = [partial.model_slice(p[k], 0, group)
              for k in ("dt_bias", "A_log", "D")]
-    y, _ = _ssm(lc, proj, p["conv_w"], conv_b, *heads, compute_dtype, valid)
+    y, new_cache = _ssm(lc, proj, p["conv_w"], conv_b, *heads,
+                        compute_dtype, valid, cache)
     ss = partial.all_sum(sum_sq(y), group)
     y = gated_norm(y, ss, cfg.d_inner,
                    partial.model_slice(p["norm"]["scale"], 0, group))
-    return dense_apply(p["out_proj"], y, compute_dtype).to(x.dtype)
+    return (dense_apply(p["out_proj"], y, compute_dtype).to(x.dtype),
+            new_cache)
 
 
 def init_mamba_cache(batch: int, cfg: MambaConfig, dtype=torch.float32,
                      device="cpu", lead: tuple = ()):
     """Zero SSM state and conv tail of `batch` slots, fp32 by default;
-    `lead` prepends stacking dims (the decoder's periods)."""
+    `lead` prepends stacking dims (the decoder's periods). A serving
+    mesh's rank passes its local_cfg: its heads' state and its conv
+    channels."""
     return {
         "ssm": torch.zeros((*lead, batch, cfg.nheads, cfg.dstate,
                             cfg.headdim), dtype=dtype, device=device),

@@ -43,7 +43,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import heads_split, mesh_shape
+from repro_torch.distributed.sharding import (heads_split, mamba_split,
+                                              mesh_shape)
 from repro_torch.distributed.steps import build_prefill_step
 
 
@@ -126,8 +127,11 @@ class AdmissionController:
     of the same task, and the task cache is placed as the dense pool
     places a cache of one slot: whole on every data rank (one slot does
     not divide over "data"), the model rank's KV heads where the model
-    axis cuts attention on whole heads. The pool's insert then keeps it
-    on the rank that holds the slot."""
+    axis cuts attention on whole heads, and its Mamba heads' state where
+    it cuts the mixer. The pool's insert then keeps it on the rank that
+    holds the slot; the last chunk's logits are the rank's vocab columns
+    where the vocab is cut, which the engine's first-token pick takes
+    over "model"."""
 
     def __init__(self, arch, params, *, chunk_budget: int,
                  prefill_len: int, mesh=None):
@@ -149,9 +153,15 @@ class AdmissionController:
         self.prefill_len = prefill_len
         self.device = params["embed"]["embedding"].device
         self.task: Optional[PrefillTask] = None
-        self._kv_heads = None           # all of them
-        if mesh is not None and heads_split(arch.heads, mesh):
-            self._kv_heads = arch.heads[1] // mesh_shape(mesh)["model"]
+        # the task cache holds the model rank's KV heads and Mamba heads
+        # where the model axis cuts them (all of them otherwise)
+        self._cache_kw = dict(kv_heads=None, mamba_ranks=1)
+        if mesh is not None:
+            model = mesh_shape(mesh).get("model", 1)
+            if heads_split(arch.heads, mesh):
+                self._cache_kw["kv_heads"] = arch.heads[1] // model
+            if mamba_split(arch.mamba, model):
+                self._cache_kw["mamba_ranks"] = model
         self._chunk = build_prefill_step(_build_chunk_fn(arch), mesh)
         self.chunks_run = 0          # lifetime chunk forwards
         self.chunk_tokens = 0        # lifetime padded rows chunked
@@ -174,8 +184,7 @@ class AdmissionController:
         # clamp_window=False: full-length rows on sliding-window layers
         # keep every chunk on the resumable write path (module docstring)
         return self.arch.init_cache(1, self.prefill_len, device=self.device,
-                                    clamp_window=False,
-                                    kv_heads=self._kv_heads)
+                                    clamp_window=False, **self._cache_kw)
 
     def warmup(self):
         """Run each chunk size once against a scratch cache, so that the

@@ -50,7 +50,10 @@ LRU work within a share. Every in-place write (insert, evict, grow's
 copy-on-write and fresh positions, rollback, the Mamba state) lands
 only on the rank that holds the slot. Where the model axis cuts
 attention on whole heads the K/V leaves hold the rank's n_kv / model
-heads; the Mamba state stays whole on every model rank.
+heads; where it cuts a Mamba-2 mixer on whole heads the slot-resident
+state holds the rank's H / model heads and its conv channels
+(ServeLayout.mamba, models/mamba2.py: local_cfg), else it stays whole
+on every model rank.
 
 Mamba slots (mamba2, jamba) keep their state SLOT-RESIDENT in both
 pools: one fp32 (H, N, P) SSM state and (W - 1, C) conv tail per decode
@@ -114,10 +117,10 @@ class CachePool:
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = torch.device(device)
-        self.layout = serve_layout(arch.heads, max_batch, mesh)
+        self.layout = serve_layout(arch.heads, max_batch, mesh, arch.mamba)
         self.cache = arch.init_cache(
             self.layout.rows, max_len, device=device,
-            kv_heads=self.layout.local_heads(arch.heads[1]))
+            **self.layout.cache_kw(arch.heads[1]))
         self._mamba_slots = _mamba_slots(arch.cfg)
 
     def insert(self, request_cache: PyTree, slot: int):
@@ -255,7 +258,8 @@ class PagedCachePool:
         self.share_prefix = share_prefix
         self.row_margin = row_margin
         self.device = torch.device(device)
-        lay = self.layout = serve_layout(arch.heads, max_batch, mesh)
+        lay = self.layout = serve_layout(arch.heads, max_batch, mesh,
+                                         arch.mamba)
         budget = slots_budget if slots_budget is not None else max_batch
         layout = dec_lib.paged_layout(arch.cfg, max_len, block_size,
                                       row_margin)
@@ -287,7 +291,8 @@ class PagedCachePool:
         full = arch.init_paged_cache(lay.rows, max_len,
                                      block_size=block_size,
                                      n_blocks=self.n_local, device=device,
-                                     row_margin=row_margin, kv_heads=kv)
+                                     row_margin=row_margin,
+                                     **lay.cache_kw(arch.heads[1]))
         full.pop("tables")               # host-owned: see device_tables()
         self.cache = full
         self._mamba_slots = _mamba_slots(arch.cfg)

@@ -89,15 +89,22 @@ controller over sharded arrays:
     placement as PSpecs, serve_pspec): the slots are cut over "data" in
     blocks, each rank decoding its own block against its own share of
     each arena (a null block of its own, local block ids; prefix sharing
-    and the retained LRU within a share), and where the model axis cuts
-    attention on whole heads a rank holds n_kv / model KV heads of every
-    cache and computes its heads and ff columns with the tensor-parallel
-    params (serve_params; elsewhere attention runs whole on every model
-    rank);
+    and the retained LRU within a share); over "model" each rank
+    computes on what the training step's model axis computes on
+    (serve_params): its heads (and n_kv / model KV heads of every cache,
+    where the model axis cuts attention on whole heads; elsewhere
+    attention runs whole on every model rank), its ff columns, its
+    experts, its vocab rows and its Mamba-2 heads (and their SSM state
+    and conv channels in the pools);
+  * where the vocab is cut, each rank's logits are its columns, and
+    every pick (the decode and verify steps', the first token after a
+    prefill or a chunked admission, BERT's MLM ids) is the whole row's,
+    taken over "model" (serving/sampler.py: VocabCut);
   * after each decode step the picked tokens are gathered over "data",
     so every rank's host loop sees all of them, and with them each
-    rank's flag of non-finite logits, so every rank counts a step whose
-    logits held a NaN or inf in any slot (distributed/steps.py);
+    rank's flag of non-finite logits (summed over "model" too), so
+    every rank counts a step whose logits held a NaN or inf in any slot
+    or column (distributed/steps.py);
   * every clock read of the loop (submit and admission times, the
     policy's `now`, the times of tokens and completions) is rank 0's
     time.perf_counter, broadcast (distributed/steps.py: shared_clock),
@@ -110,9 +117,10 @@ controller over sharded arrays:
     size, or none, raises (launch/mesh.py), and so do slots that do not
     divide over "data".
 A data mesh gives one device's bits under every policy; a model mesh
-splits each attention and MLP matmul and sums the parts in rank order
-(distributed/partial.py), so fp32 tokens equal one device's. run_one
-serves on one device only; ServeEngine takes `mesh` and never shards.
+splits each attention, MLP, expert and Mamba matmul and sums the parts
+in rank order (distributed/partial.py), so fp32 tokens equal one
+device's. run_one serves on one device only; ServeEngine takes `mesh`
+and never shards.
 """
 from __future__ import annotations
 
@@ -136,7 +144,8 @@ from repro_torch.serving.block_allocator import NoBlocksError
 from repro_torch.serving.cache_pool import (CachePool, EncDecCachePool,
                                             PagedCachePool)
 from repro_torch.serving.metrics import DepthTracker, RequestTrace, aggregate
-from repro_torch.serving.sampler import Sampler, fold_keys
+from repro_torch.serving.sampler import (Sampler, fold_keys, nonfinite,
+                                         vocab_cut)
 from repro_torch.serving.scheduler import (PolicyContext, Scheduler,
                                            SchedulingPolicy)
 
@@ -191,15 +200,18 @@ def prompt_granularity(cfg) -> int:
     return 1
 
 
-def build_prefill_fn(arch, max_len: int, kv_heads: Optional[int] = None):
+def build_prefill_fn(arch, max_len: int, kv_heads: Optional[int] = None,
+                     mamba_ranks: int = 1):
     """(params, tokens, positions) -> (fp32 last-position logits
-    (B, 1, V), pooled cache of max_len rows, holding kv_heads KV heads:
-    default all)."""
+    (B, 1, V), pooled cache of max_len rows, holding kv_heads KV heads
+    (default all) and the Mamba state of the heads of one of mamba_ranks
+    ranks (ServeLayout.cache_kw))."""
     @torch.no_grad()
     def prefill(params, tokens, positions):
         logits, cache = arch.prefill(params, {"tokens": tokens},
                                      cache_len=max_len, positions=positions,
-                                     kv_heads=kv_heads)
+                                     kv_heads=kv_heads,
+                                     mamba_ranks=mamba_ranks)
         return logits.float(), cache
     return prefill
 
@@ -238,16 +250,19 @@ def _score_step(arch, mesh, layout):
     return step
 
 
-def build_first_token_fn(sampler: Optional[Sampler]):
+def build_first_token_fn(sampler: Optional[Sampler], cut=None):
     """(first-token fn, wants_keys). Greedy unless a non-greedy sampler
     is given; the sampled variant takes (logits, keys (B, 2)). A greedy
-    sampler with stable_tiebreak picks through its one-ulp-band argmax."""
+    sampler with stable_tiebreak picks through its one-ulp-band argmax.
+    cut: the rank's vocab-parallel logit columns on a serving mesh
+    (serving/sampler.py: VocabCut), whose picks are the whole rows'."""
     if sampler is None or sampler.greedy:
         if sampler is not None and sampler.stable_tiebreak:
-            return lambda logits: sampler.sample(logits[:, -1, :]), False
-        return greedy_next, False
-    return (lambda logits, keys: sampler.sample(logits[:, -1, :], keys),
-            True)
+            return (lambda logits: sampler.sample(logits[:, -1, :], cut=cut),
+                    False)
+        return (lambda logits: greedy_next(logits, cut)), False
+    return (lambda logits, keys: sampler.sample(logits[:, -1, :], keys,
+                                                cut), True)
 
 
 def first_tokens(first_fn, sampler: Optional[Sampler], wants_keys: bool,
@@ -513,10 +528,16 @@ class ContinuousEngine:
                 self.arch.cfg, attn_kernel=attn_kernel,
                 kernel_interpret=kernel_interpret))
         self.mesh = mesh
-        self.layout = shd.serve_layout(arch.heads, max_batch, mesh)
+        self.layout = shd.serve_layout(arch.heads, max_batch, mesh,
+                                       arch.mamba)
+        # the rank's vocab-parallel logit columns, where the model axis
+        # cuts the vocab: every pick and non-finite flag spans "model"
+        self._vocab = None
         if mesh is not None:
-            self.params = shd.serve_params(self.params, mesh, arch.heads)
-        kv = self.layout.local_heads(arch.heads[1])
+            self.params = shd.serve_params(self.params, mesh, arch.heads,
+                                           arch.mamba)
+            self._vocab = vocab_cut(mesh, self.params)
+        cache_kw = self.layout.cache_kw(arch.heads[1])
         self.device = tree_leaves(self.params)[0].device
         # every clock read of the engine loop: on a mesh rank 0's, so that
         # the decisions that read it come out alike on every rank
@@ -592,13 +613,17 @@ class ContinuousEngine:
         else:
             self._step = build_serve_step(
                 self.arch.decode_step, mesh, sampler=self.sampler,
-                layout=self.layout, nonfinite=self._nonfinite)
+                layout=self.layout, nonfinite=self._nonfinite,
+                vocab=self._vocab)
             self._prefill = build_prefill_step(
-                build_encdec_prefill_fn(self.arch, self._prefill_len, kv)
+                build_encdec_prefill_fn(self.arch, self._prefill_len,
+                                        cache_kw["kv_heads"])
                 if self.encdec
-                else build_prefill_fn(self.arch, self._prefill_len, kv),
+                else build_prefill_fn(self.arch, self._prefill_len,
+                                      **cache_kw),
                 mesh)
-        self._first, self._wants_keys = build_first_token_fn(self.sampler)
+        self._first, self._wants_keys = build_first_token_fn(self.sampler,
+                                                             self._vocab)
         self._admission = None
         if chunk_budget is not None:
             self._admission = AdmissionController(
@@ -608,20 +633,23 @@ class ContinuousEngine:
             self.draft_arch, self.draft_params = apply_serving_policy(
                 draft_arch, draft_params, policy)
             dheads = self.draft_arch.heads
+            draft_vocab = None
             if mesh is not None:
-                self.draft_params = shd.serve_params(self.draft_params,
-                                                     mesh, dheads)
+                self.draft_params = shd.serve_params(
+                    self.draft_params, mesh, dheads, self.draft_arch.mamba)
+                draft_vocab = vocab_cut(mesh, self.draft_params)
             self.draft_pool = CachePool(self.draft_arch, max_batch, max_len,
                                         device=self.device, mesh=mesh)
             self._draft_prefill = build_prefill_step(build_prefill_fn(
                 self.draft_arch, max_len,
-                self.draft_pool.layout.local_heads(dheads[1])), mesh)
+                **self.draft_pool.layout.cache_kw(dheads[1])), mesh)
             self._draft_step = build_serve_step(
                 self.draft_arch.decode_step, mesh, sampler=self.sampler,
-                layout=self.draft_pool.layout)
+                layout=self.draft_pool.layout, vocab=draft_vocab)
             self._verify = build_verify_step(
                 self.arch.decode_step, mesh, sampler=self.sampler,
-                layout=self.layout, nonfinite=self._nonfinite)
+                layout=self.layout, nonfinite=self._nonfinite,
+                vocab=self._vocab)
             # host mirror of the draft pool's write cursors (PADDED rows,
             # unlike _positions' local timeline)
             self._draft_rows = np.zeros(max_batch, np.int64)
@@ -704,7 +732,7 @@ class ContinuousEngine:
         return req
 
     def _count_nonfinite(self, logits):
-        self._nonfinite += (~torch.isfinite(logits)).any()
+        self._nonfinite += nonfinite(logits, self._vocab)
 
     def _resume_of(self, req: Request) -> list:
         return self._resume.get(req.rid, [])

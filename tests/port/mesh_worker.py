@@ -310,8 +310,8 @@ def split_experts(model):
 
 
 def split_mamba(model):
-    """models/mamba2.py's _mamba_split as `model` ranks compute it, on
-    one device: each rank's in_proj and conv_w columns and conv bias
+    """models/mamba2.py's _mamba_split as `model` ranks compute it (its
+    output and no cache), on one device: each rank's in_proj and conv_w columns and conv bias
     channels taken from its own copy of the leaf (the ranks' gradients
     of the columns they share, B and C, added in rank order), its heads'
     slices of the small leaves, the mixer on its heads, the sums of
@@ -321,7 +321,8 @@ def split_mamba(model):
                                                   segment_columns)
     from repro_torch.models import mamba2
 
-    def mixer(p, cfg, x, valid, compute_dtype):
+    def mixer(p, cfg, x, valid, compute_dtype, cache=None):
+        assert cache is None            # training: no cache
         acc = torch.promote_types(compute_dtype, torch.float32)
         lc = mamba2.local_cfg(cfg, model)
         xs = _RankCopies.apply(x.to(compute_dtype).to(acc), model)
@@ -349,7 +350,7 @@ def split_mamba(model):
             w = p["out_proj"]["kernel"].chunk(model, 0)[r]
             parts.append(torch.matmul(h.to(compute_dtype).to(acc),
                                       w.to(compute_dtype).to(acc)))
-        return _in_rank_order(parts).to(compute_dtype).to(x.dtype)
+        return _in_rank_order(parts).to(compute_dtype).to(x.dtype), None
 
     return mixer
 

@@ -1,6 +1,7 @@
 """One rank of the port's serving-on-a-mesh tests
-(test_torch_sharded_serving.py and test_torch_exactness_envelope.py on
-the CPU, test_torch_cuda_kernels.py on four cards), and what they share:
+(test_torch_sharded_serving.py, test_torch_exactness_envelope.py and
+test_torch_vocab_picks.py on the CPU, test_torch_cuda_kernels.py on four
+cards), and what they share:
 the workloads, the cases, one engine run of a case (on a mesh or on one
 device), and the host state every rank must agree on.
 
@@ -10,7 +11,8 @@ the CPU, NCCL with rank r on card r. It builds the mesh of one layout
 and runs every case it is given, each on a fresh engine, then writes
 what it saw for the parent to compare: the requests' outputs, the
 engine's host state, the pool's local shapes and arena bytes, and the
-K8 launches. `run_cli_rank` runs the serve CLI with --mesh the same way.
+K8 launches. `run_cli_rank` runs the serve CLI with --mesh the same way,
+and `run_pick_rank` the vocab-parallel picks on one rank's columns.
 It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -51,20 +53,31 @@ def _cases():
                                      sampler="temperature=0,stable=1",
                                      **DEC),
         "router": _case("qwen2.5-14b", "stream4", **DEC),
-        # the MoE, Mamba-2 and hybrid decoders (experts and the Mamba
-        # projections whole on every rank, the SSM state whole on every
-        # model rank), fp32
+        # the MoE, Mamba-2 and hybrid decoders, fp32: on a model axis each
+        # rank serves its experts, vocab rows and Mamba heads (and their
+        # SSM state)
         "granite": _case("granite-moe-3b-a800m", "stream4", policy="fp32",
                          **DEC),
         "mamba2": _case("mamba2-130m", "stream4", policy="fp32", **DEC),
         "jamba": _case("jamba-1.5-large-398b", "stream4", policy="fp32",
                        attn_kernel="paged", **DEC),
+        # the encoder-decoder and BERT scoring, fp32: on a model axis each
+        # rank's vocab rows of whisper's dec_embed and BERT's tok_embed
+        "whisper": _case("whisper-large-v3", "encdec5", policy="fp32",
+                         cache="paged", block_size=8, prefill_bucket=8,
+                         max_batch=4, max_len=32),
+        "bert": _case("bert-large", "score5", policy="fp32", task="score",
+                      max_batch=4, max_len=16),
         # planted faults: the last data rank drops its last slot's token
         # from the gather; K8's plain version handed the local arena with
         # the global KV-head count
         "fault-drop": _case("qwen2.5-14b", "stream4", policy="fp32", **DEC),
         "fault-global-kv": _case("qwen2.5-14b", "stream4", policy="fp32",
                                  attn_kernel="paged", **DEC),
+        # a vocab-parallel pick that takes every rank's columns as the
+        # row's first ones (it ignores the rank's offset)
+        "fault-vocab-offset": _case("qwen2.5-14b", "stream4",
+                                    policy="fp32", **DEC),
         # decisions that read a clock, with rank 1's own clock running a
         # thousand times fast: SLO eviction under the deadline policy
         # (an SLO no request reaches on rank 0's clock), and an open-loop
@@ -206,6 +219,15 @@ def planted(fault, n_kv=None):
         finally:
             steps.gather_slots = real
         return
+    if fault == "fault-vocab-offset":
+        from repro_torch.serving import sampler
+        real = sampler.VocabCut.offset
+        sampler.VocabCut.offset = lambda self, n: 0
+        try:
+            yield
+        finally:
+            sampler.VocabCut.offset = real
+        return
     if fault.startswith("clock"):
         with fast_clock(1000.0 if dist.get_rank() == 1 else 1.0):
             yield
@@ -267,7 +289,8 @@ def case_arch(name):
 
 def run_case(name, params, mesh=None, device="cpu"):
     """One case on a fresh engine (on `mesh`, or one device): {"tokens",
-    "embeddings", "state", "shapes", "report", "launches"}."""
+    "params" (the engine's param shapes), "embeddings", "state",
+    "shapes", "report", "launches"}."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving import (ContinuousEngine, OpenLoopDriver,
                                      ReplicaRouter, make_spec_pair,
@@ -298,7 +321,10 @@ def run_case(name, params, mesh=None, device="cpu"):
             engine.run(reqs)
     launches = pa.paged_attention_fused.launches
     first = getattr(engine, "replicas", [engine])[0]
+    from repro_torch.core.optim.base import tree_items
     return {"tokens": [np.asarray(r.generated) for r in reqs],
+            "params": {path: tuple(t.shape)
+                       for path, t in tree_items(first.params)},
             "embeddings": [None if r.embedding is None
                            else np.asarray(r.embedding) for r in reqs],
             "state": host_state(engine),
@@ -327,6 +353,49 @@ def run_rank(rank, world, store_path, layout, names, inputs_path, out_path,
         params = to_device(torch.load(inputs_path), device)
         out = {name: parsed_meshes() if name == "parse_mesh"
                else run_case(name, params, mesh, device) for name in names}
+        torch.save(out, f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_pick_rank(rank, world, store_path, inputs_path, out_path):
+    """One rank of the vocab-parallel pick tests
+    (test_torch_vocab_picks.py): each sampler of the inputs picks from
+    this rank's columns of the whole rows, over a gloo group of `world`
+    ranks, with and without the offset fault; records the picks, the
+    non-finite flag and the largest tensor a greedy or stable pick
+    gathered."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.distributed import partial
+        from repro_torch.serving import sampler as smp
+        inputs = torch.load(inputs_path, weights_only=False)
+        logits = inputs["logits"]
+        n = logits.shape[-1] // world
+        local = logits[:, rank * n:(rank + 1) * n].contiguous()
+        cut = smp.VocabCut(dist.group.WORLD, rank, world)
+        real = partial.all_gather_dim
+        widest = {"numel": 0}
+
+        def recording(t, dim, group):
+            widest["numel"] = max(widest["numel"], t.numel())
+            return real(t, dim, group)
+        out = {"picks": {}, "widest": {}}
+        for spec in inputs["samplers"]:
+            s = smp.Sampler.parse(spec)
+            widest["numel"] = 0
+            partial.all_gather_dim = recording
+            try:
+                out["picks"][spec] = s.sample(local, inputs["keys"], cut)
+            finally:
+                partial.all_gather_dim = real
+            out["widest"][spec] = widest["numel"]
+        out["flag"] = int(smp.nonfinite(local, cut))
+        out["own_flag"] = int(smp.nonfinite(local))
+        with planted("fault-vocab-offset"):
+            out["fault"] = smp.greedy(local, cut)
         torch.save(out, f"{out_path}.{rank}")
     finally:
         dist.destroy_process_group()

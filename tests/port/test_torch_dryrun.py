@@ -453,3 +453,68 @@ def test_zero1_holds_half_of_each_data_cut_moment():
     assert len(cut) >= len(got["mu"]) // 2
     assert all(2 * local == whole for local, whole in cut)
     assert all(local == whole for _, local, whole, c in got["mu"] if not c)
+
+
+def test_decode_trace_cuts_experts_vocab_and_mamba_heads():
+    """Reduced jamba's decode step (decode_32k's batch and rings, meta
+    tensors) on a fake 1 x 2 mesh against one device: rank 0's argument
+    bytes of its expert stacks, vocab table and Mamba out_proj are half
+    of one device's, of its in_proj and conv_w its heads' columns (B and
+    C whole), and the trace's argument bytes are the placed leaves' plus
+    a cache cut too (half the KV heads and the SSM state's heads)."""
+    got = json.loads(_in_own_process("""
+        import json
+        import torch
+        from repro_torch.configs import SHAPES, reduced_arch
+        from repro_torch.core.optim.base import tree_items
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_local_mesh
+        arch = reduced_arch("jamba-1.5-large-398b")
+        out = {}
+        for model in (1, 2):
+            with dryrun.fake_world(model, 0):
+                mesh = make_local_mesh(data=1, model=model, device="cpu")
+                analysis, _ = dryrun.trace_decode(arch, SHAPES["decode_32k"],
+                                                  mesh)
+                params = dryrun._serve_params(arch, mesh)
+                out[model] = {
+                    "args": analysis["memory_analysis"][
+                        "argument_size_in_bytes"],
+                    "leaves": {p: [list(t.shape), t.numel() * t.element_size()]
+                               for p, t in tree_items(params)}}
+        print(json.dumps(out))
+    """))
+    from repro_torch.distributed.sharding import (mamba_segments,
+                                                  segment_columns)
+    arch = reduced_arch("jamba-1.5-large-398b")
+    one, two = got["1"]["leaves"], got["2"]["leaves"]
+    kinds = {"expert": 0, "vocab": 0, "out_proj": 0, "columns": 0}
+    for path, (shape, nbytes) in one.items():
+        parts = path.split("/")
+        local_shape, local = two[path]
+        if parts[-1] in ("up", "gate", "down"):
+            kind = "expert"
+        elif path == "embed/embedding":
+            kind = "vocab"
+        elif parts[-2:] == ["out_proj", "kernel"]:
+            kind = "out_proj"
+        elif parts[-2:] == ["in_proj", "kernel"] or parts[-1] == "conv_w":
+            leaf = "conv_w" if parts[-1] == "conv_w" else "in_proj"
+            cols = len(segment_columns(mamba_segments(leaf, arch.mamba, 2),
+                                       2, 0))
+            assert local_shape[-1] == cols < shape[-1], path
+            assert local * shape[-1] == nbytes * cols
+            kinds["columns"] += 1
+            continue
+        else:
+            continue
+        assert 2 * local == nbytes, path
+        kinds[kind] += 1
+    assert all(kinds.values()), kinds
+    params = {m: sum(b for _, b in got[m]["leaves"].values())
+              for m in ("1", "2")}
+    # the cache: 8 periods' worth of state cut to half its heads, the
+    # attention arena to half its KV heads, the inputs whole
+    rest = {m: got[m]["args"] - params[m] for m in ("1", "2")}
+    assert 0 < rest["2"] < rest["1"]
+    assert got["2"]["args"] < got["1"]["args"]

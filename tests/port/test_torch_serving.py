@@ -272,6 +272,24 @@ def token_lists(done):
     return [np.asarray(getattr(r, "generated", r)).tolist() for r in done]
 
 
+def test_cli_model_mesh_serves_the_cut_hybrid(tmp_path):
+    """--mesh 1x2 with reduced jamba (attention heads, MLP columns,
+    experts, vocab rows and Mamba heads all cut over "model"), fp32: both
+    gloo ranks serve one process's tokens."""
+    import multiprocessing
+    from port import serve_worker as sw
+    argv = [*CLI_SMALL, "--arch", "jamba-1.5-large-398b", "--precision",
+            "fp32"]
+    _, want = tserve.main(argv)
+    procs = sw.start(multiprocessing.get_context("spawn"), sw.run_cli_rank,
+                     2, tmp_path, "cli", [*argv, "--mesh", "1x2"])
+    ranks = sw.join(procs, tmp_path, "cli", 300)
+    for r in ranks:
+        assert r["report"]["mesh"] == "1x2"
+        assert r["report"]["mesh_devices"] == 2
+        assert token_lists(r["tokens"]) == token_lists(want)
+
+
 def test_interpret_needs_the_paged_kernel(gemma_pair):
     """kernel_interpret applies only with attn_kernel="paged", as JAX's
     guard has it."""

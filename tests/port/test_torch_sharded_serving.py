@@ -15,19 +15,29 @@ references run here meanwhile, with one CPU thread as each rank.
     path, chunked prefill and speculative decoding each give one
     device's tokens; so does a prefix-affinity router over two replicas
     on the mesh;
-  * 1 x 2 (attention on whole KV heads, MLP columns over "model"): fp32
-    tokens equal one device's, with the gather and with K8 on the local
-    heads; chunked and speculative under the arch's policy too; under
-    bf16 the same-layout pair (paged vs chunked-paged with the
-    tie-stable argmax) agrees;
+  * 1 x 2 (attention on whole KV heads, MLP columns and the vocab over
+    "model", each pick taken over the ranks' logit columns): fp32 tokens
+    equal one device's, with the gather and with K8 on the local heads;
+    chunked and speculative under the arch's policy too; under bf16 the
+    same-layout pair (paged vs chunked-paged with the tie-stable argmax)
+    agrees;
   * 2 x 2: fp32 tokens equal one device's, gather and kernel;
   * the MoE, Mamba-2 and hybrid decoders (reduced granite-moe-3b-a800m,
     mamba2-130m and jamba-1.5-large-398b, fp32, jamba through K8's path)
-    on 2 x 1 and 1 x 2: one device's tokens, the experts and the Mamba
-    projections used whole on every rank, the SSM state whole on every
-    model rank;
+    on 2 x 1 and 1 x 2: one device's tokens; on 1 x 2 in the cut layout
+    (distributed/sharding.py: serve_params): each rank its experts, its
+    vocab rows and its Mamba heads, in_proj and conv_w placed at load in
+    its heads' columns, its heads' SSM state and its channels' conv
+    tail; no expert stack, divisible vocab table or Mamba projection
+    whole on a rank;
+  * whisper-large-v3 and BERT scoring on 1 x 2 with the vocab cut:
+    whisper's tokens and BERT's MLM ids equal one device's, the pooled
+    vectors within the envelope test's tolerance (rtol 1e-4, atol 1e-6:
+    the split matmuls sum in another order);
   * JAX's ContinuousEngine on 2 x 1 and 1 x 2 meshes of two host devices
-    (a subprocess) gives the port's mesh tokens, fp32;
+    (a subprocess) gives the port's mesh tokens, fp32, and on 1 x 2 also
+    for the three MoE / Mamba families, whose leaves JAX's XLA program
+    cuts over "model" too;
   * every rank's host state (scheduler queue, slots and completions,
     every share's block tables and hit counters, picked tokens) equals
     every other's at the end of each run;
@@ -37,8 +47,9 @@ references run here meanwhile, with one CPU thread as each rank.
     device's (all of its arena bytes on 1 x 2); the shapes follow
     distributed/sharding.py:serve_pspec;
   * planted faults fail the comparison: the last data rank dropping its
-    last slot's token from the gather, and K8's plain version handed a
-    local arena with the global KV-head count;
+    last slot's token from the gather, K8's plain version handed a local
+    arena with the global KV-head count, and a vocab-parallel pick that
+    ignores the rank's column offset;
   * decisions that read a clock come out alike on every rank although
     rank 1's own clock runs a thousand times fast: SLO eviction under
     the deadline policy, and an open-loop driver's arrivals;
@@ -64,17 +75,19 @@ from repro_torch.configs import reduced_arch
 from repro_torch.distributed import sharding as shd
 
 FAMILIES = ["granite", "mamba2", "jamba"]
+VOCAB_CUT = ["whisper", "bert"]         # 1 x 2: the vocab cut
 LAYOUT_CASES = {
     "2x1": ["paged", "dense", "chunked", "spec", "placement", "fp32",
             "kernel-fp32", "router", "fault-drop", "parse_mesh",
             "clock-slo", "clock-open-loop", "nan-rank1", *FAMILIES],
     "1x2": ["fp32", "kernel-fp32", "bf16-stable", "bf16-stable-chunked",
-            "chunked", "spec", "placement", "fault-global-kv", *FAMILIES],
+            "chunked", "spec", "placement", "fault-global-kv",
+            "fault-vocab-offset", *FAMILIES, *VOCAB_CUT],
     "2x2": ["fp32", "kernel-fp32"],
 }
 # one-device references
 REFS = ["paged", "dense", "spec", "placement", "fp32", "kernel-fp32",
-        *FAMILIES]
+        *FAMILIES, *VOCAB_CUT]
 # (layout, case) -> the one-device case it must equal
 EXPECT = {
     ("2x1", "paged"): "paged", ("2x1", "dense"): "paged",
@@ -87,9 +100,12 @@ EXPECT = {
     ("1x2", "placement"): "placement",
     ("2x2", "fp32"): "fp32", ("2x2", "kernel-fp32"): "kernel-fp32",
     **{(lay, f): f for lay in ("2x1", "1x2") for f in FAMILIES},
+    **{("1x2", f): f for f in VOCAB_CUT},
 }
 FAULTS = {("2x1", "fault-drop"): "fp32",
-          ("1x2", "fault-global-kv"): "kernel-fp32"}
+          ("1x2", "fault-global-kv"): "kernel-fp32",
+          ("1x2", "fault-vocab-offset"): "fp32"}
+JAX_FAMILIES = {f: sw.CASES[f]["arch"] for f in FAMILIES}
 JOIN_S = 300
 
 _JAX_MESH = textwrap.dedent("""
@@ -99,13 +115,18 @@ _JAX_MESH = textwrap.dedent("""
     from repro.configs import reduced_arch
     from repro.launch.mesh import make_local_mesh
     from repro.serving import ContinuousEngine, Request
-    arch = reduced_arch("qwen2.5-14b")
-    params = arch.init(jax.random.PRNGKey(0))
     work = np.load(sys.argv[1])
+    runs = [(name, "qwen2.5-14b", lay) for name, lay in
+            (("2x1", (2, 1)), ("1x2", (1, 2)))]
+    runs += [(case, arch, (1, 2)) for case, arch in
+             json.loads(sys.argv[2]).items()]
     out = {}
-    for name, (data, model) in (("2x1", (2, 1)), ("1x2", (1, 2))):
-        reqs = [Request(prompt=work[f"p{i}"], max_new_tokens=int(n))
-                for i, n in enumerate(work["new"])]
+    for name, arch_name, (data, model) in runs:
+        arch = reduced_arch(arch_name)
+        params = arch.init(jax.random.PRNGKey(0))
+        reqs = [Request(prompt=work[f"{arch_name}/p{i}"],
+                        max_new_tokens=int(n))
+                for i, n in enumerate(work[f"{arch_name}/new"])]
         eng = ContinuousEngine(arch, params, cache="paged", block_size=8,
                                max_batch=2, max_len=48, policy="fp32",
                                mesh=make_local_mesh(data=data, model=model))
@@ -115,17 +136,23 @@ _JAX_MESH = textwrap.dedent("""
 """)
 
 
-def _jax_start(tmp, work):
-    """JAX's engine on both two-device meshes, in a subprocess
-    (started)."""
+def _jax_start(tmp, works):
+    """JAX's engine on both two-device meshes (qwen2.5-14b) and on 1 x 2
+    (the MoE / Mamba families), in a subprocess (started). works: {arch
+    name: its stream4 requests}."""
     path = tmp / "work.npz"
-    np.savez(path, new=np.array([n for _, n, _ in work]),
-             **{f"p{i}": p for i, (p, _, _) in enumerate(work)})
+    arrays = {}
+    for name, work in works.items():
+        arrays[f"{name}/new"] = np.array([n for _, n, _ in work])
+        arrays.update({f"{name}/p{i}": p
+                       for i, (p, _, _) in enumerate(work)})
+    np.savez(path, **arrays)
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
            "PYTHONPATH": os.pathsep.join(
                [os.path.abspath("src"), os.environ.get("PYTHONPATH", "")])}
-    return subprocess.Popen([sys.executable, "-c", _JAX_MESH, str(path)],
+    return subprocess.Popen([sys.executable, "-c", _JAX_MESH, str(path),
+                             json.dumps(JAX_FAMILIES)],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
@@ -135,16 +162,19 @@ def runs(tmp_path_factory):
     """{layout: [rank results]}, "one": {case: one-device result},
     "jax": {layout: tokens}."""
     tmp = tmp_path_factory.mktemp("serve")
-    jparams = jreduced("qwen2.5-14b").init(jax.random.PRNGKey(0))
-    params = {"qwen2.5-14b": params_from_jax(
-        reduced_arch("qwen2.5-14b").cfg, jax.tree.map(np.asarray, jparams))}
-    for name in {sw.CASES[f]["arch"] for f in FAMILIES}:
-        params[name] = reduced_arch(name).init(
-            torch.Generator().manual_seed(0))
+    # JAX's init, carried by the bridge: the JAX engines serve the same
+    # weights
+    params = {}
+    for name in {"qwen2.5-14b"} | {sw.CASES[f]["arch"]
+                                   for f in FAMILIES + VOCAB_CUT}:
+        jparams = jreduced(name).init(jax.random.PRNGKey(0))
+        params[name] = params_from_jax(reduced_arch(name).cfg,
+                                       jax.tree.map(np.asarray, jparams))
     inputs = tmp / "params.pt"
     torch.save(params, inputs)
-    work = sw.workload("stream4", reduced_arch("qwen2.5-14b"))
-    jax_proc = _jax_start(tmp, work)
+    jax_proc = _jax_start(tmp, {
+        name: sw.workload("stream4", reduced_arch(name))
+        for name in {"qwen2.5-14b", *JAX_FAMILIES.values()}})
     ctx = multiprocessing.get_context("spawn")
     procs = {lay: sw.start(ctx, sw.run_rank,
                            sw.LAYOUTS[lay]["data"] * sw.LAYOUTS[lay]["model"],
@@ -194,6 +224,11 @@ def test_mesh_tokens_equal_one_device(runs, layout, case):
         rep = got["report"]
         assert rep["replicas"] == 2
         assert all(sub["mesh_devices"] == 2 for sub in rep["per_replica"])
+    base = [e for e in want["embeddings"] if e is not None]
+    emb = [e for e in got["embeddings"] if e is not None]
+    assert len(emb) == len(base) == (5 if case == "bert" else len(emb))
+    for x, y in zip(base, emb):
+        np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUT_CASES))
@@ -214,12 +249,14 @@ def test_model_mesh_bf16_stable_same_layout_pair(runs):
                           r["bf16-stable-chunked"]["tokens"])
 
 
-@pytest.mark.parametrize("layout", ["2x1", "1x2"])
-def test_jax_mesh_engine_gives_the_same_tokens(runs, layout):
+@pytest.mark.parametrize("layout,case", [("2x1", "fp32"), ("1x2", "fp32")]
+                         + [("1x2", f) for f in FAMILIES])
+def test_jax_mesh_engine_gives_the_same_tokens(runs, layout, case):
     """JAX's engine on the same two-device layout, fp32: the same tokens
-    as the port's mesh (and so as one device)."""
-    got = [t.tolist() for t in runs[layout][0]["fp32"]["tokens"]]
-    assert got == runs["jax"][layout]
+    as the port's mesh (and so as one device); for the MoE / Mamba
+    families on 1 x 2, where both cut experts, vocab and Mamba heads."""
+    got = [t.tolist() for t in runs[layout][0][case]["tokens"]]
+    assert got == runs["jax"][layout if case == "fp32" else case]
 
 
 @pytest.mark.parametrize("layout,case", sorted(FAULTS))
@@ -233,13 +270,38 @@ def _arena_items(shapes):
             if k.startswith("/slots/") and k.rsplit("/", 1)[1] in ("k", "v")}
 
 
+def _cut_leaf(path):
+    """The kind of a param leaf that a model axis of two cuts in the cut
+    layout (whatever the layout does not cut: None): expert stacks,
+    vocab tables, Mamba projections."""
+    parts = path.split("/")
+    if parts[-1] in ("up", "gate", "down"):
+        return "expert"                 # (P, E, din, dout): no /kernel
+    if path.endswith(("embed/embedding", "lm_head/kernel")):
+        return "vocab"
+    if parts[-2:] == ["out_proj", "kernel"]:
+        return "out_proj"
+    if parts[-2:] == ["in_proj", "kernel"] or parts[-1] == "conv_w":
+        return "columns"
+    return None
+
+
+def _mamba_columns(arch, leaf):
+    from repro_torch.distributed.sharding import (mamba_segments,
+                                                  segment_columns)
+    return len(segment_columns(mamba_segments(leaf, arch.mamba, 2), 2, 0))
+
+
 @pytest.mark.parametrize("layout", ["2x1", "1x2"])
 def test_pool_holds_its_share(runs, layout):
     """A rank's arenas: on 2 x 1 half the data blocks (and a null block
     of its own), on 1 x 2 half the KV heads, so that its data-block bytes
     (1 x 2: all its arena bytes) are half of one device's; every rank's
     shapes are rank 0's. The local shapes are the whole (the ranks'
-    shares side by side) cut as serve_pspec cuts it."""
+    shares side by side) cut as serve_pspec cuts it. The MoE / Mamba
+    families: on 1 x 2 a rank's SSM state holds half the heads and its
+    conv tail its channels (its heads' x, B and C whole); on 2 x 1 both
+    are whole (a block of slots)."""
     one = runs["one"]["placement"]["shapes"]
     lay = sw.LAYOUTS[layout]
     D, M = lay["data"], lay["model"]
@@ -270,6 +332,54 @@ def test_pool_holds_its_share(runs, layout):
             cut = tuple(w // ({"data": D, "model": M}.get(s, 1))
                         for w, s in zip(whole, spec))
             assert cut == shape, (spec, whole, shape)
+    for fam in ("mamba2", "jamba"):
+        arch = sw.case_arch(fam)
+        ones = runs["one"][fam]["shapes"]
+        states = {k: v for k, v in ones.items()
+                  if k.rsplit("/", 1)[-1] in ("ssm", "conv")}
+        assert states
+        for rank in runs[layout]:
+            got = rank[fam]["shapes"]
+            for path, (oshape, _) in states.items():
+                shape = got[path][0]
+                if path.endswith("ssm"):      # (P, rows, H, N, P)
+                    assert shape[2] * M == oshape[2]
+                    assert shape[3:] == oshape[3:]
+                else:                         # (P, rows, W - 1, C)
+                    assert shape[3] == (oshape[3] if M == 1 else
+                                        _mamba_columns(arch, "conv_w"))
+                # a block of slots over "data": its rows, padded to 2
+                assert shape[1] == max(oshape[1] // D, 2)
+
+
+@pytest.mark.parametrize("case", FAMILIES + VOCAB_CUT)
+def test_model_rank_holds_no_cut_leaf_whole(runs, case):
+    """On 1 x 2 each rank's params hold half of every expert stack (E
+    over "model", or the ff dim), of every divisible vocab table and
+    Mamba out_proj, and its columns of each in_proj and conv_w (its
+    heads' z, x, dt; B and C whole): none of them whole on a rank. On 2
+    x 1 every leaf stays whole."""
+    arch = sw.case_arch(case)
+    one = runs["one"][case]["params"]
+    cut = {p: _cut_leaf(p) for p in one if _cut_leaf(p)}
+    kinds = {k for k in cut.values()}
+    assert "vocab" in kinds
+    assert case not in ("granite", "jamba") or "expert" in kinds
+    assert case not in ("mamba2", "jamba") or {"columns",
+                                               "out_proj"} <= kinds
+    numel = lambda s: int(np.prod(s))
+    for rank in runs["1x2"]:
+        got = rank[case]["params"]
+        for path, kind in cut.items():
+            if kind == "columns":
+                leaf = "conv_w" if path.endswith("conv_w") else "in_proj"
+                assert got[path][-1] == _mamba_columns(arch, leaf)
+                assert got[path][:-1] == one[path][:-1]
+            else:
+                assert 2 * numel(got[path]) == numel(one[path]), path
+    if case in FAMILIES:
+        for rank in runs["2x1"]:
+            assert rank[case]["params"] == one
 
 
 def test_parse_mesh_on_two_ranks(runs):
@@ -294,15 +404,17 @@ def test_parse_mesh_needs_its_ranks():
 def test_serve_pspec_is_cache_pspec_on_the_data_axis(model):
     """serve_pspec equals JAX's cache_pspec wherever the model axis is 1;
     with a model axis that cuts whole heads it cuts the K/V leaves' head
-    dim, never head_dim, and leaves integer bookkeeping and the Mamba
-    state whole over "model"."""
-    for name in ("qwen2.5-14b", "jamba-1.5-large-398b"):
+    dim, never head_dim, the Mamba SSM state's heads dim and the conv
+    tail's channels (its own departure from cache_pspec, which cuts
+    their last dims), and leaves integer bookkeeping whole over
+    "model"."""
+    for name in ("qwen2.5-14b", "jamba-1.5-large-398b", "mamba2-130m"):
         arch = reduced_arch(name)
         mesh = types.SimpleNamespace(shape={"data": 2, "model": model})
         for cache in (arch.init_cache(2, 32, device="meta"),
                       arch.init_paged_cache(2, 32, block_size=8,
                                             device="meta")):
-            got = shd.serve_pspec(cache, mesh, arch.heads)
+            got = shd.serve_pspec(cache, mesh, arch.heads, arch.mamba)
             want = shd.cache_pspec(cache, mesh)
             flat_g, flat_w = [], []
 
@@ -322,6 +434,12 @@ def test_serve_pspec_is_cache_pspec_on_the_data_axis(model):
             for (leaf, t, g), w in zip(flat_g, flat_w):
                 if model == 1 or t.ndim < 2:
                     assert g == w, (leaf, g, w)
+                    continue
+                if leaf == "ssm":           # (P, B, H, N, P)
+                    assert tuple(g) == (w[0], w[1], "model", None, None)
+                    continue
+                if leaf == "conv":          # (P, B, W - 1, C)
+                    assert tuple(g) == (*w[:-1], "model")
                     continue
                 assert g[-1] is None and tuple(g[:-2]) == tuple(w[:-2])
                 assert (g[-2] == "model") == (leaf in ("k", "v")), (leaf, g)
