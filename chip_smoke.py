@@ -224,7 +224,7 @@ Phases, in the order they run, each of which fails the run:
      memory printed (not gated); then the CLI with --replicas 2
      --route-policy prefix --shared-prefix 64 against --replicas 1:
      tokens equal, K8 launched decode steps x 26; (b) BERT-large at full
-     width, 12 of its 24 layers (fp32 compute, seq 128, global batch 16,
+     width, 6 of its 24 layers (fp32 compute, seq 128, global batch 16,
      seed 0, 3 fused_lans steps, hold schedule) on meshes whose two ranks
      are two processes on the one card under gloo (said why on a line):
      on 2 x 1, losses within 1e-4 relative of a one-process fused run on
@@ -280,7 +280,12 @@ Phases, in the order they run, each of which fails the run:
      collective ms per step printed. On 1 x 2 the tied 256,000-row vocab
      is cut too (128,000 rows a rank, the picks taken over "model"), and
      phase S's sampled stream (temperature=0.8,top_k=50,top_p=0.9,seed=3)
-     runs after the greedy one: its tokens equal phase S's; (g) serving
+     runs after the greedy one: its tokens equal phase S's; on both
+     meshes run_one serves the stream's first two requests at batch 1
+     (whole on every data rank), their tokens phase 3's; on 2 x 1 a
+     fresh engine of 3 slots (which do not divide over two data ranks:
+     each rank holds and decodes all three) serves the stream, its
+     tokens the one-card engine's at max_batch 3; (g) serving
      on 1 x 2 cuts what training's model axis cuts (after (e), two gloo
      processes on the one card, fp32, (e)'s stream after a warm-up
      stream): granite-moe-3b-a800m at full width and depth with K8, 20
@@ -292,7 +297,21 @@ Phases, in the order they run, each of which fails the run:
      mamba2, each rank's bytes of expert stacks, vocab tables and Mamba
      out_proj exactly half of one card's and of in_proj / conv_w exactly
      its columns'; each rank's peak, median decode step and collective
-     ms per step printed, and (g)'s seconds.
+     ms per step printed, and (g)'s seconds; (h) attention in head groups
+     (after (g)): gemma2-2b at full width and one period (2 layers) on a
+     1 x 8 mesh, eight gloo processes on the one card, its 8 heads and 4
+     KV heads cut into 4 groups of 2 ranks (distributed/sharding.py:
+     head_groups): (e)'s stream through the engine, greedy tokens equal
+     the one-card engine's at 2 layers, K8 launched decode steps x 2 on
+     every rank, each rank's K/V arena and wq / wk / wv bytes exactly 1/4
+     of one card's and its wo bytes 1/8, its median decode step and
+     collective ms printed; then one fused_lans step (seq 128, batch 2)
+     on the same mesh with (f)'s gates against the one process that
+     splits the heads as the ranks do (mesh_worker.model_split), K1-K3
+     launched once per leaf on each rank, and every rank's gathered
+     shapes exactly a head group's wq and wk / wv columns (no whole
+     wq / wk / wv, no wo). Phase 2 also holds K8 at a 1 x 8 rank's heads
+     (h 2, n_kv 1, hd 256) and times it beside its bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON line describing every kernel, and
@@ -342,6 +361,7 @@ SPEC_ARGV = ["--spec-draft", "self", "--spec-k", "4"]
 SAMPLER_ARGV = ["--sampler", "temperature=0.8,top_k=50,top_p=0.9,seed=3"]
 N_LAYERS = 26                        # gemma2-2b
 LOCAL_HEADS = (4, 2)                 # gemma2-2b's heads on a 1 x 2 rank
+GROUP_HEADS = (2, 1)                 # on a 1 x 8 rank: 4 head groups of 2
 GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--full", "--precision",
                 "fp32", "--attn-kernel", "paged", "--requests", "8",
                 "--max-batch", "4", "--prompt-len", "64", "--new-tokens",
@@ -566,9 +586,10 @@ def phase_kernels(torch, pa):
     max_err = {"paged_attention_fused": 0.0, "paged_attention": 0.0}
     k7_vs_k8 = 0.0
     n_cases = 0
-    # gemma2-2b's heads, and a rank's on a 1 x 2 mesh (phase D(e))
+    # gemma2-2b's heads, and a rank's on a 1 x 2 mesh (phase D(e)) and
+    # on a 1 x 8 mesh (phase D(h))
     for (h, n_kv), (kv_dt, q_dt) in itertools.product(
-            ((8, 4), LOCAL_HEADS),
+            ((8, 4), LOCAL_HEADS, GROUP_HEADS),
             ((torch.float32, torch.float32),
              (torch.bfloat16, torch.float32),
              (torch.bfloat16, torch.bfloat16))):
@@ -589,8 +610,9 @@ def phase_kernels(torch, pa):
                     max_err[name] = max(max_err[name], e)
                 n_cases += 1
     print(f"kernel parity: paged_attention_fused (K8) and paged_attention "
-          f"(K7), {n_cases} cases each (h 8 / n_kv 4 and a 1 x 2 rank's "
-          f"h {LOCAL_HEADS[0]} / n_kv {LOCAL_HEADS[1]}), max |out - plain| K8 "
+          f"(K7), {n_cases} cases each (h 8 / n_kv 4, a 1 x 2 rank's h "
+          f"{LOCAL_HEADS[0]} / n_kv {LOCAL_HEADS[1]} and a 1 x 8 rank's h "
+          f"{GROUP_HEADS[0]} / n_kv {GROUP_HEADS[1]}), max |out - plain| K8 "
           f"{max_err['paged_attention_fused']:.3e}, K7 "
           f"{max_err['paged_attention']:.3e}, K7 on K8's post-write arenas "
           f"vs K8 {k7_vs_k8:.3e} (tolerance 1e-5); arenas torch.equal; "
@@ -653,27 +675,31 @@ def phase_kernels(torch, pa):
         entries[name]["max_abs_err"] = max_err[name]
     entries["paged_attention_fused"]["mesh_local"] = local_heads_timing(
         torch, pa, flush, kw)
+    entries["paged_attention_fused"]["mesh_groups"] = local_heads_timing(
+        torch, pa, flush, kw, GROUP_HEADS, "1 x 8")
 
     entries["paged_attention"]["launches"] = k7_path(
         torch, pa, torch.float32, "gemma2-2b", gemma_layer_kw)
     return entries
 
 
-def local_heads_timing(torch, pa, flush, kw):
-    """K8 at a 1 x 2 rank's heads (h 4, n_kv 2, hd 256) at the serving
-    shape: held to its plain version (1e-5, arenas torch.equal) and timed
-    beside its byte bound. Returns its entry."""
-    h, n_kv = LOCAL_HEADS
+def local_heads_timing(torch, pa, flush, kw, heads=LOCAL_HEADS,
+                       mesh="1 x 2"):
+    """K8 at a mesh rank's `heads` (1 x 2: h 4, n_kv 2; 1 x 8, a head
+    group's: h 2, n_kv 1; hd 256) at the serving shape: held to its plain
+    version (1e-5, arenas torch.equal) and timed beside its byte bound.
+    Returns its entry."""
+    h, n_kv = heads
     args = pa.decode_case(B=4, S=1, n_heads=h, n_kv=n_kv, head_dim=256,
                           block_size=16, nb=6, dtype=torch.bfloat16,
                           q_dtype=torch.float32, device="cuda", seed=97)
-    errs = paged_parity_at(torch, pa, args, kw, "(1 x 2 local heads)")
+    errs = paged_parity_at(torch, pa, args, kw, f"({mesh} local heads)")
     plain = [a.clone() for a in args]
     ms = time_ms(lambda: pa.paged_attention_fused(*args, **kw), flush)
     plain_ms = time_ms(lambda: pa.paged_attention_fused_plain(*plain, **kw),
                        flush)
     bound_ms, bound_by, nbytes, flops = paged_bound(args)
-    print(f"kernel timing paged_attention_fused (1 x 2 rank's heads: B=4 "
+    print(f"kernel timing paged_attention_fused ({mesh} rank's heads: B=4 "
           f"S=1 h={h} n_kv={n_kv} hd=256 bs=16 nb=6, bf16 arenas, L2 "
           f"evicted): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes, {flops} "
@@ -2829,11 +2855,12 @@ def phase_router(torch, pa, serve_mod):
 # name: (arch, data, model, zero3, depth or None for the arch's own,
 #        global batch, seq, steps)
 MESH_RUNS = {
-    # D(b): BERT-large at full width and 12 of its 24 layers, the depth
-    # cut when phase D(e) was added, to keep the script's time
-    "2x1": ("bert-large", 2, 1, False, 12, 16, 128, MESH_STEPS),
-    "2x1-zero3": ("bert-large", 2, 1, True, 12, 16, 128, MESH_STEPS),
-    "1x2": ("bert-large", 1, 2, False, 12, 16, 128, MESH_STEPS),
+    # D(b): BERT-large at full width and 6 of its 24 layers, the depth
+    # cut to 12 when phase D(e) was added and to 6 when phase D(h) was,
+    # to keep the script's time
+    "2x1": ("bert-large", 2, 1, False, 6, 16, 128, MESH_STEPS),
+    "2x1-zero3": ("bert-large", 2, 1, True, 6, 16, 128, MESH_STEPS),
+    "1x2": ("bert-large", 1, 2, False, 6, 16, 128, MESH_STEPS),
     # D(d): granite-moe-3b-a800m at full width; two ranks of fp32 params
     # and moments at its full depth would not fit the one card, and one
     # layer keeps phase D nearer 150 s
@@ -2845,23 +2872,32 @@ MESH_RUNS = {
     "granite-1x2": ("granite-moe-3b-a800m", 1, 2, False, 1, 16, 128, 2),
     "gemma2-1x2": ("gemma2-2b", 1, 2, False, 2, 2, 1024, 2),
     "mamba2-1x2": ("mamba2-130m", 1, 2, False, None, 2, 1024, 2),
+    # D(h): attention in 4 head groups of 2 ranks (gemma2-2b's 8 heads
+    # and 4 KV heads on 8 model ranks), full width, one period (2
+    # layers), one step: eight gloo processes on the card
+    "gemma2-1x8": ("gemma2-2b", 1, 8, False, 2, 2, 128, 1),
 }
 SPLIT_RUNS = ("granite-1x2", "gemma2-1x2", "mamba2-1x2")   # phase D(f)
+GROUP_RUNS = ("gemma2-1x8",)                               # phase D(h)
+# what the fetch gathers of gemma2-2b on 1 x 8: a head group's columns of
+# wq (2 of its 8 heads of 256) and of wk / wv (1 of 4), nothing else
+GROUP_GATHERS = {(2304, 512), (2304, 256)}
 MESH_MEMORY_CUT = 0.70       # rank 1's peak under zero3 / 1 x 2 vs 2 x 1
 
 
-def host_whole(torch, partial, t):
+def host_whole(torch, partial, t, keep=True):
     """A placed leaf's whole value on the CPU, gathered through
-    partial.all_gather_dim; a plain tensor copied to the CPU."""
+    partial.all_gather_dim; a plain tensor copied to the CPU. With keep
+    False the rank takes part in the gather and returns None."""
     from torch.distributed.tensor import DTensor
     if not isinstance(t, DTensor):
-        return t.detach().cpu()
+        return t.detach().cpu() if keep else None
     x, mesh = t.to_local(), t.device_mesh
     for md in reversed(range(mesh.ndim)):
         p = t.placements[md]
         if p.is_shard():
             x = partial.all_gather_dim(x, p.dim, mesh.get_group(md))
-    return x.detach().cpu()
+    return x.detach().cpu() if keep else None
 
 
 def collective_timer(torch, dist, partial, steps):
@@ -2927,8 +2963,17 @@ def mesh_run(torch, name, rank, ref_rank, timer, gathered):
         torch, train_mod, arch, size, seq, 0)()))
     init = lambda: arch.init(torch.Generator(device="cuda").manual_seed(0))
     split = model > 1
-    whole = lambda tree: {p: host_whole(torch, partial, v)
-                          for p, v in tree_items(tree)}
+
+    def whole(tree):
+        # every rank takes part in each leaf's gather; the reference rank
+        # alone keeps the whole leaves (eight ranks' copies would not fit
+        # the host's memory)
+        out = {}
+        for p, v in tree_items(tree):
+            t = host_whole(torch, partial, v, keep=rank == ref_rank)
+            if t is not None:
+                out[p] = t
+        return out
 
     def recording(tx, seen):
         # the step-1 gradient, whole on the CPU (every rank gathers)
@@ -3096,13 +3141,15 @@ def mesh_rank(rank, world, init_method, out_path, ref_rank, names):
         json.dump(out, f)
 
 
-def phase_mesh(torch, names=tuple(MESH_RUNS)):
+def phase_mesh(torch, names=tuple(n for n in MESH_RUNS
+                                   if n not in GROUP_RUNS)):
     """Phase D(b), D(d) and D(f): BERT-large on 2 x 1, 2 x 1 with zero3
     and 1 x 2 meshes, granite-moe-3b-a800m (full width, 1 layer) on 2 x
     1, and on 1 x 2 granite-moe (its experts over "model"), gemma2-2b (a
     vocab-parallel readout and loss) and mamba2-130m (Mamba-2 on whole
     heads), two ranks as two processes on the one card under gloo; the
-    runs `names` of MESH_RUNS (D(f) alone: SPLIT_RUNS)."""
+    runs `names` of MESH_RUNS (D(f) alone: SPLIT_RUNS; D(h)'s training:
+    GROUP_RUNS, eight ranks), all of one mesh size."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import dataclasses
     from port.mesh_worker import model_cut_shapes
@@ -3122,10 +3169,14 @@ def phase_mesh(torch, names=tuple(MESH_RUNS)):
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "src", "repro_torch",
                                             "kernels", "_build"))
     ctx = multiprocessing.get_context("spawn")
-    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    worlds = {MESH_RUNS[n][1] * MESH_RUNS[n][2] for n in names}
+    check(len(worlds) == 1, f"mesh: runs {names} on meshes of {worlds} "
+                            f"ranks")
+    world = worlds.pop()
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
     procs = [ctx.Process(target=mesh_rank, args=(
-        r, 2, f"tcp://localhost:{port}", paths[r], 0, names))
-        for r in range(2)]
+        r, world, f"tcp://localhost:{port}", paths[r], 0, names))
+        for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -3133,8 +3184,8 @@ def phase_mesh(torch, names=tuple(MESH_RUNS)):
         for p in procs:
             p.join(MESH_JOIN_S)
         codes = [p.exitcode for p in procs]
-        check(codes == [0, 0], f"mesh: rank exit codes {codes} (join "
-                               f"timeout {MESH_JOIN_S} s)")
+        check(codes == [0] * world, f"mesh: rank exit codes {codes} (join "
+                                    f"timeout {MESH_JOIN_S} s)")
     finally:
         for p in procs:
             if p.is_alive():
@@ -3147,15 +3198,16 @@ def phase_mesh(torch, names=tuple(MESH_RUNS)):
     shutil.rmtree(tmp)
     for name in names:
         arch, data, model, zero3, depth, size, seq, n_steps = MESH_RUNS[name]
-        r0, r1 = (r["runs"][name] for r in ranks)
+        r0, r1 = (r["runs"][name] for r in ranks[:2])
         where = f"mesh {name} ({arch})"
-        check(r0["losses"] == r1["losses"],
+        check(all(r["runs"][name]["losses"] == r0["losses"]
+                  for r in ranks),
               f"{where}: the ranks report different losses")
         rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                       r0["ref_losses"]))
         check(rel <= 1e-4, f"{where}: losses {r0['losses']} vs one process "
                            f"{r0['ref_losses']} ({rel:.3e} relative)")
-        for i, r in enumerate((r0, r1)):
+        for i, r in enumerate(x["runs"][name] for x in ranks):
             for k in ("sq_norm", "lans_phase1", "lans_phase2"):
                 check(r["launches"][k] == r0["n_leaves"] * n_steps,
                       f"{where} rank {i}: {k} launched "
@@ -3202,7 +3254,17 @@ def phase_mesh(torch, names=tuple(MESH_RUNS)):
             print(f"{where}: router_entropy {r0['entropy']} vs one process "
                   f"{r0['ref_entropy']} (the aux metric; moe_aux_loss is "
                   f"inside the loss)")
-        if name in SPLIT_RUNS:
+        if name in GROUP_RUNS:
+            for r in ranks:
+                shapes = {tuple(g) for g in r["runs"][name]["gathered"]}
+                check(shapes == GROUP_GATHERS,
+                      f"{where} rank {r['rank']}: the fetch gathered "
+                      f"{sorted(shapes)}, not a head group's wq / wk / wv "
+                      f"columns {sorted(GROUP_GATHERS)} alone")
+            print(f"{where}: every rank gathered a head group's wq / wk / "
+                  f"wv columns {sorted(GROUP_GATHERS)} and nothing else: "
+                  f"no whole wq / wk / wv, no wo (gate)")
+        if name in SPLIT_RUNS + GROUP_RUNS:
             a = get_arch(arch)
             if depth is not None:
                 a = dataclasses.replace(a, cfg=dataclasses.replace(
@@ -3226,9 +3288,10 @@ def phase_mesh(torch, names=tuple(MESH_RUNS)):
                   f"{r1['last_peak_gb']:.2f} GB vs "
                   f"{r0['ref_last_peak_gb']:.2f} GB; "
                   f"{r0['run_s']:.1f} s")
-    split_s = sum(ranks[0]["runs"][n]["run_s"] for n in names
-                  if n in SPLIT_RUNS)
-    print(f"phase D(f): {split_s:.1f} s")
+    if set(names) & set(SPLIT_RUNS):
+        split_s = sum(ranks[0]["runs"][n]["run_s"] for n in names
+                      if n in SPLIT_RUNS)
+        print(f"phase D(f): {split_s:.1f} s")
     peaks = {name: ranks[1]["runs"][name]["peak_gb"] for name in names}
     for name in ("2x1-zero3", "1x2") if "2x1" in names else ():
         ratio = peaks[name] / peaks["2x1"]
@@ -3277,11 +3340,11 @@ def serve_mesh_run(torch, name, arch, timer, sampler=None):
     mesh = make_local_mesh(data=data, model=model, device="cuda")
     params = arch.init(torch.Generator(device="cuda").manual_seed(0))
 
-    def engine(sampler=None):       # SERVE_ARGV's engine, on the mesh
-        return ContinuousEngine(arch, params, max_batch=4, max_len=96,
-                                policy="fp32", mesh=mesh, prefill_bucket=8,
-                                block_size=16, attn_kernel="paged",
-                                sampler=sampler)
+    def engine(sampler=None, max_batch=4):  # SERVE_ARGV's, on the mesh
+        return ContinuousEngine(arch, params, max_batch=max_batch,
+                                max_len=96, policy="fp32", mesh=mesh,
+                                prefill_bucket=8, block_size=16,
+                                attn_kernel="paged", sampler=sampler)
 
     def stream(n, new):
         return synthetic_requests(n, arch.cfg.vocab, prompt_len=64,
@@ -3324,9 +3387,26 @@ def serve_mesh_run(torch, name, arch, timer, sampler=None):
                kv_heads=eng.pool.cache["slots"][0]["k"].shape[-2],
                vocab_rows=eng.params["embed"]["embedding"].shape[0],
                nonfinite=eng.report(1.0)["nonfinite_logit_steps"])
+    # run_one on the mesh engine: the stream's first two requests, each
+    # alone at batch 1 (whole on every data rank)
+    out["run_one"] = [eng.run_one(r).generated.tolist()
+                      for r in stream(8, 32)[:2]]
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    if data > 1:
+        # three slots, which do not divide over the data ranks: every
+        # rank holds and decodes all three
+        params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+        eng = engine(max_batch=3)
+        del params
+        reqs = stream(8, 32)
+        eng.run(reqs)
+        out["b3_tokens"] = {r.rid: r.generated.tolist() for r in reqs}
+        out["b3_block"] = eng.layout.block
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     if sampler is not None:
         params = arch.init(torch.Generator(device="cuda").manual_seed(0))
         eng = engine(sampler)
@@ -3375,7 +3455,9 @@ def serve_mesh_rank(rank, world, init_method, out_path, runs=None):
         out = {"rank": rank, "runs": {}}
         if runs is not None:
             for name in runs:
-                out["runs"][name] = split_serve_run(torch, name, timer)
+                out["runs"][name] = (group_serve_run if name in GROUP_SERVE
+                                     else split_serve_run)(torch, name,
+                                                           timer)
             return
         arch = get_arch("gemma2-2b")
         for name in SERVE_MESHES:
@@ -3394,9 +3476,9 @@ def serve_mesh_rank(rank, world, init_method, out_path, runs=None):
             json.dump(out, f)
 
 
-def serve_ranks(runs=None):
-    """Two ranks of serve_mesh_rank (with `runs`), each a gloo process on
-    the one card; their numbers once both exited 0."""
+def serve_ranks(runs=None, world=2):
+    """`world` ranks of serve_mesh_rank (with `runs`), each a gloo
+    process on the one card; their numbers once all exited 0."""
     import multiprocessing
     import socket
     import tempfile
@@ -3406,16 +3488,18 @@ def serve_ranks(runs=None):
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "src", "repro_torch",
                                             "kernels", "_build"))
     ctx = multiprocessing.get_context("spawn")
-    paths = [os.path.join(tmp, f"serve{r}.json") for r in range(2)]
+    paths = [os.path.join(tmp, f"serve{r}.json") for r in range(world)]
     procs = [ctx.Process(target=serve_mesh_rank, args=(
-        r, 2, f"tcp://localhost:{port}", paths[r], runs)) for r in range(2)]
+        r, world, f"tcp://localhost:{port}", paths[r], runs))
+        for r in range(world)]
     for p in procs:
         p.start()
     try:
         for p in procs:
             p.join(MESH_JOIN_S)
         codes = [p.exitcode for p in procs]
-        check(codes == [0, 0], f"serving mesh: rank exit codes {codes}")
+        check(codes == [0] * world,
+              f"serving mesh: rank exit codes {codes}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -3434,8 +3518,26 @@ def phase_serve_mesh(torch, paged_tokens, sampled_tokens):
     processes on the one card) through the engine, and on 2 x 1 through
     the CLI: greedy tokens equal phase 3's one-card tokens, K8 launched
     decode steps x 26 on every rank; on 1 x 2, with the vocab cut, also
-    phase S's sampled stream, its tokens equal phase S's. Returns K8's
-    launches per run and rank."""
+    phase S's sampled stream, its tokens equal phase S's; run_one on
+    both meshes equal to the pooled tokens; on 2 x 1 a stream at
+    max_batch 3 (whole on both data ranks) equal to the one-card
+    engine's at max_batch 3. Returns K8's launches per run and rank."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ContinuousEngine, synthetic_requests
+    arch = get_arch("gemma2-2b")
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ContinuousEngine(arch, params, max_batch=3, max_len=96,
+                           policy="fp32", prefill_bucket=8, block_size=16,
+                           attn_kernel="paged")
+    del params
+    reqs = synthetic_requests(8, arch.cfg.vocab, prompt_len=64,
+                              new_tokens=32, seed=0)
+    eng.run(reqs)
+    b3_tokens = {r.rid: r.generated.tolist() for r in reqs}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     ranks = serve_ranks()
     launches = {}
     for name in list(SERVE_MESHES) + ["cli"]:
@@ -3464,6 +3566,22 @@ def phase_serve_mesh(torch, paged_tokens, sampled_tokens):
                   f"serving mesh {label} rank {r['rank']}: K8 launched "
                   f"{x['launches']} times for {x['decode_steps']} decode "
                   f"steps x {N_LAYERS}")
+            if "run_one" in x:
+                check(x["run_one"] == [paged_tokens[0], paged_tokens[1]],
+                      f"serving mesh {label} rank {r['rank']}: run_one's "
+                      f"tokens differ from the pooled stream's")
+                print(f"serving mesh {label} rank {r['rank']}: run_one "
+                      f"(requests 0 and 1 at batch 1) equals the pooled "
+                      f"stream's tokens")
+            if "b3_tokens" in x:
+                b3 = {int(k): v for k, v in x["b3_tokens"].items()}
+                check(b3 == b3_tokens and x["b3_block"] == 3,
+                      f"serving mesh {label} rank {r['rank']}: max_batch 3 "
+                      f"tokens differ from the one-card engine's (block "
+                      f"{x['b3_block']})")
+                print(f"serving mesh {label} rank {r['rank']}: max_batch 3 "
+                      f"(all 3 slots on each data rank) equals the "
+                      f"one-card engine's tokens")
             launches[name if name != "cli" else "cli-2x1"].append(
                 x["launches"])
             if name == "cli":
@@ -3653,6 +3771,169 @@ def phase_serve_split(torch, one_card):
                   f"{per_step}")
         print(f"split serving {name}: greedy tokens equal phase M's "
               f"one-card tokens on both ranks")
+    return launches
+
+
+# phase D(h): name: (arch, layers, (data, model), K8 launches per step)
+GROUP_SERVE = {"gemma2-1x8": ("gemma2-2b", 2, (1, 8), 2)}
+
+
+def group_arch(name):
+    """The arch of a GROUP_SERVE run: its layers (one period) at full
+    width."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    arch_name, layers, _, _ = GROUP_SERVE[name]
+    arch = get_arch(arch_name)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=layers))
+
+
+def attention_bytes(tree):
+    """{"wq/wk/wv": bytes, "wo": bytes} of the attention kernels of a
+    params tree (its meta or real leaves)."""
+    from repro_torch.core.optim.base import tree_items
+    out = {"wq/wk/wv": 0, "wo": 0}
+    for path, t in tree_items(tree):
+        parts = path.split("/")
+        if parts[-1] == "kernel" and parts[-2] in ("wq", "wk", "wv", "wo"):
+            key = "wo" if parts[-2] == "wo" else "wq/wk/wv"
+            out[key] += t.numel() * t.element_size()
+    return out
+
+
+def group_engine(torch, name, mesh=None, max_batch=4):
+    """(D(h)'s engine of GROUP_SERVE[name] on `mesh` or one card, its
+    stream): (e)'s engine (fp32, K8, block 16) at the run's depth, after
+    a warm-up stream; the whole params freed once it holds its parts."""
+    import gc
+    from repro_torch.serving import ContinuousEngine, synthetic_requests
+    arch = group_arch(name)
+    params = arch.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def engine():
+        return ContinuousEngine(arch, params, max_batch=max_batch,
+                                max_len=96, policy="fp32", mesh=mesh,
+                                prefill_bucket=8, block_size=16,
+                                attn_kernel="paged")
+
+    def stream(n, new):
+        return synthetic_requests(n, arch.cfg.vocab, prompt_len=64,
+                                  new_tokens=new, seed=0)
+    engine().run(stream(2, 4))
+    eng = engine()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eng, stream(8, 32)
+
+
+def group_serve_run(torch, name, timer):
+    """One rank of phase D(h)'s serving: GROUP_SERVE[name] on its mesh,
+    (e)'s stream; returns its numbers."""
+    import gc
+    import statistics
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    data, model = GROUP_SERVE[name][2]
+    mesh = make_local_mesh(data=data, model=model, device="cuda")
+    eng, reqs = group_engine(torch, name, mesh)
+    step_ms, coll_ms = [], []
+    real = eng._step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        timer["ms"] = 0.0
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(timer["ms"])
+        return out
+    eng._step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention_fused.launches = 0
+    eng.run(reqs)
+    out = dict(tokens={r.rid: r.generated.tolist() for r in reqs},
+               launches=pa.paged_attention_fused.launches,
+               decode_steps=eng.steps_run,
+               step_ms=statistics.median(step_ms),
+               collective_ms=statistics.mean(coll_ms),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               kv_bytes=arena_bytes(eng.pool, data_only=True),
+               kv_heads=eng.pool.cache["slots"][0]["k"].shape[-2],
+               attention=attention_bytes(eng.params),
+               nonfinite=eng.report(1.0)["nonfinite_logit_steps"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_head_groups(torch, mesh_launches):
+    """Phase D(h): gemma2-2b (full width, one period of 2 layers) on a 1
+    x 8 mesh, eight gloo processes on the one card; its 8 heads and 4 KV
+    heads do not divide over 8 ranks, so attention runs in 4 head groups
+    of 2 ranks (distributed/sharding.py: head_groups). Serving ((e)'s
+    stream): greedy tokens equal the one-card engine's at the same
+    depth, K8 launched decode steps x 2 on every rank, a rank's K/V
+    arena and wq / wk / wv bytes exactly 1/4 of one card's, its wo bytes
+    1/8. Training: one fused_lans step (phase_mesh's GROUP_RUNS, its
+    launches added to `mesh_launches`) against the one process that
+    splits the heads as the ranks do. Returns K8's launches per rank."""
+    import gc
+    from repro_torch.serving import PagedCachePool
+    t0 = time.perf_counter()
+    launches = {}
+    for name, (_, layers, (data, model), per_step) in GROUP_SERVE.items():
+        eng, reqs = group_engine(torch, name)
+        eng.run(reqs)
+        one_tokens = {r.rid: r.generated.tolist() for r in reqs}
+        one_kv = arena_bytes(PagedCachePool(eng.arch, 4, 96, block_size=16,
+                                            device="meta"), data_only=True)
+        one_attention = attention_bytes(eng.params)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        groups = 4                       # gcd(8, 8 heads, 4 KV heads)
+        ranks = serve_ranks([name], world=data * model)
+        launches[name] = []
+        for r in ranks:
+            x = r["runs"][name]
+            where = f"head groups serving {name} rank {r['rank']}"
+            tokens = {int(k): v for k, v in x["tokens"].items()}
+            check(tokens == one_tokens, f"{where}: greedy tokens differ "
+                                        f"from the one-card engine's")
+            check(x["launches"] == x["decode_steps"] * per_step,
+                  f"{where}: K8 launched {x['launches']} times for "
+                  f"{x['decode_steps']} decode steps x {per_step}")
+            check(x["nonfinite"] == 0, f"{where}: {x['nonfinite']} "
+                                       f"non-finite steps")
+            check(x["kv_bytes"] * groups == one_kv,
+                  f"{where}: K/V arena bytes {x['kv_bytes']} are not "
+                  f"1/{groups} of one card's {one_kv}")
+            for kind, share in (("wq/wk/wv", groups), ("wo", model)):
+                check(x["attention"][kind] * share == one_attention[kind],
+                      f"{where}: {kind} bytes {x['attention'][kind]} are "
+                      f"not 1/{share} of one card's {one_attention[kind]}")
+            launches[name].append(x["launches"])
+            print(f"{where}: K/V arena bytes {x['kv_bytes']} = 1/{groups} "
+                  f"of one card's {one_kv} (KV heads {x['kv_heads']}); "
+                  f"wq/wk/wv {x['attention']['wq/wk/wv']} = 1/{groups} and "
+                  f"wo {x['attention']['wo']} = 1/{model} of one card's "
+                  f"{one_attention['wq/wk/wv']} / {one_attention['wo']} "
+                  f"bytes; peak {x['peak_gb']:.2f} GB, decode step median "
+                  f"{x['step_ms']:.2f} ms, collective "
+                  f"{x['collective_ms']:.2f} ms per step (gloo through the "
+                  f"host), K8 {x['launches']} = {x['decode_steps']} x "
+                  f"{per_step}")
+        print(f"head groups serving {name}: greedy tokens equal the "
+              f"one-card engine's at {layers} layers on all "
+              f"{data * model} ranks")
+    print(f"phase D(h) serving: {time.perf_counter() - t0:.1f} s")
+    mesh_launches.update(phase_mesh(torch, GROUP_RUNS))
+    print(f"phase D(h): {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3923,6 +4204,7 @@ def run() -> int:
     t1 = time.perf_counter()
     kernel["mesh"]["split-1x2"] = phase_serve_split(torch, one_card_tokens)
     print(f"phase D(g): {time.perf_counter() - t1:.1f} s")
+    kernel["mesh"].update(phase_head_groups(torch, mesh_launches))
     shards = phase_shards(torch, kl, kb, kops)
     print(f"phase D: {time.perf_counter() - t0:.1f} s")
     kernel["router"] = dict(launches=router_launches)

@@ -65,11 +65,13 @@ class Arch:
 
     @property
     def heads(self) -> tuple:
-        """(n_heads, n_kv) of the attention: what a mesh's use plan needs
-        to split it over "model" on whole heads
-        (distributed/sharding.py: use_plan)."""
-        n_kv = getattr(self.cfg, "n_kv_heads", self.cfg.n_heads)
-        return self.cfg.n_heads, n_kv
+        """(n_heads, n_kv, head_dim) of the attention: what a mesh's use
+        plan needs to split it over "model" on whole heads or in head
+        groups (distributed/sharding.py: head_groups, use_plan)."""
+        cfg = self.cfg
+        n_kv = getattr(cfg, "n_kv_heads", cfg.n_heads)
+        return (cfg.n_heads, n_kv,
+                getattr(cfg, "resolved_head_dim", None) or cfg.head_dim)
 
     @property
     def mamba(self):

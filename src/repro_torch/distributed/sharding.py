@@ -40,13 +40,24 @@ keeps that shard, and the rank computes its part:
 - "col" / "row": an attention wq / wk / wv or an MLP up / gate kernel
   cut on its columns computes the rank's heads or ff columns; wo or
   down, cut on its rows, the rank's partial product, summed over
-  "model". Attention is split only on whole heads: both n_heads and
-  n_kv divisible by the model size, so that every rank's columns are
-  whole heads of q and of k / v (the JAX rules cut wherever the dim
-  divides, which can split a head: n_kv 1 over two ranks, half a head
-  each; such an attention block is gathered). An MoE expert stack that
+  "model". Attention is "col" only where the model size divides both
+  n_heads and n_kv (head_groups == model size), so that every rank's
+  columns are whole heads of q and of k / v. An MoE expert stack that
   the rule cut on its ff dim (E does not divide) is "col" (up, gate) or
   "row" (down) too: each rank computes every expert's ff columns;
+- "heads": attention whose heads the model size does not divide, but
+  whose four kernels the rule cuts all the same (the JAX rules cut
+  wherever the dim divides, which can split a head: n_kv 1 over two
+  ranks, half a head each). The model axis is cut into d =
+  head_groups(...) groups of m / d consecutive ranks; the ranks of
+  group g hold, side by side, the rule's column chunks of wq / wk / wv
+  for the whole q heads [g h / d, (g + 1) h / d) and KV heads [g kv /
+  d, (g + 1) kv / d) (GQA's map stays inside a group). The fetch
+  gathers a "heads" leaf over its group alone (`groups`: d; its
+  gradient reduce-scattered over the group), the rank computes its
+  group's heads, and wo stays "row": the rank's m-th of the rows,
+  multiplied by the matching columns of its group's output, the
+  products summed over all of "model" (each head counted once);
 - "expert": an MoE expert stack (E, din, dout) cut on E: the rank runs
   its own experts on the rows routed to them (models/moe.py);
 - "vocab": a token embedding (V, d) or an untied lm_head (d, V) cut on
@@ -64,7 +75,8 @@ keeps that shard, and the rank computes its part:
   exchange.
 Every other cut leaf is gathered whole at its use, one layer at a time:
 the router kernel (every rank needs all E logits), a vocab that does
-not divide (left whole by the rule), attention that would split a head.
+not divide (left whole by the rule), attention whose four kernels the
+rule does not all cut.
 A leaf also cut over a data axis (zero3) is gathered over that axis in
 either case.
 """
@@ -72,6 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -330,23 +343,65 @@ def cache_shardings(cache: Tree, mesh) -> Tree:
 # serving on a mesh
 # --------------------------------------------------------------------------
 
-def heads_split(heads, mesh) -> bool:
-    """Does a model axis of `mesh` cut attention on whole heads: a model
-    axis of two or more ranks that divides both n_heads and n_kv
-    (heads), as use_plan's split?"""
-    msize = _axis_size(mesh, "model")
-    return msize > 1 and all(n % msize == 0 for n in heads)
+def head_groups(heads, msize: int) -> int:
+    """The number d of head groups a model axis of `msize` ranks cuts
+    the attention of `heads` (n_heads, n_kv, head_dim; Arch.heads)
+    into: gcd(msize, n_heads, n_kv) where the rules cut all four of wq,
+    wk, wv (columns) and wo (rows) over "model" (two or more ranks
+    dividing n_heads * head_dim and n_kv * head_dim), else 0 (attention
+    gathered in training, whole on every model rank in serving). d ==
+    msize is the whole-head split (each rank its own heads); below it,
+    the ranks [g msize / d, (g + 1) msize / d) hold the heads of group g
+    (use_plan's "heads")."""
+    if heads is None or msize < 2:
+        return 0
+    h, kv, hd = heads
+    if (h * hd) % msize or (kv * hd) % msize:
+        return 0
+    return math.gcd(msize, h, kv)
 
 
-def serve_pspec(cache: Tree, mesh, heads, mamba=None) -> Tree:
+def head_group(mesh, d: int):
+    """This rank's process group of its head group (head_groups: d
+    groups of model size / d consecutive ranks of one "model" row of
+    `mesh`): the model axis's own group where d is 1. The groups of
+    every row are created at the first call for a d, by every rank in
+    the same order (a collective over the world group), and kept on the
+    mesh: a train step on a mesh creates them when it is built."""
+    if d == 1:
+        return mesh.get_group("model")
+    made = mesh.__dict__.setdefault("_head_groups", {})
+    if d not in made:
+        import torch.distributed as dist
+        msize = _axis_size(mesh, "model")
+        rows = mesh.mesh.reshape(-1, msize).tolist()
+        r = msize // d
+        ranks = [row[g * r:(g + 1) * r] for row in rows for g in range(d)]
+        made[d], _ = dist.new_subgroups_by_enumeration(ranks)
+    return made[d]
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """A spec entry of serve_pspec: the dim cut into `n` contiguous
+    parts over `axis`, part g whole on each of the axis's ranks [g size
+    / n, (g + 1) size / n) (the KV heads of head_groups' groups)."""
+    axis: str
+    n: int
+
+
+def serve_pspec(cache: Tree, mesh, heads, mamba=None,
+                slots: Optional[int] = None) -> Tree:
     """The serving placement of a (global) pool cache as PSpecs: the
     placement that ServeLayout computes and the pools allocate by
     (serving/cache_pool.py; the tests hold the two equal). cache_pspec
     on the data axis (slots, or arena blocks, over "data" where the size
-    divides), and over "model":
+    divides; nothing over "data" where the pool's `slots` do not divide
+    over it: every data rank then holds every slot), and over "model":
     - the KV-head dim of the K/V leaves (those named "k" and "v": (...,
-      rows, n_kv, hd)) where the model axis cuts attention on whole heads
-      (heads_split), never head_dim: the paged kernel takes its softmax
+      rows, n_kv, hd)) where the model axis cuts attention
+      (head_groups): "model" on whole heads, Groups("model", d) in d
+      head groups, never head_dim: the paged kernel takes its softmax
       inside the launch, so a rank must hold every element of its heads'
       q.k;
     - where it cuts the Mamba-2 mixer of config `mamba` on whole heads
@@ -359,8 +414,12 @@ def serve_pspec(cache: Tree, mesh, heads, mamba=None) -> Tree:
     Nothing else is cut over "model": integer bookkeeping, and the K/V
     or Mamba state of an attention or mixer the model axis does not cut,
     which every model rank then holds whole."""
-    split = heads_split(heads, mesh)
-    msplit = mamba_split(mamba, _axis_size(mesh, "model"))
+    msize = _axis_size(mesh, "model")
+    d = head_groups(heads, msize)
+    kv_entry = ("model" if d == msize else Groups("model", d) if d > 1
+                else None)
+    msplit = mamba_split(mamba, msize)
+    whole_slots = slots is not None and slots % _axis_size(mesh, "data")
 
     def walk(v, s, name=None):
         if v is None:
@@ -369,8 +428,10 @@ def serve_pspec(cache: Tree, mesh, heads, mamba=None) -> Tree:
             s = list(s)
             if s and s[-1] == "model":
                 s[-1] = None             # head_dim stays whole
-            if split and name in ("k", "v"):
-                s[-2] = "model"
+            if whole_slots:
+                s = [None if e == "data" else e for e in s]
+            if kv_entry is not None and name in ("k", "v"):
+                s[-2] = kv_entry
             if msplit and name == "ssm":
                 s[-3] = "model"
             if msplit and name == "conv":
@@ -391,10 +452,14 @@ def serve_params(params: Tree, mesh, heads, mamba=None) -> Tree:
     marked with its plan for the models' fetch (models/common.py):
     - "col" / "row": attention wq / wk / wv / wo on whole heads, the
       MLP's up / gate / down, an MoE expert stack cut on its ff dim (E
-      does not divide: grok's 8 experts on 16 ranks) and a Mamba-2
-      out_proj: the rank's columns or rows, the row-parallel products
-      summed over "model" in rank order (distributed/partial.py:
-      _sum32);
+      does not divide: grok's 8 experts on 16 ranks), a Mamba-2
+      out_proj and the wo of attention cut in head groups: the rank's
+      columns or rows, the row-parallel products summed over "model"
+      in rank order (distributed/partial.py: _sum32);
+    - "heads": attention wq / wk / wv cut in d head groups
+      (head_groups): the columns of the rank's group, placed here with
+      no exchange (every rank holds the whole leaf); the mark carries
+      no `groups`, so fetch gathers nothing;
     - "expert": an MoE expert stack cut on E: the rank's E / m experts
       (models/moe.py: _split_experts);
     - "vocab": the token embedding (a decoder's `embed`, whisper's
@@ -413,7 +478,8 @@ def serve_params(params: Tree, mesh, heads, mamba=None) -> Tree:
     Every other leaf stays whole and unmarked, as in training's gathered
     ones: norms, biases, position tables, the router kernel (every rank
     needs all E logits), a vocab that does not divide (granite's 49155)
-    and attention that would split a head. Nothing is cut over "data".
+    and attention whose four kernels the rule does not all cut. Nothing
+    is cut over "data".
     A part is a copy, never a view of the whole leaf, so that the whole
     tree can be freed once the engine holds its parts."""
     from repro_torch.core.optim.base import tree_map, tree_paths
@@ -431,6 +497,9 @@ def serve_params(params: Tree, mesh, heads, mamba=None) -> Tree:
             cols = torch.as_tensor(segment_columns(use.segments, msize, rank),
                                    dtype=torch.long, device=t.device)
             out = t.index_select(dim, cols)
+        elif use.kind == "heads":
+            out = t.chunk(use.groups, dim=dim)[rank * use.groups // msize] \
+                .clone(memory_format=torch.contiguous_format)
         else:
             out = t.chunk(msize, dim=dim)[rank].clone(
                 memory_format=torch.contiguous_format)
@@ -448,24 +517,29 @@ class ServeLayout:
     `max_batch` slots are cut over the `data` ranks in blocks of
     `block` consecutive slots: data rank d decodes slots [d * block,
     (d + 1) * block) and holds their cache rows, block-table rows and
-    its own share of every arena (serving/cache_pool.py). Its device
-    structures have `rows` rows: the block, or two where the block is
-    one slot, the second a dead row (position -1, null table, never
-    admitted), because BLAS takes a one-row product down a matrix-vector
-    path whose sums run in another order than the many-row product one
-    device runs, so a one-slot block would part from one device in its
-    last bits. `split` is True where the `model` axis cuts attention on
-    whole heads (heads_split): a rank then holds n_kv / model KV heads
-    of every cache and arena (local_heads). `mamba` is the number of
-    ranks a Mamba-2 mixer's heads are cut over: the model size where it
-    cuts the mixer on whole heads (mamba_split), else 1; a rank's SSM
-    state and conv tail are then its heads' and channels' (local_mamba,
-    models/mamba2.py: local_cfg)."""
+    its own share of every arena (serving/cache_pool.py). `data` is the
+    mesh's data size where the slots divide over it, else 1: every data
+    rank then holds and decodes all the slots, as one device does (JAX's
+    cache rule keeps such a cache whole on the data axis), and its sums
+    over the data ranks count each slot once. Its device structures
+    have `rows` rows: the block, or two where the block is one slot, the
+    second a dead row (position -1, null table, never admitted), because
+    BLAS takes a one-row product down a matrix-vector path whose sums
+    run in another order than the many-row product one device runs, so
+    a one-slot block would part from one device in its last bits.
+    `groups` is the number of head groups the `model` axis cuts
+    attention into (head_groups; 1 where it does not cut it): a rank
+    then holds n_kv / groups KV heads of every cache and arena
+    (local_heads), the same heads as every rank of its group. `mamba`
+    is the number of ranks a Mamba-2 mixer's heads are cut over: the
+    model size where it cuts the mixer on whole heads (mamba_split),
+    else 1; a rank's SSM state and conv tail are then its heads' and
+    channels' (local_mamba, models/mamba2.py: local_cfg)."""
     max_batch: int
     data: int = 1
     model: int = 1
     data_rank: int = 0
-    split: bool = False
+    groups: int = 1
     mamba: int = 1
 
     @property
@@ -505,8 +579,9 @@ class ServeLayout:
         return key if self.data == 1 else (shard, key)
 
     def local_heads(self, n: int) -> int:
-        """A model rank's share of `n` attention (or KV) heads."""
-        return n // self.model if self.split else n
+        """A model rank's share of `n` attention (or KV) heads: its head
+        group's."""
+        return n // self.groups
 
     def cache_kw(self, n_kv: int) -> dict:
         """The keyword arguments of a rank's cache of a model with `n_kv`
@@ -536,21 +611,21 @@ class ServeLayout:
 def serve_layout(heads, max_batch: int, mesh=None,
                  mamba=None) -> ServeLayout:
     """The ServeLayout of `max_batch` slots on `mesh` (None: one
-    device), for a model of attention `heads` and Mamba-2 config `mamba`
-    (None: no Mamba mixer). The slots must divide over "data": a mesh
-    never falls back to one device."""
+    device), for a model of attention `heads` (Arch.heads) and Mamba-2
+    config `mamba` (None: no Mamba mixer). Slots that do not divide over
+    "data" are whole on every data rank; a mesh never falls back to one
+    device."""
     if mesh is None:
         return ServeLayout(max_batch)
     shape = mesh_shape(mesh)
     if "pod" in shape:
         raise ValueError("serving takes a (data, model) mesh")
     data, model = shape.get("data", 1), shape.get("model", 1)
-    if max_batch % data:
-        raise ValueError(f"max_batch {max_batch} does not divide over "
-                         f"{data} data ranks")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    if max_batch % data:
+        data, coord["data"] = 1, 0
     return ServeLayout(max_batch, data, model, coord.get("data", 0),
-                       heads_split(heads, mesh),
+                       max(head_groups(heads, model), 1),
                        model if mamba_split(mamba, model) else 1)
 
 
@@ -561,16 +636,19 @@ def serve_layout(heads, max_batch: int, mesh=None,
 @dataclasses.dataclass(frozen=True)
 class Use:
     """How the models use one cut leaf in a step on a mesh: `kind`
-    "col", "row", "expert", "vocab" or "mamba" (the model shard is used
-    as it is, a "mamba" one after its exchange) or "gather" (gathered
-    whole at its use); `cuts` the (axis name, tensor dim) pairs the leaf
-    is cut on, in the mesh's dim order; `segments` a "mamba" leaf's
-    parts of its model-cut dim, (size, split) each (mamba_segments),
-    which fetch exchanges it into; none on a leaf already placed in the
-    rank's columns (serve_params)."""
+    "col", "row", "expert", "vocab", "mamba" or "heads" (the model shard
+    is used as it is, a "mamba" one after its exchange, a "heads" one
+    gathered over its head group) or "gather" (gathered whole at its
+    use); `cuts` the (axis name, tensor dim) pairs the leaf is cut on,
+    in the mesh's dim order; `segments` a "mamba" leaf's parts of its
+    model-cut dim, (size, split) each (mamba_segments), which fetch
+    exchanges it into; `groups` a "heads" leaf's head groups
+    (head_groups), over whose ranks fetch gathers it. A leaf already
+    placed in the rank's columns (serve_params) has neither."""
     kind: str
     cuts: tuple
     segments: tuple = ()
+    groups: int = 0
 
     @property
     def gathered(self) -> tuple:
@@ -582,7 +660,7 @@ class Use:
     def unstacked(self) -> "Use":
         """The plan of one layer's slice of a stacked leaf."""
         return Use(self.kind, tuple((a, d - 1) for a, d in self.cuts),
-                   self.segments)
+                   self.segments, self.groups)
 
 
 _COLUMN = ("wq", "wk", "wv", "up", "gate")
@@ -633,9 +711,10 @@ def segment_columns(segments: tuple, msize: int, rank: int) -> tuple:
 def use_plan(path: str, spec: PSpec, mesh, heads=None,
              mamba=None) -> Optional[Use]:
     """The use plan of the leaf at `path` placed by `spec` on `mesh`
-    (None: not cut, used as it is). heads: (n_heads, n_kv) of the
-    model's attention, without which attention is never split; mamba:
-    its Mamba-2 mixer's config, without which Mamba is never split."""
+    (None: not cut, used as it is). heads: (n_heads, n_kv, head_dim) of
+    the model's attention (Arch.heads), without which attention is never
+    split; mamba: its Mamba-2 mixer's config, without which Mamba is
+    never split."""
     order = list(mesh_shape(mesh))
     cuts = sorted(((name, d) for d, entry in enumerate(spec)
                    for name in (entry if isinstance(entry, tuple) else
@@ -644,20 +723,25 @@ def use_plan(path: str, spec: PSpec, mesh, heads=None,
     if not cuts:
         return None
     model = dict(cuts).get("model")
-    kind, segments = "gather", ()
+    kind, segments, groups = "gather", (), 0
     if model is None:
         return Use(kind, tuple(cuts))
     parts = path.lower().split("/")
     name = parts[-1]
     owner = parts[-2] if len(parts) >= 2 and name == "kernel" else None
     msize = _axis_size(mesh, "model")
-    whole_heads = heads is not None and all(n % msize == 0 for n in heads)
+    d = head_groups(heads, msize)
     last, rows = len(spec) - 1, len(spec) - 2
     if owner in ("up", "gate", "down") or (
-            owner in ("wq", "wk", "wv", "wo") and whole_heads):
+            owner in ("wq", "wk", "wv", "wo") and d == msize):
         if owner in _COLUMN and model == last:
             kind = "col"
         elif owner in _ROW and model == rows:
+            kind = "row"
+    elif owner in ("wq", "wk", "wv", "wo") and d:
+        if owner != "wo" and model == last:
+            kind, groups = "heads", d
+        elif owner == "wo" and model == rows:
             kind = "row"
     elif owner is None and name in ("up", "gate", "down") and len(spec) >= 3:
         # an MoE expert stack (..., E, din, dout)
@@ -676,7 +760,7 @@ def use_plan(path: str, spec: PSpec, mesh, heads=None,
             segments = mamba_segments(owner or name, mamba, msize)
         elif owner == "out_proj" and model == rows:
             kind = "row"
-    return Use(kind, tuple(cuts), segments)
+    return Use(kind, tuple(cuts), segments, groups)
 
 
 def spec_of(t, mesh) -> PSpec:

@@ -35,6 +35,9 @@ between uses:
 - a leaf cut over "model" on whole heads or ff columns is used as its
   shard in a column- or row-parallel matmul, so that the model axis
   cuts the compute too (one all-reduce of the activations per block);
+  attention whose heads the model size does not divide is computed in
+  head groups: wq / wk / wv gathered over the rank's group alone, wo
+  on the rank's rows (sharding.use_plan: "heads");
   so are MoE expert stacks (each rank its experts, or every expert's
   ff columns: models/moe.py), a vocab-cut embedding and lm_head (the
   lookup, the readout and the cross entropy on each rank's vocab rows:
@@ -319,16 +322,25 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
     the whole global batch, and `step_fn.specs_for(params_like,
     opt_like) -> (params_pspec, opt_pspec)` gives the specs to place
     them by (zero3 adds the data axis to the weights' specs);
-    place_train_step does the placing. `heads`, the (n_heads, n_kv) of
-    the model's attention (Arch.heads), is required with a mesh: the
-    step splits attention over "model" where both divide over it, on
-    whole heads. `mamba`, the Mamba-2 mixer's config (Arch.mamba), lets
+    place_train_step does the placing. `heads`, the (n_heads, n_kv,
+    head_dim) of the model's attention (Arch.heads), is required with a
+    mesh: the step splits attention over "model" on whole heads where
+    the model size divides both head counts, else in head groups
+    wherever the rules cut its four kernels (sharding.head_groups).
+    `mamba`, the Mamba-2 mixer's config (Arch.mamba), lets
     it split a Mamba mixer on whole heads too; without it the mixer's
     projections are gathered.
     """
     if mesh is not None and heads is None:
         raise ValueError("build_train_step on a mesh needs heads= "
                          "(Arch.heads)")
+    if mesh is not None:
+        # the head groups' process groups, made once by every rank here
+        # rather than at a first use inside a step
+        msize = shd.mesh_shape(mesh).get("model", 1)
+        d = shd.head_groups(heads, msize)
+        if 1 < d < msize:
+            shd.head_group(mesh, d)
     zero1 = zero1 and not zero3
     from repro_torch import precision
     if policy is not None:

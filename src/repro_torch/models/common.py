@@ -19,8 +19,9 @@ model axis computes on comes back as its model shard (a Mamba
 projection's after its exchange), marked with its kind, and the
 functions that use it do the rank's part:
 - `dense_apply`: a column-parallel kernel's bias is taken as the
-  rank's slice and its input's gradient is summed over "model", a
-  row-parallel product is summed over "model" before its bias is added;
+  rank's slice (a "heads" kernel's, its head group's) and its input's
+  gradient is summed over "model", a row-parallel product is summed
+  over "model" before its bias is added;
   `tp_enter` marks a replicated leaf used on a column-parallel block's
   local heads (a QK-norm scale), whose gradient the model ranks sum;
 - a vocab-cut table or lm_head: `embed_apply` looks up the rank's rows
@@ -40,6 +41,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # The batch key under which a block of a larger batch (one rank's, in a
@@ -108,16 +110,21 @@ def ambient_axis_size(name: str) -> int:
 def fetch(t):
     """A leaf ready for its use: off a mesh, or not cut, `t` itself; a
     tensor-parallel leaf its model shard (gathered over a data axis it is
-    also cut on), marked with its kind (`tp_kind`); any other cut leaf
-    gathered whole (distributed/partial.py: gather_leaf), its gradient
-    the rank's shard's."""
+    also cut on; a "heads" leaf over its head group too, its gradient
+    reduce-scattered there), marked with its kind (`tp_kind`); any other
+    cut leaf gathered whole (distributed/partial.py: gather_leaf), its
+    gradient the rank's shard's."""
     use = getattr(t, "_use", None)
     if use is None:
         return t
     from repro_torch.distributed.partial import exchange, gather_leaf
+    from repro_torch.distributed.sharding import head_group
     amb = ambient()
-    out = gather_leaf(t, [(amb.group(a), d, a in amb.cut)
-                          for a, d in use.gathered])
+    cuts = [(amb.group(a), d, a in amb.cut) for a, d in use.gathered]
+    if use.groups:             # the model axis is last in the mesh's order
+        cuts.append((head_group(amb.mesh, use.groups),
+                     dict(use.cuts)["model"], True))
+    out = gather_leaf(t, cuts)
     if use.segments:           # used as the columns of its ranks' heads
         out = exchange(out, dict(use.cuts)["model"], use.segments,
                        amb.group("model"))
@@ -139,8 +146,9 @@ def tp_kind(w) -> Optional[str]:
 
 
 # kinds whose output is the rank's columns, its input's gradient summed
-# over "model" (Megatron's f): an in_proj's columns are its heads'
-_COL_KINDS = ("col", "vocab", "mamba")
+# over "model" (Megatron's f): an in_proj's columns are its heads', a
+# "heads" kernel's its head group's
+_COL_KINDS = ("col", "vocab", "mamba", "heads")
 
 
 def is_vocab(logits) -> bool:
@@ -165,10 +173,11 @@ def _model():
 
 def tp_enter(t, w):
     """t used on the local heads or columns of a block whose kernel `w` is
-    column parallel (a QK-norm scale): the same t, its gradient summed
-    over "model" in the backward pass (each rank's part comes from its
-    own heads); t itself otherwise."""
-    if tp_kind(w) != "col":
+    column parallel, on whole heads or in head groups (a QK-norm scale):
+    the same t, its gradient summed over "model" in the backward pass
+    (each rank's part comes from its own heads, or its own rows of wo);
+    t itself otherwise."""
+    if tp_kind(w) not in ("col", "heads"):
         return t
     from repro_torch.distributed.partial import copy_to_model
     return copy_to_model(t, ambient().group("model"))
@@ -198,13 +207,16 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
 
 def dense_apply(p, x, compute_dtype=torch.bfloat16):
     """x @ kernel + bias; with a tensor-parallel kernel (fetch) the rank's
-    part: its columns and its slice of the bias, x's gradient summed over
-    "model" (Megatron's f), or its rows' product summed over "model" and
-    then the bias added once (Megatron's g). A split product is taken at
-    fp32 at least, from operands rounded to compute_dtype, and so is x's
-    gradient under f: each is rounded to compute_dtype once, after its
-    sum over "model", as one device's matmul rounds its fp32 accumulator
-    once."""
+    part: its columns (a "heads" kernel: its head group's) and its slice
+    of the bias, x's gradient summed over "model" (Megatron's f), or its
+    rows' product summed over "model" and then the bias added once
+    (Megatron's g). A row-parallel kernel handed more columns than it
+    has rows (a head group's attention output, whose rows the group's
+    ranks share) multiplies the rank's own slice of them. A split
+    product is taken at fp32 at least, from operands rounded to
+    compute_dtype, and so is x's gradient under f: each is rounded to
+    compute_dtype once, after its sum over "model", as one device's
+    matmul rounds its fp32 accumulator once."""
     w = p["kernel"]
     kind = tp_kind(w)
     if kind is None:
@@ -216,6 +228,10 @@ def dense_apply(p, x, compute_dtype=torch.bfloat16):
         x = x.to(compute_dtype).to(acc)
         if kind in _COL_KINDS:
             x = partial.copy_to_model(x, group)
+        elif kind == "row" and x.shape[-1] != w.shape[-2]:
+            n = w.shape[-2]
+            j = dist.get_rank(group) % (x.shape[-1] // n)
+            x = x[..., j * n:(j + 1) * n]
         y = torch.matmul(x, w.to(compute_dtype).to(acc))
         if kind == "row":
             y = partial.reduce_from_model(y, group)
@@ -224,10 +240,25 @@ def dense_apply(p, x, compute_dtype=torch.bfloat16):
         b = p["bias"]
         if kind == "col":
             b = partial.model_slice(b, b.ndim - 1, group)
+        elif kind == "heads":
+            b = _group_part(b, w.shape[-1], group)
         y = y + b.to(compute_dtype)
     if kind == "vocab":
         y._vocab = True
     return y
+
+
+def _group_part(b, n: int, group):
+    """The rank's head group's `n` entries of the last dim of the whole
+    (replicated) bias `b` (the group's columns of a "heads" kernel), its
+    gradient summed over "model" in rank order into the whole bias's:
+    the ranks of a group each hold a part of their columns'."""
+    from repro_torch.distributed.partial import model_take
+    d = b.shape[-1] // n
+    g = dist.get_rank(group) * d // dist.get_world_size(group)
+    part = model_take(b.movedim(-1, 0), list(range(g * n, (g + 1) * n)),
+                      group)
+    return part.movedim(0, -1)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,

@@ -43,8 +43,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import (heads_split, mamba_split,
-                                              mesh_shape)
+from repro_torch.distributed.sharding import serve_layout
 from repro_torch.distributed.steps import build_prefill_step
 
 
@@ -127,8 +126,8 @@ class AdmissionController:
     of the same task, and the task cache is placed as the dense pool
     places a cache of one slot: whole on every data rank (one slot does
     not divide over "data"), the model rank's KV heads where the model
-    axis cuts attention on whole heads, and its Mamba heads' state where
-    it cuts the mixer. The pool's insert then keeps it on the rank that
+    axis cuts attention (its head group's), and its Mamba heads' state
+    where it cuts the mixer. The pool's insert then keeps it on the rank that
     holds the slot; the last chunk's logits are the rank's vocab columns
     where the vocab is cut, which the engine's first-token pick takes
     over "model"."""
@@ -153,15 +152,11 @@ class AdmissionController:
         self.prefill_len = prefill_len
         self.device = params["embed"]["embedding"].device
         self.task: Optional[PrefillTask] = None
-        # the task cache holds the model rank's KV heads and Mamba heads
-        # where the model axis cuts them (all of them otherwise)
-        self._cache_kw = dict(kv_heads=None, mamba_ranks=1)
-        if mesh is not None:
-            model = mesh_shape(mesh).get("model", 1)
-            if heads_split(arch.heads, mesh):
-                self._cache_kw["kv_heads"] = arch.heads[1] // model
-            if mamba_split(arch.mamba, model):
-                self._cache_kw["mamba_ranks"] = model
+        # the task cache is a pool cache of one slot: the model rank's KV
+        # heads (its head group's) and Mamba heads where the model axis
+        # cuts them (all of them otherwise)
+        self._cache_kw = serve_layout(arch.heads, 1, mesh,
+                                      arch.mamba).cache_kw(arch.heads[1])
         self._chunk = build_prefill_step(_build_chunk_fn(arch), mesh)
         self.chunks_run = 0          # lifetime chunk forwards
         self.chunk_tokens = 0        # lifetime padded rows chunked

@@ -92,8 +92,10 @@ controller over sharded arrays:
     and the retained LRU within a share); over "model" each rank
     computes on what the training step's model axis computes on
     (serve_params): its heads (and n_kv / model KV heads of every cache,
-    where the model axis cuts attention on whole heads; elsewhere
-    attention runs whole on every model rank), its ff columns, its
+    where the model axis cuts attention on whole heads; n_kv / d, the
+    same on each of a head group's ranks, where it cuts it in d groups:
+    distributed/sharding.py: head_groups; elsewhere attention runs
+    whole on every model rank), its ff columns, its
     experts, its vocab rows and its Mamba-2 heads (and their SSM state
     and conv channels in the pools);
   * where the vocab is cut, each rank's logits are its columns, and
@@ -113,14 +115,18 @@ controller over sharded arrays:
     arrivals;
   * an admitted group is prefilled whole on every rank, at one device's
     padding and row count, and each rank keeps its slots' rows;
+  * slots that do not divide over "data" are whole on every data rank:
+    each holds and decodes all of them, as one device does (JAX's cache
+    rule keeps such a cache whole on the data axis), and counts each
+    once;
+  * run_one serves its one request at batch 1 on every rank, so whole
+    on every data rank, each model rank on its cut;
   * a mesh never falls back to one device: a process group of the wrong
-    size, or none, raises (launch/mesh.py), and so do slots that do not
-    divide over "data".
+    size, or none, raises (launch/mesh.py).
 A data mesh gives one device's bits under every policy; a model mesh
 splits each attention, MLP, expert and Mamba matmul and sums the parts
 in rank order (distributed/partial.py), so fp32 tokens equal one
-device's. run_one serves on one device only; ServeEngine takes `mesh`
-and never shards.
+device's. ServeEngine takes `mesh` and never shards.
 """
 from __future__ import annotations
 
@@ -611,6 +617,7 @@ class ContinuousEngine:
             self._score = _score_step(self.arch, mesh, self.layout)
             self._step = self._prefill = None
         else:
+            self._score = None
             self._step = build_serve_step(
                 self.arch.decode_step, mesh, sampler=self.sampler,
                 layout=self.layout, nonfinite=self._nonfinite,
@@ -624,6 +631,7 @@ class ContinuousEngine:
                 mesh)
         self._first, self._wants_keys = build_first_token_fn(self.sampler,
                                                              self._vocab)
+        self._one_steps = None          # run_one's on a mesh: _one()
         self._admission = None
         if chunk_budget is not None:
             self._admission = AdmissionController(
@@ -1341,10 +1349,10 @@ class ContinuousEngine:
         the same prefill and decode step (and non-finite count), left-pad
         masking and sampler keys, and for encdec the same cross
         contraction length (the dense cross K/V padded to the arena's
-        blocked frame count, pads masked as the arena's filler)."""
-        if self.mesh is not None:
-            raise ValueError("run_one serves at batch 1 on one device: "
-                             "build the engine without a mesh")
+        blocked frame count, pads masked as the arena's filler). On a
+        mesh every rank serves it, at batch 1: whole on every data rank
+        (one slot does not divide over "data"), each model rank on its
+        cut, as the pooled engine's steps compute."""
         self._assign_rid(request)
         if request.trace.submit_t == 0.0:
             request.trace.mark_submit()
@@ -1358,6 +1366,24 @@ class ContinuousEngine:
                 f"prompt {len(request.prompt)} + max_new_tokens "
                 f"{request.max_new_tokens} exceeds max_len {self.max_len}")
         return self._run_one_decode(request)
+
+    def _one(self):
+        """(decode step, scoring step) of run_one: the pooled engine's
+        off a mesh; on one, the same steps for a layout of one slot
+        (whole on every data rank, each model rank its cut), built at
+        the first call."""
+        if self.mesh is None:
+            return self._step, self._score
+        if self._one_steps is None:
+            lay = shd.serve_layout(self.arch.heads, 1, self.mesh,
+                                   self.arch.mamba)
+            self._one_steps = (
+                (None, _score_step(self.arch, self.mesh, lay)) if self.bert
+                else (build_serve_step(
+                    self.arch.decode_step, self.mesh, sampler=self.sampler,
+                    layout=lay, nonfinite=self._nonfinite,
+                    vocab=self._vocab), None))
+        return self._one_steps
 
     def _pad_cross(self, cache):
         """Pad a batch-1 dense cross K/V to the arena's blocked frame
@@ -1402,13 +1428,14 @@ class ContinuousEngine:
         emitted = [int(first[0])]
         tok = np.array([[emitted[0]]], np.int32)
         pos = np.array([[int(lens[0])]], np.int32)
+        step, _ = self._one()
         while len(emitted) < request.max_new_tokens:
             args = (self.params, torch.as_tensor(tok, device=dev),
                     torch.as_tensor(pos, device=dev), cache)
             if self._wants_keys:
                 args += (fold_keys(rkeys, np.array([len(emitted)],
                                                    np.int32)),)
-            nxt, cache = self._step(*args)
+            nxt, cache = step(*args)
             t = int(nxt.cpu().numpy()[0])
             request.trace.mark_token(self.clock())
             emitted.append(t)
@@ -1426,7 +1453,8 @@ class ContinuousEngine:
                 f"[1, {self.score_len}]")
         tokens, positions, lens = pad_prompts([prompt], 1,
                                               pad_len=self.score_len)
-        ids, pooled = self._score(
+        _, score = self._one()
+        ids, pooled = score(
             self.params, torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(positions, device=self.device))
         now = self.clock()

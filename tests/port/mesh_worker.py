@@ -48,8 +48,9 @@ SPLIT_CASES = {
 ALL_CASES = {**CASES, **SPLIT_CASES}
 # reduced archs with a config changed: name -> (arch, reduced_decoder's
 # fields). kv1: one KV head, so that n_kv * head_dim divides over two
-# model ranks but n_kv does not, and the use plan gathers attention
-# rather than split a head (the MLP is still split); e5: five experts;
+# model ranks but n_kv does not: attention in one head group of both
+# ranks (sharding.head_groups: wq / wk / wv gathered over it, each rank
+# its rows of wo; the MLP split too); e5: five experts;
 # chunk16: the reduced arch, its loss chunked (CHUNKED)
 VARIANTS = {"qwen2.5-14b:kv1": ("qwen2.5-14b", {"n_kv_heads": 1}),
             "granite-moe-3b-a800m:e5": ("granite-moe-3b-a800m",
@@ -146,6 +147,7 @@ class _SimUse:
     the whole leaf on, marked with `kind` for the splits below."""
     gathered = ()
     segments = ()
+    groups = 0
 
     def __init__(self, kind):
         self.kind = kind
@@ -205,6 +207,22 @@ def split_dense(plain, model):
         x = x.to(compute_dtype).to(acc)
         w = p["kernel"].to(compute_dtype).to(acc)
         b = p.get("bias")
+        if kind == "rank":
+            # one rank's projection of a head group (split_attention):
+            # its own copy of x, made at the first rank's call
+            ranks = p["kernel"]._ranks
+            copies = ranks["copies"]
+            if ranks["key"] not in copies:
+                copies[ranks["key"]] = _RankCopies.apply(x, model)
+            y = torch.matmul(copies[ranks["key"]][ranks["rank"]], w).to(
+                compute_dtype)
+            return y if b is None else y + b.to(compute_dtype)
+        if kind == "part":
+            # one rank's rows of wo on its slice of its group's output:
+            # the part, unrounded, for split_attention to add
+            n = w.shape[-2]
+            j = p["kernel"]._slot
+            return torch.matmul(x[..., j * n:(j + 1) * n], w)
         if kind in ("col", "vocab"):
             # one copy of x per rank, whose gradients are added in rank
             # order before the other layers' uses of x add theirs, as
@@ -355,18 +373,72 @@ def split_mamba(model):
     return mixer
 
 
+def split_attention(plain, model):
+    """models/attention.py's attn_apply as `model` ranks compute an
+    attention block cut in head groups (a "heads" wq:
+    distributed/sharding.py: head_groups), on one device (training: no
+    cache). Rank k of group g = k // (model / d) runs `plain` on its own
+    copies of the leaves: its group's columns of wq / wk / wv (and
+    biases), and the QK-norm scales, each projection of x from its own
+    copy of the input (split_dense's "rank": the copies' gradients added
+    in rank order, as copy_to_model adds them), and its rows of wo on
+    its slice of the group's output (split_dense's "part"); the parts
+    added in rank order in fp32 before the one rounding. A leaf's
+    copies' gradients add up in rank order too, as the ranks' parts of
+    it are summed on the mesh (the group's reduce-scatter, the biases'
+    and scales' sums over "model")."""
+    from repro_torch.distributed.sharding import head_groups
+    from repro_torch.models.common import tp_kind
+
+    def attn(p, cfg, x, *, compute_dtype=torch.bfloat16, **kw):
+        if tp_kind(p["wq"]["kernel"]) != "heads":
+            return plain(p, cfg, x, compute_dtype=compute_dtype, **kw)
+        assert kw.get("cache") is None and kw.get("kv_cache") is None
+        d = head_groups((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), model)
+        r = model // d
+        copies = {(k, leaf): _RankCopies.apply(p[k][leaf], model)
+                  for k in p for leaf in p[k] if k != "wo"}
+        shared = {}
+        parts = []
+        for rank in range(model):
+            g, j = divmod(rank, r)
+            pk = {k: {"scale": copies[k, "scale"][rank]}
+                  for k in ("q_norm", "k_norm") if k in p}
+            for k in ("wq", "wk", "wv"):
+                w = copies[k, "kernel"][rank].chunk(d, -1)[g].contiguous()
+                w._tp, w._ranks = "rank", dict(copies=shared, key=k,
+                                                rank=rank)
+                pk[k] = {"kernel": w}
+                if (k, "bias") in copies:
+                    pk[k]["bias"] = copies[k, "bias"][rank].chunk(d, -1)[g]
+            wo = p["wo"]["kernel"].chunk(model, -2)[rank]
+            wo._tp, wo._slot = "part", j
+            pk["wo"] = {"kernel": wo}
+            part, _ = plain(pk, cfg, x, compute_dtype=compute_dtype, **kw)
+            parts.append(part)
+        return _in_rank_order(parts).to(compute_dtype), None
+
+    return attn
+
+
 @contextlib.contextmanager
 def model_split(model):
     """While active, the models compute as `model` ranks split them, on
-    one device: dense layers by split_dense, the vocab by split_vocab,
-    MoE experts by split_experts and Mamba mixers by split_mamba."""
+    one device: dense layers by split_dense, attention cut in head
+    groups by split_attention, the vocab by split_vocab, MoE experts by
+    split_experts and Mamba mixers by split_mamba."""
     import sys
-    from repro_torch.models import common, mamba2, moe
+    from repro_torch.models import attention, common, mamba2, moe
     plain = common.dense_apply
     mods = [m for name, m in sys.modules.items()
             if name.startswith("repro_torch.models")
             and getattr(m, "dense_apply", None) is plain]
     patches = [(m, "dense_apply", split_dense(plain, model)) for m in mods]
+    attn = split_attention(attention.attn_apply, model)
+    patches += [(m, "attn_apply", attn) for name, m in sys.modules.items()
+                if name.startswith("repro_torch.models")
+                and m is not attention
+                and getattr(m, "attn_apply", None) is attention.attn_apply]
     patches += [(common, k, f) for k, f in split_vocab(model).items()]
     patches += [(moe, "_split_experts", split_experts(model)),
                 (mamba2, "_mamba_split", split_mamba(model))]
@@ -703,17 +775,32 @@ def run_rank(rank, world, store_path, layout, inputs_path, out_path,
                             store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
+        from repro_torch.distributed import partial
         from repro_torch.launch.mesh import make_local_mesh
         mesh = make_local_mesh(data=layout["data"], model=layout["model"],
                                device=device.split(":")[0])
         inputs = to_device(torch.load(inputs_path), device)
         out = {}
+        gathered = set()
+        plain = partial.gather_leaf
+
+        def recorded(t, cuts):
+            # the shape of every leaf the fetch gathers, and the sizes of
+            # the groups it gathers it over
+            result = plain(t, cuts)
+            if cuts:
+                gathered.add((tuple(result.shape), tuple(
+                    dist.get_world_size(g) for g, _, _ in cuts)))
+            return result
+
+        partial.gather_leaf = recorded
         for name, case in inputs["cases"].items():
+            gathered.clear()
             losses, params, calls, checks, launched = run_steps(
                 case, inputs["params"][case["arch"]], case["batches"], mesh,
                 zero3=layout["zero3"], zero1=layout["zero1"])
             out[name] = {"losses": losses, "calls": calls,
-                         "launches": launched,
+                         "launches": launched, "gathered": sorted(gathered),
                          "params": (to_device(params, "cpu") if rank == 0
                                     else None),
                          "checks": (to_device(checks, "cpu") if rank == 0

@@ -29,8 +29,19 @@ POLICIES = (None, "fp32", "bf16", "fp16_mixed")
 DEC = dict(cache="paged", block_size=8, max_batch=2, max_len=48)
 
 
-def _case(arch, work, **kw):
-    return dict(arch=arch, work=work, kw=kw)
+def _case(arch, work, one=False, **kw):
+    """A case: `arch` (a reduced arch, or a VARIANTS name) serving the
+    workload `work` on an engine built with `kw`, through the engine's
+    loop, or with `one` each request through run_one (on a fresh engine
+    as the loop's)."""
+    return dict(arch=arch, work=work, kw=kw, one=one)
+
+
+# reduced archs with a config changed: name -> (arch, fields). h2: two
+# heads (of 64), so that a model axis of four cuts attention in two head
+# groups of two ranks
+VARIANTS = {"whisper-large-v3:h2": ("whisper-large-v3", {"n_heads": 2}),
+            "bert-large:h2": ("bert-large", {"n_heads": 2})}
 
 
 def _cases():
@@ -89,6 +100,18 @@ def _cases():
         # rank 1's logits hold a NaN in its first slot at every decode step
         "nan-rank1": _case("qwen2.5-14b", "stream4", policy="fp32", **DEC),
     }
+    # three slots, which do not divide over two data ranks: every data
+    # rank holds and decodes all three
+    out["fp32-b3"] = _case("qwen2.5-14b", "stream4", policy="fp32",
+                           **{**DEC, "max_batch": 3})
+    # each request through run_one, against the loop's stream
+    out["one-fp32"] = _case("qwen2.5-14b", "stream4", one=True,
+                            policy="fp32", **DEC)
+    out["one-whisper"] = {**out["whisper"], "one": True}
+    out["one-bert"] = {**out["bert"], "one": True}
+    # two heads: on 1 x 4 attention in two head groups of two ranks
+    out["whisper-h2"] = {**out["whisper"], "arch": "whisper-large-v3:h2"}
+    out["bert-h2"] = {**out["bert"], "arch": "bert-large:h2"}
     # a scoring batch of two slots: one slot per data rank, whose pooler
     # product is then one row
     out["scoring-block1"] = _case("bert-large", "score5", policy="fp32",
@@ -282,9 +305,18 @@ def fast_clock(rate):
         time.perf_counter = real
 
 
-def case_arch(name):
+def reduced(arch_name):
+    """The port's reduced arch (VARIANTS applied)."""
+    import dataclasses
     from repro_torch.configs import reduced_arch
-    return reduced_arch(CASES[name]["arch"])
+    base, over = VARIANTS.get(arch_name, (arch_name, {}))
+    arch = reduced_arch(base)
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             **over))
+
+
+def case_arch(name):
+    return reduced(CASES[name]["arch"])
 
 
 def run_case(name, params, mesh=None, device="cpu"):
@@ -313,7 +345,10 @@ def run_case(name, params, mesh=None, device="cpu"):
         else:
             engine = ContinuousEngine(arch, params, mesh=mesh, **kw)
         pa.paged_attention_fused.launches = 0
-        if name == "clock-open-loop":
+        if case["one"]:
+            for r in reqs:
+                engine.run_one(r)
+        elif name == "clock-open-loop":
             arrivals = poisson_arrivals(len(reqs), 10.0, seed=0)
             OpenLoopDriver(engine, reqs, arrivals,
                            time_fn=engine.clock).run()

@@ -1013,33 +1013,43 @@ from port import serve_worker  # noqa: E402
 SERVE_FOUR_CARDS = {"1x4": dict(data=1, model=4),
                     "2x2": dict(data=2, model=2)}
 SERVE_CASES = ["fp32", "kernel-fp32"]
+# run on the same ranks: attention in two head groups of two ranks on 1 x
+# 4 (reduced whisper and BERT with two heads), run_one, and on 2 x 2 three
+# slots that do not divide over "data"; case -> its one-card case
+GROUP_CASES = {"1x4": {"whisper-h2": "whisper-h2", "bert-h2": "bert-h2",
+                       "one-fp32": "fp32"},
+               "2x2": {"fp32-b3": "fp32-b3", "one-fp32": "fp32"}}
 
 
 @pytest.fixture(scope="module")
 def four_card_serving(tmp_path_factory):
     """{layout: every rank's results, "one": {case: the one-card run}}:
-    reduced qwen2.5-14b (random weights from seed 0), each layout's four
-    ranks in turn, then the one-card runs on card 0."""
+    reduced qwen2.5-14b, and whisper-large-v3 and bert-large with two
+    heads (random weights from seed 0), each layout's four ranks in turn,
+    then the one-card runs on card 0."""
     import multiprocessing
     from repro_torch import select_device
-    from repro_torch.configs import reduced_arch
     from repro_torch.kernels import build
     select_device("cuda")
     build.build_all(["paged_attention"])   # once, before the ranks load it
     tmp = tmp_path_factory.mktemp("serve-cards")
-    params = {"qwen2.5-14b": reduced_arch("qwen2.5-14b").init(
-        torch.Generator().manual_seed(0))}
+    refs = {*SERVE_CASES, *(c for cases in GROUP_CASES.values()
+                            for c in cases.values())}
+    params = {a: serve_worker.reduced(a).init(
+        torch.Generator().manual_seed(0))
+        for a in {serve_worker.CASES[c]["arch"] for c in refs}}
     inputs = tmp / "params.pt"
     torch.save(params, inputs)
     ctx = multiprocessing.get_context("spawn")
     out = {}
     for name, layout in SERVE_FOUR_CARDS.items():
         procs = serve_worker.start(ctx, serve_worker.run_rank, 4, tmp, name,
-                                   layout, SERVE_CASES, str(inputs),
+                                   layout, SERVE_CASES + list(
+                                       GROUP_CASES[name]), str(inputs),
                                    device="cuda")
         out[name] = serve_worker.join(procs, tmp, name, 300)
     dev = serve_worker.to_device(params, "cuda:0")
-    out["one"] = {c: serve_worker.run_case(c, dev) for c in SERVE_CASES}
+    out["one"] = {c: serve_worker.run_case(c, dev) for c in sorted(refs)}
     return out
 
 
@@ -1047,8 +1057,9 @@ def four_card_serving(tmp_path_factory):
 @pytest.mark.parametrize("layout", list(SERVE_FOUR_CARDS))
 def test_cuda_serving_mesh_on_four_cards(request, layout, case):
     """Needs four cards: the serving engine on 1 x 4 (the MLP split over
-    four ranks; reduced qwen's two KV heads do not divide over them, so
-    attention runs whole on each) and 2 x 2 (two slots over "data", heads
+    four ranks; reduced qwen's 4 heads and 2 KV heads do not divide over
+    them, so attention runs in two head groups of two ranks, each rank
+    holding its group's KV head) and 2 x 2 (two slots over "data", heads
     and MLP over "model") over NCCL, with the gather and with K8: greedy
     fp32 tokens equal one card's, every rank's host state equal, and K8
     launched decode steps x layers on every rank."""
@@ -1066,3 +1077,50 @@ def test_cuda_serving_mesh_on_four_cards(request, layout, case):
             assert got["launches"] == got["steps"] * n_layers > 0
         else:
             assert got["launches"] == 0
+
+
+@pytest.mark.parametrize("layout,case", [(lay, c) for lay, cases in
+                                         GROUP_CASES.items() for c in cases])
+def test_cuda_serving_groups_on_four_cards(request, layout, case):
+    """Needs four cards: over NCCL, reduced whisper-large-v3 and BERT
+    scoring with two heads on 1 x 4 (two head groups of two ranks, each
+    rank its group's K/V: half of one card's arena bytes), run_one on 1 x
+    4 and 2 x 2, and on 2 x 2 three slots (whole on both data ranks):
+    one card's tokens (BERT's ids; its pooled vectors within rtol 1e-4,
+    atol 1e-6), every rank's host state equal."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    runs = request.getfixturevalue("four_card_serving")
+    want = runs["one"][GROUP_CASES[layout][case]]
+    assert serve_worker.ranks_agree(runs[layout], case)
+    for rank in runs[layout]:
+        got = rank[case]
+        assert serve_worker.same_tokens(got["tokens"], want["tokens"])
+        for x, y in zip(want["embeddings"], got["embeddings"]):
+            if x is not None:
+                np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-6)
+        if case == "whisper-h2":
+            kv = [p for p in got["shapes"] if p.rsplit("/", 1)[-1] in
+                  ("k", "v")]
+            assert kv
+            for path in kv:
+                assert got["shapes"][path][1] * 2 == \
+                    want["shapes"][path][1], path
+
+
+@pytest.mark.parametrize("case", ["qwen-fused_lans", "gemma2-fused_lans"])
+def test_cuda_head_groups_gather_on_four_cards(request, case):
+    """Needs four cards: on 1 x 4 over NCCL (the four-card runs above)
+    reduced qwen2.5-14b and gemma2-2b (4 heads, 2 KV heads: two head
+    groups of two ranks) gather wq / wk / wv over their group alone, at
+    the group's columns, and nothing over all four ranks: wo, the MLP
+    and the vocab stay the rank's shards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    runs = request.getfixturevalue("four_card_runs")
+    cfg = mesh_worker.reduced(mesh_worker.ALL_CASES[case][0]).cfg
+    hd = cfg.resolved_head_dim
+    want = {((cfg.d_model, n * hd // 2), (2,))
+            for n in (cfg.n_heads, cfg.n_kv_heads)}
+    got = {(tuple(s), tuple(g)) for s, g in runs["1x4"][case]["gathered"]}
+    assert got == want

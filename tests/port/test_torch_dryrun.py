@@ -518,3 +518,56 @@ def test_decode_trace_cuts_experts_vocab_and_mamba_heads():
     rest = {m: got[m]["args"] - params[m] for m in ("1", "2")}
     assert 0 < rest["2"] < rest["1"]
     assert got["2"]["args"] < got["1"]["args"]
+
+
+def test_decode_trace_cuts_attention_in_head_groups():
+    """Reduced qwen2.5-14b's decode step (decode_32k's batch and rings,
+    meta tensors) on a fake 1 x 4 mesh, whose 4 heads and 2 KV heads it
+    cuts in two head groups (distributed/sharding.py: head_groups),
+    against one device: rank 0's wq / wk / wv bytes are exactly 1/2 of
+    one device's, its wo bytes 1/4, its K/V arena bytes 1/2, and the
+    trace's argument bytes fall by exactly what the params and the K/V
+    arenas lose: the cache's positions, the tables and the inputs are
+    unchanged."""
+    got = json.loads(_in_own_process("""
+        import json
+        from repro_torch.configs import SHAPES, reduced_arch
+        from repro_torch.core.optim.base import tree_items
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_local_mesh
+        arch = reduced_arch("qwen2.5-14b")
+        shape = SHAPES["decode_32k"]
+        out = {}
+        for model in (1, 4):
+            with dryrun.fake_world(model, 0):
+                mesh = make_local_mesh(data=1, model=model, device="cpu")
+                analysis, _ = dryrun.trace_decode(arch, shape, mesh)
+                params = dryrun._serve_params(arch, mesh)
+                layout = shd.serve_layout(arch.heads, shape.global_batch,
+                                          mesh, arch.mamba)
+                cache = arch.paged_cache_specs(
+                    shape.name, batch=shape.global_batch, layout=layout)
+                kv = sum(t.numel() * t.element_size()
+                         for s in cache["slots"] for k, t in s.items()
+                         if k in ("k", "v"))
+                out[model] = {
+                    "args": analysis["memory_analysis"][
+                        "argument_size_in_bytes"], "kv": kv,
+                    "leaves": {p: t.numel() * t.element_size()
+                               for p, t in tree_items(params)}}
+        print(json.dumps(out))
+    """))
+    one, four = got["1"], got["4"]
+    share = {"wq": 2, "wk": 2, "wv": 2, "wo": 4}
+    seen = set()
+    for path, nbytes in one["leaves"].items():
+        parts = path.split("/")
+        if parts[-1] == "kernel" and parts[-2] in share:
+            assert four["leaves"][path] * share[parts[-2]] == nbytes, path
+            seen.add(parts[-2])
+    assert seen == set(share)
+    assert four["kv"] * 2 == one["kv"]
+    lost = (sum(one["leaves"].values()) - sum(four["leaves"].values())
+            + one["kv"] - four["kv"])
+    assert one["args"] - four["args"] == lost

@@ -13,8 +13,9 @@ fused_mixed_lans (bf16), fused_lamb, the unfused lans and the unfused
 adamw, reduced qwen2.5-14b with fused_lans and microbatches=2, and with
 fused_lans reduced granite-moe-3b-a800m (MoE: a rank's block routes as
 its group), whisper-large-v3, mamba2-130m and qwen2.5-14b with one KV
-head (the model axis cannot split a head, so attention is gathered, the
-MLP split), for 3 steps from the bridged JAX params. On 1 x 2 the model
+head (the model axis cannot split a head, so attention runs in one head
+group of both ranks, wq / wk / wv gathered and wo on each rank's rows;
+the MLP split), for 3 steps from the bridged JAX params. On 1 x 2 the model
 axis also splits the vocab (every case's embedding and readout:
 qwen2.5-14b's untied lm_head, BERT's tied MLM head with its bias,
 whisper's decoder embedding), MoE experts (granite-moe) and Mamba-2

@@ -22,6 +22,13 @@ references run here meanwhile, with one CPU thread as each rank.
     same-layout pair (paged vs chunked-paged with the tie-stable argmax)
     agrees;
   * 2 x 2: fp32 tokens equal one device's, gather and kernel;
+  * 2 x 1 at max_batch 3 (slots that do not divide over "data": every
+    data rank holds and decodes all three): one device's tokens;
+  * run_one on 2 x 1 and 1 x 2 engines, for reduced qwen2.5-14b,
+    whisper-large-v3 and BERT scoring (each request alone at batch 1,
+    whole on every data rank, each model rank on its cut): the pooled
+    stream's output on one device (BERT's pooled vectors within the
+    envelope test's tolerance);
   * the MoE, Mamba-2 and hybrid decoders (reduced granite-moe-3b-a800m,
     mamba2-130m and jamba-1.5-large-398b, fp32, jamba through K8's path)
     on 2 x 1 and 1 x 2: one device's tokens; on 1 x 2 in the cut layout
@@ -76,18 +83,22 @@ from repro_torch.distributed import sharding as shd
 
 FAMILIES = ["granite", "mamba2", "jamba"]
 VOCAB_CUT = ["whisper", "bert"]         # 1 x 2: the vocab cut
+# run_one on a mesh engine: a decoder, whisper and BERT scoring, each
+# request at batch 1, against the pooled stream's one-device output
+RUN_ONE = {"one-fp32": "fp32", "one-whisper": "whisper", "one-bert": "bert"}
 LAYOUT_CASES = {
     "2x1": ["paged", "dense", "chunked", "spec", "placement", "fp32",
             "kernel-fp32", "router", "fault-drop", "parse_mesh",
-            "clock-slo", "clock-open-loop", "nan-rank1", *FAMILIES],
+            "clock-slo", "clock-open-loop", "nan-rank1", *FAMILIES,
+            "fp32-b3", *RUN_ONE],
     "1x2": ["fp32", "kernel-fp32", "bf16-stable", "bf16-stable-chunked",
             "chunked", "spec", "placement", "fault-global-kv",
-            "fault-vocab-offset", *FAMILIES, *VOCAB_CUT],
+            "fault-vocab-offset", *FAMILIES, *VOCAB_CUT, *RUN_ONE],
     "2x2": ["fp32", "kernel-fp32"],
 }
 # one-device references
 REFS = ["paged", "dense", "spec", "placement", "fp32", "kernel-fp32",
-        *FAMILIES, *VOCAB_CUT]
+        "fp32-b3", *FAMILIES, *VOCAB_CUT]
 # (layout, case) -> the one-device case it must equal
 EXPECT = {
     ("2x1", "paged"): "paged", ("2x1", "dense"): "paged",
@@ -101,6 +112,8 @@ EXPECT = {
     ("2x2", "fp32"): "fp32", ("2x2", "kernel-fp32"): "kernel-fp32",
     **{(lay, f): f for lay in ("2x1", "1x2") for f in FAMILIES},
     **{("1x2", f): f for f in VOCAB_CUT},
+    ("2x1", "fp32-b3"): "fp32-b3",
+    **{(lay, c): ref for lay in ("2x1", "1x2") for c, ref in RUN_ONE.items()},
 }
 FAULTS = {("2x1", "fault-drop"): "fp32",
           ("1x2", "fault-global-kv"): "kernel-fp32",
@@ -329,7 +342,9 @@ def test_pool_holds_its_share(runs, layout):
             like = types.SimpleNamespace(shape=whole, ndim=5,
                                          dtype=torch.bfloat16)
             spec = shd.serve_pspec({"k": like}, standin, heads)["k"]
-            cut = tuple(w // ({"data": D, "model": M}.get(s, 1))
+            # a Groups entry (head groups) cuts its dim into its n parts
+            cut = tuple(w // (s.n if isinstance(s, shd.Groups) else
+                              {"data": D, "model": M}.get(s, 1))
                         for w, s in zip(whole, spec))
             assert cut == shape, (spec, whole, shape)
     for fam in ("mamba2", "jamba"):
