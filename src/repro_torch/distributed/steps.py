@@ -92,6 +92,7 @@ from repro_torch.core.optim.base import apply_updates, tree_leaves, tree_map
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.partial import sum_over, whole
 from repro_torch.launch import trace_cost
+from repro_torch.metrics.spans import count, span
 from repro_torch.models.common import WHOLE, Ambient, ambient_mesh
 
 
@@ -289,9 +290,13 @@ def loss_and_grads(loss_fn, params, batch, scale):
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
     with torch.enable_grad():
-        loss, aux = loss_fn(live, batch)
-        objective = loss if scale is None else loss * scale.to(loss.dtype)
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
+        with span("train.forward"):
+            loss, aux = loss_fn(live, batch)
+            objective = (loss if scale is None
+                         else loss * scale.to(loss.dtype))
+        with span("train.backward"):
+            grads = torch.autograd.grad(objective, leaves,
+                                        allow_unused=True)
     by_leaf = {id(t): (torch.zeros(t.shape, dtype=torch.float32,
                                    device=t.device) if g is None
                        else g.float())
@@ -384,7 +389,7 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         return loss / microbatches, aux, grads
 
     def update(params, opt_state, loss, aux, grads, scale):
-        with torch.no_grad():
+        with torch.no_grad(), span("train.update"):
             gnorm = torch.sqrt(sum(whole(torch.sum(g * g))
                                    for g in tree_leaves(grads)))
             metrics = {"loss": loss, "grad_norm": gnorm, **aux}
@@ -409,13 +414,21 @@ def build_train_step(loss_fn: Callable, tx, mesh=None, *,
         return new_params, new_opt, metrics
 
     def step_fn(params, opt_state, batch):
-        scale = precision.loss_scale_value(opt_state) if mixed else None
-        loss, aux, grads = accumulate(params, batch, scale, lambda b: b)
-        box = [grads]
-        del grads
-        return update(params, opt_state, loss, aux, box.pop(), scale)
+        count("train.steps")
+        with span("train.step"):
+            scale = (precision.loss_scale_value(opt_state) if mixed
+                     else None)
+            loss, aux, grads = accumulate(params, batch, scale, lambda b: b)
+            box = [grads]
+            del grads
+            return update(params, opt_state, loss, aux, box.pop(), scale)
 
     def mesh_step_fn(params, opt_state, batch, bspec=None):
+        count("train.steps")
+        with span("train.step"):
+            return _mesh_step(params, opt_state, batch, bspec)
+
+    def _mesh_step(params, opt_state, batch, bspec):
         scale = precision.loss_scale_value(opt_state) if mixed else None
         bspec = bspec if bspec is not None else shd.batch_pspec(batch, mesh)
         cut = _batch_cut_dims(bspec)

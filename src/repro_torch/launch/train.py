@@ -24,10 +24,14 @@ Mixed precision (--precision {fp32,bf16,fp16}): bf16/fp16 hold the model
 copy in half precision with fp32 master weights in the optimizer state;
 fp16 adds dynamic loss scaling (skip the step and halve the scale on
 overflow). `loss_scale` and `overflow_count` appear in the console line
-and the JSONL metrics. `--optimizer {lans,lamb,adamw}` picks the unfused
-transform, as the JAX launcher does (only lans stores its moments in the
-policy's moment dtype; under bf16/fp16 every optimizer goes through the
-generic `mixed_precision` wrapper). The fused kernels are reached
+and the JSONL metrics. Each JSONL line also carries the step's change of
+the port's counters (metrics/spans.py): `sync.finite_flag` and
+`sync.moe_counts` (the step's reads of the device), `moe.pairs_routed`,
+`moe.pairs_dropped` and `optim.skipped_steps`.
+`--optimizer {lans,lamb,adamw}` picks the unfused transform, as the JAX
+launcher does (only lans stores its moments in the policy's moment
+dtype; under bf16/fp16 every optimizer goes through the generic
+`mixed_precision` wrapper). The fused kernels are reached
 through the library: `build_train_step(..., fused_lans(...))` or
 `fused_lamb(...)`.
 """
@@ -52,7 +56,12 @@ from repro_torch.data.corpus import (SyntheticCorpus, lm_batch_iterator,
                                      mlm_batch_iterator)
 from repro_torch.data.sharding import ShardSpec
 from repro_torch.distributed.steps import build_train_step
-from repro_torch.metrics import MetricsLogger
+from repro_torch.metrics import MetricsLogger, counters
+
+# the port's counters (metrics/spans.py) whose change over each step the
+# JSONL line carries
+LOGGED_COUNTERS = ("sync.finite_flag", "sync.moe_counts", "moe.pairs_routed",
+                   "moe.pairs_dropped", "optim.skipped_steps")
 
 
 def make_optimizer(name: str, schedule, *, policy=None, **kw):
@@ -166,14 +175,18 @@ def main(argv=None):
         t_step = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in next(data).items()}
+        before = counters()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
+        after = counters()
         losses.append(float(metrics["loss"]))     # waits for the step
         step_s.append(time.perf_counter() - t_step)
         if policy.wants_wrapper:
             extra = {"loss_scale": float(metrics["loss_scale"]),
                      "overflow_count": int(metrics["overflow_count"])}
         lr = float(sched(i))
-        logger.log(i + 1, loss=losses[-1], lr=lr, **extra)
+        logger.log(i + 1, loss=losses[-1], lr=lr, **extra,
+                   **{k: after.get(k, 0) - before.get(k, 0)
+                      for k in LOGGED_COUNTERS})
         if (i + 1) % args.log_every == 0 or i == 0:
             ls_txt = (f"  scale {extra['loss_scale']:.0f}"
                       f"  ovf {extra['overflow_count']}" if extra else "")

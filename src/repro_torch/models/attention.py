@@ -48,6 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import NEG_INF
+from repro_torch.metrics.spans import span
 from repro_torch.models.common import (apply_rope, dense_apply, dense_init,
                                        rmsnorm_apply, rmsnorm_init, softcap,
                                        tp_enter)
@@ -162,6 +163,14 @@ def attn_apply(p, cfg: AttnConfig, x, *, kv_x=None, positions=None,
     heads: h and n_kv are read off the kernels' columns, QK-norm, GQA,
     the masks and the query blocks work on them unchanged, and the
     row-parallel wo sums the ranks' outputs."""
+    with span("model.attention"):
+        return _attn_apply(p, cfg, x, kv_x=kv_x, positions=positions,
+                           cache=cache, kv_cache=kv_cache,
+                           compute_dtype=compute_dtype)
+
+
+def _attn_apply(p, cfg: AttnConfig, x, *, kv_x, positions, cache, kv_cache,
+                compute_dtype):
     B, S, _ = x.shape
     hd = cfg.head_dim
     wq = p["wq"]["kernel"]

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.metrics.spans import span
 from repro_torch.models.attention import AttnConfig, attn_apply, attn_init
 from repro_torch.models.common import (_randn, ambient, dense_apply,
                                        dense_init, embed_apply, embed_attend,
@@ -162,9 +163,11 @@ def bert_pretrain_logits(params, cfg: BertConfig, tokens, token_types=None):
     cd = cfg.compute_dtype
     params = _tied(params)
     h = bert_encode(params, cfg, tokens, token_types)
-    mlm = _mlm_logits(params, cfg, h)
-    cls = torch.tanh(dense_apply(fetch_tree(params["pooler"]), h[:, 0], cd))
-    nsp = dense_apply(fetch_tree(params["nsp_head"]), cls, cd).float()
+    with span("model.head"):
+        mlm = _mlm_logits(params, cfg, h)
+        cls = torch.tanh(dense_apply(fetch_tree(params["pooler"]), h[:, 0],
+                                     cd))
+        nsp = dense_apply(fetch_tree(params["nsp_head"]), cls, cd).float()
     return mlm, nsp
 
 
@@ -182,16 +185,17 @@ def bert_serve_outputs(params, cfg: BertConfig, tokens, positions):
     from repro_torch.serving.sampler import greedy, vocab_cut
     B, S = tokens.shape
     h = bert_encode(params, cfg, tokens, positions=positions)
-    logits = _mlm_logits(params, cfg, h)
-    # on a serving mesh whose model axis cuts the vocab: the rank's
-    # columns, whose argmax is taken over "model" (serving/sampler.py)
-    cut = vocab_cut(ambient().mesh) if is_vocab(logits) else None
-    mlm_ids = greedy(logits.reshape(B * S, -1), cut).reshape(B, S)
-    # first valid column per row: the first maximum of the indicator
-    cls_col = torch.argmax((positions >= 0).to(torch.int32), dim=1)
-    cls_h = h[torch.arange(B, device=h.device), cls_col]
-    pooled = torch.tanh(dense_apply(params["pooler"], cls_h,
-                                    cfg.compute_dtype)).float()
+    with span("model.head"):
+        logits = _mlm_logits(params, cfg, h)
+        # on a serving mesh whose model axis cuts the vocab: the rank's
+        # columns, whose argmax is taken over "model" (serving/sampler.py)
+        cut = vocab_cut(ambient().mesh) if is_vocab(logits) else None
+        mlm_ids = greedy(logits.reshape(B * S, -1), cut).reshape(B, S)
+        # first valid column per row: the first maximum of the indicator
+        cls_col = torch.argmax((positions >= 0).to(torch.int32), dim=1)
+        cls_h = h[torch.arange(B, device=h.device), cls_col]
+        pooled = torch.tanh(dense_apply(params["pooler"], cls_h,
+                                        cfg.compute_dtype)).float()
     return mlm_ids, pooled
 
 
@@ -202,16 +206,19 @@ def bert_pretrain_loss(params, cfg: BertConfig, batch):
     are taken over its masked tokens and rows (models/common.py)."""
     mlm_logits, nsp_logits = bert_pretrain_logits(
         params, cfg, batch["tokens"], batch.get("token_types"))
-    labels = batch["mlm_labels"].long()
-    valid = labels != -100
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    ll = log_likelihood(mlm_logits, safe)
-    whole = batch.get(WHOLE)
-    count = (valid.sum() if whole is None
-             else (whole["mlm_labels"] != -100).sum())
-    mlm_loss = -torch.sum(ll * valid) / torch.clamp(count, min=1)
-    nsp_logp = F.log_softmax(nsp_logits, dim=-1)
-    nsp_ll = torch.gather(nsp_logp, -1, batch["nsp_labels"].long()[:, None])
-    nsp_loss = -(torch.mean(nsp_ll) if whole is None
-                 else nsp_ll.sum() / whole["nsp_labels"].shape[0])
-    return mlm_loss + nsp_loss, {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss}
+    with span("model.head"):
+        labels = batch["mlm_labels"].long()
+        valid = labels != -100
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        ll = log_likelihood(mlm_logits, safe)
+        whole = batch.get(WHOLE)
+        count = (valid.sum() if whole is None
+                 else (whole["mlm_labels"] != -100).sum())
+        mlm_loss = -torch.sum(ll * valid) / torch.clamp(count, min=1)
+        nsp_logp = F.log_softmax(nsp_logits, dim=-1)
+        nsp_ll = torch.gather(nsp_logp, -1,
+                              batch["nsp_labels"].long()[:, None])
+        nsp_loss = -(torch.mean(nsp_ll) if whole is None
+                     else nsp_ll.sum() / whole["nsp_labels"].shape[0])
+        return mlm_loss + nsp_loss, {"mlm_loss": mlm_loss,
+                                     "nsp_loss": nsp_loss}

@@ -34,6 +34,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.metrics.spans import span
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -301,14 +302,16 @@ def decoder_apply(params, cfg: DecoderConfig, tokens=None, *, embeds=None,
 
 
 def _head_logits(params, cfg: DecoderConfig, x):
-    if cfg.tie_embeddings:
-        logits = embed_attend(fetch_tree(params["embed"]), x,
-                              cfg.compute_dtype)
-    else:
-        logits = dense_apply(fetch_tree(params["lm_head"]), x,
-                             cfg.compute_dtype)
-    # on a mesh whose model axis cuts the vocab: the rank's columns
-    return keep_vocab(softcap(logits.float(), cfg.final_softcap), logits)
+    with span("model.head"):
+        if cfg.tie_embeddings:
+            logits = embed_attend(fetch_tree(params["embed"]), x,
+                                  cfg.compute_dtype)
+        else:
+            logits = dense_apply(fetch_tree(params["lm_head"]), x,
+                                 cfg.compute_dtype)
+        # on a mesh whose model axis cuts the vocab: the rank's columns
+        return keep_vocab(softcap(logits.float(), cfg.final_softcap),
+                          logits)
 
 
 def _token_nll(logits, labels, ignore_id: int):
@@ -328,11 +331,13 @@ def lm_loss(logits, labels, *, ignore_id: int = -100, moe_aux=None,
     aux_weight * moe_aux when given. `count`, when given, is the number
     of valid labels the mean is taken over in place of these labels'
     (a block of a larger batch: that batch's count)."""
-    total, n_valid = _token_nll(logits, labels, ignore_id)
-    loss = total / torch.clamp(n_valid if count is None else count, min=1)
-    if moe_aux is not None:
-        loss = loss + aux_weight * moe_aux
-    return loss
+    with span("model.head"):
+        total, n_valid = _token_nll(logits, labels, ignore_id)
+        loss = total / torch.clamp(n_valid if count is None else count,
+                                   min=1)
+        if moe_aux is not None:
+            loss = loss + aux_weight * moe_aux
+        return loss
 
 
 def _chunk_nll(params, cfg: DecoderConfig, hidden, labels, ignore_id: int):
@@ -353,21 +358,23 @@ def chunked_lm_loss(params, cfg: DecoderConfig, hidden, labels, *,
     B, S, _ = hidden.shape
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    n_valid = torch.zeros((), dtype=torch.int64, device=hidden.device)
-    for i in range(0, S, chunk):
-        h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
-        if torch.is_grad_enabled():
-            s = checkpoint(_chunk_nll, params, cfg, h, lab, ignore_id,
-                           use_reentrant=False)
-        else:
-            s = _chunk_nll(params, cfg, h, lab, ignore_id)
-        total = total + s
-        n_valid = n_valid + (lab != ignore_id).sum()
-    loss = total / torch.clamp(n_valid if count is None else count, min=1)
-    if moe_aux is not None:
-        loss = loss + aux_weight * moe_aux
-    return loss
+    with span("model.head"):
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        n_valid = torch.zeros((), dtype=torch.int64, device=hidden.device)
+        for i in range(0, S, chunk):
+            h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+            if torch.is_grad_enabled():
+                s = checkpoint(_chunk_nll, params, cfg, h, lab, ignore_id,
+                               use_reentrant=False)
+            else:
+                s = _chunk_nll(params, cfg, h, lab, ignore_id)
+            total = total + s
+            n_valid = n_valid + (lab != ignore_id).sum()
+        loss = total / torch.clamp(n_valid if count is None else count,
+                                   min=1)
+        if moe_aux is not None:
+            loss = loss + aux_weight * moe_aux
+        return loss
 
 
 def init_decoder_cache(cfg: DecoderConfig, batch: int, max_len: int,

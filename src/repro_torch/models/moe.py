@@ -61,6 +61,7 @@ import math
 
 import torch
 
+from repro_torch.metrics.spans import count, span
 from repro_torch.models.common import (ACTIVATIONS, ambient,
                                        ambient_axis_size, dense_init,
                                        tp_kind)
@@ -143,57 +144,66 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
     cap = max(1, int(cfg.capacity_factor * Tl * K / E))
 
     xg = x.reshape(G, Tl, d)
-    router_logits = torch.matmul(xg.float(), p["router"]["kernel"].float())
-    probs = torch.softmax(router_logits, dim=-1)             # (G, Tl, E)
-    gates_k, idx_k = _top_k(probs, K)                        # (G, Tl, K)
-    gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True), min=1e-9)
+    with span("model.moe.route"):
+        router_logits = torch.matmul(xg.float(),
+                                     p["router"]["kernel"].float())
+        probs = torch.softmax(router_logits, dim=-1)         # (G, Tl, E)
+        gates_k, idx_k = _top_k(probs, K)                    # (G, Tl, K)
+        gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True),
+                                        min=1e-9)
 
-    # one_hot by a comparison, the same ops on every device (the CPU's
-    # one_hot kernel also checks the range of its input)
-    sel = (idx_k[..., None] == torch.arange(E, device=idx_k.device)
-           ).to(torch.int64)                                 # (G, Tl, K, E)
-    if valid is not None:
-        vg = valid.reshape(G, Tl)
-        sel = sel * vg[..., None, None].to(sel.dtype)        # pads: nowhere
-    position = torch.cumsum(sel.reshape(G, Tl * K, E), dim=1) - 1
-    flat_e = idx_k.reshape(G, Tl * K)
-    pos_k = torch.gather(position, -1, flat_e[..., None])[..., 0]
-    keep = pos_k < cap                                       # (G, TlK)
-    if valid is not None:
-        keep = keep & vg.repeat_interleave(K, dim=1)
+        # one_hot by a comparison, the same ops on every device (the
+        # CPU's one_hot kernel also checks the range of its input)
+        sel = (idx_k[..., None] == torch.arange(E, device=idx_k.device)
+               ).to(torch.int64)                             # (G, Tl, K, E)
+        if valid is not None:
+            vg = valid.reshape(G, Tl)
+            sel = sel * vg[..., None, None].to(sel.dtype)    # pads: nowhere
+        position = torch.cumsum(sel.reshape(G, Tl * K, E), dim=1) - 1
+        flat_e = idx_k.reshape(G, Tl * K)
+        pos_k = torch.gather(position, -1, flat_e[..., None])[..., 0]
+        keep = pos_k < cap                                   # (G, TlK)
+        if valid is not None:
+            keep = keep & vg.repeat_interleave(K, dim=1)
 
-    if tp_kind(p["up"]) is not None:
-        out = _split_experts(p, cfg, xg, gates_k.reshape(G, Tl * K), flat_e,
-                             pos_k, keep, cap, compute_dtype)
-    else:
-        out = _experts(p, cfg, xg.to(compute_dtype),
-                       gates_k.reshape(G, Tl * K).to(compute_dtype), flat_e,
-                       pos_k, keep, cap, 0, compute_dtype)
+        density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
+        density_proxy = probs.mean(dim=(0, 1))
+        entropy = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
+        if blocks > 1:
+            # a block of the batch (equal blocks): the global dispatch
+            # fraction, and this block's shares of the global means
+            density = amb.data_sum(density) / blocks
+            density_proxy = density_proxy / blocks
+            entropy = entropy / blocks
+        aux_loss = torch.sum(density * density_proxy) * (E / K)
+
+    padded = valid is not None
+    with span("model.moe.experts"):
+        if tp_kind(p["up"]) is not None:
+            out = _split_experts(p, cfg, xg, gates_k.reshape(G, Tl * K),
+                                 flat_e, pos_k, keep, cap, compute_dtype,
+                                 padded=padded)
+        else:
+            out = _experts(p, cfg, xg.to(compute_dtype),
+                           gates_k.reshape(G, Tl * K).to(compute_dtype),
+                           flat_e, pos_k, keep, cap, 0, compute_dtype,
+                           padded=padded)
     out = out.reshape(B, S, d)
-
-    density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
-    density_proxy = probs.mean(dim=(0, 1))
-    entropy = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
-    if blocks > 1:
-        # a block of the batch (equal blocks): the global dispatch
-        # fraction, and this block's shares of the global means
-        density = amb.data_sum(density) / blocks
-        density_proxy = density_proxy / blocks
-        entropy = entropy / blocks
-    aux_loss = torch.sum(density * density_proxy) * (E / K)
     return out.to(x.dtype), {"moe_aux_loss": aux_loss,
                              "router_entropy": entropy}
 
 
 def _experts(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep, cap: int,
-             first: int, compute_dtype):
+             first: int, compute_dtype, padded: bool = False):
     """The combined expert outputs (G, Tl, d) of the routed pairs: x (G,
     Tl, d) the group's rows, gates (G, Tl * K) and flat_e, pos_k, keep
     the pairs' gates, experts, buffer positions and kept flags. The
     experts of p's stacks are [first, first + El), El their count; a
     pair routed to another expert adds nothing. The route is one
     device's: the dense (El, cap) buffer while E * cap <= DENSE_ROWS,
-    else each expert on its gathered rows."""
+    else each expert on its gathered rows, whose counts also give the
+    counters of routed and dropped pairs where p holds every expert and
+    no pair is padding (`padded` False; metrics/spans.py)."""
     G, Tl, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     El = p["up"].shape[0]
@@ -218,6 +228,9 @@ def _experts(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep, cap: int,
         key = torch.where(mine, local, El).reshape(-1)
         order = torch.argsort(key, stable=True)
         counts = _expert_counts(key, El, E)
+        if El == E and not padded and key.device.type != "meta":
+            count("moe.pairs_routed", key.numel())
+            count("moe.pairs_dropped", counts[El])
         rows = x_rep.reshape(-1, d)[order]
         y_sorted = torch.zeros_like(rows)
         start = 0
@@ -239,11 +252,14 @@ def _expert_counts(key, El: int, E: int) -> list:
     if key.device.type == "meta":
         each = key.numel() // E
         return [each] * El + [key.numel() - each * El]
-    return torch.bincount(key, minlength=El + 1).tolist()
+    with span("sync.moe_counts"):
+        counts = torch.bincount(key, minlength=El + 1).tolist()
+    count("sync.moe_counts")
+    return counts
 
 
 def experts_part(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep,
-                 cap: int, first: int, compute_dtype):
+                 cap: int, first: int, compute_dtype, padded: bool = False):
     """One model rank's part of the combined expert outputs (_experts):
     p its expert stacks (its E / m experts from `first`, or every
     expert's ff columns with first 0), taken at x's dtype (fp32 at
@@ -251,11 +267,11 @@ def experts_part(p, cfg: MoeConfig, x, gates, flat_e, pos_k, keep,
     stacks = {k: p[k].to(compute_dtype).to(x.dtype)
               for k in ("up", "gate", "down") if k in p}
     return _experts(stacks, cfg, x, gates, flat_e, pos_k, keep, cap, first,
-                    x.dtype)
+                    x.dtype, padded)
 
 
 def _split_experts(p, cfg: MoeConfig, xg, gates, flat_e, pos_k, keep,
-                   cap: int, compute_dtype):
+                   cap: int, compute_dtype, padded: bool = False):
     """The combined expert outputs on a model axis that cuts the expert
     stacks: this rank's experts_part, summed over "model" in rank order
     and rounded to compute_dtype once; xg's and the gates' gradients are
@@ -269,5 +285,5 @@ def _split_experts(p, cfg: MoeConfig, xg, gates, flat_e, pos_k, keep,
     first = (dist.get_rank(group) * p["up"].shape[0]
              if tp_kind(p["up"]) == "expert" else 0)
     part = experts_part(p, cfg, x, gates, flat_e, pos_k, keep, cap, first,
-                        compute_dtype)
+                        compute_dtype, padded)
     return partial.reduce_from_model(part, group).to(compute_dtype)

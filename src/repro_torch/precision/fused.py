@@ -28,7 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.precision.loss_scale import LossScaleState, all_finite
 from repro_torch.precision.mixed import (MixedTransformation,
                                          _merge_master, _stash_master,
-                                         _to_master)
+                                         _to_master, read_finite)
 from repro_torch.precision.policy import Policy, _is_float
 
 
@@ -84,7 +84,7 @@ def fused_mixed_lans(learning_rate, policy: Policy, loss_scale=None,
         # package's lax.cond: an overflow step launches nothing. On meta
         # tensors (the dry run) there is no flag to read: the finite
         # step is traced.
-        ok = finite.device.type == "meta" or bool(finite)
+        ok = finite.device.type == "meta" or read_finite(finite)
         if ok and on_mesh(params):
             new_master, new_mu, new_nu, updates_out = _mesh_update(
                 box.pop(), state, master, params)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.optim.base import (GradientTransformation,
                                          apply_updates, tree_device, tree_map)
+from repro_torch.metrics.spans import count, span
 from repro_torch.precision.loss_scale import LossScaleState, all_finite
 from repro_torch.precision.policy import Policy, _is_float
 
@@ -70,6 +71,18 @@ def _to_master(params):
     return tree_map(lambda p: p.float() if _is_float(p) else p, params)
 
 
+def read_finite(finite: torch.Tensor) -> bool:
+    """The finite flag read on the host: the step waits for the device
+    here (span and counter "sync.finite_flag"; a false read also counts
+    "optim.skipped_steps": metrics/spans.py)."""
+    with span("sync.finite_flag"):
+        ok = bool(finite)
+    count("sync.finite_flag")
+    if not ok:
+        count("optim.skipped_steps")
+    return ok
+
+
 def mixed_precision(tx: GradientTransformation, policy: Policy,
                     loss_scale=None) -> MixedTransformation:
     """Wrap `tx` with master weights + loss scaling per `policy`.
@@ -96,7 +109,7 @@ def mixed_precision(tx: GradientTransformation, policy: Policy,
         finite = all_finite(grads32)
         # one host read of the flag per step (JAX: lax.cond); on meta
         # tensors (the dry run) the finite step is traced
-        if finite.device.type == "meta" or bool(finite):
+        if finite.device.type == "meta" or read_finite(finite):
             u32, new_inner = tx.update(grads32, state.inner, master)
             new_master = apply_updates(master, u32)
         else:

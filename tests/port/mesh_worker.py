@@ -307,7 +307,8 @@ def split_experts(model):
     from repro_torch.models import moe
     from repro_torch.models.common import tp_kind
 
-    def experts(p, cfg, xg, gates, flat_e, pos_k, keep, cap, compute_dtype):
+    def experts(p, cfg, xg, gates, flat_e, pos_k, keep, cap, compute_dtype,
+                padded=False):
         acc = torch.promote_types(compute_dtype, torch.float32)
         xs = _RankCopies.apply(xg.to(compute_dtype).to(acc), model)
         gs = _RankCopies.apply(gates.to(compute_dtype).to(acc), model)
@@ -321,7 +322,7 @@ def split_experts(model):
             first = r * stacks["up"].shape[0] if by_expert else 0
             parts.append(moe.experts_part(stacks, cfg, xs[r], gs[r], flat_e,
                                           pos_k, keep, cap, first,
-                                          compute_dtype))
+                                          compute_dtype, padded))
         return _in_rank_order(parts).to(compute_dtype)
 
     return experts
