@@ -14,7 +14,8 @@ change to any number.
     train.update        the step's update (gradient norm, transform)
     model.attention     models/attention.py: attn_apply
     model.moe.route     models/moe.py: moe_apply's router, top-k,
-                        capacity cumsum, kept pairs and aux terms
+                        capacity positions (one scan over an
+                        expert-major one-hot), kept pairs and aux terms
     model.moe.experts   moe_apply's dispatch, expert MLPs and combine
     model.head          BERT's MLM and NSP heads and their loss; a
                         decoder's readout and its loss

@@ -6,7 +6,7 @@ The same function as the JAX package's group-local capacity routing:
   * tokens are split into G groups: `groups`, or the ambient mesh's
     pod x data size (models/common.py: ambient_axis_size), halved while
     it does not divide the tokens, as the JAX package takes it; each
-    group has its own capacity and cumsum. In a train step on a mesh a
+    group has its own capacity and positions. In a train step on a mesh a
     rank's block of the batch is its group, and the aux terms below are
     its parts of the whole batch's: the dispatch fraction (no gradient)
     summed over the data ranks, the router probabilities' and the
@@ -17,10 +17,13 @@ The same function as the JAX package's group-local capacity routing:
     since KEEP_FP32 does not match `router`, and JAX promotes the mixed
     einsum to fp32 where torch would refuse it), then softmax and top-k;
   * gates are the top-k probabilities over max(sum, 1e-9);
-  * each (token, k) pair gets its position in its expert's buffer from a
-    cumsum over the flattened (token, k) order, token-major, within a
-    group; a pair at position >= cap is dropped (weight 0), and padding
-    (`valid` False) routes nowhere and takes no capacity;
+  * each (token, k) pair's position in its expert's buffer is the count
+    of the group's pairs routed to that expert before it, in the
+    flattened (token, k) order, token-major; a pair at position >= cap
+    is dropped (weight 0), and padding (`valid` False) routes nowhere
+    and takes no capacity. The count is one scan over the flat view of
+    an expert-major (G, E, T * K) one-hot, each (group, expert) row less
+    the running total of the rows before it (_capacity_route);
   * the aux terms are the load-balance loss (mean dispatch fraction x
     mean router probability x E / K) and the router entropy.
 
@@ -110,6 +113,42 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _capacity_route(idx_k, E: int, cap: int, valid=None):
+    """Each (token, k) pair's place in its expert's buffer, group by
+    group: idx_k (G, Tl, K) the picked experts, valid (G, Tl) or None.
+    Returns flat_e (G, Tl * K), each pair's expert; pos_k, the count of
+    the group's pairs routed to that expert before it, token-major
+    (unused at a pad); keep, pos_k < cap and not a pad; and density (E,),
+    the share of tokens routed to each expert. Pads route nowhere.
+
+    The one-hot is expert-major, (G, E, Tl * K), behind one zero, so one
+    scan over its flat view counts the pairs before each flat index (on
+    CUDA a device-wide scan; a token-dim scan of a (G, Tl * K, E) one-hot
+    gives each expert column one thread); each row's count at its start
+    is taken off. A comparison makes the one-hot, the same ops on every
+    device (the CPU's one_hot kernel also checks its input's range)."""
+    G, Tl, K = idx_k.shape
+    L = Tl * K
+    flat_e = idx_k.reshape(G, L)
+    routed = flat_e
+    if valid is not None:
+        valid_k = valid.repeat_interleave(K, dim=1)
+        routed = torch.where(valid_k, flat_e, E)             # pads: nowhere
+    onehot = flat_e.new_zeros(1 + G * E * L)
+    sel = onehot[1:].view(G, E, L)
+    torch.eq(routed[:, None, :],
+             torch.arange(E, device=flat_e.device)[:, None], out=sel)
+    before = torch.cumsum(onehot, 0)[:-1]
+    pos_k = (torch.gather(before.view(G, E, L), 1, flat_e[:, None])[:, 0]
+             - torch.gather(before[::L].view(G, E), 1, flat_e))
+    keep = pos_k < cap
+    if valid is not None:
+        keep = keep & valid_k
+    density = sel.view(G, E, Tl, K).any(-1).mean(dim=(0, 2),
+                                                 dtype=torch.float32)
+    return flat_e, pos_k, keep, density
+
+
 def _expert_mlp(p, cfg: MoeConfig, x, e, compute_dtype):
     """Expert e's MLP on rows x (n, d); e an int, or None for every
     expert at once over x (E, n, d)."""
@@ -152,21 +191,8 @@ def moe_apply(p, cfg: MoeConfig, x, *, valid=None,
         gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True),
                                         min=1e-9)
 
-        # one_hot by a comparison, the same ops on every device (the
-        # CPU's one_hot kernel also checks the range of its input)
-        sel = (idx_k[..., None] == torch.arange(E, device=idx_k.device)
-               ).to(torch.int64)                             # (G, Tl, K, E)
-        if valid is not None:
-            vg = valid.reshape(G, Tl)
-            sel = sel * vg[..., None, None].to(sel.dtype)    # pads: nowhere
-        position = torch.cumsum(sel.reshape(G, Tl * K, E), dim=1) - 1
-        flat_e = idx_k.reshape(G, Tl * K)
-        pos_k = torch.gather(position, -1, flat_e[..., None])[..., 0]
-        keep = pos_k < cap                                   # (G, TlK)
-        if valid is not None:
-            keep = keep & vg.repeat_interleave(K, dim=1)
-
-        density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
+        flat_e, pos_k, keep, density = _capacity_route(
+            idx_k, E, cap, None if valid is None else valid.reshape(G, Tl))
         density_proxy = probs.mean(dim=(0, 1))
         entropy = -(probs * torch.log(probs + 1e-9)).sum(-1).mean()
         if blocks > 1:

@@ -871,6 +871,30 @@ def test_cuda_router_over_two_replicas_with_k8():
     assert all(t == runs[None] for t in runs.values())
 
 
+@pytest.mark.parametrize("pads", [0, 1000])
+def test_cuda_moe_capacity_route_equals_the_cpu(pads):
+    """models/moe.py's capacity positions at granite-moe-3b-a800m's
+    training shape (16,384 tokens, top 8 of 40, one group): the card's
+    device-wide scan gives the CPU's flat_e, pos_k, keep and density,
+    equal (tests/port/test_torch_moe.py holds the CPU's against the
+    token-dim cumsum)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import moe
+    T, E, K = 16384, 40, 8
+    gen = torch.Generator().manual_seed(pads)
+    scores = torch.rand((1, T, E), generator=gen) + torch.linspace(1, 0, E)
+    idx_k = moe._top_k(scores, K)[1]
+    valid = torch.arange(T)[None] >= pads if pads else None
+    cap = int(1.25 * T * K / E)
+    want = moe._capacity_route(idx_k, E, cap, valid)
+    got = moe._capacity_route(idx_k.cuda(), E, cap,
+                              None if valid is None else valid.cuda())
+    for name, w, g in zip(("flat_e", "pos_k", "keep", "density"), want, got):
+        assert g.is_cuda and torch.equal(w, g.cpu()), name
+    assert not want[2].all()
+
+
 # --------------------------------------------------------------------------
 # the mesh on four cards: NCCL, one rank per card, the model axis and zero3
 # with K1-K6 on each rank's shards (tests/port/mesh_worker.py; on the CPU

@@ -2,7 +2,9 @@
 same inputs, fp32: outputs and aux terms within 1e-5, dropless,
 capacity 1.25 with drops, a `valid` mask with pads, both expert-compute
 routes (the dense (E, cap) buffer and the per-expert gathered rows), and
-the router's top-k tie order. Mirrors tests/test_models.py:103,114."""
+the router's top-k tie order. Mirrors tests/test_models.py:103,114. The
+route's capacity positions are also held, equal, against the token-dim
+cumsum they replaced."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,3 +138,60 @@ def test_moe_grads_match_jax(route, monkeypatch):
                                    **F32)
     np.testing.assert_allclose(tp["router"]["kernel"].grad.numpy(),
                                np.asarray(jg_p["router"]["kernel"]), **F32)
+
+
+def _cumsum_route(idx_k, E, cap, valid=None):
+    """The oracle: the route's positions as the port first took them, a
+    cumsum along the token dim of a token-major (G, Tl * K, E) one-hot."""
+    G, Tl, K = idx_k.shape
+    sel = (idx_k[..., None] == torch.arange(E)).to(torch.int64)
+    if valid is not None:
+        sel = sel * valid[..., None, None].to(sel.dtype)
+    position = torch.cumsum(sel.reshape(G, Tl * K, E), dim=1) - 1
+    flat_e = idx_k.reshape(G, Tl * K)
+    pos_k = torch.gather(position, -1, flat_e[..., None])[..., 0]
+    keep = pos_k < cap
+    if valid is not None:
+        keep = keep & valid.repeat_interleave(K, dim=1)
+    density = (sel.sum(dim=2) > 0).float().mean(dim=(0, 1))
+    return flat_e, pos_k, keep, density
+
+
+def route_case(G, Tl, K, E, pads, seed=0):
+    """(idx_k, valid, cap) of a routing case: each token's K distinct
+    experts, skewed toward the low indices so that capacity 1.25 drops
+    pairs; `pads` left pads on every group, or no `valid` mask."""
+    gen = torch.Generator().manual_seed(seed)
+    scores = torch.rand((G, Tl, E), generator=gen) + torch.linspace(1, 0, E)
+    idx_k = tmoe._top_k(scores, K)[1]
+    valid = None
+    if pads:
+        valid = torch.ones((G, Tl), dtype=torch.bool)
+        valid[:, :pads] = False
+    return idx_k, valid, max(1, int(1.25 * Tl * K / E))
+
+
+ROUTE_CASES = [(G, 64, K, E, pads) for G in (1, 2, 4) for K in (1, 2, 8)
+               for E in (4, 8, 40) if K <= E for pads in (0, 5)]
+# granite-moe-3b-a800m's cell: 16,384 tokens, top 8 of 40, one group
+ROUTE_CASES += [(1, 16384, 8, 40, 0), (1, 16384, 8, 40, 1000)]
+
+
+@pytest.mark.parametrize("G,Tl,K,E,pads", ROUTE_CASES)
+def test_capacity_route_equals_the_token_dim_cumsum(G, Tl, K, E, pads):
+    """_capacity_route's expert-major flat scan gives every pair its
+    expert and keep flag, every pair of a real token its position, and
+    every expert its density, as the token-dim cumsum does: equal."""
+    idx_k, valid, cap = route_case(G, Tl, K, E, pads)
+    want = _cumsum_route(idx_k, E, cap, valid)
+    got = tmoe._capacity_route(idx_k, E, cap, valid)
+    for name, w, g in zip(("flat_e", "pos_k", "keep", "density"), want, got):
+        if name == "pos_k" and valid is not None:
+            # a pad's position is not used: it is never kept
+            w, g = (x[valid.repeat_interleave(K, dim=1)] for x in (w, g))
+        assert w.dtype == g.dtype and torch.equal(w, g), name
+    if K < E:
+        # the skew fills experts past their capacity: routed pairs drop
+        pads_k = (torch.zeros_like(want[2]) if valid is None
+                  else ~valid.repeat_interleave(K, dim=1))
+        assert not (want[2] | pads_k).all()
