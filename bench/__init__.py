@@ -5,6 +5,6 @@
 and prints one JSON result line. Everything one configuration, one
 traffic mix or one per-layer metric needs lives in files of its own,
 found by the names in BENCHMARK.json: configs/<config>.json,
-traffic/<mix>.json, metrics/<metric>.py, cost/<kind>.py and
-reference/<kind>.py.
+traffic/<mix>.json, metrics/<metric>.py, cost/<kind>.py,
+reference/<kind>.py and port/<kind>.py.
 """

@@ -14,54 +14,38 @@ from typing import Dict, Optional
 
 import torch
 
-# the configuration file's keys and the port's config fields they set
-FIELDS = {
-    "bert": {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
-             "num_attention_heads": "n_heads", "intermediate_size": "d_ff",
-             "vocab_size": "vocab", "max_position_embeddings": "max_pos",
-             "type_vocab_size": "type_vocab"},
-    "decoder": {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
-                "num_attention_heads": "n_heads",
-                "num_key_value_heads": "n_kv_heads",
-                "intermediate_size": "d_ff", "vocab_size": "vocab",
-                "num_local_experts": "n_experts",
-                "num_experts_per_tok": "top_k",
-                "capacity_factor": "capacity_factor",
-                "rope_theta": "rope_theta",
-                "tie_word_embeddings": "tie_embeddings"},
-}
+from bench.harness import spec
 
 
 def arch_of(conf: dict):
     """The port's Arch for the configuration: its registered arch with
-    the file's sizes, every one checked against what the port runs."""
+    the file's sizes, every one checked against what the port runs, by
+    bench/port/<kind>.py for the kind the configuration's reference
+    names."""
     from repro_torch.configs import get_arch
+    kind = conf["reference"]
+    try:
+        port = spec.kind_module("port", kind)
+    except ModuleNotFoundError as e:
+        if e.name != f"bench.port.{kind}":
+            raise
+        raise ValueError(f"{conf['port_arch']}: no bench/port/{kind}.py "
+                         f"maps a configuration of kind {kind!r} onto "
+                         f"the port") from None
     arch = get_arch(conf["port_arch"])
-    fields = FIELDS[arch.kind]
-    kw = {f: conf[k] for k, f in fields.items() if k in conf}
-    if arch.kind == "decoder":
-        kw["head_dim"] = conf["hidden_size"] // conf["num_attention_heads"]
     dt = lambda name: getattr(torch, conf["precision"][name])
     cfg = dataclasses.replace(arch.cfg, compute_dtype=dt("compute_dtype"),
-                              param_dtype=dt("param_dtype"), **kw)
-    fixed = {"bert": {"layer_norm_eps": 1e-6},
-             "decoder": {"rms_norm_eps": 1e-6, "embedding_multiplier": 1.0,
-                         "attention_multiplier":
-                             cfg.resolved_head_dim ** -0.5
-                             if arch.kind == "decoder" else None,
-                         "residual_multiplier": 1.0, "logits_scaling": 1.0,
-                         "router_aux_loss_coef": 0.01}}[arch.kind]
-    for k, v in fixed.items():
-        if conf[k] != v:
-            raise ValueError(f"{k} = {conf[k]}: the port runs {v}")
-    if arch.kind == "decoder":
-        if cfg.superblock != (("attn", "moe"),) or cfg.qkv_bias \
-                or cfg.qk_norm or cfg.scale_embeds or cfg.final_softcap \
-                or cfg.attn_softcap or not cfg.gated_mlp \
-                or cfg.activation != conf["hidden_act"]:
-            raise ValueError(f"{conf['port_arch']}: the port's decoder is "
-                             f"not the one the configuration states")
+                              param_dtype=dt("param_dtype"),
+                              **port.fields(conf))
+    port.check(conf, cfg)
     return dataclasses.replace(arch, cfg=cfg)
+
+
+def counters() -> Dict[str, int]:
+    """The port's counters so far (repro_torch.metrics: a copy of a host
+    dict; no device read, no sync)."""
+    from repro_torch.metrics import counters as read
+    return read()
 
 
 class Capture:

@@ -5,6 +5,8 @@ traffic mix and per-layer metrics, found by name.
   traffic/<mix>.json      the traffic mix (harness/traffic.py)
   metrics/<metric>.py     one reader per per-layer metric
   cost/<kind>.py, reference/<kind>.py   named by the configuration
+  port/<kind>.py          the port's config of the configuration's
+                          reference kind (harness/program.py:arch_of)
 """
 from __future__ import annotations
 
@@ -118,6 +120,7 @@ def all_metric_modules():
 
 
 def kind_module(package: str, kind: str):
-    """bench/<package>/<kind>.py: a configuration's cost or reference."""
+    """bench/<package>/<kind>.py: a configuration's cost, reference or
+    port module."""
     check_name(kind)
     return importlib.import_module(f"bench.{package}.{kind}")

@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 import torch
 
 from bench.cost import lans as lans_cost
-from bench.harness import check, spec, trace, weights
+from bench.harness import check, spans, spec, trace, weights
 from bench.harness.traffic import Mix, load_mix, make_pool
 from bench.reference import common as rcommon
 from bench.reference import lans as rlans
@@ -175,6 +175,15 @@ class Run:
         return trace.record(torch, lambda: self.program.step(self.feed()),
                             TRACE_STEPS, with_stack)
 
+    def counted_stretch(self):
+        """The stretch without Python stacks: its events, and the
+        program's counters' change over it."""
+        from bench.harness.program import counters
+        before = counters()
+        events = self.stretch(with_stack=False)
+        after = counters()
+        return events, {k: v - before.get(k, 0) for k, v in after.items()}
+
     def free(self):
         self.program = None
         self.pool = None
@@ -292,6 +301,8 @@ def dense(conf: dict) -> tuple:
 
 class Ctx:
     """What the per-layer readers read (metrics/<name>.py)."""
+    spans = None      # the stretch without stacks by span (spans.Report)
+    counters = None   # the program's counters' change over that stretch
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -299,6 +310,13 @@ class Ctx:
     def tagged_ms(self, tag: str) -> float:
         return sum(o.dur for o in self.ops if tag in o.tags) / 1e3 \
             / self.traced_steps
+
+    def span_readings(self) -> Dict[str, float]:
+        """spans.readings of the stretch; none where the run traced
+        none."""
+        if self.spans is None:
+            return {}
+        return spans.readings(self.spans, self.counters or {})
 
 
 def _modules() -> Dict[str, tuple]:
@@ -321,9 +339,12 @@ def run(job: Job, seed: int, seconds: float, traced: bool, *, device,
     w = run_.window(seconds)
     window_peak = (torch.cuda.max_memory_allocated(device)
                    if device.type == "cuda" else 0)
-    tl, ops = None, []
+    tl, ops, report, counts = None, [], None, None
     if traced:
-        tl = trace.timeline(run_.stretch(with_stack=False))
+        events, counts = run_.counted_stretch()
+        tl = trace.timeline(events)
+        report = spans.read(events, TRACE_STEPS)
+        del events
         ops = trace.attribute(run_.stretch(with_stack=True), _modules())
         tagged = sum(o.dur for o in ops if o.tags)
         print(f"trace: {len(ops)} device ops in {TRACE_STEPS} steps, "
@@ -354,7 +375,8 @@ def run(job: Job, seed: int, seconds: float, traced: bool, *, device,
     if traced:
         ctx = Ctx(host_s=w["host_s"], window_s=w["seconds"],
                   window_flops=w["flops"], chips=job.chips, ops=ops,
-                  traced_steps=TRACE_STEPS, timeline=tl,
+                  traced_steps=TRACE_STEPS, timeline=tl, spans=report,
+                  counters=counts,
                   lans_bytes=lans_cost.update_bytes(job.conf, run_.layout),
                   window_peak_bytes=window_peak)
         metrics = {}

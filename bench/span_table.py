@@ -6,12 +6,11 @@ the program's counters a step and the frame-based readings they refine.
 
 Set-up is a run's (train.Run: the program built and its first three
 steps); then a stretch of train.TRACE_STEPS steps traced without Python
-stacks, the program's counters read around it, and one with stacks for
-the frame-based readings (attention_fwd_ms, moe_fwd_ms, fwd_bwd_ms,
+stacks, the program's counters read around it (Run.counted_stretch, as
+a traced run of bench/run.py reads them), and one with stacks for the
+frame-based readings (attention_fwd_ms, moe_fwd_ms, fwd_bwd_ms,
 lans_update_ms). No window and no reference: nothing here is compared.
-The counters are read from repro_torch.metrics here, beside
-harness/program.py, which reads none of them. Needs a CUDA card (exit
-code 2 without one).
+Needs a CUDA card (exit code 2 without one).
 """
 import argparse
 import json
@@ -30,15 +29,10 @@ FRAME_READINGS = ("attention_fwd_ms", "moe_fwd_ms", "fwd_bwd_ms",
 def traced(run, steps: int):
     """(no-stack events, the program's counters' change over them, a
     Ctx of the stacked stretch for the frame-based readers)."""
-    import torch
-    from repro_torch.metrics import counters
     from bench.harness import train, trace
-    before = counters()
-    events = run.stretch(with_stack=False)
-    after = counters()
+    events, delta = run.counted_stretch()
     ops = trace.attribute(run.stretch(with_stack=True), train._modules())
     ctx = train.Ctx(ops=ops, traced_steps=steps, timeline=None)
-    delta = {k: v - before.get(k, 0) for k, v in after.items()}
     return events, delta, ctx
 
 

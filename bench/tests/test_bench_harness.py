@@ -1,9 +1,11 @@
 """The harness finds every cell's files by name, refuses bad names, and
 refuses to run without a card; a run with a fault planted in the timed
 path comes out not correct."""
+import dataclasses
 import json
 import sys
 import time
+import types
 
 import pytest
 import torch
@@ -37,6 +39,7 @@ def test_every_cell_finds_its_files(name):
     assert job.mix.data == cell.chips
     assert spec.kind_module("reference", conf["reference"])
     assert spec.kind_module("cost", conf["cost"])
+    assert spec.kind_module("port", conf["reference"])
     lim = check.limits(name)
     assert lim and set(lim) <= {"loss1", "loss", "grad", "grad_dir",
                                 "change", "grad0", "watch"}
@@ -129,3 +132,109 @@ def test_an_unknown_fault_is_refused():
     job = tiny_job("bert-large.p1-seq128")
     with pytest.raises(ValueError):
         train.Run(job, 1, torch.device("cpu"), "no_exchange")
+
+
+# each committed configuration's port config, its sizes written out
+PORT_SIZES = {
+    "bert-large": dict(d_model=1024, n_layers=24, n_heads=16, d_ff=4096,
+                       vocab=30522, max_pos=512, type_vocab=2),
+    "granite-moe-3b-a800m-16l": dict(
+        d_model=1536, n_layers=16, n_heads=24, n_kv_heads=8, head_dim=64,
+        d_ff=512, vocab=49155, n_experts=40, top_k=8, capacity_factor=1.25,
+        rope_theta=10000, tie_embeddings=True),
+}
+
+
+def _conf(name):
+    return json.loads((ROOT / "bench" / "configs" / f"{name}.json")
+                      .read_text())
+
+
+@pytest.mark.parametrize("name", sorted(PORT_SIZES))
+def test_arch_of_gives_the_registered_arch_with_the_files_sizes(name):
+    from repro_torch.configs import get_arch
+    from bench.harness.program import arch_of
+    conf = _conf(name)
+    arch = get_arch(conf["port_arch"])
+    want = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        **PORT_SIZES[name]))
+    got = arch_of(conf)
+    assert got == want
+    assert dataclasses.asdict(got.cfg) == dataclasses.asdict(want.cfg)
+
+
+@pytest.mark.parametrize("key, value", [("embedding_multiplier", 12.0),
+                                        ("rms_norm_eps", 1e-5)])
+def test_arch_of_refuses_what_the_port_does_not_run(key, value):
+    from bench.harness.program import arch_of
+    conf = {**_conf("granite-moe-3b-a800m-16l"), key: value}
+    with pytest.raises(ValueError, match=f"{key} = {value}: the port runs"):
+        arch_of(conf)
+
+
+def test_arch_of_names_a_missing_port_module():
+    from bench.harness.program import arch_of
+    conf = {**_conf("granite-moe-3b-a800m-16l"), "reference": "hybrid_moe"}
+    with pytest.raises(ValueError, match="bench/port/hybrid_moe.py"):
+        arch_of(conf)
+
+
+# a hybrid's configuration file as a later cell would bring it: one
+# period of jamba-1.5-large-398b (attention, then seven Mamba-2 mixers;
+# MoE on every other slot) at sizes of its own
+HYBRID = {
+    "port_arch": "jamba-1.5-large-398b", "reference": "hybrid_test",
+    "hidden_size": 1024, "num_hidden_layers": 8, "num_attention_heads": 8,
+    "num_key_value_heads": 2, "intermediate_size": 2048,
+    "num_local_experts": 4, "num_experts_per_tok": 2, "vocab_size": 4096,
+    "mamba_d_state": 64, "mamba_n_heads": 32, "mamba_d_head": 64,
+    "mamba_chunk_size": 128, "hidden_act": "silu",
+    "precision": {"compute_dtype": "bfloat16", "param_dtype": "bfloat16"},
+}
+
+
+def _hybrid_port():
+    """The port module such a file would bring as bench/port/<kind>.py."""
+    port = types.ModuleType("bench.port.hybrid_test")
+    keys = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
+            "num_attention_heads": "n_heads",
+            "num_key_value_heads": "n_kv_heads",
+            "intermediate_size": "d_ff", "vocab_size": "vocab",
+            "num_local_experts": "n_experts", "num_experts_per_tok": "top_k",
+            "mamba_d_state": "mamba_dstate", "mamba_d_head": "mamba_headdim",
+            "mamba_chunk_size": "mamba_chunk"}
+
+    def fields(conf):
+        kw = {f: conf[k] for k, f in keys.items()}
+        kw["mamba_d_inner"] = conf["mamba_n_heads"] * conf["mamba_d_head"]
+        kw["head_dim"] = conf["hidden_size"] // conf["num_attention_heads"]
+        return kw
+
+    def check(conf, cfg):
+        if not any(m == "mamba" for m, _ in cfg.superblock) \
+                or cfg.activation != conf["hidden_act"]:
+            raise ValueError("not the hybrid the configuration states")
+    port.fields, port.check = fields, check
+    return port
+
+
+def test_a_hybrid_reaches_the_port_through_a_port_module_of_its_own(
+        monkeypatch):
+    from bench.harness.program import arch_of
+    port, plain = _hybrid_port(), spec.kind_module
+    monkeypatch.setattr(spec, "kind_module", lambda package, kind: (
+        port if (package, kind) == ("port", "hybrid_test")
+        else plain(package, kind)))
+    arch = arch_of(HYBRID)
+    cfg = arch.cfg
+    assert ("attn", "mlp") in cfg.superblock
+    assert ("mamba", "moe") in cfg.superblock
+    assert (cfg.d_model, cfg.n_layers, cfg.n_periods, cfg.n_experts) == (
+        1024, 8, 1, 4)
+    assert (cfg.mamba_d_inner, cfg.mamba_headdim, cfg.mamba_dstate,
+            cfg.mamba_chunk) == (2048, 64, 64, 128)
+    assert arch.mamba.nheads == 32
+    with torch.device("meta"):
+        params = arch.init(None)
+    assert params

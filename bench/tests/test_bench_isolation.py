@@ -1,6 +1,6 @@
 """Nothing under bench/ imports JAX or the JAX package (`repro`, compared
 as a whole top-level name, so that `repro_torch` is another name), and
-nothing under bench/reference/ imports the program."""
+nothing under bench/reference/ or bench/port/ imports the program."""
 import ast
 import pathlib
 
@@ -36,3 +36,9 @@ def test_no_jax_and_no_jax_package(path):
                          ids=lambda p: p.name)
 def test_the_reference_imports_nothing_of_the_program(path):
     assert "repro_torch" not in top_level_imports(path)
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "port").glob("*.py")),
+                         ids=lambda p: f"port/{p.name}")
+def test_a_port_module_imports_nothing_of_the_program(path):
+    assert top_level_imports(path) <= {"bench"}

@@ -14,6 +14,10 @@ from bench.harness import spans, trace, train
 from bench.tests._tiny import tiny_job
 
 MAIN, ENGINE, STREAM = 1, 2, 7
+# the readers over spans.readings (bench/metrics/<name>.py)
+SPAN_READINGS = ("attention_ms", "head_ms", "moe_route_ms", "moe_experts_ms",
+                 "moe_drop_share", "idle_forward_ms", "idle_backward_ms",
+                 "idle_update_ms", "host_sync_ms")
 
 
 def ev(cat, name, ts, dur, tid=MAIN, **args):
@@ -152,13 +156,19 @@ def _ctx(**extra):
 
 def test_existing_readers_read_the_same_beside_the_spans():
     from bench.harness import spec
+    report = spans.read(EVENTS, 1)
+    counts = {"moe.pairs_routed": 4}
     plain = _ctx()
-    spanned = _ctx(events=EVENTS, counters={"moe.pairs_routed": 4})
+    spanned = _ctx(spans=report, counters=counts)
+    want = spans.readings(report, counts)
     read = 0
     for name, mod in spec.all_metric_modules().items():
         a, b = mod.read(plain), mod.read(spanned)
-        assert a == b, name
-        read += a is not None
+        if name in SPAN_READINGS:      # the span readers read the report
+            assert (a, b) == (None, want.get(name)), name
+        else:
+            assert a == b, name
+            read += a is not None
     assert read >= 4
 
 
@@ -199,3 +209,55 @@ def test_a_real_cpu_trace_splits_attention_into_its_passes(tmp_path):
     assert set(spans.readings(r, {})) == {
         "attention_ms", "head_ms", "idle_forward_ms", "idle_backward_ms",
         "idle_update_ms", "host_sync_ms"}
+
+
+def _cpu_record(tmp_path, seen):
+    """trace.record on the CPU: each matmul a device op (_devicified);
+    keeps each stretch's events and, around the one without stacks, the
+    program's counters' change."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.metrics import counters
+
+    def record(torch_, step, steps, with_stack):
+        before = counters()
+        with profile(activities=[ProfilerActivity.CPU],
+                     with_stack=with_stack) as prof:
+            with record_function(trace.STRETCH):
+                for _ in range(steps):
+                    step()
+        after = counters()
+        path = tmp_path / f"{len(seen)}.json"
+        prof.export_chrome_trace(str(path))
+        events = _devicified(json.loads(path.read_text())["traceEvents"])
+        seen[with_stack] = (events, {k: v - before.get(k, 0)
+                                     for k, v in after.items()})
+        return events
+    return record
+
+
+@pytest.mark.parametrize("cell", ["bert-large.p1-seq128",
+                                  "granite-moe-3b-a800m-16l.pretrain-seq4096"])
+def test_a_traced_run_reads_the_spans_of_its_stretch(cell, tmp_path,
+                                                     monkeypatch):
+    import time
+    from bench.harness import spec
+    from repro_torch.models import moe
+    # the cell's experts on their gathered rows, as at its full size,
+    # where the MoE counts its routed and dropped pairs
+    monkeypatch.setattr(moe, "DENSE_ROWS", 0)
+    seen = {}
+    monkeypatch.setattr(trace, "record", _cpu_record(tmp_path, seen))
+    job = tiny_job(cell)
+    job.per_layer = [m.name for m in spec.cell(cell).per_layer]
+    res = train.run(job, 2 ** 31 + 17, 0.2, True,
+                    device=torch.device("cpu"),
+                    t_start=time.perf_counter())
+    events, counts = seen[False]
+    want = spans.readings(spans.read(events, train.TRACE_STEPS), counts)
+    got = {k: v["value"] for k, v in res["metrics"].items()
+           if k in SPAN_READINGS}
+    assert got == want
+    moe_names = {"moe_route_ms", "moe_experts_ms", "moe_drop_share"}
+    assert set(got) == set(SPAN_READINGS) - (
+        set() if "granite" in cell else moe_names)
+    assert 0 < got.get("moe_drop_share", 1) < 100
